@@ -1,0 +1,184 @@
+// K3 — shade + integrate + framebuffer flush, one thread per pool slot.
+//
+// Replaces art_tpu/ops/shade_kernel.py:shade_flush (:331) in plane-fed mode
+// (_shade_math:132-293) and the flush math it runs (refill_kernel.py
+// _flush_dead:415 -> flush_kernel.one_hot_accumulate:85).  Per live slot:
+// background radiance on a miss, emission on a light, the lambertian /
+// metal / dielectric / diffuse_light / isotropic scatter from the per-ray
+// material planes, the throughput/origin/direction update, bounce += 1,
+// death by absorption or at max_depth, and fb[pix] += radiance for a slot
+// that died.  The operation order is that of the plain twin
+// (ops/shade_kernel.py:shade_flush_plain, whose bounce is ops/shade.py
+// bounce_p -> shade_p, art_tpu's _bounce_step less its intersection).  The
+// in-ball radius is a true cube root, as
+// shade.py:47 uses jnp.cbrt where the TPU kernel used exp(log(u)/3): CUDA's
+// float64 cbrt rounded once to float32, i.e. the correctly rounded float32
+// root but for ~1 input in 10^8, which the plain twin's float64 pow gives
+// too (cbrtf is up to 1 ulp off, and an ulp here would let a chaotic path
+// leave its twin's).
+//
+// The flush replaces the TPU's bf16 one-hot MXU window accumulate and its
+// window / lax.cond logic (integrator.py:687-734): one float32 atomicAdd per
+// channel of a dead slot into the tile's (P, 3) framebuffer.  Sums are exact
+// float32 adds, but atomics add in a run-dependent order, so results are
+// compared with a tolerance.  A dying slot whose pix lies outside [0, P)
+// (refill never makes one) adds nothing and counts into *lost, as the twin
+// does; render_wavefront raises if the count is not 0.
+//
+// Bound on the H100: memory — ~35 planes in (15 state, hit, 19 hit-record
+// and material planes, ~136 B/slot) and up to 15 out; the scatter math is a
+// few dozen flops.  Design: plain coalesced one-plane-per-field loads and
+// stores; a dead slot (act == 0) returns after reading two bytes, and a
+// slot that does not survive skips the o/d/throughput stores.  The pool is
+// updated in place.
+
+#include "common.cuh"
+
+namespace {
+
+struct ShadePlanes {
+  float *ox, *oy, *oz, *dx, *dy, *dz, *t0, *t1, *t2, *r0, *r1, *r2;
+  int *bounce;
+  const int* pix;
+  uint8_t* act;
+  const uint8_t* hit;
+  const float *px, *py, *pz, *nx, *ny, *nz, *mtype, *fuzz, *refidx;
+  const float *ma0, *ma1, *ma2, *tx0, *tx1, *tx2, *ub0, *ub1, *ub2, *uch;
+  float* fb;
+  int* lost;
+};
+
+__global__ void __launch_bounds__(art::kBlock)
+shade_flush_kernel(ShadePlanes p, int R, float bg0, float bg1, float bg2,
+                   int gradient, int max_depth, int P) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R || !p.act[i]) return;
+  const bool hit = p.hit[i] != 0;
+  const float dx = p.dx[i], dy = p.dy[i], dz = p.dz[i];
+  const float th0 = p.t0[i], th1 = p.t1[i], th2 = p.t2[i];
+  float ra0 = p.r0[i], ra1 = p.r1[i], ra2 = p.r2[i];
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float dlen = sqrtf(a);
+  const float inv_dlen = 1.0f / dlen;
+
+  bool survived = false;
+  float dir0 = 0.f, dir1 = 0.f, dir2 = 0.f, at0 = 1.f, at1 = 1.f, at2 = 1.f;
+  if (!hit) {  // ---- background (src/main.cu:58-67) ----
+    if (gradient) {
+      const float tbg = 0.5f * (dy * inv_dlen + 1.0f);
+      bg0 = 1.0f - 0.5f * tbg;
+      bg1 = 1.0f - 0.3f * tbg;
+      bg2 = 1.0f;
+    }
+    ra0 = ra0 + th0 * bg0; ra1 = ra1 + th1 * bg1; ra2 = ra2 + th2 * bg2;
+  } else {
+    const float mtype = p.mtype[i];
+    const float n0 = p.nx[i], n1 = p.ny[i], n2 = p.nz[i];
+    const float tx0 = p.tx0[i], tx1 = p.tx1[i], tx2 = p.tx2[i];
+    if (mtype == 3.0f) {  // ---- diffuse_light: emit, absorb ----
+      ra0 = ra0 + th0 * tx0; ra1 = ra1 + th1 * tx1; ra2 = ra2 + th2 * tx2;
+    } else {
+      // shared in-ball sample (ops/shade.py:_ball_from_uniforms_p)
+      const float z = 2.0f * p.ub0[i] - 1.0f;
+      const float phi = art::kTwoPi * p.ub1[i];
+      const float sball = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+      const float rball = (float)cbrt((double)p.ub2[i]);
+      const float b0 = rball * sball * cosf(phi), b1 = rball * sball * sinf(phi),
+                  b2 = rball * z;
+      survived = true;
+      if (mtype == 1.0f) {  // ---- metal (src/material.cuh:90-110) ----
+        const float ud0 = dx * inv_dlen, ud1 = dy * inv_dlen, ud2 = dz * inv_dlen;
+        const float udn2 = 2.0f * (ud0 * n0 + ud1 * n1 + ud2 * n2);
+        const float fuzz = p.fuzz[i];
+        dir0 = ud0 - n0 * udn2 + fuzz * b0;
+        dir1 = ud1 - n1 * udn2 + fuzz * b1;
+        dir2 = ud2 - n2 * udn2 + fuzz * b2;
+        survived = (dir0 * n0 + dir1 * n1 + dir2 * n2) > 0.0f;
+        at0 = p.ma0[i]; at1 = p.ma1[i]; at2 = p.ma2[i];
+      } else if (mtype == 2.0f) {  // ---- dielectric (material.cuh:113-159) ----
+        const float ri = p.refidx[i];
+        const float ud0 = dx * inv_dlen, ud1 = dy * inv_dlen, ud2 = dz * inv_dlen;
+        const float d_dot_n = dx * n0 + dy * n1 + dz * n2;
+        const bool inside = d_dot_n > 0.0f;
+        const float o0 = inside ? -n0 : n0, o1 = inside ? -n1 : n1,
+                    o2 = inside ? -n2 : n2;
+        const float nio = inside ? ri : 1.0f / ri;
+        const float cos_raw = d_dot_n / dlen;
+        const float cos_inside =
+            sqrtf(fmaxf(1.0f - ri * ri * (1.0f - cos_raw * cos_raw), 0.0f));
+        const float cosine = inside ? cos_inside : -cos_raw;
+        const float dt = ud0 * o0 + ud1 * o1 + ud2 * o2;
+        const float disc = 1.0f - nio * nio * (1.0f - dt * dt);
+        float r0 = (1.0f - ri) / (1.0f + ri);
+        r0 = r0 * r0;
+        const float x = 1.0f - cosine;
+        const float x2 = x * x;
+        const float schl = r0 + (1.0f - r0) * (x2 * x2 * x);
+        if (p.uch[i] < (disc > 0.0f ? schl : 1.0f)) {
+          const float dn2 = 2.0f * d_dot_n;
+          dir0 = dx - n0 * dn2; dir1 = dy - n1 * dn2; dir2 = dz - n2 * dn2;
+        } else {
+          const float root = sqrtf(fmaxf(disc, 0.0f));
+          dir0 = (ud0 - o0 * dt) * nio - o0 * root;
+          dir1 = (ud1 - o1 * dt) * nio - o1 * root;
+          dir2 = (ud2 - o2 * dt) * nio - o2 * root;
+        }
+      } else if (mtype == 4.0f) {  // ---- isotropic: uniform in the ball ----
+        dir0 = b0; dir1 = b1; dir2 = b2;
+        at0 = tx0; at1 = tx1; at2 = tx2;
+      } else {  // ---- lambertian (src/material.cuh:75-87) ----
+        dir0 = n0 + b0; dir1 = n1 + b1; dir2 = n2 + b2;
+        at0 = tx0; at1 = tx1; at2 = tx2;
+      }
+    }
+  }
+  p.r0[i] = ra0; p.r1[i] = ra1; p.r2[i] = ra2;
+  if (survived) {
+    p.t0[i] = th0 * at0; p.t1[i] = th1 * at1; p.t2[i] = th2 * at2;
+    p.ox[i] = p.px[i]; p.oy[i] = p.py[i]; p.oz[i] = p.pz[i];
+    p.dx[i] = dir0; p.dy[i] = dir1; p.dz[i] = dir2;
+  }
+  const int bounce = p.bounce[i] + 1;
+  p.bounce[i] = bounce;
+  if (survived && bounce < max_depth) return;
+  p.act[i] = 0;  // died: flush its radiance
+  const int px = p.pix[i];
+  if (px < 0 || px >= P) {
+    atomicAdd(p.lost, 1);
+    return;
+  }
+  atomicAdd(p.fb + 3 * (size_t)px + 0, ra0);
+  atomicAdd(p.fb + 3 * (size_t)px + 1, ra1);
+  atomicAdd(p.fb + 3 * (size_t)px + 2, ra2);
+}
+
+}  // namespace
+
+// ptrs: ox oy oz dx dy dz t0 t1 t2 r0 r1 r2 (f32), bounce pix (i32),
+//       act hit (u8), px py pz nx ny nz mtype fuzz refidx ma0 ma1 ma2
+//       tx0 tx1 tx2 ub0 ub1 ub2 uch (f32), fb (f32 (P, 3)), lost (i32 (1,));
+//       planes (R,).
+extern "C" int art_shade_flush(void* const* ptrs, int R, const float* bg,
+                               int gradient, int max_depth, int P, void* stream) {
+  ShadePlanes p;
+  float** f = (float**)ptrs;
+  p.ox = f[0]; p.oy = f[1]; p.oz = f[2]; p.dx = f[3]; p.dy = f[4]; p.dz = f[5];
+  p.t0 = f[6]; p.t1 = f[7]; p.t2 = f[8]; p.r0 = f[9]; p.r1 = f[10]; p.r2 = f[11];
+  p.bounce = (int*)ptrs[12];
+  p.pix = (const int*)ptrs[13];
+  p.act = (uint8_t*)ptrs[14];
+  p.hit = (const uint8_t*)ptrs[15];
+  const float** r = (const float**)(ptrs + 16);
+  p.px = r[0]; p.py = r[1]; p.pz = r[2]; p.nx = r[3]; p.ny = r[4]; p.nz = r[5];
+  p.mtype = r[6]; p.fuzz = r[7]; p.refidx = r[8];
+  p.ma0 = r[9]; p.ma1 = r[10]; p.ma2 = r[11];
+  p.tx0 = r[12]; p.tx1 = r[13]; p.tx2 = r[14];
+  p.ub0 = r[15]; p.ub1 = r[16]; p.ub2 = r[17]; p.uch = r[18];
+  p.fb = f[35];
+  p.lost = (int*)ptrs[36];
+  const int grid = (R + art::kBlock - 1) / art::kBlock;
+  if (grid > 0)
+    shade_flush_kernel<<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
+        p, R, bg[0], bg[1], bg[2], gradient, max_depth, P);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,148 @@
+"""Pool refill (K1): ``csrc/refill.cu`` and its plain twin.
+
+Replaces ``art_tpu/ops/refill_kernel.py:fused_refill_rng`` and
+``fused_refill`` (the refill stage of ``render_wavefront``, whose jnp form
+is ``art_tpu/render/integrator.py:589-619``).  One call, for one pool
+iteration ``it``:
+
+* ranks the dead slots, hands them queue elements ``q[parity] + rank``
+  (sample-major: ``p_row = q // spp``), makes their camera rays and resets
+  their throughput, radiance, bounce, pix and act — in place on ``pool``;
+* writes the advanced queue head to ``q[1 - parity]`` (device int64);
+* adds the number of live slots after the refill to ``hist[it]``;
+* returns the iteration's ball / choice / media uniform planes.
+
+Uniforms come either from an injected ``(ncols, R)`` block (``block=``) or
+from Philox keyed by ``key=(seed, tile, chunk)`` (``core/rng.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from art_tpu_torch.core.camera import Camera, pack_camera, rays_from_uniforms_p
+from art_tpu_torch.core.rng import philox_block
+from art_tpu_torch.ops import _build
+
+NAME = "refill"
+POOL_F = ("ox", "oy", "oz", "dx", "dy", "dz", "tm",
+          "t0", "t1", "t2", "r0", "r1", "r2")
+POOL_I = ("bounce", "pix")
+# uniform-block columns (art_tpu/render/integrator.py:43-54)
+U_BALL = slice(0, 3)
+U_CHOICE = 3
+U_JITTER0, U_JITTER1, U_LENS0, U_LENS1, U_TIME = 4, 5, 6, 7, 8
+U_MEDIA = 9  # columns 9.. are per-medium
+
+
+class RefillScal(NamedTuple):
+    """Static queue geometry of one (tile, chunk) dispatch."""
+
+    spp: int
+    P: int  # pixels in the tile
+    pix_offset: int  # first pixel id of the tile
+    total_pixels: int
+    nx: int
+    ny: int
+
+
+def new_pool(R: int, device) -> dict:
+    """An empty pool: every slot dead, d = (0, 0, 1), throughput 1."""
+    z = torch.zeros(R, dtype=torch.float32, device=device)
+    pool = {n: z.clone() for n in POOL_F}
+    for n in ("dz", "t0", "t1", "t2"):
+        pool[n].fill_(1.0)
+    for n in POOL_I:
+        pool[n] = torch.zeros(R, dtype=torch.int32, device=device)
+    pool["act"] = torch.zeros(R, dtype=torch.bool, device=device)
+    return pool
+
+
+def _split(u: torch.Tensor, ball_row: int, choice_row: int, media_row: int):
+    return (tuple(u[ball_row:ball_row + 3]), u[choice_row], tuple(u[media_row:]))
+
+
+def fused_refill_plain(pool, cam: Camera, q, parity: int, hist, it: int,
+                       scal: RefillScal, *, block=None, key=None, ncols: int):
+    """Plain PyTorch K1 (the jnp refill of art_tpu's integrator)."""
+    R = pool["act"].shape[0]
+    dev = pool["act"].device
+    if block is None:
+        seed, tile, chunk = key
+        block = philox_block(seed, tile, chunk, it, ncols, R, dev)
+    act = pool["act"]
+    dead_i = (~act).to(torch.int64)
+    rank = torch.cumsum(dead_i, 0) - dead_i
+    q0 = q[parity]
+    qq = q0 + rank
+    take = (~act) & (qq < scal.P * scal.spp)
+    p_row = torch.div(qq, scal.spp, rounding_mode="floor")
+    pixel = torch.clamp_max(scal.pix_offset + p_row, scal.total_pixels - 1)
+    i = (pixel % scal.nx).to(torch.float32)
+    j = torch.div(pixel, scal.nx, rounding_mode="floor").to(torch.float32)
+    # divide by tensors: ATen on CUDA turns x / python_scalar into
+    # x * (1 / scalar), one rounding off the kernel's (and art_tpu's) division
+    s = (i + block[U_JITTER0]) / torch.tensor(float(scal.nx), device=dev)
+    t = (j + block[U_JITTER1]) / torch.tensor(float(scal.ny), device=dev)
+    o, d, tm = rays_from_uniforms_p(cam, s, t, block[U_LENS0], block[U_LENS1],
+                                    block[U_TIME])
+    new = dict(zip(("ox", "oy", "oz", "dx", "dy", "dz", "tm"), (*o, *d, tm)))
+    for n in POOL_F:
+        fresh = new.get(n, 1.0 if n in ("t0", "t1", "t2") else 0.0)
+        pool[n].copy_(torch.where(take, fresh, pool[n]))
+    pool["bounce"].masked_fill_(take, 0)
+    pool["pix"].copy_(torch.where(take, p_row.to(torch.int32), pool["pix"]))
+    act |= take
+    q[1 - parity] = q0 + take.sum()
+    hist[it] += act.sum()
+    return _split(block, 0, U_CHOICE, U_MEDIA)
+
+
+def fused_refill(pool, cam: Camera, q, parity: int, hist, it: int,
+                 scal: RefillScal, *, block=None, key=None, ncols: int):
+    """K1: the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    if (block is None) == (key is None):
+        raise ValueError("pass exactly one of block= (injected) or key= (Philox)")
+    dev = pool["act"].device
+    if dev.type == "cpu":
+        return fused_refill_plain(pool, cam, q, parity, hist, it, scal,
+                                  block=block, key=key, ncols=ncols)
+    R = pool["act"].shape[0]
+    if not 10 <= ncols <= 16:
+        raise ValueError(f"ncols={ncols}: the refill kernel takes 1..7 media")
+    _build.check_planes(POOL_F, [pool[n] for n in POOL_F], R, torch.float32, dev)
+    _build.check_planes(POOL_I, [pool[n] for n in POOL_I], R, torch.int32, dev)
+    _build.check_planes(("act",), (pool["act"],), R, torch.bool, dev)
+    if q.dtype != torch.int64 or q.shape != (2,) or q.device != dev:
+        raise ValueError("q: need a (2,) int64 tensor on the pool's device")
+    if hist.dtype != torch.int64 or hist.dim() != 1 or hist.shape[0] <= it \
+            or hist.device != dev or not hist.is_contiguous():
+        raise ValueError(f"hist: need a contiguous int64 tensor with > {it} "
+                         "entries on the pool's device")
+    if block is not None:
+        u = block
+        if u.shape != (ncols, R) or u.dtype != torch.float32 or u.device != dev \
+                or not u.is_contiguous():
+            raise ValueError(f"block: need a contiguous ({ncols}, {R}) float32 "
+                             f"tensor on {dev}")
+        seed = tile = chunk = 0
+    else:
+        seed, tile, chunk = key
+        u = torch.empty((ncols - 5, R), dtype=torch.float32, device=dev)
+    block_dead = torch.empty(-(-R // _build.BLOCK), dtype=torch.int32, device=dev)
+    ptrs = _build.pointers([pool[n] for n in POOL_F + POOL_I]
+                           + [pool["act"], u, block_dead, q, hist])
+    scal_c = (ctypes.c_longlong * 6)(*scal)
+    cam_c = (ctypes.c_float * 21)(*pack_camera(cam).tolist())
+    rc = _build.library().art_refill(
+        ptrs, R, parity, ncols, int(block is None), scal_c, cam_c,
+        seed & 0xFFFFFFFF, tile & 0xFFFFFFFF, chunk & 0xFFFFFFFF, it,
+        _build.stream_handle(dev))
+    _build.check(rc, NAME)
+    _build.launches[NAME] += 1
+    if block is not None:
+        return _split(u, 0, U_CHOICE, U_MEDIA)
+    return _split(u, 0, U_CHOICE, 4)

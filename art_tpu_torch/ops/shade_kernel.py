@@ -1,0 +1,86 @@
+"""Shade + integrate + flush (K3): ``csrc/shade_flush.cu`` and its plain twin.
+
+Replaces ``art_tpu/ops/shade_kernel.py:shade_flush`` in its plane-fed mode
+(``_shade_math:132-293``) together with the framebuffer flush it runs
+(``refill_kernel._flush_dead`` -> ``flush_kernel.one_hot_accumulate``).  One
+call, for every slot of the pool:
+
+* background (gradient or solid) radiance for live misses, emission for
+  live hits on lights;
+* lambertian / metal / dielectric / diffuse_light / isotropic scatter from
+  the per-ray material planes (``shade.shade_params_p`` fetches them);
+* the throughput / origin / direction update, ``bounce += act`` and death
+  by absorption or at ``max_depth``;
+* ``fb[pix] += radiance`` in float32 for every slot that died; a dying
+  slot whose ``pix`` lies outside ``[0, P)`` adds nothing and counts into
+  ``lost`` (a (1,) int32 tensor), which the caller checks.
+
+The pool is updated in place and ``fb`` (P, 3) accumulates in place.  The
+plain twin is ``ops/shade.py:bounce_p`` (``art_tpu``'s ``_bounce_step``
+less its intersection, with a true cube root, ``shade.cbrt``, where the TPU
+kernel uses ``exp(log(u)/3)``) plus the death rule and an ``index_add_``
+flush; ``csrc/shade_flush.cu`` rounds the same operations in the same
+order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from art_tpu_torch.ops import _build
+from art_tpu_torch.ops.shade import bounce_p
+
+NAME = "shade_flush"
+STATE_F = ("ox", "oy", "oz", "dx", "dy", "dz",
+           "t0", "t1", "t2", "r0", "r1", "r2")
+STATE_I = ("bounce", "pix")
+# hit-record + per-ray material/texture planes (all float32)
+REC_F = ("px", "py", "pz", "nx", "ny", "nz", "mtype", "fuzz", "refidx",
+         "ma0", "ma1", "ma2", "tx0", "tx1", "tx2", "ub0", "ub1", "ub2", "uch")
+
+
+def shade_flush_plain(pool, hit, rec, bg, fb, lost, *, max_depth: int, gradient: bool):
+    """Plain PyTorch K3; ``bg`` is the solid background as three floats."""
+    act = pool["act"]
+    params = (rec["mtype"], rec["fuzz"], rec["refidx"],
+              (rec["ma0"], rec["ma1"], rec["ma2"]), (rec["tx0"], rec["tx1"], rec["tx2"]))
+    o, d, thr, rad, survived = bounce_p(
+        *(tuple(pool[k] for k in STATE_F[i:i + 3]) for i in (0, 3, 6, 9)), act, hit,
+        (rec["px"], rec["py"], rec["pz"]), (rec["nx"], rec["ny"], rec["nz"]), params,
+        (rec["ub0"], rec["ub1"], rec["ub2"]), rec["uch"], bg, gradient)
+    for name, plane in zip(STATE_F, (*o, *d, *thr, *rad)):
+        pool[name].copy_(plane)
+    pool["bounce"] += act.to(torch.int32)
+    still = survived & (pool["bounce"] < max_depth)
+    died = act & ~still
+    pix = pool["pix"][died]
+    inside = (pix >= 0) & (pix < fb.shape[0])
+    lost += (~inside).sum().to(torch.int32)
+    fb.index_add_(0, pix[inside].to(torch.int64), torch.stack(rad, dim=1)[died][inside])
+    act.copy_(still)
+
+
+def shade_flush(pool, hit, rec, bg, fb, lost, *, max_depth: int, gradient: bool):
+    """K3: the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    dev = pool["act"].device
+    if dev.type == "cpu":
+        return shade_flush_plain(pool, hit, rec, bg, fb, lost, max_depth=max_depth,
+                                 gradient=gradient)
+    R = pool["act"].shape[0]
+    _build.check_planes(STATE_F, [pool[k] for k in STATE_F], R, torch.float32, dev)
+    _build.check_planes(STATE_I, [pool[k] for k in STATE_I], R, torch.int32, dev)
+    _build.check_planes(("act", "hit"), (pool["act"], hit), R, torch.bool, dev)
+    _build.check_planes(REC_F, [rec[k] for k in REC_F], R, torch.float32, dev)
+    if fb.dim() != 2 or fb.shape[1] != 3 or fb.dtype != torch.float32 \
+            or fb.device != dev or not fb.is_contiguous():
+        raise ValueError(f"fb: need a contiguous (P, 3) float32 tensor on {dev}")
+    _build.check_planes(("lost",), (lost,), 1, torch.int32, dev)
+    ptrs = _build.pointers([pool[k] for k in STATE_F + STATE_I]
+                           + [pool["act"], hit] + [rec[k] for k in REC_F] + [fb, lost])
+    bg_c = (ctypes.c_float * 3)(*[float(c) for c in bg])
+    rc = _build.library().art_shade_flush(ptrs, R, bg_c, int(gradient), max_depth,
+                                          fb.shape[0], _build.stream_handle(dev))
+    _build.check(rc, NAME)
+    _build.launches[NAME] += 1

@@ -1,0 +1,139 @@
+"""Wavefront path-tracing integrators (port of ``art_tpu/render/integrator.py``).
+
+* ``trace`` — trace a fixed ray batch to completion (the reference
+  ``color()`` loop, src/main.cu:44-87); plain PyTorch, for tests and
+  ad-hoc rays.
+* ``render_wavefront`` — the production path: a persistent pool of R ray
+  slots refilled from the sample-major (pixel, sample) queue.  Each
+  iteration is refill (K1) -> closest sphere (K2) -> material/texture fetch
+  (PyTorch glue) -> shade + integrate + flush (K3).
+
+Loop control.  ``lax.while_loop`` keeps its condition on the device; here
+the host must read it.  K1 adds each iteration's live-slot count to
+``hist[it]``, and an iteration that starts with no live slot after its
+refill proves the queue and the pool empty for good — so the loop reads
+``hist[it]`` every ``CHECK_EVERY`` iterations once the queue could have
+drained (``ceil(n_q / R)`` iterations), and stops at the first zero.  The
+iterations run past the end are exact no-ops.  Rays and iterations come
+from ``hist`` at the end: rays = sum, iterations = count of nonzero
+entries, which is ``art_tpu``'s count (its condition holds exactly when
+the iteration has a live slot).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from art_tpu_torch.core.camera import Camera
+from art_tpu_torch.core.vecmath import T_MIN
+from art_tpu_torch.ops import refill_kernel as rk
+from art_tpu_torch.ops.intersect import closest_surface_p
+from art_tpu_torch.ops.shade import bounce_p, shade_params_p
+from art_tpu_torch.ops.shade_kernel import REC_F, shade_flush, shade_flush_plain
+from art_tpu_torch.scene.tables import SceneTables
+
+# Host reads of the loop condition: one 8-byte read every CHECK_EVERY
+# iterations (PERF.md, "Host-sync policy").
+CHECK_EVERY = 4
+
+
+def n_uniform_cols(tables: SceneTables) -> int:
+    return rk.U_MEDIA + max(tables.n_media, 1)
+
+
+def _bounce_step(tables, o, d, tm, throughput, radiance, active,
+                 u_ball, u_choice, background, gradient_bg, *, plain=True):
+    """One shared bounce: intersect -> background/emission -> scatter.
+
+    Returns (new_o, new_d, new_throughput, new_radiance, survived)."""
+    rec = closest_surface_p(tables, o, d, tm, T_MIN, plain=plain)
+    params = shade_params_p(tables, rec, valid=active & rec.hit)
+    return bounce_p(o, d, throughput, radiance, active, rec.hit, rec.p, rec.normal,
+                    params, u_ball, u_choice, background, gradient_bg)
+
+
+def _as_block(u, device) -> torch.Tensor:
+    """An injected uniform block (numpy or torch) as a contiguous float32
+    tensor on ``device``."""
+    if not isinstance(u, torch.Tensor):
+        u = torch.from_numpy(np.array(u, np.float32))
+    return u.to(device=device, dtype=torch.float32).contiguous()
+
+
+def trace(tables: SceneTables, origins, directions, times, uniforms, background,
+          gradient_bg: bool, max_depth: int = 50):
+    """Trace a ray batch to completion.
+
+    ``origins``/``directions`` are (R,3); ``uniforms(bounce)`` returns that
+    bounce's (ncols, R) block.  Returns (radiance (R,3), rays_traced)."""
+    R = origins.shape[0]
+    ones = torch.ones(R, dtype=torch.float32, device=origins.device)
+    zeros = torch.zeros_like(ones)
+    o = tuple(origins[:, c] for c in range(3))
+    d = tuple(directions[:, c] for c in range(3))
+    thr, rad = (ones, ones, ones), (zeros, zeros, zeros)
+    alive = torch.ones(R, dtype=torch.bool, device=origins.device)
+    rays = 0
+    for bounce in range(max_depth):
+        if not bool(alive.any()):
+            break
+        U = _as_block(uniforms(bounce), origins.device)
+        rays += int(alive.sum())
+        o, d, thr, rad, alive = _bounce_step(
+            tables, o, d, times, thr, rad, alive,
+            tuple(U[rk.U_BALL]), U[rk.U_CHOICE], background, gradient_bg)
+    return torch.stack(rad, dim=1), rays
+
+
+def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int,
+                     background, *, tile_pixels: int, total_pixels: int, nx: int,
+                     ny: int, max_depth: int, gradient_bg: bool, n_slots: int,
+                     tile: int, chunk: int, seed: int, uniforms=None,
+                     plain: bool = False):
+    """Render ``tile_pixels x spp`` samples with a persistent ``n_slots`` pool.
+
+    ``uniforms`` is an injected source ``(tile, chunk, it) -> (ncols, R)``;
+    ``None`` draws Philox keyed by ``(seed, tile, chunk)``.  ``plain`` runs
+    the plain PyTorch twins of the three kernels on any device.
+    Returns (fb_sum (tile_pixels, 3) radiance summed over spp, rays,
+    iterations)."""
+    dev = tables.sph_rows.device
+    P, R = tile_pixels, n_slots
+    n_q = P * spp
+    ncols = n_uniform_cols(tables)
+    max_iters = (n_q * max_depth) // R + max_depth + 2
+    min_iters = -(-n_q // R)
+    scal = rk.RefillScal(spp, P, pix_offset, total_pixels, nx, ny)
+    refill = rk.fused_refill_plain if plain else rk.fused_refill
+    shade = shade_flush_plain if plain else shade_flush
+
+    pool = rk.new_pool(R, dev)
+    fb = torch.zeros((P, 3), dtype=torch.float32, device=dev)
+    lost = torch.zeros(1, dtype=torch.int32, device=dev)
+    q = torch.zeros(2, dtype=torch.int64, device=dev)
+    hist = torch.zeros(max_iters, dtype=torch.int64, device=dev)
+    for it in range(max_iters):
+        if uniforms is None:
+            src = dict(key=(seed, tile, chunk))
+        else:
+            src = dict(block=_as_block(uniforms(tile, chunk, it), dev))
+        u_ball, u_choice, _ = refill(pool, cam, q, it % 2, hist, it, scal,
+                                     ncols=ncols, **src)
+        o = (pool["ox"], pool["oy"], pool["oz"])
+        d = (pool["dx"], pool["dy"], pool["dz"])
+        rec = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
+        # solid/checker textures read no `valid` mask (image textures will)
+        mtype, fuzz, refidx, malb, texv = shade_params_p(tables, rec)
+        planes = dict(zip(REC_F, (
+            *rec.p, *rec.normal, mtype, fuzz, refidx, *malb, *texv, *u_ball,
+            u_choice)))
+        shade(pool, rec.hit, planes, background, fb, lost, max_depth=max_depth,
+              gradient=gradient_bg)
+        if it + 1 >= min_iters and (it + 1 - min_iters) % CHECK_EVERY == 0 \
+                and int(hist[it]) == 0:
+            break
+    counts = hist.cpu()
+    if int(lost):
+        raise RuntimeError(f"{int(lost)} dead slots had a pixel outside the tile")
+    return fb, int(counts.sum()), int(torch.count_nonzero(counts))

@@ -1,0 +1,146 @@
+"""Renderer: tiling, queue batching, gamma (``art_tpu/render/renderer.py``).
+
+Each (pixel tile x sample chunk) dispatch renders its queue through the
+persistent wavefront pool of ``render/integrator.py``.  On the CPU the pool
+is sized exactly as ``art_tpu``'s CPU path (``renderer.py:61-63,90-91``), so
+a CPU render of this package uses the same R, tiles and chunks as
+``art_tpu``'s CPU render.  On CUDA the pool starts from ``cuda_slots`` =
+2^17 (as the TPU's ``tpu_slots``) and is a multiple of the kernels' 256-ray
+block.  There is no checkpoint in this slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time as _time
+
+import numpy as np
+import torch
+
+from art_tpu_torch.ops._build import BLOCK
+from art_tpu_torch.render.integrator import render_wavefront
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    nx: int = 400
+    ny: int = 225
+    spp: int = 16
+    max_depth: int = 50  # reference hardcodes 50 (src/main.cu:54)
+    gamma: float = 2.2
+    seed: int = 1984  # reference seed (src/main.cu:92)
+    # CPU path: max (R x N) intersection elements per iteration
+    batch_budget: int = 1 << 23
+    # CUDA path: slot-pool size (rounded to the kernels' block)
+    cuda_slots: int = 1 << 17
+    max_slots: int = 1 << 16
+    # max pixels per tile
+    max_tile_pixels: int = 1 << 16
+    # max queue elements (pixel-samples) per dispatch
+    queue_budget: int = 1 << 25
+
+
+def plan_batches(n_pixels: int, spp: int, n_prims_max: int, cfg: RenderConfig,
+                 device="cpu"):
+    """Choose (tile_pixels, spp_chunk, n_slots) for the wavefront pool."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        n_slots = max(BLOCK, cfg.cuda_slots // BLOCK * BLOCK)
+    else:
+        n_prims_max = max(n_prims_max, 1)
+        n_slots = max(1024, min(cfg.max_slots, cfg.batch_budget // n_prims_max))
+    tile_pixels = min(n_pixels, cfg.max_tile_pixels)
+    # balance tiles (128-aligned) instead of padding the last one
+    n_tiles = -(-n_pixels // tile_pixels)
+    even = (n_pixels + n_tiles - 1) // n_tiles
+    tile_pixels = min(tile_pixels, (even + 127) // 128 * 128)
+    spp_chunk = min(spp, max(1, cfg.queue_budget // tile_pixels))
+    n_chunks = -(-spp // spp_chunk)
+    spp_chunk = -(-spp // n_chunks)
+    # never make the pool larger than the queue
+    n_q = tile_pixels * spp_chunk
+    if n_slots > n_q:
+        n_slots = -(-n_q // BLOCK) * BLOCK if cuda else max(256, n_q)
+    return tile_pixels, spp_chunk, n_slots
+
+
+def sample_counts(tile_pixels: int, spp: int, n_slots: int) -> np.ndarray:
+    """Per-pixel sample count of one dispatch: the queue hands every pixel
+    exactly ``spp`` samples."""
+    del n_slots
+    return np.full(tile_pixels, spp, np.int64)
+
+
+def apply_gamma(fb: np.ndarray, gamma: float) -> np.ndarray:
+    """Per-channel gamma (reference src/main.cu:37-42)."""
+    if gamma == 1.0:
+        return fb
+    return np.power(np.maximum(fb, 0.0), 1.0 / gamma)
+
+
+def render_scene(scene, cfg: RenderConfig, verbose: bool = False, *,
+                 device="cuda", uniforms=None, plain: bool = False):
+    """Render a CompiledScene; returns (framebuffer (ny,nx,3), stats dict).
+
+    Row 0 of the framebuffer is the bottom scanline (pixel = j*nx + i).
+    ``uniforms`` injects a ``(tile, chunk, it) -> (ncols, R)`` source (tests);
+    ``None`` uses Philox seeded by ``cfg.seed``.  ``plain`` runs the plain
+    PyTorch twins of the kernels (on any device)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
+                           "is False")
+    tables = scene.tables.to(device)
+    n_pixels = cfg.nx * cfg.ny
+    n_prims_max = max(tables.n_spheres, tables.n_quads, tables.n_boxes, 1)
+    tile_pixels, spp_chunk, n_slots = plan_batches(
+        n_pixels, cfg.spp, n_prims_max, cfg, device)
+    n_tiles = -(-n_pixels // tile_pixels)
+    n_chunks = -(-cfg.spp // spp_chunk)
+    if verbose:
+        print(f"render {cfg.nx}x{cfg.ny} spp={cfg.spp} depth={cfg.max_depth} "
+              f"tiles={n_tiles}x{tile_pixels}px chunks={n_chunks}x{spp_chunk}spp "
+              f"slots={n_slots} device={device}", file=sys.stderr)
+
+    fb = np.zeros((n_pixels, 3), np.float32)
+    counts_chunk = sample_counts(tile_pixels, spp_chunk, n_slots)
+    total_rays = 0
+    total_iters = 0
+    start = _time.perf_counter()
+    for tile in range(n_tiles):
+        lo = tile * tile_pixels
+        hi = min(lo + tile_pixels, n_pixels)
+        for chunk in range(n_chunks):
+            batch, rays, iters = render_wavefront(
+                tables, scene.camera, lo, spp_chunk, scene.background,
+                tile_pixels=tile_pixels, total_pixels=n_pixels, nx=cfg.nx,
+                ny=cfg.ny, max_depth=cfg.max_depth, gradient_bg=scene.gradient_bg,
+                n_slots=n_slots, tile=tile, chunk=chunk, seed=cfg.seed,
+                uniforms=uniforms, plain=plain,
+            )
+            # raw radiance sums until the final normalization
+            fb[lo:hi] += batch.cpu().numpy()[: hi - lo]
+            total_rays += rays
+            total_iters += iters
+    elapsed = _time.perf_counter() - start
+
+    counts = counts_chunk[0] * n_chunks
+    fb = apply_gamma(fb / counts, cfg.gamma).reshape(cfg.ny, cfg.nx, 3)
+    stats = {
+        "seconds": elapsed,
+        "rays": float(total_rays),
+        "mrays_per_sec": total_rays / elapsed / 1e6 if elapsed > 0 else 0.0,
+        "spp": n_chunks * spp_chunk,
+        "tile_pixels": tile_pixels,
+        "spp_chunk": spp_chunk,
+        "n_slots": n_slots,
+        "iterations": total_iters,
+        "occupancy": total_rays / (total_iters * n_slots) if total_iters else 0.0,
+        "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                   else "cpu"),
+    }
+    if verbose:
+        print(f"took {elapsed:.3f} seconds. rays={total_rays:.3g} "
+              f"({stats['mrays_per_sec']:.2f} Mrays/s)", file=sys.stderr)
+    return fb, stats

@@ -1,0 +1,450 @@
+#!/usr/bin/env python3
+"""On-card smoke test of art_tpu_torch (the PyTorch/CUDA port) on one GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (each runs; any failure exits non-zero without the final result):
+ 1. the card (``nvidia-smi`` name and power limit), ``nvcc``, and the build of
+    every kernel from ``art_tpu_torch/csrc`` (timed);
+ 2. each kernel (K1 refill, K2 sphere hit, K3 shade+flush) against its plain
+    PyTorch twin on the card, at the pool size R that ``plan_batches`` picks
+    for bouncing_spheres 1200x800, with inputs and injected uniforms from a
+    numpy seed; then both timed with CUDA events;
+ 3. the in-kernel Philox uniforms: range, mean, variance, and that they
+    change across iterations and slots;
+ 4. renders through ``render_scene`` on the card: three_spheres 400x225 @ 16
+    and bouncing_spheres 1200x800 @ 64 (the launch counts of that render
+    show it went through all three kernels); then the kernel path against
+    the plain path on the same injected uniforms (64x32 @ 16) and, with
+    independent seeds, statistically (96x64 @ 256).
+
+Standard output ends with a JSON line of per-kernel results and then
+``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+SEED = 2026
+SPIN_CYCLES = 40_000_000  # ~20 ms of device spin: longer than any call's host enqueue
+# (scene, nx, ny, spp) of the renders
+MAIN = ("bouncing_spheres", 1200, 800, 64)
+THREE = ("three_spheres", 400, 225, 16)
+SAME_UNIFORMS = (64, 32, 16)
+INDEPENDENT = (96, 64, 256)
+KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
+    "refill": ("art_tpu_torch/csrc/refill.cu", "art_tpu/ops/refill_kernel.py:284"),
+    "sphere_hit": ("art_tpu_torch/csrc/sphere_hit.cu",
+                   "art_tpu/ops/pallas_kernels.py:282"),
+    "shade_flush": ("art_tpu_torch/csrc/shade_flush.cu",
+                    "art_tpu/ops/shade_kernel.py:331"),
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+class Checks:
+    """Collects failed checks; every phase runs and reports."""
+
+    def __init__(self):
+        self.failed: list[str] = []
+
+    def expect(self, ok: bool, what: str):
+        log(f"  [{'ok' if ok else 'FAIL'}] {what}")
+        if not ok:
+            self.failed.append(what)
+
+    def phase(self, name, fn, *args):
+        log(f"== {name}")
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        except Exception:  # noqa: BLE001 — record, keep running the other phases
+            traceback.print_exc()
+            self.failed.append(f"{name}: exception")
+            log(f"  [FAIL] {name} raised (traceback on stderr)")
+        finally:
+            log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+
+def _timed_ms(fn, reps: int, reset=None) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls.
+
+    Each call sits between two CUDA events behind a spin kernel
+    (``torch.cuda._sleep``) that keeps the device busy while the host
+    enqueues the call, so the wrapper's host work is not counted; ``reset``
+    restores the inputs outside the timed region."""
+    import torch
+
+    total = 0.0
+    for rep in range(reps + 1):  # rep 0 warms up
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if rep:
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+def card_info(checks: Checks, dev):
+    import torch
+
+    from art_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    log(f"nvidia-smi: {smi.stdout.strip().splitlines()[0] if smi.stdout else smi.stderr}")
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True)
+    log(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(dev)}")
+    t0 = time.perf_counter()
+    lib = _build.library()
+    log(f"kernel build: nvcc {lib.build_seconds:.2f} s, first load "
+        f"{time.perf_counter() - t0:.2f} s")
+    checks.expect(lib is not None, "kernels built and loaded")
+    return smi.stdout.strip()
+
+
+def _random_pool(rng, R, dev):
+    import torch
+
+    from art_tpu_torch.ops import refill_kernel as rk
+
+    pool = {n: torch.from_numpy(
+        (rng.random(R, dtype=np.float32) * 7 - 3).astype(np.float32)).to(dev)
+        for n in rk.POOL_F}
+    for n in ("t0", "t1", "t2"):
+        pool[n].abs_()
+    pool["bounce"] = torch.from_numpy(rng.integers(0, 50, R).astype(np.int32)).to(dev)
+    pool["pix"] = torch.from_numpy(rng.integers(0, 64000, R).astype(np.int32)).to(dev)
+    pool["act"] = torch.from_numpy(rng.random(R) < 0.4).to(dev)
+    return pool
+
+
+def _clone(pool):
+    return {k: v.clone() for k, v in pool.items()}
+
+
+def _restore(dst, src):
+    for k in dst:
+        dst[k].copy_(src[k])
+
+
+def _max_diff(a, b, mask=None):
+    d = (a.float() - b.float()).abs()
+    if mask is not None:
+        d = d[mask]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def kernel_checks(checks: Checks, dev, results: dict):
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.ops.intersect import closest_surface_p
+    from art_tpu_torch.ops.intersect_kernels import sphere_hit_attrs, sphere_hit_attrs_plain
+    from art_tpu_torch.ops.shade import shade_params_p
+    from art_tpu_torch.ops.shade_kernel import REC_F, STATE_F, shade_flush, shade_flush_plain
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    rng = np.random.default_rng(SEED)
+    scene = build_scene("bouncing_spheres", 1200, 800)
+    tables = scene.tables.to(dev)
+    cam = scene.camera
+    tile_pixels, spp, R = plan_batches(1200 * 800, 64, tables.n_spheres, RenderConfig(), dev)
+    log(f"  R = {R} slots, tile {tile_pixels} px, {spp} spp per chunk, "
+        f"{tables.n_spheres} spheres")
+    budget = max(2, 2 * R // 8192)  # knife-edge flips allowed, as the CPU tests
+    scal = rk.RefillScal(spp, tile_pixels, 3 * tile_pixels, 1200 * 800, 1200, 800)
+    next_q = 1_234_567
+    ncols = 10
+    base = _random_pool(rng, R, dev)
+    block = torch.from_numpy(rng.random((ncols, R), dtype=np.float32)).to(dev)
+
+    # ---- K1: refill, injected uniforms and Philox ----
+    def refill(fn, pool, **src):
+        q = torch.tensor([next_q, 0], dtype=torch.int64, device=dev)
+        hist = torch.zeros(8, dtype=torch.int64, device=dev)
+        out = fn(pool, cam, q, 0, hist, 3, scal, ncols=ncols, **src)
+        torch.cuda.synchronize()
+        return q, hist, out
+
+    k1_err = 0.0
+    for mode, src in (("injected", dict(block=block)), ("philox", dict(key=(1984, 3, 1)))):
+        kp, pp = _clone(base), _clone(base)
+        kq, kh, ku = refill(rk.fused_refill, kp, **src)
+        pq, ph, pu = refill(rk.fused_refill_plain, pp, **src)
+        checks.expect(torch.equal(kq, pq) and torch.equal(kh, ph),
+                      f"K1 {mode}: queue head {int(kq[1])} and live count "
+                      f"{int(kh[3])} equal the plain twin's")
+        bad = sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+        checks.expect(bad == 0, f"K1 {mode}: integer planes exact ({bad} mismatches)")
+        err = max(_max_diff(kp[n], pp[n]) for n in rk.POOL_F)
+        rel = max(float(((kp[n] - pp[n]).abs() / (pp[n].abs() + 1.0)).max())
+                  for n in rk.POOL_F)
+        checks.expect(rel <= 1e-6, f"K1 {mode}: float planes max abs err {err:.3g} "
+                                   f"(rel {rel:.3g} <= 1e-6)")
+        u_err = max(_max_diff(a, b) for a, b in zip(ku[0] + (ku[1],) + ku[2],
+                                                   pu[0] + (pu[1],) + pu[2]))
+        checks.expect(u_err == 0.0, f"K1 {mode}: uniform planes bit-equal (err {u_err})")
+        k1_err = max(k1_err, err)
+    refilled = kp  # a pool with fresh camera rays in its taken slots
+
+    work = _clone(base)
+    q_t = torch.tensor([next_q, 0], dtype=torch.int64, device=dev)
+    hist_t = torch.zeros(8, dtype=torch.int64, device=dev)
+    for name, fn in (("ms", rk.fused_refill), ("plain_ms", rk.fused_refill_plain)):
+        results["refill"][name] = _timed_ms(
+            lambda fn=fn: fn(work, cam, q_t, 0, hist_t, 3, scal, ncols=ncols,
+                             key=(1984, 3, 1)),
+            20 if name == "ms" else 5, reset=lambda: _restore(work, base))
+    results["refill"]["max_abs_err"] = k1_err
+
+    # ---- K2: closest sphere ----
+    o = (refilled["ox"], refilled["oy"], refilled["oz"])
+    d = (refilled["dx"], refilled["dy"], refilled["dz"])
+    tm = refilled["tm"]
+    kt, kn, km = sphere_hit_attrs(tables, o, d, tm)
+    pt, pn, pm = sphere_hit_attrs_plain(tables, o, d, tm)
+    torch.cuda.synchronize()
+    khit, phit = kt < 1e30, pt < 1e30
+    same = (khit == phit) & (~khit | (km == pm))
+    flips = int((~same).sum())
+    checks.expect(flips <= budget, f"K2: {flips} hit/winner flips (<= {budget}), "
+                                   f"{int(khit.sum())} hits")
+    both = same & khit
+    t_rel = float(((kt - pt).abs() / pt.abs().clamp_min(1e-30))[both].max())
+    n_err = max(_max_diff(kn[c], pn[c], both) for c in range(3))
+    checks.expect(t_rel <= 1e-5 and n_err <= 1e-4,
+                  f"K2: t max rel err {t_rel:.3g} (<= 1e-5), normal max err {n_err:.3g}")
+    results["sphere_hit"]["max_abs_err"] = max(_max_diff(kt, pt, both), n_err)
+    # t_min is a run-time argument of the kernel
+    kt2, _, km2 = sphere_hit_attrs(tables, o, d, tm, 0.25)
+    pt2, _, pm2 = sphere_hit_attrs_plain(tables, o, d, tm, 0.25)
+    torch.cuda.synchronize()
+    flips = int(((kt2 < 1e30) != (pt2 < 1e30)).sum() + ((km2 != pm2) & (pt2 < 1e30)).sum())
+    beyond = bool((kt2[kt2 < 1e30] > 0.25).all())
+    checks.expect(flips <= budget and beyond and bool((kt2 != kt).any()),
+                  f"K2 at t_min 0.25: {flips} flips (<= {budget}), every hit beyond "
+                  f"0.25: {beyond}, {int((kt2 != kt).sum())} rays changed")
+    results["sphere_hit"]["ms"] = _timed_ms(lambda: sphere_hit_attrs(tables, o, d, tm), 10)
+    results["sphere_hit"]["plain_ms"] = _timed_ms(
+        lambda: sphere_hit_attrs_plain(tables, o, d, tm), 3)
+
+    # ---- K3: shade + integrate + flush ----
+    rec = closest_surface_p(tables, o, d, tm, T_MIN, plain=True)
+    params = shade_params_p(tables, rec)
+    u = torch.from_numpy(rng.random((4, R), dtype=np.float32)).to(dev)
+    planes = dict(zip(REC_F, (*rec.p, *rec.normal, *params[:3], *params[3], *params[4],
+                              u[0], u[1], u[2], u[3])))
+    state = _clone(refilled)
+    n_out = 8  # live slots at their last bounce with a pixel outside the tile
+    state["pix"][:n_out] = torch.tensor([-1, tile_pixels, tile_pixels + 1, -7, 1 << 30,
+                                         tile_pixels * 2, -(1 << 30), tile_pixels + 99],
+                                        dtype=torch.int32, device=dev)
+    state["act"][:n_out] = True
+    state["bounce"][:n_out] = 49
+    kp, pp = _clone(state), _clone(state)
+    kfb = torch.zeros((tile_pixels, 3), device=dev)
+    pfb = torch.zeros_like(kfb)
+    klost = torch.zeros(1, dtype=torch.int32, device=dev)
+    plost = torch.zeros_like(klost)
+    shade_flush(kp, rec.hit, planes, scene.background, kfb, klost, max_depth=50,
+                gradient=False)
+    shade_flush_plain(pp, rec.hit, planes, scene.background, pfb, plost, max_depth=50,
+                      gradient=False)
+    torch.cuda.synchronize()
+    checks.expect(int(klost) == int(plost) == n_out,
+                  f"K3: out-of-tile deaths counted, not added: {int(klost)} "
+                  f"(plain {int(plost)}, want {n_out})")
+    agree = kp["act"] == pp["act"]
+    flips = int((~agree).sum())
+    checks.expect(flips <= budget, f"K3: {flips} live/dead flips (<= {budget}), "
+                                   f"{int((state['act'] & ~pp['act']).sum())} died")
+    checks.expect(torch.equal(kp["bounce"], pp["bounce"]), "K3: bounce planes exact")
+    err = max(_max_diff(kp[n], pp[n], agree) for n in STATE_F)
+    rel = max(float(((kp[n] - pp[n]).abs() / (pp[n].abs() + 1.0))[agree].max())
+              for n in STATE_F)
+    checks.expect(rel <= 2e-4, f"K3: float planes max abs err {err:.3g} (rel {rel:.3g})")
+    touched = torch.zeros(tile_pixels, dtype=torch.bool, device=dev)
+    flipped = state["pix"][~agree].long()
+    touched[flipped[(flipped >= 0) & (flipped < tile_pixels)]] = True
+    fb_err = (kfb - pfb).abs()[~touched]
+    fb_rel = float((fb_err / (pfb.abs()[~touched] + 1e-6)).max())
+    checks.expect(fb_rel <= 1e-5, f"K3: atomic flush vs index_add max rel err "
+                                  f"{fb_rel:.3g} (<= 1e-5)")
+    results["shade_flush"]["max_abs_err"] = max(err, float(fb_err.max()))
+    work = _clone(state)
+    fb_t = torch.zeros_like(kfb)
+    lost_t = torch.zeros_like(klost)
+    for name, fn in (("ms", shade_flush), ("plain_ms", shade_flush_plain)):
+        results["shade_flush"][name] = _timed_ms(
+            lambda fn=fn: fn(work, rec.hit, planes, scene.background, fb_t, lost_t,
+                             max_depth=50, gradient=False),
+            20 if name == "ms" else 5, reset=lambda: _restore(work, state))
+    for name, r in results.items():
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"max abs err {r['max_abs_err']:.3g}")
+
+
+def philox_checks(checks: Checks, dev):
+    import torch
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import refill_kernel as rk
+
+    R = 1 << 17
+    cam = build_scene("bouncing_spheres", 1200, 800).camera
+    scal = rk.RefillScal(64, 64000, 0, 960000, 1200, 800)
+    planes = []
+    for it in (0, 1):
+        pool = rk.new_pool(R, dev)
+        q = torch.zeros(2, dtype=torch.int64, device=dev)
+        ball, choice, media = rk.fused_refill(
+            pool, cam, q, 0, torch.zeros(2, dtype=torch.int64, device=dev), it, scal,
+            key=(1984, 0, 0), ncols=10)
+        planes.append(torch.stack(ball + (choice,) + media))
+    u = planes[0]
+    mean, var = u.mean(dim=1), u.var(dim=1)
+    checks.expect(float(u.min()) >= 0.0 and float(u.max()) < 1.0,
+                  f"Philox: {u.shape[0]} planes of {R} values in [0, 1)")
+    checks.expect(bool(((mean - 0.5).abs() <= 0.005).all()),
+                  f"Philox: means {[round(float(m), 5) for m in mean]} (0.5 +- 0.005)")
+    checks.expect(bool(((var - 1 / 12).abs() <= 0.003).all()),
+                  f"Philox: variances {[round(float(v), 5) for v in var]} "
+                  "(1/12 +- 0.003)")
+    same_it = float((planes[0] == planes[1]).float().mean())
+    same_slot = float((u[:, 1:] == u[:, :-1]).float().mean())
+    checks.expect(same_it < 1e-3 and same_slot < 1e-3,
+                  f"Philox: equal fraction across iterations {same_it:.2e}, "
+                  f"across neighbouring slots {same_slot:.2e}")
+
+
+def _down(img, grid=(8, 16)):
+    """tests/test_parity.py:_down without PIL: clip, quantize to uint8, then a
+    box average onto the 16x8 grid (the renders here are multiples of it)."""
+    q = (np.clip(img, 0, 1) * 255).astype(np.uint8).astype(np.float32) / 255.0
+    h, w = img.shape[0] // grid[0], img.shape[1] // grid[1]
+    return q.reshape(grid[0], h, grid[1], w, 3).mean(axis=(1, 3))
+
+
+def render_checks(checks: Checks, dev, smi: str, results: dict):
+    import torch
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches, render_scene
+
+    name, nx, ny, spp = THREE
+    fb, st = render_scene(build_scene(name, nx, ny), RenderConfig(nx=nx, ny=ny, spp=spp),
+                          device=dev)
+    top = fb[-1].mean(axis=0)
+    checks.expect(bool(np.isfinite(fb).all() and (fb >= 0).all()),
+                  f"{name} {nx}x{ny} @ {spp}: finite, >= 0 ({st['seconds']:.3f} s, "
+                  f"{st['mrays_per_sec']:.2f} Mrays/s)")
+    checks.expect(top[2] > top[0], f"three_spheres: top row blue-ish (mean rgb {top})")
+
+    name, nx, ny, spp = MAIN
+    scene = build_scene(name, nx, ny)
+    _build.launches.clear()
+    fb, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
+    counts = dict(_build.launches)
+    for k in KERNELS:
+        results[k]["launches"] = counts.get(k, 0)
+    checks.expect(all(counts.get(k, 0) > 0 for k in KERNELS),
+                  f"{name} {nx}x{ny} @ {spp} launched every kernel: {counts}")
+    checks.expect(bool(np.isfinite(fb).all() and (fb >= 0).all()),
+                  f"{name} {nx}x{ny} @ {spp}: finite, >= 0")
+    log(f"  {name} {nx}x{ny} @ {spp}: {st['seconds']:.3f} s, {st['rays']:.0f} rays, "
+        f"{st['mrays_per_sec']:.2f} Mrays/s, {st['iterations']} iterations, occupancy "
+        f"{st['occupancy']:.3f}, R {st['n_slots']} on {smi}")
+    results["_render"] = {k: st[k] for k in ("seconds", "rays", "mrays_per_sec",
+                                              "iterations", "occupancy", "n_slots")}
+
+    for name in ("three_spheres", "bouncing_spheres"):
+        # same injected uniforms through both paths
+        nx, ny, spp = SAME_UNIFORMS
+        cfg = RenderConfig(nx=nx, ny=ny, spp=spp)
+        R = plan_batches(nx * ny, spp, 488, cfg, dev)[2]
+
+        def uniforms(tile, chunk, it, R=R):
+            return np.random.default_rng([SEED, tile, chunk, it]).random(
+                (10, R), dtype=np.float32)
+
+        scene = build_scene(name, nx, ny)
+        kfb, kst = render_scene(scene, cfg, device=dev, uniforms=uniforms)
+        pfb, pst = render_scene(scene, cfg, device=dev, uniforms=uniforms, plain=True)
+        close = float((np.abs(kfb - pfb).max(axis=-1) <= 1e-3).mean())
+        checks.expect(kst["iterations"] == pst["iterations"] and close >= 0.98,
+                      f"{name} {nx}x{ny} @ {spp}, same uniforms: iterations "
+                      f"{kst['iterations']} vs {pst['iterations']}, {close:.4f} of "
+                      f"pixels within 1e-3, rays {kst['rays']:.0f} vs {pst['rays']:.0f}")
+        # independent seeds: kernels with Philox seed 1, plain with seed 2
+        nx, ny, spp = INDEPENDENT
+        scene = build_scene(name, nx, ny)
+        kfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=1),
+                              device=dev)
+        pfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=2),
+                              device=dev, plain=True)
+        a, b = _down(kfb[::-1]), _down(pfb[::-1])
+        corr = float(np.corrcoef(a.mean(-1).ravel(), b.mean(-1).ravel())[0, 1])
+        mean_diff = float(np.abs(a.mean((0, 1)) - b.mean((0, 1))).max())
+        checks.expect(corr >= 0.98 and mean_diff <= 0.02,
+                      f"{name} {nx}x{ny} @ {spp}, independent seeds: luminance corr "
+                      f"{corr:.4f} (>= 0.98), channel mean diff {mean_diff:.4f} (<= 0.02)")
+    torch.cuda.synchronize()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test needs a "
+              "CUDA device", file=sys.stderr)
+        return 1
+    import art_tpu_torch  # noqa: F401 — fails outside the repository
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    checks = Checks()
+    results = {name: {"launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None}
+               for name in KERNELS}
+    smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
+    checks.phase("2. kernels against their plain twins", kernel_checks, checks, dev, results)
+    checks.phase("3. Philox uniforms", philox_checks, checks, dev)
+    checks.phase("4. renders", render_checks, checks, dev, smi, results)
+    render = results.pop("_render", {})
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
+        for name, (src, rep) in KERNELS.items()], "render": render,
+        "card": smi}))
+    if checks.failed:
+        log(f"FAILED: {checks.failed}")
+        return 1
+    log(smi)  # the card's name and power limit, as nvidia-smi prints them
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,31 @@
+"""art_tpu_torch must import without JAX: the machine with the card has none.
+
+A subprocess blocks ``jax`` (``sys.modules['jax'] = None`` makes any import
+of it raise) and imports every module of the package."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_SCRIPT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import art_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(art_tpu_torch.__path__, "art_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "art_tpu" not in sys.modules
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20

@@ -1,0 +1,173 @@
+"""The port's plain shade + integrate + flush (K3, ops/shade_kernel.py)
+against art_tpu's staged jnp composition — ``integrator._bounce_step``, the
+death rule and ``flush_kernel.flush_accumulate`` in interpret mode — on
+random pools from a numpy seed (R = 8192), with the knife-edge budget and
+tolerances of tests/test_shade_kernel.py:103-132.
+
+Each side computes its own hit records from the same rays (the port's
+``closest_surface_p`` + ``shade_params_p`` feed K3; test_torch_intersect.py
+holds them to art_tpu's).  What can differ is the last ulp of
+sin/cos/cbrt of the in-ball sample, so ≤ 2 rays may flip a discrete
+decision (a metal graze); the float planes agree to
+rtol 2e-4 / atol 2e-5 on the rest.  The framebuffer: K3 adds in float32,
+so it must equal a float32 scatter of art_tpu's died radiance to 2e-4; the
+TPU flush rounds every sample to bf16 first, so against it each pixel may
+differ by the bf16 rounding of its samples (2^-8 relative each)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from art_tpu.models import build_scene as jax_build_scene
+from art_tpu.ops.flush_kernel import flush_accumulate
+from art_tpu.render.integrator import _bounce_step
+from art_tpu_torch.core.vecmath import T_MIN
+from art_tpu_torch.models import build_scene
+from art_tpu_torch.ops.intersect import closest_surface_p
+from art_tpu_torch.ops.shade import shade_params_p
+from art_tpu_torch.ops.shade_kernel import REC_F, STATE_F, shade_flush
+
+# the test workers share the cores: one intra-op thread per worker
+torch.set_num_threads(1)
+
+R = 8192
+MAX_DEPTH = 50
+N_HI = 16  # art_tpu flush window rows; pix < N_HI * 128
+P = N_HI * 128
+
+
+def _random_inputs(seed, frac_active=0.8):
+    rng = np.random.default_rng(seed)
+
+    def u(*shape):
+        return rng.random(shape, dtype=np.float32)
+
+    return dict(
+        o=u(3, R) * 8 - 4, d=u(3, R) * 2 - 1, tm=u(R), thr=u(3, R), rad=u(3, R) * 0.2,
+        bounce=rng.integers(0, MAX_DEPTH, R).astype(np.int32),
+        pix=rng.integers(0, P, R).astype(np.int32),
+        active=rng.random(R) < frac_active, u_ball=u(3, R), u_choice=u(R),
+        fb0=u(P, 3),
+    )
+
+
+def _fb_window(fb):
+    """(P, 3) -> art_tpu's (N_HI, 384) [hi, c*128 + lo] layout."""
+    return fb.reshape(N_HI, 128, 3).transpose(0, 2, 1).reshape(N_HI, 384)
+
+
+def _run_case(name, seed):
+    x = _random_inputs(seed)
+    jscene = jax_build_scene(name, 96, 48)
+    scene = build_scene(name, 96, 48)
+
+    # ---- port: plain K3 on the pool, in place ----
+    pool = {n: torch.from_numpy(v.copy()) for n, v in zip(
+        STATE_F, (*x["o"], *x["d"], *x["thr"], *x["rad"]))}
+    pool.update(tm=torch.from_numpy(x["tm"].copy()),
+                bounce=torch.from_numpy(x["bounce"].copy()),
+                pix=torch.from_numpy(x["pix"].copy()),
+                act=torch.from_numpy(x["active"].copy()))
+    o = (pool["ox"], pool["oy"], pool["oz"])
+    d = (pool["dx"], pool["dy"], pool["dz"])
+    rec = closest_surface_p(scene.tables, o, d, pool["tm"], T_MIN)
+    mtype, fuzz, refidx, malb, texv = shade_params_p(scene.tables, rec)
+    u_ball = tuple(torch.from_numpy(x["u_ball"][c].copy()) for c in range(3))
+    planes = dict(zip(REC_F, (*rec.p, *rec.normal, mtype, fuzz, refidx, *malb, *texv,
+                              *u_ball, torch.from_numpy(x["u_choice"].copy()))))
+    fb = torch.from_numpy(x["fb0"].copy())
+    lost = torch.zeros(1, dtype=torch.int32)
+    shade_flush(pool, rec.hit, planes, scene.background, fb, lost, max_depth=MAX_DEPTH,
+                gradient=scene.gradient_bg)
+    assert int(lost) == 0
+
+    # ---- art_tpu: staged jnp bounce + death rule + flush ----
+    J = jnp.asarray
+    o2, d2, thr2, rad2, survived = _bounce_step(
+        jscene.tables, tuple(map(J, x["o"])), tuple(map(J, x["d"])), J(x["tm"]),
+        tuple(map(J, x["thr"])), tuple(map(J, x["rad"])), J(x["active"]),
+        tuple(map(J, x["u_ball"])), J(x["u_choice"]), jnp.zeros((1, R), jnp.float32),
+        J(np.asarray(jscene.background, np.float32)), jscene.gradient_bg)
+    bounce2 = x["bounce"] + x["active"].astype(np.int32)
+    still = np.asarray(survived) & (bounce2 < MAX_DEPTH)
+    died = x["active"] & ~still
+    rad2 = [np.asarray(r) for r in rad2]
+
+    got_act = pool["act"].numpy()
+    got_died = x["active"] & ~got_act
+    assert np.sum(got_act != still) <= 2
+    assert np.sum(got_died != died) <= 2
+    agree = (got_act == still) & (got_died == died)
+    np.testing.assert_array_equal(pool["bounce"].numpy(), bounce2)
+    np.testing.assert_array_equal(pool["pix"].numpy(), x["pix"])
+    want = dict(zip(STATE_F, (*map(np.asarray, o2), *map(np.asarray, d2),
+                              *map(np.asarray, thr2), *rad2)))
+    for n in STATE_F:
+        np.testing.assert_allclose(pool[n].numpy()[agree], want[n][agree],
+                                   rtol=2e-4, atol=2e-5, err_msg=n)
+
+    if np.array_equal(got_died, died):
+        # float32 scatter of art_tpu's died radiance
+        want_fb = x["fb0"].astype(np.float64)
+        np.add.at(want_fb, x["pix"][died], np.stack(rad2, 1)[died].astype(np.float64))
+        np.testing.assert_allclose(fb.numpy(), want_fb, rtol=2e-4, atol=2e-4)
+        # art_tpu's bf16 one-hot flush: within the bf16 rounding of the samples
+        tpu = np.asarray(flush_accumulate(
+            J(x["pix"]), J(died), tuple(map(J, rad2)), J(_fb_window(x["fb0"])),
+            base=jnp.int32(0), interpret=True))
+        bound = np.zeros((P, 3))
+        np.add.at(bound, x["pix"][died], np.abs(np.stack(rad2, 1)[died]) * 2.0 ** -8)
+        assert np.all(np.abs(_fb_window(fb.numpy()) - tpu)
+                      <= _fb_window(bound) + 1e-5)
+
+
+@pytest.mark.parametrize("name", ["three_spheres", "bouncing_spheres"])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_shade_flush_matches_staged(name, seed):
+    _run_case(name, seed)
+
+
+def test_dead_slots_are_untouched():
+    scene = build_scene("three_spheres", 32, 16)
+    x = _random_inputs(3, frac_active=0.0)
+    pool = {n: torch.from_numpy(v.copy()) for n, v in zip(
+        STATE_F, (*x["o"], *x["d"], *x["thr"], *x["rad"]))}
+    pool.update(bounce=torch.from_numpy(x["bounce"].copy()),
+                pix=torch.from_numpy(x["pix"].copy()),
+                act=torch.zeros(R, dtype=torch.bool))
+    before = {k: v.clone() for k, v in pool.items()}
+    hit = torch.ones(R, dtype=torch.bool)
+    planes = {k: torch.full((R,), 0.5) for k in REC_F}
+    fb = torch.from_numpy(x["fb0"].copy())
+    lost = torch.zeros(1, dtype=torch.int32)
+    shade_flush(pool, hit, planes, scene.background, fb, lost, max_depth=MAX_DEPTH,
+                gradient=True)
+    for k in pool:
+        assert torch.equal(pool[k], before[k]), k
+    assert torch.equal(fb, torch.from_numpy(x["fb0"])) and int(lost) == 0
+
+
+def test_out_of_range_pixels_are_counted_not_added():
+    """A dying slot whose pix lies outside [0, P) adds nothing to the
+    framebuffer and counts into ``lost`` (the kernel does the same; the
+    integrator raises on a nonzero count); in-range deaths still add."""
+    scene = build_scene("three_spheres", 32, 16)
+    x = _random_inputs(5, frac_active=1.0)
+    pool = {n: torch.from_numpy(v.copy()) for n, v in zip(
+        STATE_F, (*x["o"], *x["d"], *x["thr"], *x["rad"]))}
+    pix = x["pix"].copy()
+    pix[:4] = (-1, P, P + 7, -1000)
+    pool.update(bounce=torch.full((R,), MAX_DEPTH - 1, dtype=torch.int32),
+                pix=torch.from_numpy(pix), act=torch.ones(R, dtype=torch.bool))
+    hit = torch.zeros(R, dtype=torch.bool)  # every ray misses and dies at max_depth
+    planes = {k: torch.full((R,), 0.5) for k in REC_F}
+    fb = torch.zeros((P, 3))
+    lost = torch.zeros(1, dtype=torch.int32)
+    shade_flush(pool, hit, planes, scene.background, fb, lost, max_depth=MAX_DEPTH,
+                gradient=True)
+    assert int(lost) == 4 and not bool(pool["act"].any())
+    rad = torch.stack([pool[n] for n in ("r0", "r1", "r2")], dim=1).double()
+    want = torch.zeros((P, 3), dtype=torch.float64)
+    want.index_add_(0, torch.from_numpy(pix[4:]).long(), rad[4:])
+    torch.testing.assert_close(fb.double(), want, rtol=1e-6, atol=1e-6)
