@@ -14,6 +14,10 @@ import torch
 # as the exact float32 values art_tpu uses.
 BIG = float(np.float32(1e30))
 T_MIN = float(np.float32(1e-3))
+# quad parallel-plane epsilon (src/quad.cuh:64) and slab-division guard
+# (art_tpu/ops/intersect.py:45-46)
+PARALLEL_EPS = 1e-8
+DIR_EPS = 1e-12
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -83,3 +87,26 @@ def schlick(cosine, ref_idx):
 
 def p_ray_at(o, d, t):
     return (o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2])
+
+
+def p_cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def p_rotate_y(p, cos_t, sin_t):
+    """world = R(theta) * local (reference src/main.cu:491-496)."""
+    return (cos_t * p[0] + sin_t * p[2], p[1], -sin_t * p[0] + cos_t * p[2])
+
+
+def p_rotate_y_inv(p, cos_t, sin_t):
+    """local = R(-theta) * world (reference src/hittable.cuh:118-127)."""
+    return (cos_t * p[0] - sin_t * p[2], p[1], sin_t * p[0] + cos_t * p[2])
+
+
+def safe_dir(d: torch.Tensor) -> torch.Tensor:
+    """Direction components clamped away from zero for the slab division
+    (``art_tpu/ops/intersect.py:_safe_dir``): an exactly parallel ray can
+    neither enter nor leave through that slab axis."""
+    sign = torch.where(d >= 0.0, 1.0, -1.0)
+    return torch.where(d.abs() < DIR_EPS, sign * DIR_EPS, d)

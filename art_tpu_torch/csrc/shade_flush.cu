@@ -1,13 +1,13 @@
 // K3 — shade + integrate + framebuffer flush, one thread per pool slot.
 //
-// Replaces art_tpu/ops/shade_kernel.py:shade_flush (:331) in plane-fed mode
+// Replaces art_tpu/ops/shade_kernel.py:shade_flush (:331) in both its modes
 // (_shade_math:132-293) and the flush math it runs (refill_kernel.py
 // _flush_dead:415 -> flush_kernel.one_hot_accumulate:85).  Per live slot:
 // background radiance on a miss, emission on a light, the lambertian /
-// metal / dielectric / diffuse_light / isotropic scatter from the per-ray
-// material planes, the throughput/origin/direction update, bounce += 1,
+// metal / dielectric / diffuse_light / isotropic scatter from the material
+// parameters, the throughput/origin/direction update, bounce += 1,
 // death by absorption or at max_depth, and fb[pix] += radiance for a slot
-// that died.  The operation order is that of the plain twin
+// that died.  The operation order is that of the plain twins
 // (ops/shade_kernel.py:shade_flush_plain, whose bounce is ops/shade.py
 // bounce_p -> shade_p, art_tpu's _bounce_step less its intersection).  The
 // in-ball radius is a true cube root, as
@@ -25,16 +25,34 @@
 // (refill never makes one) adds nothing and counts into *lost, as the twin
 // does; render_wavefront raises if the count is not 0.
 //
-// Bound on the H100: memory — ~35 planes in (15 state, hit, 19 hit-record
-// and material planes, ~136 B/slot) and up to 15 out; the scatter math is a
-// few dozen flops.  Design: plain coalesced one-plane-per-field loads and
-// stores; a dead slot (act == 0) returns after reading two bytes, and a
-// slot that does not survive skips the o/d/throughput stores.  The pool is
-// updated in place.
+// Two modes, one template (kBaked):
+//  * plane-fed: the material type, fuzz, refraction index, metal albedo and
+//    texture value of every ray arrive as per-ray planes (ops/shade.py
+//    shade_params_p fetches them);
+//  * baked, replacing shade_flush's consts form (_baked_params:70-129,
+//    rec_names:63): the hit record shrinks to p(3) n(3) mat u_ball(3)
+//    u_choice, and the parameters come from the material id.  The TPU bakes
+//    them into the compiled kernel; here they arrive as a (M <= 24, 16)
+//    float32 table (scene/tables.py shade_rows, built once per scene from
+//    shade_consts), staged in shared memory and indexed by the mat plane —
+//    the same float32 values, so the same results.  A checker of solids
+//    picks its even/odd color by the parity of floor(inv_scale * p), as
+//    _baked_params:113-125.
+//
+// Bound on the H100: memory — plane-fed ~35 planes in (15 state, hit, 19
+// hit-record and material planes, ~136 B/slot), baked ~27 (11 hit-record
+// planes), and up to 15 out; the scatter math is a few dozen flops.
+// Design: plain coalesced one-plane-per-field loads and stores; a dead slot
+// (act == 0) returns after reading two bytes, a slot that does not survive
+// skips the o/d/throughput stores, and a parameter plane is read only by
+// the material family that uses it.  The pool is updated in place.
 
 #include "common.cuh"
 
 namespace {
+
+constexpr int kMaxMats = 24;   // scene/builder.py _shade_consts gate
+constexpr int kConstCols = 16;  // shade_rows columns
 
 struct ShadePlanes {
   float *ox, *oy, *oz, *dx, *dy, *dz, *t0, *t1, *t2, *r0, *r1, *r2;
@@ -44,13 +62,21 @@ struct ShadePlanes {
   const uint8_t* hit;
   const float *px, *py, *pz, *nx, *ny, *nz, *mtype, *fuzz, *refidx;
   const float *ma0, *ma1, *ma2, *tx0, *tx1, *tx2, *ub0, *ub1, *ub2, *uch;
+  const int* mat;  // baked mode: material id
   float* fb;
   int* lost;
 };
 
+template <bool kBaked>
 __global__ void __launch_bounds__(art::kBlock)
-shade_flush_kernel(ShadePlanes p, int R, float bg0, float bg1, float bg2,
-                   int gradient, int max_depth, int P) {
+shade_flush_kernel(ShadePlanes p, const float* __restrict__ consts, int M, int R,
+                   float bg0, float bg1, float bg2, int gradient, int max_depth,
+                   int P) {
+  __shared__ float sh[kBaked ? kMaxMats * kConstCols : 1];
+  if (kBaked) {
+    for (int k = threadIdx.x; k < M * kConstCols; k += blockDim.x) sh[k] = consts[k];
+    __syncthreads();
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R || !p.act[i]) return;
   const bool hit = p.hit[i] != 0;
@@ -72,9 +98,23 @@ shade_flush_kernel(ShadePlanes p, int R, float bg0, float bg1, float bg2,
     }
     ra0 = ra0 + th0 * bg0; ra1 = ra1 + th1 * bg1; ra2 = ra2 + th2 * bg2;
   } else {
-    const float mtype = p.mtype[i];
+    // baked: the material's constants row [mtype fuzz ref_idx malb(3) kind
+    // isc rgb_or_even(3) odd(3) 0 0]
+    const float* c = kBaked ? sh + min(max(p.mat[i], 0), M - 1) * kConstCols : nullptr;
+    const float mtype = kBaked ? c[0] : p.mtype[i];
     const float n0 = p.nx[i], n1 = p.ny[i], n2 = p.nz[i];
-    const float tx0 = p.tx0[i], tx1 = p.tx1[i], tx2 = p.tx2[i];
+    float tx0, tx1, tx2;
+    if (!kBaked) {
+      tx0 = p.tx0[i]; tx1 = p.tx1[i]; tx2 = p.tx2[i];
+    } else if (c[6] == 1.0f) {  // checker of solids (_baked_params:113-125)
+      const int xi = (int)floorf(c[7] * p.px[i]);
+      const int yi = (int)floorf(c[7] * p.py[i]);
+      const int zi = (int)floorf(c[7] * p.pz[i]);
+      const int off = ((xi + yi + zi) & 1) == 0 ? 8 : 11;
+      tx0 = c[off]; tx1 = c[off + 1]; tx2 = c[off + 2];
+    } else {
+      tx0 = c[8]; tx1 = c[9]; tx2 = c[10];
+    }
     if (mtype == 3.0f) {  // ---- diffuse_light: emit, absorb ----
       ra0 = ra0 + th0 * tx0; ra1 = ra1 + th1 * tx1; ra2 = ra2 + th2 * tx2;
     } else {
@@ -89,14 +129,18 @@ shade_flush_kernel(ShadePlanes p, int R, float bg0, float bg1, float bg2,
       if (mtype == 1.0f) {  // ---- metal (src/material.cuh:90-110) ----
         const float ud0 = dx * inv_dlen, ud1 = dy * inv_dlen, ud2 = dz * inv_dlen;
         const float udn2 = 2.0f * (ud0 * n0 + ud1 * n1 + ud2 * n2);
-        const float fuzz = p.fuzz[i];
+        const float fuzz = kBaked ? c[1] : p.fuzz[i];
         dir0 = ud0 - n0 * udn2 + fuzz * b0;
         dir1 = ud1 - n1 * udn2 + fuzz * b1;
         dir2 = ud2 - n2 * udn2 + fuzz * b2;
         survived = (dir0 * n0 + dir1 * n1 + dir2 * n2) > 0.0f;
-        at0 = p.ma0[i]; at1 = p.ma1[i]; at2 = p.ma2[i];
+        if (kBaked) {
+          at0 = c[3]; at1 = c[4]; at2 = c[5];
+        } else {
+          at0 = p.ma0[i]; at1 = p.ma1[i]; at2 = p.ma2[i];
+        }
       } else if (mtype == 2.0f) {  // ---- dielectric (material.cuh:113-159) ----
-        const float ri = p.refidx[i];
+        const float ri = kBaked ? c[2] : p.refidx[i];
         const float ud0 = dx * inv_dlen, ud1 = dy * inv_dlen, ud2 = dz * inv_dlen;
         const float d_dot_n = dx * n0 + dy * n1 + dz * n2;
         const bool inside = d_dot_n > 0.0f;
@@ -152,15 +196,10 @@ shade_flush_kernel(ShadePlanes p, int R, float bg0, float bg1, float bg2,
   atomicAdd(p.fb + 3 * (size_t)px + 2, ra2);
 }
 
-}  // namespace
-
-// ptrs: ox oy oz dx dy dz t0 t1 t2 r0 r1 r2 (f32), bounce pix (i32),
-//       act hit (u8), px py pz nx ny nz mtype fuzz refidx ma0 ma1 ma2
-//       tx0 tx1 tx2 ub0 ub1 ub2 uch (f32), fb (f32 (P, 3)), lost (i32 (1,));
-//       planes (R,).
-extern "C" int art_shade_flush(void* const* ptrs, int R, const float* bg,
-                               int gradient, int max_depth, int P, void* stream) {
-  ShadePlanes p;
+// The state block shared by both modes: ox oy oz dx dy dz t0 t1 t2 r0 r1 r2
+// (f32), bounce pix (i32), act hit (u8).
+ShadePlanes state_planes(void* const* ptrs) {
+  ShadePlanes p = {};
   float** f = (float**)ptrs;
   p.ox = f[0]; p.oy = f[1]; p.oz = f[2]; p.dx = f[3]; p.dy = f[4]; p.dz = f[5];
   p.t0 = f[6]; p.t1 = f[7]; p.t2 = f[8]; p.r0 = f[9]; p.r1 = f[10]; p.r2 = f[11];
@@ -168,17 +207,51 @@ extern "C" int art_shade_flush(void* const* ptrs, int R, const float* bg,
   p.pix = (const int*)ptrs[13];
   p.act = (uint8_t*)ptrs[14];
   p.hit = (const uint8_t*)ptrs[15];
+  return p;
+}
+
+template <bool kBaked>
+int launch(const ShadePlanes& p, const float* consts, int M, int R, const float* bg,
+           int gradient, int max_depth, int P, void* stream) {
+  const int grid = (R + art::kBlock - 1) / art::kBlock;
+  if (grid > 0)
+    shade_flush_kernel<kBaked><<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
+        p, consts, M, R, bg[0], bg[1], bg[2], gradient, max_depth, P);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: the state block (state_planes), then px py pz nx ny nz mtype fuzz
+//       refidx ma0 ma1 ma2 tx0 tx1 tx2 ub0 ub1 ub2 uch (f32), fb (f32 (P, 3)),
+//       lost (i32 (1,)); planes (R,).
+extern "C" int art_shade_flush(void* const* ptrs, int R, const float* bg,
+                               int gradient, int max_depth, int P, void* stream) {
+  ShadePlanes p = state_planes(ptrs);
   const float** r = (const float**)(ptrs + 16);
   p.px = r[0]; p.py = r[1]; p.pz = r[2]; p.nx = r[3]; p.ny = r[4]; p.nz = r[5];
   p.mtype = r[6]; p.fuzz = r[7]; p.refidx = r[8];
   p.ma0 = r[9]; p.ma1 = r[10]; p.ma2 = r[11];
   p.tx0 = r[12]; p.tx1 = r[13]; p.tx2 = r[14];
   p.ub0 = r[15]; p.ub1 = r[16]; p.ub2 = r[17]; p.uch = r[18];
-  p.fb = f[35];
+  p.fb = (float*)ptrs[35];
   p.lost = (int*)ptrs[36];
-  const int grid = (R + art::kBlock - 1) / art::kBlock;
-  if (grid > 0)
-    shade_flush_kernel<<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
-        p, R, bg[0], bg[1], bg[2], gradient, max_depth, P);
-  return (int)cudaGetLastError();
+  return launch<false>(p, nullptr, 0, R, bg, gradient, max_depth, P, stream);
+}
+
+// ptrs: the state block (state_planes), then px py pz nx ny nz (f32) mat (i32)
+//       ub0 ub1 ub2 uch (f32), fb (f32 (P, 3)), lost (i32 (1,)); planes (R,).
+// consts: (M, 16) f32 shade_rows, 1 <= M <= 24.
+extern "C" int art_shade_flush_baked(void* const* ptrs, int R, const float* consts,
+                                     int M, const float* bg, int gradient,
+                                     int max_depth, int P, void* stream) {
+  if (M < 1 || M > kMaxMats) return (int)cudaErrorInvalidValue;
+  ShadePlanes p = state_planes(ptrs);
+  const float** r = (const float**)(ptrs + 16);
+  p.px = r[0]; p.py = r[1]; p.pz = r[2]; p.nx = r[3]; p.ny = r[4]; p.nz = r[5];
+  p.mat = (const int*)r[6];
+  p.ub0 = r[7]; p.ub1 = r[8]; p.ub2 = r[9]; p.uch = r[10];
+  p.fb = (float*)ptrs[27];
+  p.lost = (int*)ptrs[28];
+  return launch<true>(p, consts, M, R, bg, gradient, max_depth, P, stream);
 }

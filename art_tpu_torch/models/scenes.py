@@ -1,9 +1,10 @@
 """The reference scene suite on the port's DSL (``art_tpu/models/scenes.py``).
 
-Slice 1 ports ``bouncing_spheres`` (``scenes.py:70``) and ``three_spheres``
-(``scenes.py:461``) with the same construction order, so their tables equal
+The port has ``bouncing_spheres`` (``scenes.py:70``), ``three_spheres``
+(``scenes.py:461``), ``quads`` (``scenes.py:193``) and ``cornell_box``
+(``scenes.py:266``) with the same construction order, so their tables equal
 ``art_tpu``'s.  The other reference scenes are listed with their defaults
-and raise ``NotImplementedError`` until their slice lands.
+and raise ``NotImplementedError``, naming their milestone in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 
 from art_tpu_torch.scene.builder import CompiledScene, SceneBuilder
 from art_tpu_torch.scene.materials import Dielectric, DiffuseLight, Lambertian, Metal
-from art_tpu_torch.scene.objects import Sphere
+from art_tpu_torch.scene.objects import Box, Quad, RotateY, Sphere, Translate
 from art_tpu_torch.scene.textures import Checker, SolidColor
 
 UT_ORANGE = (1.0, 0.51, 0.0)  # src/main.cu:168
@@ -112,29 +113,94 @@ def three_spheres(nx: int, ny: int) -> CompiledScene:
     return b.compile()
 
 
-def _later_slice(name: str):
+def quads_scene(nx: int, ny: int) -> CompiledScene:
+    """src/main.cu:331-358: five quads and no sphere."""
+    b = SceneBuilder().set_name("quads")
+    b.add(
+        Quad((-3, -2, 5), (0, 0, -4), (0, 4, 0), Lambertian((1.0, 0.2, 0.2))),
+        Quad((-2, -2, 0), (4, 0, 0), (0, 4, 0), Lambertian((0.2, 1.0, 0.2))),
+        Quad((3, -2, 1), (0, 0, 4), (0, 4, 0), Lambertian((0.2, 0.2, 1.0))),
+        Quad((-2, 3, 1), (4, 0, 0), (0, 0, 4), Lambertian((1.0, 0.5, 0.0))),
+        Quad((-2, -3, 5), (4, 0, 0), (0, 0, -4), Lambertian((0.2, 0.8, 0.8))),
+    )
+    b.set_camera(
+        lookfrom=(0, 0, 9), lookat=(0, 0, 0), vup=(0, 1, 0),
+        vfov_degrees=80.0, aspect=nx / ny, aperture=0.0, focus_dist=10.0,
+        time0=0.0, time1=1.0,
+    )
+    b.set_background(gradient=True)
+    return b.compile()
+
+
+def cornell_box(nx: int, ny: int, legacy_walls: bool = False) -> CompiledScene:
+    """src/main.cu:402-450: six inward quads (one the ceiling light), two
+    rotated boxes and a hollow glass sphere.  ``legacy_walls=True`` paints
+    the x=0 wall the classic book green (0.12, 0.45, 0.15) instead of the
+    source's blue, as ``art_tpu``'s variant of the same name."""
+    b = SceneBuilder().set_name("cornell_box")
+    red = Lambertian((0.65, 0.05, 0.05))
+    blue = (Lambertian((0.12, 0.45, 0.15)) if legacy_walls
+            else Lambertian((0.15, 0.15, 0.75)))
+    white = Lambertian((0.73, 0.73, 0.73))
+    light = DiffuseLight((15.0, 15.0, 15.0))
+
+    b.add(
+        Quad((0, 0, 0), (0, 555, 0), (0, 0, 555), blue, inward=True),
+        Quad((555, 0, 555), (0, 555, 0), (0, 0, -555), red, inward=True),
+        Quad((0, 0, 0), (555, 0, 0), (0, 0, 555), white, inward=True),
+        Quad((0, 555, 555), (555, 0, 0), (0, 0, -555), white, inward=True),
+        Quad((555, 0, 555), (-555, 0, 0), (0, 555, 0), white, inward=True),
+        Quad((213, 554, 227), (130, 0, 0), (0, 0, 105), light, inward=True),
+    )
+    b.add(
+        Translate(RotateY(Box((0, 0, 0), (165, 165, 165), white), -18.0), (130, 0, 65)),
+        Translate(RotateY(Box((0, 0, 0), (165, 330, 165), white), 15.0), (265, 0, 295)),
+    )
+    glass = Dielectric(1.5)
+    b.add(
+        Sphere((278.0, 335.0, 150.0), 60.0, glass),
+        Sphere((278.0, 335.0, 150.0), -59.0, glass),  # hollow shell
+    )
+    lookfrom = np.array([278.0, 278.0, -800.0])
+    lookat = np.array([278.0, 278.0, 0.0])
+    b.set_camera(
+        lookfrom=lookfrom, lookat=lookat, vup=(0, 1, 0),
+        vfov_degrees=40.0, aspect=nx / ny, aperture=0.0,
+        focus_dist=float(np.linalg.norm(lookfrom - lookat)),
+        time0=0.0, time1=1.0,
+    )
+    b.set_background((0, 0, 0), gradient=False)
+    return b.compile()
+
+
+def _later_slice(name: str, milestone: str, needs: str):
     def build(nx: int, ny: int) -> CompiledScene:
         raise NotImplementedError(
-            f"scene {name!r} needs quads, boxes, media or image/noise "
-            "textures, which later slices of art_tpu_torch port; slice 1 "
-            "renders bouncing_spheres and three_spheres"
+            f"scene {name!r} is not in art_tpu_torch yet: {needs} ({milestone}, "
+            "a later slice)"
         )
 
     return build
 
 
+_TEXTURES = ("M10", "it needs image or noise textures")
+
+
 SCENES = {
     "bouncing_spheres": bouncing_spheres,
-    "checkered_spheres": _later_slice("checkered_spheres"),
-    "earth": _later_slice("earth"),
-    "perlin": _later_slice("perlin"),
-    "quads": _later_slice("quads"),
-    "simple_light": _later_slice("simple_light"),
-    "simple_light_book": _later_slice("simple_light_book"),
-    "cornell_box": _later_slice("cornell_box"),
-    "cornell_smoke": _later_slice("cornell_smoke"),
-    "final_scene": _later_slice("final_scene"),
-    "original_scene": _later_slice("original_scene"),
+    "checkered_spheres": _later_slice("checkered_spheres", "M10",
+                                      "it is queued with the texture scenes"),
+    "earth": _later_slice("earth", *_TEXTURES),
+    "perlin": _later_slice("perlin", *_TEXTURES),
+    "quads": quads_scene,
+    "simple_light": _later_slice("simple_light", *_TEXTURES),
+    "simple_light_book": _later_slice("simple_light_book", *_TEXTURES),
+    "cornell_box": cornell_box,
+    "cornell_smoke": _later_slice("cornell_smoke", "M8", "it needs constant media"),
+    "final_scene": _later_slice("final_scene", "M8, M10, M12",
+                                "it needs media, image/noise textures and the box grid"),
+    "original_scene": _later_slice("original_scene", "M10, M12",
+                                   "it needs noodle/felt textures and the box grid"),
     "three_spheres": three_spheres,
 }
 

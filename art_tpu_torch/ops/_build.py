@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``art_tpu_torch/csrc/*.cu``).
 
-At first use the sources are compiled with ``nvcc`` for ``sm_90a`` into one
+At first use the sources are compiled with ``nvcc`` for ``sm_90a`` — one
+``nvcc -c`` per ``.cu`` file, all started together — and linked into one
 shared library with a plain C interface under ``art_tpu_torch/_build/``
 (named by a hash of the sources and flags, so an edit rebuilds), and loaded
 with ``ctypes``.  Nothing here runs at import time.
@@ -33,8 +34,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 BLOCK = 256  # threads per block of every kernel (csrc/common.cuh kBlock)
 launches: collections.Counter = collections.Counter()
@@ -50,6 +51,10 @@ _SIGNATURES = {
                    ctypes.c_uint, ctypes.c_uint, _P],
     "art_shade_flush": [ctypes.POINTER(_P), _I, ctypes.POINTER(ctypes.c_float),
                         _I, _I, _I, _P],
+    "art_shade_flush_baked": [ctypes.POINTER(_P), _I, _P, _I,
+                              ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P],
+    "art_quad_hit": [_P, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
+    "art_box_hit": [_P, _I, _I, ctypes.c_float, _I, ctypes.POINTER(_P), _P],
 }
 
 
@@ -76,13 +81,26 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-        os.replace(tmp, so)
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]
+        jobs = [[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for obj, src in zip(objs, sorted(CSRC.glob("*.cu")))]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in jobs]
+        errs = [p.communicate()[1] for p in procs]  # waits for every nvcc
+        failed = [f"nvcc failed ({' '.join(cmd)}):\n{err}"
+                  for cmd, p, err in zip(jobs, procs, errs) if p.returncode]
+        try:
+            if failed:
+                raise RuntimeError("\n".join(failed))
+            cmd = [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     lib.build_seconds = seconds  # nvcc time in this process; 0 if cached
@@ -116,3 +134,13 @@ def check_planes(names, tensors, n: int, dtype, device) -> None:
                 f"{name}: need a contiguous ({n},) {dtype} tensor on {device}, "
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
+
+
+def check_table(name: str, t: torch.Tensor, cols: int, device) -> torch.Tensor:
+    """Raise unless ``t`` is a contiguous (n, cols) float32 table on
+    ``device``; returns it."""
+    if t.device != device or t.dtype != torch.float32 or t.dim() != 2 \
+            or t.shape[1] != cols or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous (n, {cols}) float32 tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return t

@@ -1,10 +1,19 @@
-"""Batched sphere intersection, component-planar (``art_tpu/ops/intersect.py``).
+"""Batched intersection, component-planar (``art_tpu/ops/intersect.py``).
 
-The plain PyTorch candidate pass and winner attributes
-(``sphere_candidates_p:218``, ``sphere_attributes_p:373``) and the
-spheres-only ``closest_surface_p`` (``:519``), which runs the sphere kernel
-(``ops/intersect_kernels.py``) unless asked for the plain path.  Quads,
-boxes and media join with later slices.
+The plain PyTorch candidate passes and winner attributes of spheres
+(``sphere_candidates_p:218``, ``sphere_attributes_p:373``), quads
+(``quad_candidates_p:304``, ``quad_attributes_p:414``) and oriented boxes
+(``box_candidates_p:333``, ``box_attributes_p:433``), and
+``closest_surface_p`` (``:519``), which merges the three kinds through
+their kernels (``ops/intersect_kernels.py``) unless asked for the plain
+path.  Media join with a later slice (M8).
+
+The quad and box passes read the kernels' row tables (``quad_rows``,
+``box_rows``), so each is its kernel's plain twin.  ``quad_rows`` holds the
+same float32 values as ``art_tpu``'s quad fields; ``box_rows`` folds the
+offsets of unrotated boxes into min/max as the TPU kernel's table does, so
+on such boxes ``box_candidates_p`` rounds as ``art_tpu``'s Pallas kernel
+and not as its jnp pass (which subtracts the offset per ray).
 """
 
 from __future__ import annotations
@@ -13,7 +22,18 @@ from typing import NamedTuple
 
 import torch
 
-from art_tpu_torch.core.vecmath import BIG, p_ray_at, sqrt
+from art_tpu_torch.core.vecmath import (
+    BIG,
+    PARALLEL_EPS,
+    p_cross,
+    p_dot,
+    p_ray_at,
+    p_rotate_y,
+    p_rotate_y_inv,
+    p_where,
+    safe_dir,
+    sqrt,
+)
 from art_tpu_torch.ops.gather import take_rows
 from art_tpu_torch.scene.tables import SceneTables
 
@@ -64,6 +84,77 @@ def sphere_candidates_p(tables: SceneTables, o, d, time, t_min):
     return t_best, idx.to(torch.int32)
 
 
+def _closest(t: torch.Tensor):
+    """min + argmin over the primitive axis, (BIG, -1) where nothing is hit.
+
+    ``torch.min`` returns the first index among exact ties, as ``argmin``
+    and as the kernels' strict ``<`` scan in scene order."""
+    t_best, idx = torch.min(t, dim=1)
+    hit = t_best < BIG
+    return torch.where(hit, t_best, BIG), torch.where(hit, idx.to(torch.int32), -1)
+
+
+def quad_candidates_p(tables: SceneTables, o, d, t_min):
+    """Best quad hit per ray over ``quad_rows`` (plane hit + interior test,
+    src/quad.cuh:60-90): (t_best (R,), idx (R,) int32), (BIG, -1) on a miss.
+
+    Parallel rays (|n.d| < 1e-8) are masked before the min, so the inf or
+    NaN of their t never wins."""
+    rows = tables.quad_rows
+
+    def bdot(v, k):
+        return (v[0][:, None] * rows[None, :, k] + v[1][:, None] * rows[None, :, k + 1]
+                + v[2][:, None] * rows[None, :, k + 2])
+
+    nd = bdot(d, 0)
+    t = (rows[None, :, 3] - bdot(o, 0)) / nd
+    alpha = bdot(o, 4) + t * bdot(d, 4) - rows[None, :, 7]
+    beta = bdot(o, 8) + t * bdot(d, 8) - rows[None, :, 11]
+    valid = ((nd.abs() >= PARALLEL_EPS) & (t > t_min) & (alpha >= 0.0) & (alpha <= 1.0)
+             & (beta >= 0.0) & (beta <= 1.0))
+    return _closest(torch.where(valid, t, BIG))
+
+
+def _box_frame(rows, o, d, rotated: bool):
+    """The rays in each box's frame: o - off, then R(-theta), when the
+    table holds rotated boxes; world space otherwise (offsets folded)."""
+    if not rotated:
+        return tuple(c[:, None] for c in o), tuple(c[:, None] for c in d)
+    off = rows[None, :, 8:11]
+    lo = tuple(o[c][:, None] - off[..., c] for c in range(3))
+    ld = tuple(c[:, None] for c in d)
+    cos_t, sin_t = rows[None, :, 6], rows[None, :, 7]
+    return p_rotate_y_inv(lo, cos_t, sin_t), p_rotate_y_inv(ld, cos_t, sin_t)
+
+
+def _slabs(lo, ld, mn, mx):
+    """Per-axis slab entry/exit times (min, max of the two plane times)."""
+    t0s, t1s = [], []
+    for axis in range(3):
+        inv = 1.0 / safe_dir(ld[axis])
+        ta = (mn[axis] - lo[axis]) * inv
+        tb = (mx[axis] - lo[axis]) * inv
+        t0s.append(torch.minimum(ta, tb))
+        t1s.append(torch.maximum(ta, tb))
+    return t0s, t1s
+
+
+def box_candidates_p(tables: SceneTables, o, d, t_min):
+    """Best box hit per ray over ``box_rows`` (slab test, replaces the
+    reference's compound6 six-quad scan): (t_best, idx int32), (BIG, -1)
+    on a miss."""
+    rows = tables.box_rows
+    lo, ld = _box_frame(rows, o, d, tables.has_rotated_boxes)
+    t0s, t1s = _slabs(lo, ld, [rows[None, :, k] for k in range(3)],
+                      [rows[None, :, k] for k in range(3, 6)])
+    t_entry = torch.maximum(torch.maximum(t0s[0], t0s[1]), t0s[2])
+    t_exit = torch.minimum(torch.minimum(t1s[0], t1s[1]), t1s[2])
+    through = t_entry < t_exit
+    t = torch.where(through & (t_entry > t_min), t_entry,
+                    torch.where(through & (t_exit > t_min), t_exit, BIG))
+    return _closest(t)
+
+
 def sphere_attributes_p(tables: SceneTables, o, d, time, t, idx):
     """Normal and material of the winning sphere (src/sphere.cuh:69-86).
 
@@ -84,19 +175,109 @@ def sphere_attributes_p(tables: SceneTables, o, d, time, t, idx):
     return normal, row[:, 7].to(torch.int32)
 
 
+def quad_attributes_p(tables: SceneTables, o, d, t, idx):
+    """(alpha, beta) + ray-facing normal for the winning quad: returns
+    (normal 3-tuple, alpha, beta, mat int32)."""
+    row = take_rows(tables.quad_attr_packed, idx)  # (R,16)
+    p = p_ray_at(o, d, t)
+    pl = (p[0] - row[:, 0], p[1] - row[:, 1], p[2] - row[:, 2])
+    uu = (row[:, 3], row[:, 4], row[:, 5])
+    vv = (row[:, 6], row[:, 7], row[:, 8])
+    ww = (row[:, 9], row[:, 10], row[:, 11])
+    alpha = p_dot(ww, p_cross(pl, vv))
+    beta = p_dot(ww, p_cross(uu, pl))
+    nt = (row[:, 12], row[:, 13], row[:, 14])
+    # shading normal faces against the ray (src/quad.cuh:84-86)
+    flip = p_dot(nt, d) > 0.0
+    normal = p_where(flip, (-nt[0], -nt[1], -nt[2]), nt)
+    return normal, alpha, beta, row[:, 15].to(torch.int32)
+
+
+def box_attributes_p(tables: SceneTables, o, d, t, idx):
+    """Face normal + the reference's per-face UV (make_box,
+    src/quad.cuh:145-162) for the winning box's ``box_rows`` row: returns
+    (normal 3-tuple, u, v, mat int32).  Every divisor is a tensor."""
+    row = take_rows(tables.box_rows, idx)  # (R,12)
+    mnx, mny, mnz = row[:, 0], row[:, 1], row[:, 2]
+    mxx, mxy, mxz = row[:, 3], row[:, 4], row[:, 5]
+    cos_t, sin_t = row[:, 6], row[:, 7]
+    o_obj = p_rotate_y_inv((o[0] - row[:, 8], o[1] - row[:, 9], o[2] - row[:, 10]),
+                           cos_t, sin_t)
+    d_obj = p_rotate_y_inv(d, cos_t, sin_t)
+
+    # re-run the per-axis slab to identify the entry/exit face
+    t0s, t1s = _slabs(o_obj, d_obj, (mnx, mny, mnz), (mxx, mxy, mxz))
+    t_entry = torch.maximum(torch.maximum(t0s[0], t0s[1]), t0s[2])
+    t_exit = torch.minimum(torch.minimum(t1s[0], t1s[1]), t1s[2])
+    axis_entry = torch.where(t0s[0] >= torch.maximum(t0s[1], t0s[2]), 0,
+                             torch.where(t0s[1] >= t0s[2], 1, 2))
+    axis_exit = torch.where(t1s[0] <= torch.minimum(t1s[1], t1s[2]), 0,
+                            torch.where(t1s[1] <= t1s[2], 1, 2))
+    is_entry = (t - t_entry).abs() <= (t - t_exit).abs()
+    axis = torch.where(is_entry, axis_entry, axis_exit)
+    ax, ay, az = axis == 0, axis == 1, axis == 2
+    d_axis = torch.where(ax, d_obj[0], torch.where(ay, d_obj[1], d_obj[2]))
+    sgn = torch.where(d_axis >= 0.0, 1.0, -1.0)
+    n_val = -sgn  # shading normal faces against the ray
+    pos_face = torch.where(is_entry, -sgn, sgn) > 0.0
+    normal = p_rotate_y((torch.where(ax, n_val, 0.0), torch.where(ay, n_val, 0.0),
+                         torch.where(az, n_val, 0.0)), cos_t, sin_t)
+
+    x, y, z = p_ray_at(o_obj, d_obj, t)
+    wx, wy, wz = mxx - mnx, mxy - mny, mxz - mnz
+    z_face = torch.where(pos_face, (mxz - z) / wz, (z - mnz) / wz)
+    ua = torch.where(ax, z_face, torch.where(
+        ay, (x - mnx) / wx, torch.where(pos_face, (x - mnx) / wx, (mxx - x) / wx)))
+    va = torch.where(ax, (y - mny) / wy, torch.where(ay, z_face, (y - mny) / wy))
+    return normal, ua, va, row[:, 11].to(torch.int32)
+
+
+def _closer(best, cand):
+    """``cand`` where it is strictly closer than ``best``: (t, normal, u, v,
+    mat) tuples; ``best`` keeps exact ties."""
+    better = cand[0] < best[0]
+    return (torch.where(better, cand[0], best[0]), p_where(better, cand[1], best[1]),
+            *(torch.where(better, c, b) for c, b in zip(cand[2:], best[2:])))
+
+
 def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) -> HitRecordP:
-    """Closest sphere hit for every ray.
+    """Closest surface hit for every ray: quads, then boxes, then spheres,
+    each merged with a strict ``<`` (``art_tpu``'s order, so a quad wins an
+    exact tie with a box face, as on cornell_box's floor under the boxes).
 
-    The sphere kernel takes ``t_min`` as an argument, so unlike art_tpu
-    (whose Pallas kernel bakes ``T_MIN``, ``intersect.py:533-536``) every
-    ``t_min`` goes through it; ``plain`` runs the plain twin instead."""
-    from art_tpu_torch.ops.intersect_kernels import sphere_hit_attrs, sphere_hit_attrs_plain
+    Each kind goes through its kernel, which takes ``t_min`` as an argument
+    (``art_tpu``'s Pallas kernels bake ``T_MIN``, ``intersect.py:533-536``);
+    ``plain`` runs the plain twins instead.  A miss keeps normal (1, 0, 0),
+    u = v = 0 and material 0."""
+    from art_tpu_torch.ops import intersect_kernels as K
 
-    hit_attrs = sphere_hit_attrs_plain if plain else sphere_hit_attrs
-    t, normal, mat = hit_attrs(tables, o, d, time, t_min)
-    zeros = torch.zeros_like(t)
-    return HitRecordP(hit=t < BIG, t=t, p=p_ray_at(o, d, t), normal=normal,
-                      u=zeros, v=zeros, mat=mat)
+    best = None  # (t, normal, u, v, mat) of the closest hit so far
+    if tables.n_quads:
+        t, idx = (K.quad_closest_hit_plain if plain else K.quad_closest_hit)(
+            tables, o, d, t_min)
+        normal, alpha, beta, mat = quad_attributes_p(tables, o, d, t, idx.clamp_min(0))
+        hit = t < BIG
+        zero = torch.zeros_like(t)
+        best = (t, p_where(hit, normal, (torch.ones_like(t), zero, zero)),
+                torch.where(hit, alpha, zero), torch.where(hit, beta, zero),
+                torch.where(hit, mat, torch.zeros_like(mat)))
+    if tables.n_boxes:
+        cand = (K.box_hit_attrs_plain if plain else K.box_hit_attrs)(tables, o, d, t_min)
+        best = cand if best is None else _closer(best, cand)
+    if tables.n_spheres:
+        t, normal, mat = (K.sphere_hit_attrs_plain if plain else K.sphere_hit_attrs)(
+            tables, o, d, time, t_min)
+        zero = torch.zeros_like(t)
+        cand = (t, normal, zero, zero, mat)
+        best = cand if best is None else _closer(best, cand)
+    if best is None:  # nothing to hit
+        t = torch.full_like(o[0], BIG)
+        zero = torch.zeros_like(t)
+        best = (t, (torch.ones_like(t), zero, zero), zero, zero,
+                torch.zeros(t.shape, dtype=torch.int32, device=t.device))
+    t, normal, u, v, mat = best
+    return HitRecordP(hit=t < BIG, t=t, p=p_ray_at(o, d, t), normal=normal, u=u, v=v,
+                      mat=mat)
 
 
 def background_color_p(d, bg, gradient: bool):

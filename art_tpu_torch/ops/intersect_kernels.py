@@ -1,12 +1,22 @@
-"""Closest-sphere kernel (K2): ``csrc/sphere_hit.cu`` and its plain twin.
+"""Intersection kernels and their plain twins.
 
-Replaces ``art_tpu/ops/pallas_kernels.py:sphere_hit_attrs_planar`` (its
-``_sphere_kernel``).  Both forms return ``(t, normal 3-tuple, mat)`` for
-every ray: the closest hit with ``t > t_min`` over all spheres in scene
-order (moving centers at the ray's shutter time), its signed-radius normal
-``(p - c) / r`` and its material id; a miss gives ``t = BIG``, normal
-``(1, 0, 0)`` and material 0 — the values ``closest_surface_p`` blends in
-for misses.  UV is zero for the slice's scenes.
+* K2 ``sphere_hit_attrs`` (``csrc/sphere_hit.cu``), replacing
+  ``art_tpu/ops/pallas_kernels.py:sphere_hit_attrs_planar`` (its
+  ``_sphere_kernel``): the closest hit with ``t > t_min`` over all spheres
+  in scene order (moving centers at the ray's shutter time), its
+  signed-radius normal ``(p - c) / r`` and its material id.
+* K5 ``quad_closest_hit`` (``csrc/quad_hit.cu``), replacing
+  ``quad_closest_hit_planar`` (``_quad_kernel``): the closest quad's t and
+  index; ``closest_surface_p`` gets its normal and (alpha, beta) from
+  ``intersect.quad_attributes_p``.
+* K6 ``box_hit_attrs`` (``csrc/box_hit.cu``), replacing
+  ``box_hit_attrs_planar`` (``_box_kernel``): the closest oriented box's t,
+  face normal, make_box (u, v) and material.
+
+Each takes ``t_min`` as a run-time argument.  A miss gives ``t = BIG``,
+index -1 (K5), normal ``(1, 0, 0)``, u = v = 0 and material 0 — the values
+``closest_surface_p`` blends in for misses.  Each wrapper launches its
+kernel for CUDA tensors and runs the plain twin for CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,21 +25,35 @@ import torch
 
 from art_tpu_torch.core.vecmath import BIG, T_MIN
 from art_tpu_torch.ops import _build
-from art_tpu_torch.ops.intersect import sphere_attributes_p, sphere_candidates_p
+from art_tpu_torch.ops.intersect import (
+    box_attributes_p,
+    box_candidates_p,
+    quad_candidates_p,
+    sphere_attributes_p,
+    sphere_candidates_p,
+)
 from art_tpu_torch.scene.tables import SceneTables
 
 NAME = "sphere_hit"
+QUAD = "quad_hit"
+BOX = "box_hit"
+_RAY = ("ox", "oy", "oz", "dx", "dy", "dz")
+
+
+def _miss_defaults(hit, normal, rest):
+    """normal (1, 0, 0) and zeros where ``hit`` is False."""
+    one, zero = torch.ones_like(normal[0]), torch.zeros_like(normal[0])
+    normal = (torch.where(hit, normal[0], one), torch.where(hit, normal[1], zero),
+              torch.where(hit, normal[2], zero))
+    return normal, tuple(torch.where(hit, x, torch.zeros_like(x)) for x in rest)
 
 
 def sphere_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN):
     """Plain PyTorch K2: the candidate pass plus the winner attributes."""
     t, idx = sphere_candidates_p(tables, o, d, tm, t_min)
     normal, mat = sphere_attributes_p(tables, o, d, tm, t, idx)
-    hit = t < BIG
-    one, zero = torch.ones_like(t), torch.zeros_like(t)
-    normal = (torch.where(hit, normal[0], one), torch.where(hit, normal[1], zero),
-              torch.where(hit, normal[2], zero))
-    return t, normal, torch.where(hit, mat, torch.zeros_like(mat))
+    normal, (mat,) = _miss_defaults(t < BIG, normal, (mat,))
+    return t, normal, mat
 
 
 def sphere_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN):
@@ -37,23 +61,73 @@ def sphere_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN):
     if o[0].device.type == "cpu":
         return sphere_hit_attrs_plain(tables, o, d, tm, t_min)
     dev = o[0].device
-    R = o[0].shape[0]
-    rows = tables.sph_rows
-    S = rows.shape[0]
     ins = (*o, *d, tm)
-    _build.check_planes(("ox", "oy", "oz", "dx", "dy", "dz", "tm"), ins, R,
-                        torch.float32, dev)
-    if rows.device != dev or rows.dtype != torch.float32 or rows.shape != (S, 10) \
-            or not rows.is_contiguous():
-        raise ValueError(f"sph_rows: need a contiguous ({S}, 10) float32 "
-                         f"tensor on {dev}")
+    R = ins[0].shape[0]
+    _build.check_planes(_RAY + ("tm",), ins, R, torch.float32, dev)
+    rows = _build.check_table("sph_rows", tables.sph_rows, 10, dev)
     t = torch.empty(R, dtype=torch.float32, device=dev)
     nx, ny, nz = (torch.empty_like(t) for _ in range(3))
     mat = torch.empty(R, dtype=torch.int32, device=dev)
-    lib = _build.library()
     ptrs = _build.pointers((*ins, t, nx, ny, nz, mat))
-    rc = lib.art_sphere_hit(rows.data_ptr(), S, R, float(t_min), ptrs,
-                            _build.stream_handle(dev))
+    rc = _build.library().art_sphere_hit(rows.data_ptr(), rows.shape[0], R, float(t_min),
+                                         ptrs, _build.stream_handle(dev))
     _build.check(rc, NAME)
     _build.launches[NAME] += 1
     return t, (nx, ny, nz), mat
+
+
+def quad_closest_hit_plain(tables: SceneTables, o, d, t_min=T_MIN):
+    """Plain PyTorch K5: ``quad_candidates_p`` over ``quad_rows``."""
+    return quad_candidates_p(tables, o, d, t_min)
+
+
+def quad_closest_hit(tables: SceneTables, o, d, t_min=T_MIN):
+    """K5: (t, idx int32) from the CUDA kernel for CUDA tensors, the plain
+    twin for CPU tensors."""
+    if o[0].device.type == "cpu":
+        return quad_closest_hit_plain(tables, o, d, t_min)
+    dev = o[0].device
+    ins = (*o, *d)
+    R = ins[0].shape[0]
+    _build.check_planes(_RAY, ins, R, torch.float32, dev)
+    rows = _build.check_table("quad_rows", tables.quad_rows, 12, dev)
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    idx = torch.empty(R, dtype=torch.int32, device=dev)
+    ptrs = _build.pointers((*ins, t, idx))
+    rc = _build.library().art_quad_hit(rows.data_ptr(), rows.shape[0], R, float(t_min),
+                                       ptrs, _build.stream_handle(dev))
+    _build.check(rc, QUAD)
+    _build.launches[QUAD] += 1
+    return t, idx
+
+
+def box_hit_attrs_plain(tables: SceneTables, o, d, t_min=T_MIN):
+    """Plain PyTorch K6: ``box_candidates_p`` + ``box_attributes_p`` over
+    ``box_rows``; returns (t, normal 3-tuple, u, v, mat)."""
+    t, idx = box_candidates_p(tables, o, d, t_min)
+    normal, u, v, mat = box_attributes_p(tables, o, d, t, idx.clamp_min(0))
+    normal, (u, v, mat) = _miss_defaults(t < BIG, normal, (u, v, mat))
+    return t, normal, u, v, mat
+
+
+def box_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
+    """K6: the CUDA kernel (rotated or axis-aligned form, by
+    ``tables.has_rotated_boxes``) for CUDA tensors, the plain twin for CPU
+    tensors."""
+    if o[0].device.type == "cpu":
+        return box_hit_attrs_plain(tables, o, d, t_min)
+    dev = o[0].device
+    ins = (*o, *d)
+    R = ins[0].shape[0]
+    _build.check_planes(_RAY, ins, R, torch.float32, dev)
+    rows = _build.check_table("box_rows", tables.box_rows, 12, dev)
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    nx, ny, nz, u, v = (torch.empty_like(t) for _ in range(5))
+    mat = torch.empty(R, dtype=torch.int32, device=dev)
+    ptrs = _build.pointers((*ins, t, nx, ny, nz, u, v, mat))
+    rc = _build.library().art_box_hit(rows.data_ptr(), rows.shape[0], R, float(t_min),
+                                      int(tables.has_rotated_boxes), ptrs,
+                                      _build.stream_handle(dev))
+    _build.check(rc, BOX)
+    _build.launches[BOX] += 1
+    return t, (nx, ny, nz), u, v, mat

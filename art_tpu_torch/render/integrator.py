@@ -5,8 +5,12 @@
   ad-hoc rays.
 * ``render_wavefront`` — the production path: a persistent pool of R ray
   slots refilled from the sample-major (pixel, sample) queue.  Each
-  iteration is refill (K1) -> closest sphere (K2) -> material/texture fetch
-  (PyTorch glue) -> shade + integrate + flush (K3).
+  iteration is refill (K1) -> closest quad (K5, its attributes in PyTorch
+  glue), box (K6) and sphere (K2), merged -> shade + integrate + flush (K3).
+  K3 runs baked when the scene has ``shade_consts`` (``art_tpu``'s default
+  gate, ``integrator.py:139,655-676``): the parameters come from the
+  material id.  Otherwise the material/texture planes are fetched first
+  (PyTorch glue, ``shade_params_p``) and K3 runs plane-fed.
 
 Loop control.  ``lax.while_loop`` keeps its condition on the device; here
 the host must read it.  K1 adds each iteration's live-slot count to
@@ -30,7 +34,7 @@ from art_tpu_torch.core.vecmath import T_MIN
 from art_tpu_torch.ops import refill_kernel as rk
 from art_tpu_torch.ops.intersect import closest_surface_p
 from art_tpu_torch.ops.shade import bounce_p, shade_params_p
-from art_tpu_torch.ops.shade_kernel import REC_F, shade_flush, shade_flush_plain
+from art_tpu_torch.ops.shade_kernel import REC_BAKED, REC_F, shade_flush, shade_flush_plain
 from art_tpu_torch.scene.tables import SceneTables
 
 # Host reads of the loop condition: one 8-byte read every CHECK_EVERY
@@ -95,10 +99,11 @@ def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int
 
     ``uniforms`` is an injected source ``(tile, chunk, it) -> (ncols, R)``;
     ``None`` draws Philox keyed by ``(seed, tile, chunk)``.  ``plain`` runs
-    the plain PyTorch twins of the three kernels on any device.
+    the plain PyTorch twins of the kernels on any device.
     Returns (fb_sum (tile_pixels, 3) radiance summed over spp, rays,
     iterations)."""
-    dev = tables.sph_rows.device
+    dev = tables.mat_packed.device  # every scene has a material row
+    consts = tables.shade_rows  # None: plane-fed K3
     P, R = tile_pixels, n_slots
     n_q = P * spp
     ncols = n_uniform_cols(tables)
@@ -123,13 +128,17 @@ def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int
         o = (pool["ox"], pool["oy"], pool["oz"])
         d = (pool["dx"], pool["dy"], pool["dz"])
         rec = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
-        # solid/checker textures read no `valid` mask (image textures will)
-        mtype, fuzz, refidx, malb, texv = shade_params_p(tables, rec)
-        planes = dict(zip(REC_F, (
-            *rec.p, *rec.normal, mtype, fuzz, refidx, *malb, *texv, *u_ball,
-            u_choice)))
+        if consts is None:
+            # solid/checker textures read no `valid` mask (image textures will)
+            mtype, fuzz, refidx, malb, texv = shade_params_p(tables, rec)
+            planes = dict(zip(REC_F, (
+                *rec.p, *rec.normal, mtype, fuzz, refidx, *malb, *texv, *u_ball,
+                u_choice)))
+        else:
+            planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u_ball,
+                                          u_choice)))
         shade(pool, rec.hit, planes, background, fb, lost, max_depth=max_depth,
-              gradient=gradient_bg)
+              gradient=gradient_bg, consts=consts)
         if it + 1 >= min_iters and (it + 1 - min_iters) % CHECK_EVERY == 0 \
                 and int(hist[it]) == 0:
             break

@@ -1,12 +1,12 @@
-"""Scene compiler: DSL object graph -> flat SoA tables (slice 1 subset).
+"""Scene compiler: DSL object graph -> flat SoA tables (the ported subset).
 
-Port of the sphere / material / texture part of ``art_tpu/scene/builder.py``
-(``_Compiler`` at ``builder.py:186-407`` and ``finish:481-627``), including
-the value dedup of material and texture rows and the ``mat_packed`` /
-``tex_packed`` row layouts, so the tables come out identical to
-``art_tpu``'s.  Quads, boxes, constant media and every texture but solid
-and checker belong to later slices of the port and raise
-``NotImplementedError``.
+Port of the sphere / quad / box / material / texture part of
+``art_tpu/scene/builder.py`` (``_Compiler`` at ``builder.py:186-407``,
+``finish:481-642`` and ``_shade_consts:855-938``), including the value
+dedup of material and texture rows and the ``mat_packed`` / ``tex_packed``
+/ ``quad_attr_packed`` row layouts, so the tables come out identical to
+``art_tpu``'s.  Constant media (M8) and every texture but solid and checker
+(M10) belong to later slices of the port and raise ``NotImplementedError``.
 
 ``tables_from_numpy`` carries tables compiled by ``art_tpu`` (as numpy
 arrays) into this package — the tests use it to run both packages on the
@@ -25,9 +25,21 @@ from art_tpu_torch.core.camera import Camera, make_camera
 from art_tpu_torch.scene import materials as M
 from art_tpu_torch.scene import objects as O
 from art_tpu_torch.scene import textures as X
-from art_tpu_torch.scene.tables import MatType, SceneTables, TexType, sphere_rows
+from art_tpu_torch.scene.tables import (
+    MAX_BAKED_MATS,
+    MatType,
+    SceneTables,
+    TexType,
+    box_rows,
+    quad_rows,
+    shade_rows,
+    sphere_rows,
+)
 
-_SLICE = "art_tpu_torch slice 1 ports spheres with solid/checker textures"
+_SLICE = ("art_tpu_torch's slices so far port spheres, quads and boxes with "
+          "solid/checker textures")
+_M8 = f"{_SLICE}; constant media come with M8"
+_M10 = f"{_SLICE}; image, noise, noodle and felt textures come with M10"
 
 
 def _rot_y(theta: float, p: np.ndarray) -> np.ndarray:
@@ -107,6 +119,8 @@ class SceneBuilder:
 class _Compiler:
     def __init__(self):
         self.spheres: list[tuple] = []  # (c0, vel, radius, mat_id)
+        self.quads: list[tuple] = []  # (q, u, v, mat_id, inward)
+        self.boxes: list[tuple] = []  # (bmin, bmax, cos, sin, off, mat_id)
         self.mats: list[dict] = []
         self.texs: list[dict] = []
         self._mat_ids: dict[int, int] = {}
@@ -134,7 +148,7 @@ class _Compiler:
             row["child"] = (self.tex_id(tex.even), self.tex_id(tex.odd))
         elif isinstance(tex, (X.ImageTexture, X.NoiseTexture, X.NoodleTexture,
                               X.FeltTexture, X.UVOffset)):
-            raise NotImplementedError(f"{type(tex).__name__}: {_SLICE}")
+            raise NotImplementedError(f"{type(tex).__name__}: {_M10}")
         else:
             raise TypeError(f"unknown texture type: {type(tex)!r}")
 
@@ -199,25 +213,30 @@ class _Compiler:
             vel = (xf.apply_point(obj.center2) - c0 if obj.center2 is not None
                    else np.zeros(3))
             self.spheres.append((c0, vel, float(obj.radius), self.mat_id(mat)))
+        elif isinstance(obj, O.Quad):
+            mat = material_override or obj.material
+            self.quads.append((xf.apply_point(obj.q), xf.apply_vector(obj.u),
+                               xf.apply_vector(obj.v), self.mat_id(mat),
+                               bool(obj.inward)))
+        elif isinstance(obj, O.Box):
+            mat = material_override or obj.material
+            a = np.asarray(obj.a, np.float64)
+            b = np.asarray(obj.b, np.float64)
+            self.boxes.append((np.minimum(a, b), np.maximum(a, b), math.cos(xf.theta),
+                               math.sin(xf.theta), xf.offset.copy(), self.mat_id(mat)))
         elif isinstance(obj, O.Group):
             for child in obj.children:
                 self.visit(child, xf, material_override)
-        elif isinstance(obj, (O.Quad, O.Box, O.ConstantMedium)):
-            raise NotImplementedError(f"{type(obj).__name__}: {_SLICE}")
+        elif isinstance(obj, O.ConstantMedium):
+            raise NotImplementedError(f"{type(obj).__name__}: {_M8}")
         else:
             raise TypeError(f"unknown scene object: {type(obj)!r}")
 
     def finish(self) -> SceneTables:
         f32 = np.float32
-        if not self.spheres:
-            raise NotImplementedError(f"a scene without spheres: {_SLICE}")
         if not self.mats:
             self.mat_id(M.Lambertian((0.5, 0.5, 0.5)))
         arrays = dict(
-            sph_center=np.stack([s[0] for s in self.spheres]).astype(f32),
-            sph_vel=np.stack([s[1] for s in self.spheres]).astype(f32),
-            sph_radius=np.asarray([s[2] for s in self.spheres], f32),
-            sph_mat=np.asarray([s[3] for s in self.spheres], np.int32),
             mat_type=np.asarray([m["type"] for m in self.mats], np.int32),
             mat_tex=np.asarray([m["tex"] for m in self.mats], np.int32),
             mat_rgb=np.asarray([m["rgb"] for m in self.mats], f32),
@@ -226,7 +245,49 @@ class _Compiler:
             mat_packed=np.asarray(
                 [[m["type"], m["tex"], m["fuzz"], m["ref_idx"], *m["rgb"], 0.0]
                  for m in self.mats], f32),
+            n_spheres=len(self.spheres), n_quads=len(self.quads),
+            n_boxes=len(self.boxes), shade_consts=self._shade_consts(),
         )
+        if self.spheres:
+            arrays.update(
+                sph_center=np.stack([s[0] for s in self.spheres]).astype(f32),
+                sph_vel=np.stack([s[1] for s in self.spheres]).astype(f32),
+                sph_radius=np.asarray([s[2] for s in self.spheres], f32),
+                sph_mat=np.asarray([s[3] for s in self.spheres], np.int32),
+            )
+        if self.quads:
+            qs, us, vs = (np.stack([q[k] for q in self.quads]).astype(np.float64)
+                          for k in range(3))
+            inward = np.asarray([q[4] for q in self.quads])
+            n = np.cross(us, vs)
+            nn = np.sum(n * n, axis=-1, keepdims=True)
+            normal = n / np.sqrt(nn)
+            normal = np.where(inward[:, None], -normal, normal)  # src/quad.cuh:35
+            w = n / nn  # src/quad.cuh:38
+            avec = np.cross(vs, w)  # alpha = dot(avec, p) - dot(avec, q)
+            bvec = np.cross(w, us)
+            mats = np.asarray([q[3] for q in self.quads], np.int32)
+            arrays.update(
+                quad_q=qs.astype(f32), quad_u=us.astype(f32), quad_v=vs.astype(f32),
+                quad_w=w.astype(f32), quad_n=normal.astype(f32),
+                quad_d=np.sum(normal * qs, axis=-1).astype(f32), quad_mat=mats,
+                quad_avec=avec.astype(f32), quad_bvec=bvec.astype(f32),
+                quad_ca=np.sum(avec * qs, axis=-1).astype(f32),
+                quad_cb=np.sum(bvec * qs, axis=-1).astype(f32),
+                quad_attr_packed=self._quad_attr_packed(),
+            )
+        if self.boxes:
+            coss = np.asarray([b[2] for b in self.boxes], f32)
+            sins = np.asarray([b[3] for b in self.boxes], f32)
+            arrays.update(
+                box_min=np.stack([b[0] for b in self.boxes]).astype(f32),
+                box_max=np.stack([b[1] for b in self.boxes]).astype(f32),
+                box_cos=coss, box_sin=sins,
+                box_off=np.stack([b[4] for b in self.boxes]).astype(f32),
+                box_mat=np.asarray([b[5] for b in self.boxes], np.int32),
+                # a 180-degree rotation has sin == 0 but cos == -1
+                has_rotated_boxes=bool(np.any((sins != 0.0) | (coss != 1.0))),
+            )
         if self.texs:
             arrays.update(
                 tex_type=np.asarray([x["type"] for x in self.texs], np.int32),
@@ -242,9 +303,81 @@ class _Compiler:
             )
         return _tables(arrays)
 
+    def _quad_attr_packed(self) -> np.ndarray:
+        """(Q, 16) [q u v w n mat] rows for the winner attributes, w and n
+        recomputed per quad in float64 as ``art_tpu`` does (builder.py:629)."""
+        qa = np.zeros((len(self.quads), 16), np.float64)
+        for i, (q, u, v, mid, inward) in enumerate(self.quads):
+            n = np.cross(u, v)
+            nn = float(np.dot(n, n))
+            normal = n / np.sqrt(nn)
+            if inward:
+                normal = -normal
+            qa[i] = [*q, *u, *v, *(n / nn), *normal, mid]
+        return qa.astype(np.float32)
 
-# one dummy row per empty texture table, as art_tpu's empty_tables()
-_EMPTY_TEX = dict(
+    def _shade_consts(self):
+        """Baked material/texture constants for the shade kernel's baked mode
+        (``art_tpu/scene/builder.py:_shade_consts``), gated as there: at
+        most 24 materials, each texture a solid or a checker of solids.
+
+        Returns ``(mats, specials)`` or None; ``mats[i] = (mtype, fuzz,
+        ref_idx, metal_rgb3, tex_kind, tex_data)`` with tex_kind 0 solid
+        (rgb3) or 1 checker (inv_scale, even3, odd3), every value rounded to
+        float32.  ``specials`` (image / noise / noodle / felt leaves) stays
+        empty: those textures come with M10 and ``tex_id`` refuses them."""
+        if not self.mats or len(self.mats) > MAX_BAKED_MATS:
+            return None
+
+        def f32(v):
+            return float(np.float32(v))
+
+        mats = []
+        for m in self.mats:
+            ty = int(m["type"])
+            tex_kind, tex_data = 0, (0.0, 0.0, 0.0)
+            if ty in (MatType.LAMBERTIAN, MatType.DIFFUSE_LIGHT, MatType.ISOTROPIC):
+                tx = self.texs[int(m["tex"])]
+                if tx["type"] == TexType.SOLID:
+                    tex_data = tuple(f32(v) for v in tx["rgb"])
+                elif tx["type"] == TexType.CHECKER:
+                    even, odd = (self.texs[int(c)] for c in tx["child"])
+                    if even["type"] != TexType.SOLID or odd["type"] != TexType.SOLID:
+                        return None
+                    tex_kind = 1
+                    tex_data = (f32(tx["params"][0]), tuple(f32(v) for v in even["rgb"]),
+                                tuple(f32(v) for v in odd["rgb"]))
+                else:
+                    raise NotImplementedError(f"texture kind {tx['type']}: {_M10}")
+            mats.append((ty, f32(m["fuzz"]), f32(m["ref_idx"]),
+                         tuple(f32(v) for v in m["rgb"]), tex_kind, tex_data))
+        return (tuple(mats), ())
+
+
+# one dummy row per empty table, as art_tpu's empty_tables()
+_EMPTY = dict(
+    sph_center=np.zeros((1, 3), np.float32),
+    sph_vel=np.zeros((1, 3), np.float32),
+    sph_radius=np.ones((1,), np.float32),
+    sph_mat=np.zeros((1,), np.int32),
+    quad_q=np.zeros((1, 3), np.float32),
+    quad_u=np.asarray([[1.0, 0, 0]], np.float32),
+    quad_v=np.asarray([[0, 1.0, 0]], np.float32),
+    quad_w=np.asarray([[0, 0, 1.0]], np.float32),
+    quad_n=np.asarray([[0, 0, 1.0]], np.float32),
+    quad_d=np.zeros((1,), np.float32),
+    quad_mat=np.zeros((1,), np.int32),
+    quad_avec=np.asarray([[1.0, 0, 0]], np.float32),
+    quad_bvec=np.asarray([[0, 1.0, 0]], np.float32),
+    quad_ca=np.zeros((1,), np.float32),
+    quad_cb=np.zeros((1,), np.float32),
+    quad_attr_packed=np.zeros((1, 16), np.float32),
+    box_min=np.zeros((1, 3), np.float32),
+    box_max=np.ones((1, 3), np.float32),
+    box_cos=np.ones((1,), np.float32),
+    box_sin=np.zeros((1,), np.float32),
+    box_off=np.zeros((1, 3), np.float32),
+    box_mat=np.zeros((1,), np.int32),
     tex_type=np.zeros((1,), np.int32),
     tex_rgb=np.ones((1, 3), np.float32),
     tex_rgb2=np.zeros((1, 3), np.float32),
@@ -255,41 +388,52 @@ _EMPTY_TEX = dict(
     tex_types_present=(),
 )
 
-_ARRAY_FIELDS = (
-    "sph_center", "sph_vel", "sph_radius", "sph_mat",
-    "mat_type", "mat_tex", "mat_rgb", "mat_fuzz", "mat_ref_idx",
-    "tex_type", "tex_rgb", "tex_rgb2", "tex_params", "tex_child", "tex_img",
-    "mat_packed", "tex_packed",
-)
+# SceneTables' array fields that art_tpu has too (the kernel tables are the
+# port's own and are built here)
+_ARRAY_FIELDS = tuple(k for k in _EMPTY if k != "tex_types_present") + (
+    "mat_type", "mat_tex", "mat_rgb", "mat_fuzz", "mat_ref_idx", "mat_packed")
 
 
 def _tables(arrays: dict) -> SceneTables:
-    a = {**_EMPTY_TEX, **arrays}
+    a = {**_EMPTY, **arrays}
     t = {k: torch.from_numpy(np.array(a[k])) for k in _ARRAY_FIELDS}
-    n = int(a.get("n_spheres", t["sph_center"].shape[0]))
-    for k in ("sph_center", "sph_vel", "sph_radius", "sph_mat"):
-        t[k] = t[k][:n]
+    # a count not given is the number of rows given (0 for a dummy table)
+    n_s, n_q, n_b = (int(a.get(f"n_{k}", len(arrays.get(f"{p}_mat", ()))))
+                     for k, p in (("spheres", "sph"), ("quads", "quad"), ("boxes", "box")))
+    rotated = bool(a.get("has_rotated_boxes", False))
+    consts = a.get("shade_consts")
     return SceneTables(
         **t,
         sph_rows=sphere_rows(t["sph_center"], t["sph_vel"], t["sph_radius"],
-                             t["sph_mat"]),
-        n_spheres=n,
+                             t["sph_mat"])[:n_s],
+        quad_rows=quad_rows(t["quad_n"], t["quad_d"], t["quad_avec"], t["quad_ca"],
+                            t["quad_bvec"], t["quad_cb"])[:n_q],
+        box_rows=box_rows(t["box_min"], t["box_max"], t["box_cos"], t["box_sin"],
+                          t["box_off"], t["box_mat"], rotated)[:n_b],
+        n_spheres=n_s, n_quads=n_q, n_boxes=n_b,
         has_moving=bool(a.get("has_moving", bool(np.any(a["sph_vel"] != 0.0)))),
+        has_rotated_boxes=rotated,
         tex_types_present=tuple(int(x) for x in a["tex_types_present"]),
+        shade_consts=consts,
+        shade_rows=shade_rows(consts),
     )
 
 
 def tables_from_numpy(arrays: dict, camera: dict) -> tuple[SceneTables, Camera]:
     """Port tables + camera from ``art_tpu`` fields given as numpy arrays.
 
-    ``arrays`` maps ``SceneTables`` field names (at least the sphere,
-    material and texture fields; optionally ``n_spheres``, ``has_moving``
-    and ``tex_types_present``) to values; ``camera`` maps the ``Camera``
-    field names to (3,) or scalar arrays.  Scenes with quads, boxes or media
-    raise ``NotImplementedError``."""
-    for k in ("n_quads", "n_boxes", "n_media"):
-        if int(arrays.get(k, 0)):
-            raise NotImplementedError(f"{k}={int(arrays[k])}: {_SLICE}")
+    ``arrays`` maps ``SceneTables`` field names (at least the material and
+    texture fields and those of each primitive kind present; optionally
+    ``n_spheres``, ``n_quads``, ``n_boxes``, ``has_moving``,
+    ``has_rotated_boxes``, ``tex_types_present`` and ``shade_consts``) to
+    values; ``camera`` maps the ``Camera`` field names to (3,) or scalar
+    arrays.  Scenes with media raise ``NotImplementedError`` (M8), and so do
+    baked constants with special texture leaves (M10)."""
+    if int(arrays.get("n_media", 0)):
+        raise NotImplementedError(f"n_media={int(arrays['n_media'])}: {_M8}")
+    consts = arrays.get("shade_consts")
+    if consts is not None and consts[1]:
+        raise NotImplementedError(f"shade_consts with special texture leaves: {_M10}")
     if "tex_types_present" not in arrays:
         arrays = dict(arrays, tex_types_present=tuple(
             sorted({int(x) for x in np.asarray(arrays["tex_type"])})))

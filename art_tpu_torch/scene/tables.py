@@ -1,15 +1,33 @@
-"""Flat SoA scene tables — the slice-1 subset of ``art_tpu/scene/tables.py``.
+"""Flat SoA scene tables — the ported subset of ``art_tpu/scene/tables.py``.
 
-Spheres, materials and textures with the same fields, dtypes and row
-layouts as ``art_tpu``'s ``SceneTables`` (``tables.py:68-200``), so tables
-compiled by either package compare field by field.  Quads, boxes and media
-arrive with later slices; their counts are here and are 0.
+Spheres, quads, oriented boxes, materials and textures with the same
+fields, dtypes and row layouts as ``art_tpu``'s ``SceneTables``
+(``tables.py:68-200``), so tables compiled by either package compare field
+by field, and ``shade_consts`` in its ``(mats, specials)`` form.  Media
+arrive with a later slice; their count is here and is 0.
 
-``sph_rows`` is the sphere kernel's table (``csrc/sphere_hit.cu``): one
-scene-order row ``[cx cy cz vx vy vz r_signed mat r2 0]`` per sphere, with
-``r2 = r * r`` rounded in float32 exactly as ``sphere_candidates_p`` rounds
-it.  Unlike ``art_tpu``'s ``sph_packed`` it keeps scene order, so the
-kernel and the plain path break exact ties the same way.
+Beside them, the kernels' own tables (built once per scene, on the host):
+
+* ``sph_rows`` (S, 10), the sphere kernel's (``csrc/sphere_hit.cu``): one
+  scene-order row ``[cx cy cz vx vy vz r_signed mat r2 0]`` per sphere, with
+  ``r2 = r * r`` rounded in float32 exactly as ``sphere_candidates_p``
+  rounds it.  Unlike ``art_tpu``'s ``sph_packed`` it keeps scene order, so
+  the kernel and the plain path break exact ties the same way.
+* ``quad_rows`` (Q, 12), the quad kernel's (``csrc/quad_hit.cu``):
+  ``[n(3) D avec(3) ca bvec(3) cb]`` in scene order, the layout of
+  ``art_tpu``'s ``pack_quads`` (``pallas_kernels.py:1919``) without its
+  padding.
+* ``box_rows`` (B, 12), the box kernel's (``csrc/box_hit.cu``):
+  ``[min(3) max(3) cos sin off(3) mat]``, the layout of ``pack_boxes``
+  (``pallas_kernels.py:2665``) without its padding — when no box is rotated
+  the offsets are folded into min/max (world AABBs, off = 0), as the TPU
+  kernel reads them.
+* ``shade_rows`` (M, 16), the baked shade kernel's constants
+  (``csrc/shade_flush.cu``), from ``shade_consts``: ``[mtype fuzz ref_idx
+  malb(3) tex_kind isc rgb_or_even(3) odd(3) 0 0]``, holding the values
+  ``art_tpu``'s baked kernel compiles in (fuzz 0, ref_idx 1, albedo 0 and
+  texture value 0 where a material family does not use them); ``None``
+  when the scene fails the baked gate.
 """
 
 from __future__ import annotations
@@ -18,6 +36,9 @@ import dataclasses
 from enum import IntEnum
 
 import torch
+
+
+MAX_BAKED_MATS = 24  # the baked shade mode's gate (art_tpu builder.py:877)
 
 
 class MatType(IntEnum):
@@ -50,6 +71,28 @@ class SceneTables:
     sph_radius: torch.Tensor  # (S,) signed (negative = inward normals)
     sph_mat: torch.Tensor  # (S,) int32
     sph_rows: torch.Tensor  # (S,10) kernel rows, see the module docstring
+    # ---- quads (reference src/quad.cuh; instancing baked in) ----
+    quad_q: torch.Tensor  # (Q,3)
+    quad_u: torch.Tensor  # (Q,3)
+    quad_v: torch.Tensor  # (Q,3)
+    quad_w: torch.Tensor  # (Q,3) n / dot(n,n)
+    quad_n: torch.Tensor  # (Q,3) unit normal, inward flip applied
+    quad_d: torch.Tensor  # (Q,) plane constant dot(n, Q)
+    quad_mat: torch.Tensor  # (Q,) int32
+    quad_avec: torch.Tensor  # (Q,3) v x w: alpha = dot(avec, p) - ca
+    quad_bvec: torch.Tensor  # (Q,3) w x u: beta = dot(bvec, p) - cb
+    quad_ca: torch.Tensor  # (Q,)
+    quad_cb: torch.Tensor  # (Q,)
+    quad_attr_packed: torch.Tensor  # (Q,16) [q(3) u(3) v(3) w(3) n(3) mat]
+    quad_rows: torch.Tensor  # (Q,12) kernel rows, see the module docstring
+    # ---- oriented boxes (redesign of compound6, src/quad.cuh:94-162) ----
+    box_min: torch.Tensor  # (B,3) object-space AABB min
+    box_max: torch.Tensor  # (B,3)
+    box_cos: torch.Tensor  # (B,) y-rotation cos (1 for axis-aligned)
+    box_sin: torch.Tensor  # (B,) y-rotation sin (0 for axis-aligned)
+    box_off: torch.Tensor  # (B,3) world offset
+    box_mat: torch.Tensor  # (B,) int32
+    box_rows: torch.Tensor  # (B,12) kernel rows, see the module docstring
     # ---- materials ----
     mat_type: torch.Tensor  # (M,) int32 MatType
     mat_tex: torch.Tensor  # (M,) int32 texture id
@@ -73,6 +116,11 @@ class SceneTables:
     n_quads: int = 0
     n_boxes: int = 0
     n_media: int = 0
+    has_rotated_boxes: bool = False
+    # baked material/texture constants (scene/builder._shade_consts):
+    # (mats, specials) or None, and their kernel table
+    shade_consts: tuple | None = None
+    shade_rows: torch.Tensor | None = None
 
     def to(self, device) -> "SceneTables":
         """The same tables with every tensor on ``device``."""
@@ -94,3 +142,45 @@ def sphere_rows(center, vel, radius, mat) -> torch.Tensor:
         (r * r)[:, None],
         torch.zeros_like(r)[:, None],
     ], dim=1).contiguous()
+
+
+def quad_rows(n, d, avec, ca, bvec, cb) -> torch.Tensor:
+    """(Q,12) float32 kernel rows [n(3) D avec(3) ca bvec(3) cb]."""
+    return torch.cat([n, d[:, None], avec, ca[:, None], bvec, cb[:, None]],
+                     dim=1).to(torch.float32).contiguous()
+
+
+def box_rows(bmin, bmax, cos_t, sin_t, off, mat, rotated: bool) -> torch.Tensor:
+    """(B,12) float32 kernel rows [min(3) max(3) cos sin off(3) mat]; with no
+    rotated box the offsets fold into min/max in float32 (``pack_boxes``)."""
+    if not rotated:
+        bmin, bmax, off = bmin + off, bmax + off, torch.zeros_like(off)
+    return torch.cat([bmin, bmax, cos_t[:, None], sin_t[:, None], off,
+                      mat.to(torch.float32)[:, None]], dim=1).contiguous()
+
+
+def shade_rows(shade_consts) -> torch.Tensor | None:
+    """(M,16) float32 constants of the baked shade kernel from
+    ``shade_consts``'s material tuples (mtype, fuzz, ref_idx, metal_rgb3,
+    tex_kind, tex_data); tex_kind 0 is a solid (rgb3), 1 a checker of solids
+    (inv_scale, even3, odd3)."""
+    if shade_consts is None:
+        return None
+    rows = []
+    for mtype, fuzz, ref_idx, malb, kind, data in shade_consts[0]:
+        # a family that does not read a value gets art_tpu's blend default
+        row = [float(mtype), fuzz if mtype == MatType.METAL else 0.0,
+               ref_idx if mtype == MatType.DIELECTRIC else 1.0,
+               *(malb if mtype == MatType.METAL else (0.0, 0.0, 0.0)),
+               float(kind), 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+        if mtype in (MatType.LAMBERTIAN, MatType.DIFFUSE_LIGHT, MatType.ISOTROPIC):
+            if kind == 0:
+                row[8:11] = data
+            elif kind == 1:
+                row[7], row[8:11], row[11:14] = data[0], data[1], data[2]
+            else:
+                raise NotImplementedError(
+                    "special texture leaves (image, noise, noodle, felt) come "
+                    "with M10 in a later slice of art_tpu_torch")
+        rows.append(row)
+    return torch.tensor(rows, dtype=torch.float32)

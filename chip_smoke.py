@@ -5,21 +5,29 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each runs; any failure exits non-zero without the final result):
  1. the card (``nvidia-smi`` name and power limit), ``nvcc``, and the build of
-    every kernel from ``art_tpu_torch/csrc`` (timed);
- 2. each kernel (K1 refill, K2 sphere hit, K3 shade+flush) against its plain
-    PyTorch twin on the card, at the pool size R that ``plan_batches`` picks
-    for bouncing_spheres 1200x800, with inputs and injected uniforms from a
-    numpy seed; then both timed with CUDA events;
+    every kernel from ``art_tpu_torch/csrc`` (one nvcc per source, in
+    parallel; timed);
+ 2. each kernel against its plain PyTorch twin on the card, with inputs and
+    injected uniforms from a numpy seed, then both timed with CUDA events
+    behind a device spin, beside the least time the card could take for the
+    same work (bound): K1 refill, K2 sphere hit and plane-fed K3 shade+flush
+    at the pool size R that ``plan_batches`` picks for bouncing_spheres
+    1200x800; K5 quad hit, K6 box hit (rotated: cornell_box; unrotated: a
+    scene of translated boxes) and baked K3 (cornell_box, and a checker
+    scene) at cornell_box 600x600's R;
  3. the in-kernel Philox uniforms: range, mean, variance, and that they
     change across iterations and slots;
- 4. renders through ``render_scene`` on the card: three_spheres 400x225 @ 16
-    and bouncing_spheres 1200x800 @ 64 (the launch counts of that render
-    show it went through all three kernels); then the kernel path against
-    the plain path on the same injected uniforms (64x32 @ 16) and, with
-    independent seeds, statistically (96x64 @ 256).
+ 4. renders through ``render_scene`` on the card, each with the launch
+    counts set to 0 just before it and read just after:
+    three_spheres 400x225 @ 16 (baked K3), bouncing_spheres 1200x800 @ 64
+    (K1, K2, plane-fed K3) and cornell_box 600x600 @ 64, this slice's main
+    path (K1, K5, K6, K2, baked K3); then, per scene, the kernel path
+    against the plain path on the same injected uniforms and, with
+    independent seeds, statistically.
 
-Standard output ends with a JSON line of per-kernel results and then
-``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
+Standard output ends with a JSON line of per-kernel results, the card's
+name and power limit, and then ``{"ok": true, "device": {...}}``.  Needs
+``torch.cuda.is_available()``.
 """
 
 from __future__ import annotations
@@ -35,17 +43,45 @@ import numpy as np
 SEED = 2026
 SPIN_CYCLES = 40_000_000  # ~20 ms of device spin: longer than any call's host enqueue
 # (scene, nx, ny, spp) of the renders
-MAIN = ("bouncing_spheres", 1200, 800, 64)
+MAIN = ("cornell_box", 600, 600, 64)  # this slice's main path
+BOUNCING = ("bouncing_spheres", 1200, 800, 64)
 THREE = ("three_spheres", 400, 225, 16)
-SAME_UNIFORMS = (64, 32, 16)
-INDEPENDENT = (96, 64, 256)
+# (nx, ny, spp) of the kernel-vs-plain renders, per scene
+SAME_UNIFORMS = {"three_spheres": (64, 32, 16), "bouncing_spheres": (64, 32, 16),
+                 "cornell_box": (64, 64, 16)}
+INDEPENDENT = {"three_spheres": (96, 64, 256), "bouncing_spheres": (96, 64, 256),
+               "cornell_box": (96, 96, 256)}
 KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "refill": ("art_tpu_torch/csrc/refill.cu", "art_tpu/ops/refill_kernel.py:284"),
     "sphere_hit": ("art_tpu_torch/csrc/sphere_hit.cu",
                    "art_tpu/ops/pallas_kernels.py:282"),
     "shade_flush": ("art_tpu_torch/csrc/shade_flush.cu",
                     "art_tpu/ops/shade_kernel.py:331"),
+    "shade_flush_baked": ("art_tpu_torch/csrc/shade_flush.cu",
+                          "art_tpu/ops/shade_kernel.py:331"),
+    "quad_hit": ("art_tpu_torch/csrc/quad_hit.cu", "art_tpu/ops/pallas_kernels.py:1890"),
+    "box_hit": ("art_tpu_torch/csrc/box_hit.cu", "art_tpu/ops/pallas_kernels.py:2139"),
 }
+# which renders of phase 4 must launch which kernels (the launch-count gate)
+PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
+         "bouncing_spheres": ("refill", "sphere_hit", "shade_flush"),
+         "cornell_box": ("refill", "quad_hit", "box_hit", "sphere_hit",
+                         "shade_flush_baked")}
+# The least time the card could take (NVIDIA H100
+# SXM data sheet): bytes over the HBM rate, or operations over the FP32 rate
+# outside the tensor cores, which counts an FMA as two operations; these
+# kernels are built with -fmad=false, so their own ceiling is half of it.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operations per (ray, primitive) by hand count of each kernel's inner loop
+OPS_SPHERE = 25  # center at time 6, oc 3, b 5, c 6, disc 3, tests and roots
+OPS_QUAD = 44  # n.d 5, n.o 5, t 2, alpha 13, beta 13, tests 6
+OPS_BOX = {True: 54, False: 39}  # frame 15 (rotated), 3 guarded inverses 12,
+#                                   slabs 12, min/max 10, tests 5
+OPS_BOX_WINNER = 80  # the winner's face, normal and (u, v), once per hit
+OPS_PHILOX = 80  # one Philox4x32-10 call: 10 rounds of 2 mul, 2 mulhi, 4 xor/add
+OPS_CAMERA = 45  # one camera ray
+OPS_SHADE = 60  # the dielectric scatter, the longest material path
 
 
 def log(*args):
@@ -99,6 +135,26 @@ def _timed_ms(fn, reps: int, reset=None) -> float:
         if rep:
             total += start.elapsed_time(end)
     return total / reps
+
+
+def _set_bound(entry: dict, nbytes: float, nops: float):
+    """bound_ms: the larger of bytes / HBM rate and operations / FP32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / FP32_OPS_PER_S * 1e3
+    entry.update(bound_ms=max(by_bytes, by_ops),
+                 bound_by="bytes" if by_bytes >= by_ops else "operations",
+                 bound_bytes=float(nbytes), bound_ops=float(nops))
+
+
+def _shade_bytes(state, after, n_rec_bytes: int) -> float:
+    """Bytes K3 must move: act of every slot; a live slot's state (12 f32,
+    bounce, pix, hit: 57 B) and hit-record planes in, its radiance and
+    bounce out (16 B); a survivor's o, d, throughput out (36 B); a death's
+    act and framebuffer add (13 B)."""
+    live = int(state["act"].sum())
+    died = int((state["act"] & ~after["act"]).sum())
+    R = state["act"].shape[0]
+    return R + live * (57 + n_rec_bytes + 16) + (live - died) * 36 + died * 13
 
 
 def card_info(checks: Checks, dev):
@@ -217,6 +273,12 @@ def kernel_checks(checks: Checks, dev, results: dict):
                              key=(1984, 3, 1)),
             20 if name == "ms" else 5, reset=lambda: _restore(work, base))
     results["refill"]["max_abs_err"] = k1_err
+    # Philox mode as timed: act of every slot in; 5 uniform planes out for
+    # every slot (2 Philox calls); a taken (dead) slot's 13 f32 + bounce +
+    # pix + act out (61 B), one more Philox call and a camera ray
+    taken = int((~base["act"]).sum())
+    _set_bound(results["refill"], R * (1 + 20) + taken * 61,
+               R * 2 * OPS_PHILOX + taken * (OPS_PHILOX + OPS_CAMERA))
 
     # ---- K2: closest sphere ----
     o = (refilled["ox"], refilled["oy"], refilled["oz"])
@@ -248,6 +310,9 @@ def kernel_checks(checks: Checks, dev, results: dict):
     results["sphere_hit"]["ms"] = _timed_ms(lambda: sphere_hit_attrs(tables, o, d, tm), 10)
     results["sphere_hit"]["plain_ms"] = _timed_ms(
         lambda: sphere_hit_attrs_plain(tables, o, d, tm), 3)
+    # 7 planes in, 5 out per ray; the sphere table once
+    _set_bound(results["sphere_hit"], R * 48 + tables.n_spheres * 40,
+               R * tables.n_spheres * OPS_SPHERE)
 
     # ---- K3: shade + integrate + flush ----
     rec = closest_surface_p(tables, o, d, tm, T_MIN, plain=True)
@@ -300,9 +365,202 @@ def kernel_checks(checks: Checks, dev, results: dict):
             lambda fn=fn: fn(work, rec.hit, planes, scene.background, fb_t, lost_t,
                              max_depth=50, gradient=False),
             20 if name == "ms" else 5, reset=lambda: _restore(work, state))
-    for name, r in results.items():
+    _set_bound(results["shade_flush"], _shade_bytes(state, pp, 19 * 4),
+               int(state["act"].sum()) * OPS_SHADE)
+    _log_kernels(results, ("refill", "sphere_hit", "shade_flush"))
+
+
+def _log_kernels(results, names):
+    for name in names:
+        r = results[name]
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"max abs err {r['max_abs_err']:.3g}")
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
+            f"{r['max_abs_err']:.3g}")
+
+
+def _box_scene(checker: bool):
+    """Translated, unrotated boxes (offsets folded into the kernel rows), a
+    floor quad and a glass sphere; with ``checker`` the floor is a checker
+    of solids, so baked K3 takes its parity path."""
+    from art_tpu_torch.scene import materials as M
+    from art_tpu_torch.scene import objects as O
+    from art_tpu_torch.scene import textures as X
+    from art_tpu_torch.scene.builder import SceneBuilder
+
+    floor = (X.Checker(0.5, X.SolidColor((0.2, 0.3, 0.1)), X.SolidColor((0.9, 0.9, 0.9)))
+             if checker else X.SolidColor((0.5, 0.5, 0.5)))
+    b = SceneBuilder().add(
+        O.Quad((-4, 0, -4), (8, 0, 0), (0, 0, 8), M.Lambertian(floor), inward=True),
+        O.Translate(O.Box((0, 0, 0), (1.25, 0.75, 1.5), M.Lambertian((0.7, 0.7, 0.7))),
+                    (-2.3, 0.0, -0.7)),
+        O.Translate(O.Box((0, 0, 0), (0.8, 1.9, 0.6), M.Metal((0.8, 0.7, 0.6), 0.2)),
+                    (0.4, 0.1, 0.35)),
+        O.Box((1.5, 0, -2.5), (2.5, 1.0, -1.5), M.DiffuseLight((4.0, 4.0, 4.0))),
+        O.Sphere((0.0, 2.5, 0.0), 0.6, M.Dielectric(1.5)),
+    )
+    b.set_camera(lookfrom=(0, 3, 8), lookat=(0, 0.5, 0), vup=(0, 1, 0),
+                 vfov_degrees=45.0, aspect=1.0, time0=0.0, time1=1.0)
+    return b.compile()
+
+
+def _scene_rays(rng, R, lo, hi, dev):
+    import torch
+
+    o = tuple(torch.from_numpy(rng.uniform(lo, hi, R).astype(np.float32)).to(dev)
+              for _ in range(3))
+    d = tuple(torch.from_numpy(rng.uniform(-1.0, 1.0, R).astype(np.float32)).to(dev)
+              for _ in range(3))
+    return o, d
+
+
+def quad_box_checks(checks: Checks, dev, results: dict):
+    """K5, K6 and baked K3 against their twins at cornell_box 600x600's R."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG, T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops.intersect import closest_surface_p
+    from art_tpu_torch.ops.intersect_kernels import (
+        box_hit_attrs,
+        box_hit_attrs_plain,
+        quad_closest_hit,
+        quad_closest_hit_plain,
+    )
+    from art_tpu_torch.ops.shade_kernel import REC_BAKED, STATE_F, shade_flush, shade_flush_plain
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    rng = np.random.default_rng(SEED + 1)
+    name, nx, ny, spp = MAIN
+    cornell = build_scene(name, nx, ny).to(dev)
+    tables = cornell.tables
+    tile_pixels, _, R = plan_batches(nx * ny, spp, tables.n_quads, RenderConfig(), dev)
+    log(f"  R = {R} slots, tile {tile_pixels} px; cornell_box: {tables.n_quads} quads, "
+        f"{tables.n_boxes} boxes (rotated {tables.has_rotated_boxes}), "
+        f"{tables.n_spheres} spheres, {tables.shade_rows.shape[0]} baked materials")
+    budget = max(2, 2 * R // 8192)
+    boxes = _box_scene(checker=True).to(dev)
+    cases = {"cornell_box": (cornell, _scene_rays(rng, R, 0.0, 555.0, dev)),
+             "translated boxes": (boxes, _scene_rays(rng, R, -4.0, 4.0, dev))}
+
+    # ---- K5: closest quad ----
+    k5_err = 0.0
+    for label, (scene, (o, d)) in cases.items():
+        for t_min in (T_MIN, 50.0 if label == "cornell_box" else 0.5):
+            kt, ki = quad_closest_hit(scene.tables, o, d, t_min)
+            pt, pi = quad_closest_hit_plain(scene.tables, o, d, t_min)
+            torch.cuda.synchronize()
+            flips = int((ki != pi).sum())
+            same = ki == pi
+            t_err = _max_diff(kt, pt, same)
+            t_rel = float(((kt - pt).abs() / pt.abs().clamp_min(1e-30))[same].max())
+            checks.expect(flips <= budget and t_rel <= 1e-6,
+                          f"K5 {label} t_min {t_min:g}: {flips} index flips (<= {budget}), "
+                          f"{int((ki >= 0).sum())} hits, t max abs err {t_err:.3g} "
+                          f"(rel {t_rel:.3g} <= 1e-6)")
+            k5_err = max(k5_err, t_err)
+    results["quad_hit"]["max_abs_err"] = k5_err
+
+    # ---- K6: closest oriented box, rotated (cornell_box) and unrotated ----
+    k6_err = 0.0
+    for label, (scene, (o, d)) in cases.items():
+        rot = scene.tables.has_rotated_boxes
+        for t_min in (T_MIN, 50.0 if label == "cornell_box" else 0.5):
+            k = box_hit_attrs(scene.tables, o, d, t_min)
+            p = box_hit_attrs_plain(scene.tables, o, d, t_min)
+            torch.cuda.synchronize()
+            khit, phit = k[0] < BIG, p[0] < BIG
+            same = (khit == phit) & (~khit | (k[4] == p[4]))
+            flips = int((~same).sum())
+            both = same & khit
+            errs = [_max_diff(k[0], p[0], both)] + [_max_diff(k[1][c], p[1][c], both)
+                                                   for c in range(3)] + [
+                _max_diff(k[2], p[2], both), _max_diff(k[3], p[3], both)]
+            t_rel = float(((k[0] - p[0]).abs() / p[0].abs().clamp_min(1e-30))[both].max())
+            checks.expect(flips <= budget and t_rel <= 1e-6 and max(errs[1:]) <= 1e-5,
+                          f"K6 {label} (rotated {rot}) t_min {t_min:g}: {flips} hit/"
+                          f"material flips (<= {budget}), {int(khit.sum())} hits, t max "
+                          f"rel err {t_rel:.3g} (<= 1e-6), normal/u/v max err "
+                          f"{max(errs[1:]):.3g} (<= 1e-5)")
+            k6_err = max(k6_err, *errs)
+    results["box_hit"]["max_abs_err"] = k6_err
+
+    o, d = cases["cornell_box"][1]
+    results["quad_hit"]["ms"] = _timed_ms(lambda: quad_closest_hit(tables, o, d), 20)
+    results["quad_hit"]["plain_ms"] = _timed_ms(lambda: quad_closest_hit_plain(tables, o, d), 5)
+    _set_bound(results["quad_hit"], R * 32 + tables.n_quads * 48,
+               R * tables.n_quads * OPS_QUAD)
+    results["box_hit"]["ms"] = _timed_ms(lambda: box_hit_attrs(tables, o, d), 20)
+    results["box_hit"]["plain_ms"] = _timed_ms(lambda: box_hit_attrs_plain(tables, o, d), 5)
+    hits = int((box_hit_attrs_plain(tables, o, d)[0] < BIG).sum())
+    _set_bound(results["box_hit"], R * 52 + tables.n_boxes * 48,
+               R * tables.n_boxes * OPS_BOX[True] + hits * OPS_BOX_WINNER)
+    bo, bd = cases["translated boxes"][1]
+    results["box_hit"]["ms_unrotated"] = _timed_ms(
+        lambda: box_hit_attrs(boxes.tables, bo, bd), 20)
+
+    # ---- baked K3 (cornell_box, and the checker scene) ----
+    k3_err = 0.0
+    for label, (scene, (o, d)) in cases.items():
+        st = _random_pool(rng, R, dev)
+        for n, c in zip(("ox", "oy", "oz", "dx", "dy", "dz"), (*o, *d)):
+            st[n].copy_(c)
+        for n in ("r0", "r1", "r2"):  # radiance is >= 0, so sums do not cancel
+            st[n].abs_()
+        st["pix"].remainder_(tile_pixels)
+        n_out = 8  # live slots at their last bounce with a pixel outside the tile
+        st["pix"][:n_out] = torch.tensor([-1, tile_pixels, tile_pixels + 1, -7, 1 << 30,
+                                          tile_pixels * 2, -(1 << 30), tile_pixels + 99],
+                                         dtype=torch.int32, device=dev)
+        st["act"][:n_out] = True
+        st["bounce"][:n_out] = 49
+        rec = closest_surface_p(scene.tables, o, d, st["tm"], T_MIN, plain=True)
+        u = torch.from_numpy(rng.random((4, R), dtype=np.float32)).to(dev)
+        planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u)))
+        consts = scene.tables.shade_rows
+        kp, pp = _clone(st), _clone(st)
+        kfb = torch.zeros((tile_pixels, 3), device=dev)
+        pfb = torch.zeros_like(kfb)
+        klost = torch.zeros(1, dtype=torch.int32, device=dev)
+        plost = torch.zeros_like(klost)
+        for fn, pool, fb, lost in ((shade_flush, kp, kfb, klost),
+                                   (shade_flush_plain, pp, pfb, plost)):
+            fn(pool, rec.hit, planes, scene.background, fb, lost, max_depth=50,
+               gradient=scene.gradient_bg, consts=consts)
+        torch.cuda.synchronize()
+        agree = kp["act"] == pp["act"]
+        flips = int((~agree).sum())
+        err = max(_max_diff(kp[n], pp[n], agree) for n in STATE_F)
+        rel = max(float(((kp[n] - pp[n]).abs() / (pp[n].abs() + 1.0))[agree].max())
+                  for n in STATE_F)
+        touched = torch.zeros(tile_pixels, dtype=torch.bool, device=dev)
+        flipped = st["pix"][~agree].long()
+        touched[flipped[(flipped >= 0) & (flipped < tile_pixels)]] = True
+        fb_err = (kfb - pfb).abs()[~touched]
+        fb_rel = float((fb_err / (pfb.abs()[~touched] + 1e-6)).max())
+        checks.expect(int(klost) == int(plost) == n_out and flips <= budget
+                      and torch.equal(kp["bounce"], pp["bounce"]) and rel <= 2e-4
+                      and fb_rel <= 1e-5,
+                      f"K3 baked {label}: lost {int(klost)} (plain {int(plost)}, want "
+                      f"{n_out}), {flips} live/dead flips (<= {budget}), "
+                      f"{int((st['act'] & ~pp['act']).sum())} died, state max abs err "
+                      f"{err:.3g} (rel {rel:.3g} <= 2e-4), "
+                      f"atomic flush vs index_add max rel err {fb_rel:.3g} (<= 1e-5)")
+        k3_err = max(k3_err, err, float(fb_err.max()))
+        if label == "cornell_box":
+            state, after, c_rec, c_planes = st, pp, rec, planes
+    results["shade_flush_baked"]["max_abs_err"] = k3_err
+    work = _clone(state)
+    fb_t = torch.zeros((tile_pixels, 3), device=dev)
+    lost_t = torch.zeros(1, dtype=torch.int32, device=dev)
+    for name, fn in (("ms", shade_flush), ("plain_ms", shade_flush_plain)):
+        results["shade_flush_baked"][name] = _timed_ms(
+            lambda fn=fn: fn(work, c_rec.hit, c_planes, cornell.background, fb_t, lost_t,
+                             max_depth=50, gradient=False, consts=tables.shade_rows),
+            20 if name == "ms" else 5, reset=lambda: _restore(work, state))
+    _set_bound(results["shade_flush_baked"], _shade_bytes(state, after, 11 * 4),
+               int(state["act"].sum()) * OPS_SHADE)
+    _log_kernels(results, ("quad_hit", "box_hit", "shade_flush_baked"))
+    log(f"  box_hit unrotated: kernel {results['box_hit']['ms_unrotated']:.4f} ms")
 
 
 def philox_checks(checks: Checks, dev):
@@ -346,42 +604,84 @@ def _down(img, grid=(8, 16)):
     return q.reshape(grid[0], h, grid[1], w, 3).mean(axis=(1, 3))
 
 
-def render_checks(checks: Checks, dev, smi: str, results: dict):
-    import torch
+def _light_rows(scene, ny: int):
+    """The framebuffer rows (bottom-up) onto which cornell_box's ceiling
+    light (x 213..343, y 554, z 227..332) projects through the camera."""
+    cam = scene.camera
+    origin, w = np.asarray(cam.origin, np.float64), np.asarray(cam.w, np.float64)
+    llc = np.asarray(cam.lower_left_corner, np.float64) - origin
+    vert = np.asarray(cam.vertical, np.float64)
+    focus = -(llc @ w)
+    ts = []
+    for x in (213.0, 343.0):
+        for z in (227.0, 332.0):
+            rel = np.array([x, 554.0, z]) - origin
+            on_plane = rel * focus / -(rel @ w)  # the point's ray at the viewport
+            ts.append((on_plane - llc) @ vert / (vert @ vert))
+    return int(np.floor(min(ts) * ny)), int(np.ceil(max(ts) * ny))
 
+
+def _render(checks, dev, name, nx, ny, spp, results, counts_by_render, scene=None):
+    """One render with the launch counts set to 0 just before it and read
+    just after; checks that it launched every kernel of its path."""
     from art_tpu_torch.models import build_scene
     from art_tpu_torch.ops import _build
-    from art_tpu_torch.render.renderer import RenderConfig, plan_batches, render_scene
+    from art_tpu_torch.render.renderer import RenderConfig, render_scene
 
-    name, nx, ny, spp = THREE
-    fb, st = render_scene(build_scene(name, nx, ny), RenderConfig(nx=nx, ny=ny, spp=spp),
-                          device=dev)
-    top = fb[-1].mean(axis=0)
-    checks.expect(bool(np.isfinite(fb).all() and (fb >= 0).all()),
-                  f"{name} {nx}x{ny} @ {spp}: finite, >= 0 ({st['seconds']:.3f} s, "
-                  f"{st['mrays_per_sec']:.2f} Mrays/s)")
-    checks.expect(top[2] > top[0], f"three_spheres: top row blue-ish (mean rgb {top})")
-
-    name, nx, ny, spp = MAIN
-    scene = build_scene(name, nx, ny)
+    scene = scene or build_scene(name, nx, ny)
     _build.launches.clear()
     fb, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
     counts = dict(_build.launches)
-    for k in KERNELS:
-        results[k]["launches"] = counts.get(k, 0)
-    checks.expect(all(counts.get(k, 0) > 0 for k in KERNELS),
-                  f"{name} {nx}x{ny} @ {spp} launched every kernel: {counts}")
+    counts_by_render[name] = counts
+    unused = [k for k in KERNELS if k not in PATHS[name] and counts.get(k, 0)]
+    checks.expect(all(counts.get(k, 0) > 0 for k in PATHS[name]) and not unused,
+                  f"{name} {nx}x{ny} @ {spp} launched {PATHS[name]}: {counts}")
     checks.expect(bool(np.isfinite(fb).all() and (fb >= 0).all()),
                   f"{name} {nx}x{ny} @ {spp}: finite, >= 0")
     log(f"  {name} {nx}x{ny} @ {spp}: {st['seconds']:.3f} s, {st['rays']:.0f} rays, "
         f"{st['mrays_per_sec']:.2f} Mrays/s, {st['iterations']} iterations, occupancy "
-        f"{st['occupancy']:.3f}, R {st['n_slots']} on {smi}")
-    results["_render"] = {k: st[k] for k in ("seconds", "rays", "mrays_per_sec",
-                                              "iterations", "occupancy", "n_slots")}
+        f"{st['occupancy']:.3f}, R {st['n_slots']}, {st['tile_pixels']} px tiles")
+    return fb, st
 
-    for name in ("three_spheres", "bouncing_spheres"):
+
+def render_checks(checks: Checks, dev, smi: str, results: dict):
+    import torch
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches, render_scene
+
+    counts_by_render: dict = {}
+    name, nx, ny, spp = THREE
+    fb, _ = _render(checks, dev, name, nx, ny, spp, results, counts_by_render)
+    top = fb[-1].mean(axis=0)
+    checks.expect(top[2] > top[0], f"three_spheres: top row blue-ish (mean rgb {top})")
+
+    name, nx, ny, spp = BOUNCING
+    _render(checks, dev, name, nx, ny, spp, results, counts_by_render)
+
+    name, nx, ny, spp = MAIN
+    scene = build_scene(name, nx, ny)
+    fb, st = _render(checks, dev, name, nx, ny, spp, results, counts_by_render, scene)
+    lum = fb.mean(axis=(1, 2))
+    lo, hi = _light_rows(scene, ny)
+    brightest = int(np.argmax(lum))
+    checks.expect(lo <= brightest <= hi,
+                  f"{name}: brightest row {brightest} (mean {lum[brightest]:.3f}) lies in "
+                  f"the ceiling light's rows {lo}..{hi} (frame mean {lum.mean():.3f})")
+    results["_render"] = {k: st[k] for k in ("seconds", "rays", "mrays_per_sec",
+                                              "iterations", "occupancy", "n_slots",
+                                              "tile_pixels")}
+    results["_render"].update(scene=f"{name} {nx}x{ny} @ {spp}", card=smi)
+    for k in KERNELS:  # counts of this slice's main path (cornell_box)
+        results[k]["launches"] = counts_by_render[name].get(k, 0)
+        results[k]["launches_by_render"] = {
+            scene: c.get(k, 0) for scene, c in counts_by_render.items()}
+    # plane-fed K3 is not on cornell_box's path: its count is bouncing_spheres'
+    results["shade_flush"]["launches"] = counts_by_render["bouncing_spheres"]["shade_flush"]
+
+    for name in ("three_spheres", "bouncing_spheres", "cornell_box"):
         # same injected uniforms through both paths
-        nx, ny, spp = SAME_UNIFORMS
+        nx, ny, spp = SAME_UNIFORMS[name]
         cfg = RenderConfig(nx=nx, ny=ny, spp=spp)
         R = plan_batches(nx * ny, spp, 488, cfg, dev)[2]
 
@@ -398,7 +698,7 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                       f"{kst['iterations']} vs {pst['iterations']}, {close:.4f} of "
                       f"pixels within 1e-3, rays {kst['rays']:.0f} vs {pst['rays']:.0f}")
         # independent seeds: kernels with Philox seed 1, plain with seed 2
-        nx, ny, spp = INDEPENDENT
+        nx, ny, spp = INDEPENDENT[name]
         scene = build_scene(name, nx, ny)
         kfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=1),
                               device=dev)
@@ -425,10 +725,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     checks = Checks()
-    results = {name: {"launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None}
+    results = {name: {"launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
+                      "bound_ms": None, "bound_by": None,
+                      # no single PyTorch call computes any of these functions
+                      "library_ms": None}
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
-    checks.phase("2. kernels against their plain twins", kernel_checks, checks, dev, results)
+    checks.phase("2a. K1, K2, K3 against their plain twins", kernel_checks, checks, dev,
+                 results)
+    checks.phase("2b. K5, K6, baked K3 against their plain twins", quad_box_checks,
+                 checks, dev, results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     render = results.pop("_render", {})

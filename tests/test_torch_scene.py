@@ -1,10 +1,12 @@
 """art_tpu_torch's scene layer against art_tpu's: the compiled tables and the
-camera of both slice scenes, ``tables_from_numpy`` (how tests carry
+camera of the ported scenes (cornell_box in both wall variants, and a
+hand-built scene of translated, unrotated boxes), the baked shade
+constants, the kernels' row tables, ``tables_from_numpy`` (how tests carry
 art_tpu's tables into the port), and the cuRAND XORWOW stream.
 
 Tolerance: float tables and camera 1e-6 (both build in float32 from the same
-float64 host values, so they agree exactly in practice); integer tables and
-static metadata exactly."""
+float64 host values, so they agree exactly in practice); integer tables,
+the kernel row tables and static metadata exactly."""
 
 import dataclasses
 
@@ -14,11 +16,13 @@ import torch
 
 from art_tpu.core.xorwow import XorwowState as JaxXorwow
 from art_tpu.models import build_scene as jax_build_scene
+from art_tpu.models.scenes import cornell_box as jax_cornell_box
 from art_tpu.scene import builder as jax_builder
 from art_tpu.scene import materials as JM
 from art_tpu.scene import objects as JO
 from art_tpu_torch.core.xorwow import XorwowState
 from art_tpu_torch.models import SCENES, build_scene
+from art_tpu_torch.models.scenes import cornell_box
 from art_tpu_torch.scene import builder as port_builder
 from art_tpu_torch.scene import materials as PM
 from art_tpu_torch.scene import objects as O
@@ -30,15 +34,18 @@ from art_tpu_torch.scene.tables import SceneTables
 # the test workers share the cores: one intra-op thread per worker
 torch.set_num_threads(1)
 
-SLICE_SCENES = ["bouncing_spheres", "three_spheres"]
+SLICE_SCENES = ["bouncing_spheres", "three_spheres", "cornell_box", "quads"]
+# art_tpu's fields (the kernels' row tables are the port's own)
 ARRAY_FIELDS = [f.name for f in dataclasses.fields(SceneTables)
-                if f.type == "torch.Tensor" and f.name != "sph_rows"]
+                if f.type == "torch.Tensor" and not f.name.endswith("_rows")]
+META = ("n_spheres", "n_quads", "n_boxes", "has_moving", "has_rotated_boxes",
+        "shade_consts")
 
 
 def _jax_arrays(scene):
     t = scene.tables
     arrays = {k: np.asarray(getattr(t, k)) for k in ARRAY_FIELDS}
-    arrays.update(n_spheres=t.n_spheres, has_moving=t.has_moving,
+    arrays.update({k: getattr(t, k) for k in META},
                   tex_types_present=t.tex_types_present)
     cam = {f.name: np.asarray(getattr(scene.camera, f.name))
            for f in dataclasses.fields(scene.camera)}
@@ -53,8 +60,8 @@ def _assert_tables_equal(port: SceneTables, want: dict):
             np.testing.assert_array_equal(got, want[k], err_msg=k)
         else:
             np.testing.assert_allclose(got, want[k], rtol=1e-6, atol=1e-6, err_msg=k)
-    assert port.n_spheres == want["n_spheres"]
-    assert port.has_moving == want["has_moving"]
+    for k in META:
+        assert getattr(port, k) == want[k], k
     assert port.tex_types_present == tuple(want["tex_types_present"])
 
 
@@ -116,15 +123,17 @@ def test_later_slice_scenes_raise(name):
 
 
 @pytest.mark.parametrize("obj", [
-    O.Quad((0, 0, 0), (1, 0, 0), (0, 1, 0), Lambertian((0.5, 0.5, 0.5))),
+    O.ConstantMedium(O.Sphere((0, 0, 0), 1.0, Lambertian((0.5, 0.5, 0.5))), 0.5,
+                     (1.0, 1.0, 1.0)),
     O.Sphere((0, 0, 0), 1.0, Lambertian(X.NoiseTexture(4.0))),
     O.Sphere((0, 0, 0), 1.0, Lambertian(X.ImageTexture("earthmap.jpg"))),
 ])
 def test_later_slice_objects_raise_in_builder(obj):
+    """Media (M8) and image/noise textures (M10) are not ported yet."""
     b = SceneBuilder().add(obj)
     b.set_camera(lookfrom=(0, 0, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
                  vfov_degrees=40.0, aspect=1.0)
-    with pytest.raises(NotImplementedError, match="slice 1"):
+    with pytest.raises(NotImplementedError, match="slice.*M(8|10)"):
         b.compile()
 
 
@@ -152,3 +161,107 @@ def _transformed(b_mod, O, M):
 def test_transform_wrappers_match_art_tpu():
     want, _ = _jax_arrays(_transformed(jax_builder, JO, JM))
     _assert_tables_equal(_transformed(port_builder, O, PM).tables, want)
+
+
+def _boxes(b_mod, O, M, checker_tex):
+    """Translated, unrotated boxes (their offsets fold into the kernel rows),
+    a quad, a sphere and a checker of solids: 5 materials, a baked scene."""
+    white = M.Lambertian((0.73, 0.73, 0.73))
+    b = b_mod.SceneBuilder().add(
+        O.Quad((-4, 0, -4), (8, 0, 0), (0, 0, 8), M.Lambertian(checker_tex), inward=True),
+        O.Translate(O.Box((0, 0, 0), (1.25, 0.75, 1.5), white), (-2.3, 0.0, -0.7)),
+        O.Translate(O.Box((0, 0, 0), (0.8, 1.9, 0.6), M.Metal((0.8, 0.7, 0.6), 0.2)),
+                    (0.4, 0.1, 0.35)),
+        O.Box((1.5, 0, -2.5), (2.5, 1.0, -1.5), M.DiffuseLight((4.0, 4.0, 4.0))),
+        O.Sphere((0.0, 2.5, 0.0), 0.6, M.Dielectric(1.5)),
+    )
+    b.set_camera(lookfrom=(0, 3, 8), lookat=(0, 0.5, 0), vup=(0, 1, 0),
+                 vfov_degrees=45.0, aspect=1.0, time0=0.0, time1=1.0)
+    return b.compile()
+
+
+def unrotated_scenes():
+    """The hand-built unrotated-box scene in both packages."""
+    from art_tpu.scene import textures as JX
+
+    jc = JX.Checker(0.5, JX.SolidColor((0.2, 0.3, 0.1)), JX.SolidColor((0.9, 0.9, 0.9)))
+    pc = X.Checker(0.5, X.SolidColor((0.2, 0.3, 0.1)), X.SolidColor((0.9, 0.9, 0.9)))
+    return _boxes(jax_builder, JO, JM, jc), _boxes(port_builder, O, PM, pc)
+
+
+def _scene_pair(name):
+    if name == "cornell_legacy":
+        return jax_cornell_box(64, 64, legacy_walls=True), cornell_box(64, 64, True)
+    if name == "unrotated_boxes":
+        return unrotated_scenes()
+    return jax_build_scene(name, 64, 64), build_scene(name, 64, 64)
+
+
+@pytest.mark.parametrize("name", ["cornell_legacy", "unrotated_boxes"])
+def test_quad_box_scenes_match_art_tpu(name):
+    jscene, scene = _scene_pair(name)
+    want, _ = _jax_arrays(jscene)
+    _assert_tables_equal(scene.tables, want)
+    assert scene.tables.has_rotated_boxes == (name != "unrotated_boxes")
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_legacy", "unrotated_boxes",
+                                  "quads"])
+def test_kernel_rows_equal_art_tpu_packed_tables(name):
+    """quad_rows / box_rows are art_tpu's pack_quads / pack_boxes without
+    the padding rows — offsets folded into min/max when no box rotates."""
+    jscene, scene = _scene_pair(name)
+    t = scene.tables
+    np.testing.assert_array_equal(t.quad_rows.numpy(),
+                                  np.asarray(jscene.tables.quad_packed)[:t.n_quads])
+    np.testing.assert_array_equal(t.box_rows.numpy(),
+                                  np.asarray(jscene.tables.box_packed)[:t.n_boxes])
+
+
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "cornell_legacy",
+                                  "unrotated_boxes", "bouncing_spheres"])
+def test_shade_consts_match_art_tpu(name):
+    """The baked gate and constants: ≤ 24 materials with solid or
+    checker-of-solids textures bake; bouncing_spheres' 82 do not."""
+    jscene, scene = _scene_pair(name)
+    assert scene.tables.shade_consts == jscene.tables.shade_consts
+    assert (scene.tables.shade_rows is None) == (name == "bouncing_spheres")
+
+
+def test_shade_rows_layout():
+    """One (16,) row per material: [mtype fuzz ref_idx malb(3) kind isc
+    rgb_or_even(3) odd(3) 0 0], art_tpu's blend defaults where a family does
+    not read a value."""
+    _, scene = unrotated_scenes()
+    rows = scene.tables.shade_rows.numpy()
+    mats = scene.tables.shade_consts[0]
+    assert rows.shape == (len(mats), 16) and rows.dtype == np.float32
+    for row, (mtype, fuzz, ref_idx, malb, kind, data) in zip(rows, mats):
+        assert row[0] == mtype and row[6] == kind
+        assert row[1] == (fuzz if mtype == 1 else 0.0)
+        assert row[2] == (ref_idx if mtype == 2 else 1.0)
+        np.testing.assert_array_equal(row[3:6], malb if mtype == 1 else (0, 0, 0))
+        if kind == 1:
+            assert row[7] == data[0]
+            np.testing.assert_array_equal(row[8:14], (*data[1], *data[2]))
+        elif mtype in (0, 3, 4):
+            np.testing.assert_array_equal(row[8:11], data)
+    assert {int(r[6]) for r in rows} == {0, 1}
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "unrotated_boxes"])
+def test_tables_from_numpy_carries_quads_and_boxes(name):
+    jscene, scene = _scene_pair(name)
+    arrays, cam = _jax_arrays(jscene)
+    tables, _ = tables_from_numpy(arrays, cam)
+    _assert_tables_equal(tables, arrays)
+    for k in ("sph_rows", "quad_rows", "box_rows", "shade_rows"):
+        np.testing.assert_array_equal(getattr(tables, k).numpy(),
+                                      getattr(scene.tables, k).numpy(), err_msg=k)
+
+
+def test_tables_from_numpy_refuses_media():
+    arrays, cam = _jax_arrays(jax_build_scene("cornell_smoke", 32, 32))
+    arrays["n_media"] = 2
+    with pytest.raises(NotImplementedError, match="M8"):
+        tables_from_numpy(arrays, cam)

@@ -12,7 +12,15 @@ decision (a metal graze); the float planes agree to
 rtol 2e-4 / atol 2e-5 on the rest.  The framebuffer: K3 adds in float32,
 so it must equal a float32 scatter of art_tpu's died radiance to 2e-4; the
 TPU flush rounds every sample to bf16 first, so against it each pixel may
-differ by the bf16 rounding of its samples (2^-8 relative each)."""
+differ by the bf16 rounding of its samples (2^-8 relative each).
+
+K3's baked mode (``consts=`` the scene's ``shade_rows``) on three_spheres,
+cornell_box and a box scene with a checker of solids: its twin must equal
+the plane-fed twin on the same inputs bit for bit (the table holds the
+float32 values the fetch returns), and it is held to art_tpu's
+``shade_flush(consts=..., interpret=True)`` — the Pallas kernel's baked
+mode, which takes its in-ball radius as ``exp(log(u)/3)`` — with the
+budget and tolerances above."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,12 +29,15 @@ import torch
 
 from art_tpu.models import build_scene as jax_build_scene
 from art_tpu.ops.flush_kernel import flush_accumulate
+from art_tpu.ops.intersect import closest_surface_p as jax_closest
+from art_tpu.ops.shade_kernel import shade_flush as jax_shade_flush
 from art_tpu.render.integrator import _bounce_step
 from art_tpu_torch.core.vecmath import T_MIN
 from art_tpu_torch.models import build_scene
 from art_tpu_torch.ops.intersect import closest_surface_p
 from art_tpu_torch.ops.shade import shade_params_p
-from art_tpu_torch.ops.shade_kernel import REC_F, STATE_F, shade_flush
+from art_tpu_torch.ops.shade_kernel import REC_BAKED, REC_F, STATE_F, shade_flush
+from test_torch_scene import unrotated_scenes
 
 # the test workers share the cores: one intra-op thread per worker
 torch.set_num_threads(1)
@@ -171,3 +182,94 @@ def test_out_of_range_pixels_are_counted_not_added():
     want = torch.zeros((P, 3), dtype=torch.float64)
     want.index_add_(0, torch.from_numpy(pix[4:]).long(), rad[4:])
     torch.testing.assert_close(fb.double(), want, rtol=1e-6, atol=1e-6)
+
+
+def _baked_case(name, seed):
+    """Random pool + both packages' hit records for a baked scene; origins
+    spread over the scene (cornell_box's room is [0, 555]^3)."""
+    x = _random_inputs(seed, frac_active=0.9)
+    if name == "unrotated_boxes":
+        jscene, scene = unrotated_scenes()
+    else:
+        jscene, scene = jax_build_scene(name, 96, 48), build_scene(name, 96, 48)
+    if name == "cornell_box":
+        x["o"] = (x["o"] * 69.0 + 277.5).astype(np.float32)
+    pool = {n: torch.from_numpy(v.copy()) for n, v in zip(
+        STATE_F, (*x["o"], *x["d"], *x["thr"], *x["rad"]))}
+    pool.update(tm=torch.from_numpy(x["tm"].copy()),
+                bounce=torch.from_numpy(x["bounce"].copy()),
+                pix=torch.from_numpy(x["pix"].copy()),
+                act=torch.from_numpy(x["active"].copy()))
+    o = (pool["ox"], pool["oy"], pool["oz"])
+    d = (pool["dx"], pool["dy"], pool["dz"])
+    rec = closest_surface_p(scene.tables, o, d, pool["tm"], T_MIN)
+    u = tuple(torch.from_numpy(x["u_ball"][c].copy()) for c in range(3)) + (
+        torch.from_numpy(x["u_choice"].copy()),)
+    return x, jscene, scene, pool, rec, u
+
+
+def _shade(scene, pool, rec, u, fb0, baked):
+    pool = {k: v.clone() for k, v in pool.items()}
+    if baked:
+        planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u)))
+    else:
+        mtype, fuzz, refidx, malb, texv = shade_params_p(scene.tables, rec)
+        planes = dict(zip(REC_F, (*rec.p, *rec.normal, mtype, fuzz, refidx, *malb,
+                                  *texv, *u)))
+    fb = torch.from_numpy(fb0.copy())
+    lost = torch.zeros(1, dtype=torch.int32)
+    shade_flush(pool, rec.hit, planes, scene.background, fb, lost, max_depth=MAX_DEPTH,
+                gradient=scene.gradient_bg,
+                consts=scene.tables.shade_rows if baked else None)
+    assert int(lost) == 0
+    return pool, fb
+
+
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "unrotated_boxes"])
+def test_baked_twin_equals_plane_fed(name):
+    x, _, scene, pool, rec, u = _baked_case(name, 3)
+    assert scene.tables.shade_rows is not None
+    a, fa = _shade(scene, pool, rec, u, x["fb0"], baked=False)
+    b, fb = _shade(scene, pool, rec, u, x["fb0"], baked=True)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(fa, fb)
+    assert int((pool["act"] & ~b["act"]).sum()) > 0  # some slots died and flushed
+
+
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "unrotated_boxes"])
+def test_baked_matches_art_tpu_consts_kernel(name):
+    x, jscene, scene, pool, rec, u = _baked_case(name, 8)
+    got, fb = _shade(scene, pool, rec, u, x["fb0"], baked=True)
+
+    J = jnp.asarray
+    jt = jscene.tables
+    o, d = tuple(map(J, x["o"])), tuple(map(J, x["d"]))
+    jrec = jax_closest(jt, o, d, J(x["tm"]), T_MIN)
+    state = dict(zip(STATE_F, (*o, *d, *map(J, x["thr"]), *map(J, x["rad"]))))
+    state.update(bounce=J(x["bounce"]), pix=J(x["pix"]), act=J(x["active"].astype(np.int32)))
+    rec_b = dict(px=jrec.p[0], py=jrec.p[1], pz=jrec.p[2], nx=jrec.normal[0],
+                 ny=jrec.normal[1], nz=jrec.normal[2], mat=jrec.mat.astype(jnp.float32),
+                 ub0=J(x["u_ball"][0]), ub1=J(x["u_ball"][1]), ub2=J(x["u_ball"][2]),
+                 uch=J(x["u_choice"]))
+    new, died, fb_k = jax_shade_flush(
+        state, jrec.hit, rec_b, J(np.asarray(scene.background, np.float32)),
+        J(_fb_window(x["fb0"])), jnp.int32(0), max_depth=MAX_DEPTH,
+        gradient=scene.gradient_bg, consts=jt.shade_consts, interpret=True)
+
+    still = np.asarray(new["act"]) != 0
+    got_act = got["act"].numpy()
+    assert np.sum(got_act != still) <= 2
+    agree = got_act == still
+    np.testing.assert_array_equal(got["bounce"].numpy(), np.asarray(new["bounce"]))
+    for n in STATE_F:
+        np.testing.assert_allclose(got[n].numpy()[agree], np.asarray(new[n])[agree],
+                                   rtol=2e-4, atol=2e-5, err_msg=n)
+    if agree.all():
+        # the TPU flush rounds each sample to bf16: within that rounding
+        died = np.asarray(died)
+        rad = np.stack([got[n].numpy() for n in ("r0", "r1", "r2")], 1)
+        bound = np.zeros((P, 3))
+        np.add.at(bound, x["pix"][died], np.abs(rad[died]) * 2.0 ** -8)
+        assert np.all(np.abs(_fb_window(fb.numpy()) - np.asarray(fb_k))
+                      <= _fb_window(bound) + 1e-5)
