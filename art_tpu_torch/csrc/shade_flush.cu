@@ -37,11 +37,14 @@
 //    shade_consts), staged in shared memory and indexed by the mat plane —
 //    the same float32 values, so the same results.  A checker of solids
 //    picks its even/odd color by the parity of floor(inv_scale * p), as
-//    _baked_params:113-125.
+//    _baked_params:113-125; a special leaf (tex_kind 2: noise, evaluated
+//    outside by ops/texture_eval.py eval_special_p) takes its value from
+//    the sp0..sp2 planes when the scene has them (_baked_params:126-128).
 //
 // Bound on the H100: memory — plane-fed ~35 planes in (15 state, hit, 19
 // hit-record and material planes, ~136 B/slot), baked ~27 (11 hit-record
-// planes), and up to 15 out; the scatter math is a few dozen flops.
+// planes, 14 with special leaves), and up to 15 out; the scatter math is a
+// few dozen flops.
 // Design: plain coalesced one-plane-per-field loads and stores; a dead slot
 // (act == 0) returns after reading two bytes, a slot that does not survive
 // skips the o/d/throughput stores, and a parameter plane is read only by
@@ -63,6 +66,7 @@ struct ShadePlanes {
   const float *px, *py, *pz, *nx, *ny, *nz, *mtype, *fuzz, *refidx;
   const float *ma0, *ma1, *ma2, *tx0, *tx1, *tx2, *ub0, *ub1, *ub2, *uch;
   const int* mat;  // baked mode: material id
+  const float *sp0, *sp1, *sp2;  // baked mode: special leaf values, or null
   float* fb;
   int* lost;
 };
@@ -112,6 +116,8 @@ shade_flush_kernel(ShadePlanes p, const float* __restrict__ consts, int M, int R
       const int zi = (int)floorf(c[7] * p.pz[i]);
       const int off = ((xi + yi + zi) & 1) == 0 ? 8 : 11;
       tx0 = c[off]; tx1 = c[off + 1]; tx2 = c[off + 2];
+    } else if (c[6] == 2.0f && p.sp0) {  // special leaf (_baked_params:126-128)
+      tx0 = p.sp0[i]; tx1 = p.sp1[i]; tx2 = p.sp2[i];
     } else {
       tx0 = c[8]; tx1 = c[9]; tx2 = c[10];
     }
@@ -240,7 +246,8 @@ extern "C" int art_shade_flush(void* const* ptrs, int R, const float* bg,
 }
 
 // ptrs: the state block (state_planes), then px py pz nx ny nz (f32) mat (i32)
-//       ub0 ub1 ub2 uch (f32), fb (f32 (P, 3)), lost (i32 (1,)); planes (R,).
+//       ub0 ub1 ub2 uch (f32), sp0 sp1 sp2 (f32, or null when the scene has
+//       no special leaf), fb (f32 (P, 3)), lost (i32 (1,)); planes (R,).
 // consts: (M, 16) f32 shade_rows, 1 <= M <= 24.
 extern "C" int art_shade_flush_baked(void* const* ptrs, int R, const float* consts,
                                      int M, const float* bg, int gradient,
@@ -251,7 +258,8 @@ extern "C" int art_shade_flush_baked(void* const* ptrs, int R, const float* cons
   p.px = r[0]; p.py = r[1]; p.pz = r[2]; p.nx = r[3]; p.ny = r[4]; p.nz = r[5];
   p.mat = (const int*)r[6];
   p.ub0 = r[7]; p.ub1 = r[8]; p.ub2 = r[9]; p.uch = r[10];
-  p.fb = (float*)ptrs[27];
-  p.lost = (int*)ptrs[28];
+  p.sp0 = r[11]; p.sp1 = r[12]; p.sp2 = r[13];
+  p.fb = (float*)ptrs[30];
+  p.lost = (int*)ptrs[31];
   return launch<true>(p, consts, M, R, bg, gradient, max_depth, P, stream);
 }

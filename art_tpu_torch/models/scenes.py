@@ -1,10 +1,12 @@
 """The reference scene suite on the port's DSL (``art_tpu/models/scenes.py``).
 
-The port has ``bouncing_spheres`` (``scenes.py:70``), ``three_spheres``
-(``scenes.py:461``), ``quads`` (``scenes.py:193``) and ``cornell_box``
-(``scenes.py:266``) with the same construction order, so their tables equal
-``art_tpu``'s.  The other reference scenes are listed with their defaults
-and raise ``NotImplementedError``, naming their milestone in ROADMAP.md.
+The port has ``bouncing_spheres`` (``scenes.py:70``), ``checkered_spheres``
+(``scenes.py:151``), ``perlin`` (``scenes.py:179``), ``quads``
+(``scenes.py:193``), ``simple_light_book`` (``scenes.py:239``),
+``cornell_box`` (``scenes.py:266``) and ``three_spheres`` (``scenes.py:461``)
+with the same construction order, so their tables equal ``art_tpu``'s.  The
+other reference scenes are listed with their defaults and raise
+``NotImplementedError``, naming their milestone in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 from art_tpu_torch.scene.builder import CompiledScene, SceneBuilder
 from art_tpu_torch.scene.materials import Dielectric, DiffuseLight, Lambertian, Metal
 from art_tpu_torch.scene.objects import Box, Quad, RotateY, Sphere, Translate
-from art_tpu_torch.scene.textures import Checker, SolidColor
+from art_tpu_torch.scene.textures import Checker, NoiseTexture, SolidColor
 
 UT_ORANGE = (1.0, 0.51, 0.0)  # src/main.cu:168
 
@@ -113,6 +115,36 @@ def three_spheres(nx: int, ny: int) -> CompiledScene:
     return b.compile()
 
 
+def checkered_spheres(nx: int, ny: int) -> CompiledScene:
+    """src/main.cu:246-280: two big spheres sharing one checker material."""
+    b = SceneBuilder().set_name("checkered_spheres")
+    checker = Checker(0.32, SolidColor((0.2, 0.3, 0.1)), SolidColor((0.9, 0.9, 0.9)))
+    lam = Lambertian(checker)  # one shared material, as in the reference
+    b.add(Sphere((0, -10, 0), 10.0, lam), Sphere((0, 10, 0), 10.0, lam))
+    b.set_camera(
+        lookfrom=(13, 2, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
+        vfov_degrees=20.0, aspect=nx / ny, aperture=0.0, focus_dist=10.0,
+        time0=0.0, time1=1.0,
+    )
+    b.set_background(gradient=True)  # src/main.cu:774
+    return b.compile()
+
+
+def perlin(nx: int, ny: int, scale: float = 4.0) -> CompiledScene:
+    """src/main.cu:310-329: a marble ground and ball (scale 4.0, as
+    src/main.cu:903 passes it)."""
+    b = SceneBuilder().set_name("perlin")
+    lam = Lambertian(NoiseTexture(scale))
+    b.add(Sphere((0, -1000, 0), 1000.0, lam), Sphere((0, 2, 0), 2.0, lam))
+    b.set_camera(
+        lookfrom=(13, 2, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
+        vfov_degrees=20.0, aspect=nx / ny, aperture=0.0, focus_dist=10.0,
+        time0=0.0, time1=1.0,
+    )
+    b.set_background(gradient=True)
+    return b.compile()
+
+
 def quads_scene(nx: int, ny: int) -> CompiledScene:
     """src/main.cu:331-358: five quads and no sphere."""
     b = SceneBuilder().set_name("quads")
@@ -129,6 +161,30 @@ def quads_scene(nx: int, ny: int) -> CompiledScene:
         time0=0.0, time1=1.0,
     )
     b.set_background(gradient=True)
+    return b.compile()
+
+
+def simple_light_book(nx: int, ny: int) -> CompiledScene:
+    """The book's simple-light scene (RTNW ch. 7), ``art_tpu``'s variant of
+    that name: two marble spheres under a sphere light and a quad light, on
+    a black background."""
+    b = SceneBuilder().set_name("simple_light_book")
+    noise = NoiseTexture(4.0)
+    b.add(Sphere((0, -1000, 0), 1000.0, Lambertian(noise)))
+    b.add(Sphere((0, 2, 0), 2.0, Lambertian(noise)))
+    b.add(
+        Sphere((0, 7, 0), 2.0, DiffuseLight((4, 4, 4))),
+        Quad((3, 1, -2), (2, 0, 0), (0, 2, 0), DiffuseLight((4, 4, 4))),
+    )
+    lookfrom = np.array([26.0, 3.0, 6.0])
+    lookat = np.array([0.0, 2.0, 0.0])
+    b.set_camera(
+        lookfrom=lookfrom, lookat=lookat, vup=(0, 1, 0),
+        vfov_degrees=20.0, aspect=nx / ny, aperture=0.0,
+        focus_dist=float(np.linalg.norm(lookfrom - lookat)),
+        time0=0.0, time1=1.0,
+    )
+    b.set_background((0, 0, 0), gradient=False)
     return b.compile()
 
 
@@ -183,22 +239,19 @@ def _later_slice(name: str, milestone: str, needs: str):
     return build
 
 
-_TEXTURES = ("M10", "it needs image or noise textures")
-
-
 SCENES = {
     "bouncing_spheres": bouncing_spheres,
-    "checkered_spheres": _later_slice("checkered_spheres", "M10",
-                                      "it is queued with the texture scenes"),
-    "earth": _later_slice("earth", *_TEXTURES),
-    "perlin": _later_slice("perlin", *_TEXTURES),
+    "checkered_spheres": checkered_spheres,
+    "earth": _later_slice("earth", "M10", "it needs image textures"),
+    "perlin": perlin,
     "quads": quads_scene,
-    "simple_light": _later_slice("simple_light", *_TEXTURES),
-    "simple_light_book": _later_slice("simple_light_book", *_TEXTURES),
+    "simple_light": _later_slice("simple_light", "M10",
+                                 "it needs image and felt textures"),
+    "simple_light_book": simple_light_book,
     "cornell_box": cornell_box,
     "cornell_smoke": _later_slice("cornell_smoke", "M8", "it needs constant media"),
     "final_scene": _later_slice("final_scene", "M8, M10, M12",
-                                "it needs media, image/noise textures and the box grid"),
+                                "it needs media, image textures and the box grid"),
     "original_scene": _later_slice("original_scene", "M10, M12",
                                    "it needs noodle/felt textures and the box grid"),
     "three_spheres": three_spheres,

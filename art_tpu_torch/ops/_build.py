@@ -55,6 +55,11 @@ _SIGNATURES = {
                               ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P],
     "art_quad_hit": [_P, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
     "art_box_hit": [_P, _I, _I, ctypes.c_float, _I, ctypes.POINTER(_P), _P],
+    "art_turb": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "art_sp_step": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
+                    ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
+                    ctypes.c_uint, ctypes.c_uint, ctypes.POINTER(ctypes.c_float), _I, _I,
+                    _I, _P, _I, _P, _I, _P, _I, _P],
 }
 
 
@@ -112,8 +117,10 @@ def library() -> ctypes.CDLL:
 
 
 def pointers(tensors) -> ctypes.Array:
-    """A C array of the tensors' device pointers (callers keep the tensors)."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """A C array of the tensors' device pointers, null for None (callers
+    keep the tensors)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 def stream_handle(device: torch.device) -> int:
@@ -134,6 +141,15 @@ def check_planes(names, tensors, n: int, dtype, device) -> None:
                 f"{name}: need a contiguous ({n},) {dtype} tensor on {device}, "
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
+
+
+def check_flush(fb: torch.Tensor, lost: torch.Tensor, device) -> None:
+    """Raise unless ``fb`` is a contiguous (P, 3) float32 framebuffer and
+    ``lost`` a (1,) int32 counter on ``device``."""
+    if fb.dim() != 2 or fb.shape[1] != 3 or fb.dtype != torch.float32 \
+            or fb.device != device or not fb.is_contiguous():
+        raise ValueError(f"fb: need a contiguous (P, 3) float32 tensor on {device}")
+    check_planes(("lost",), (lost,), 1, torch.int32, device)
 
 
 def check_table(name: str, t: torch.Tensor, cols: int, device) -> torch.Tensor:

@@ -101,6 +101,29 @@ def fused_refill_plain(pool, cam: Camera, q, parity: int, hist, it: int,
     return _split(block, 0, U_CHOICE, U_MEDIA)
 
 
+def check_refill_args(pool, q, hist, it: int, block, ncols: int) -> None:
+    """Raise unless the pool, the queue head ``q``, the live-count history
+    ``hist`` and an injected ``block`` are what the refill code of the
+    kernels (K1 and K11) takes."""
+    dev = pool["act"].device
+    R = pool["act"].shape[0]
+    if not 10 <= ncols <= 16:
+        raise ValueError(f"ncols={ncols}: the kernels take 1..7 media")
+    _build.check_planes(POOL_F, [pool[n] for n in POOL_F], R, torch.float32, dev)
+    _build.check_planes(POOL_I, [pool[n] for n in POOL_I], R, torch.int32, dev)
+    _build.check_planes(("act",), (pool["act"],), R, torch.bool, dev)
+    if q.dtype != torch.int64 or q.shape != (2,) or q.device != dev:
+        raise ValueError("q: need a (2,) int64 tensor on the pool's device")
+    if hist.dtype != torch.int64 or hist.dim() != 1 or hist.shape[0] <= it \
+            or hist.device != dev or not hist.is_contiguous():
+        raise ValueError(f"hist: need a contiguous int64 tensor with > {it} "
+                         "entries on the pool's device")
+    if block is not None and (block.shape != (ncols, R) or block.dtype != torch.float32
+                              or block.device != dev or not block.is_contiguous()):
+        raise ValueError(f"block: need a contiguous ({ncols}, {R}) float32 tensor "
+                         f"on {dev}")
+
+
 def fused_refill(pool, cam: Camera, q, parity: int, hist, it: int,
                  scal: RefillScal, *, block=None, key=None, ncols: int):
     """K1: the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
@@ -111,23 +134,9 @@ def fused_refill(pool, cam: Camera, q, parity: int, hist, it: int,
         return fused_refill_plain(pool, cam, q, parity, hist, it, scal,
                                   block=block, key=key, ncols=ncols)
     R = pool["act"].shape[0]
-    if not 10 <= ncols <= 16:
-        raise ValueError(f"ncols={ncols}: the refill kernel takes 1..7 media")
-    _build.check_planes(POOL_F, [pool[n] for n in POOL_F], R, torch.float32, dev)
-    _build.check_planes(POOL_I, [pool[n] for n in POOL_I], R, torch.int32, dev)
-    _build.check_planes(("act",), (pool["act"],), R, torch.bool, dev)
-    if q.dtype != torch.int64 or q.shape != (2,) or q.device != dev:
-        raise ValueError("q: need a (2,) int64 tensor on the pool's device")
-    if hist.dtype != torch.int64 or hist.dim() != 1 or hist.shape[0] <= it \
-            or hist.device != dev or not hist.is_contiguous():
-        raise ValueError(f"hist: need a contiguous int64 tensor with > {it} "
-                         "entries on the pool's device")
+    check_refill_args(pool, q, hist, it, block, ncols)
     if block is not None:
         u = block
-        if u.shape != (ncols, R) or u.dtype != torch.float32 or u.device != dev \
-                or not u.is_contiguous():
-            raise ValueError(f"block: need a contiguous ({ncols}, {R}) float32 "
-                             f"tensor on {dev}")
         seed = tile = chunk = 0
     else:
         seed, tile, chunk = key

@@ -55,15 +55,18 @@ def _ball_from_uniforms_p(u0, u1, u2):
     return (r * s * torch.cos(phi), r * s * torch.sin(phi), r * z)
 
 
-def shade_params_p(tables: SceneTables, rec: HitRecordP, valid=None):
+def shade_params_p(tables: SceneTables, rec: HitRecordP, valid=None, *,
+                   plain: bool = False):
     """Per-ray material/texture parameters for the shade kernel: one packed
     material row fetch (``[type, tex, fuzz, ref_idx, r, g, b, _]``) plus one
-    texture evaluation.  Returns (mtype f32, fuzz, ref_idx, metal_albedo
-    3-tuple, tex_val 3-tuple)."""
+    texture evaluation (``plain`` takes the turbulence twin on any device).
+    Returns (mtype f32, fuzz, ref_idx, metal_albedo 3-tuple, tex_val
+    3-tuple)."""
     # (8, R): every parameter plane comes out contiguous for the kernel
     mrow = take_rows(tables.mat_packed, rec.mat).T.contiguous()
     tex_id = mrow[1].to(torch.int32)
-    tex_val = eval_texture_p(tables, tex_id, rec.u, rec.v, rec.p, valid=valid)
+    tex_val = eval_texture_p(tables, tex_id, rec.u, rec.v, rec.p, valid=valid,
+                             plain=plain)
     return mrow[0], mrow[2], mrow[3], (mrow[4], mrow[5], mrow[6]), tex_val
 
 

@@ -4,13 +4,18 @@
   ``color()`` loop, src/main.cu:44-87); plain PyTorch, for tests and
   ad-hoc rays.
 * ``render_wavefront`` — the production path: a persistent pool of R ray
-  slots refilled from the sample-major (pixel, sample) queue.  Each
+  slots refilled from the sample-major (pixel, sample) queue.  The staged
   iteration is refill (K1) -> closest quad (K5, its attributes in PyTorch
   glue), box (K6) and sphere (K2), merged -> shade + integrate + flush (K3).
   K3 runs baked when the scene has ``shade_consts`` (``art_tpu``'s default
   gate, ``integrator.py:139,655-676``): the parameters come from the
-  material id.  Otherwise the material/texture planes are fetched first
-  (PyTorch glue, ``shade_params_p``) and K3 runs plane-fed.
+  material id, and a noise material's value from ``eval_special_p`` (the
+  turbulence kernel K7).  Otherwise the material/texture planes are fetched
+  first (PyTorch glue, ``shade_params_p``) and K3 runs plane-fed.
+  The short path (``use_short_path``, ``art_tpu``'s gate at
+  ``integrator.py:406-421``) runs the whole iteration as one kernel call
+  (K11, ``ops/sp_kernel.py``) for the small static scenes that pass
+  ``tables.sp_consts``.
 
 Loop control.  ``lax.while_loop`` keeps its condition on the device; here
 the host must read it.  K1 adds each iteration's live-slot count to
@@ -26,6 +31,8 @@ the iteration has a live slot).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,16 +41,44 @@ from art_tpu_torch.core.vecmath import T_MIN
 from art_tpu_torch.ops import refill_kernel as rk
 from art_tpu_torch.ops.intersect import closest_surface_p
 from art_tpu_torch.ops.shade import bounce_p, shade_params_p
-from art_tpu_torch.ops.shade_kernel import REC_BAKED, REC_F, shade_flush, shade_flush_plain
-from art_tpu_torch.scene.tables import SceneTables
+from art_tpu_torch.ops.shade_kernel import (
+    REC_BAKED,
+    REC_F,
+    REC_SP,
+    shade_flush,
+    shade_flush_plain,
+)
+from art_tpu_torch.ops.sp_kernel import sp_step, sp_step_plain
+from art_tpu_torch.ops.texture_eval import eval_special_p
+from art_tpu_torch.scene.tables import MatType, SceneTables
 
 # Host reads of the loop condition: one 8-byte read every CHECK_EVERY
-# iterations (PERF.md, "Host-sync policy").
+# iterations (PERF.md §3, the host loop).
 CHECK_EVERY = 4
 
 
 def n_uniform_cols(tables: SceneTables) -> int:
     return rk.U_MEDIA + max(tables.n_media, 1)
+
+
+def use_short_path(tables: SceneTables, short_path: bool | None = None) -> bool:
+    """Whether a render takes the short path (K11), ``art_tpu``'s rule
+    (``integrator.py:406-421``): the scene passes the scene compiler's
+    gate (``tables.sp_consts``) and, by default, has no dielectric (measured
+    slower fused on the TPU).  ``short_path`` mirrors ``art_tpu``'s two
+    switches: False is ``ART_TPU_NO_SP`` (always staged), True is
+    ``ART_TPU_SP`` (dielectric scenes too; a scene that fails the gate
+    raises)."""
+    if short_path is False:
+        return False
+    if tables.sp_consts is None:
+        if short_path:
+            raise ValueError("short_path=True: the scene fails the short-path gate "
+                             "(boxes, media, moving spheres, > 16 primitives, or a "
+                             "material or texture the short path lacks)")
+        return False
+    return bool(short_path) or not any(m[0] == MatType.DIELECTRIC
+                                       for m in tables.sp_consts[2])
 
 
 def _bounce_step(tables, o, d, tm, throughput, radiance, active,
@@ -94,24 +129,26 @@ def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int
                      background, *, tile_pixels: int, total_pixels: int, nx: int,
                      ny: int, max_depth: int, gradient_bg: bool, n_slots: int,
                      tile: int, chunk: int, seed: int, uniforms=None,
-                     plain: bool = False):
+                     plain: bool = False, short_path: bool | None = None):
     """Render ``tile_pixels x spp`` samples with a persistent ``n_slots`` pool.
 
     ``uniforms`` is an injected source ``(tile, chunk, it) -> (ncols, R)``;
     ``None`` draws Philox keyed by ``(seed, tile, chunk)``.  ``plain`` runs
-    the plain PyTorch twins of the kernels on any device.
+    the plain PyTorch twins of the kernels on any device; ``short_path``
+    picks the path (``use_short_path``).
     Returns (fb_sum (tile_pixels, 3) radiance summed over spp, rays,
     iterations)."""
     dev = tables.mat_packed.device  # every scene has a material row
-    consts = tables.shade_rows  # None: plane-fed K3
     P, R = tile_pixels, n_slots
     n_q = P * spp
     ncols = n_uniform_cols(tables)
     max_iters = (n_q * max_depth) // R + max_depth + 2
     min_iters = -(-n_q // R)
     scal = rk.RefillScal(spp, P, pix_offset, total_pixels, nx, ny)
-    refill = rk.fused_refill_plain if plain else rk.fused_refill
-    shade = shade_flush_plain if plain else shade_flush
+    if use_short_path(tables, short_path):
+        step = sp_step_plain if plain else sp_step
+    else:
+        step = functools.partial(staged_step, plain=plain)
 
     pool = rk.new_pool(R, dev)
     fb = torch.zeros((P, 3), dtype=torch.float32, device=dev)
@@ -123,22 +160,8 @@ def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int
             src = dict(key=(seed, tile, chunk))
         else:
             src = dict(block=_as_block(uniforms(tile, chunk, it), dev))
-        u_ball, u_choice, _ = refill(pool, cam, q, it % 2, hist, it, scal,
-                                     ncols=ncols, **src)
-        o = (pool["ox"], pool["oy"], pool["oz"])
-        d = (pool["dx"], pool["dy"], pool["dz"])
-        rec = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
-        if consts is None:
-            # solid/checker textures read no `valid` mask (image textures will)
-            mtype, fuzz, refidx, malb, texv = shade_params_p(tables, rec)
-            planes = dict(zip(REC_F, (
-                *rec.p, *rec.normal, mtype, fuzz, refidx, *malb, *texv, *u_ball,
-                u_choice)))
-        else:
-            planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u_ball,
-                                          u_choice)))
-        shade(pool, rec.hit, planes, background, fb, lost, max_depth=max_depth,
-              gradient=gradient_bg, consts=consts)
+        step(pool, cam, q, it % 2, hist, it, scal, tables, background, fb, lost,
+             ncols=ncols, max_depth=max_depth, gradient=gradient_bg, **src)
         if it + 1 >= min_iters and (it + 1 - min_iters) % CHECK_EVERY == 0 \
                 and int(hist[it]) == 0:
             break
@@ -146,3 +169,34 @@ def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int
     if int(lost):
         raise RuntimeError(f"{int(lost)} dead slots had a pixel outside the tile")
     return fb, int(counts.sum()), int(torch.count_nonzero(counts))
+
+
+def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillScal,
+                tables: SceneTables, bg, fb, lost, *, block=None, key=None, ncols: int,
+                max_depth: int, gradient: bool, plain: bool = False) -> None:
+    """One staged iteration, in place (the short path's ``sp_step`` in
+    several calls): refill (K1), the closest hit (K5, K6, K2), noise leaf
+    values (K7) for baked special materials, shade + flush (K3).  ``plain``
+    takes every kernel's plain twin."""
+    refill = rk.fused_refill_plain if plain else rk.fused_refill
+    u_ball, u_choice, _ = refill(pool, cam, q, parity, hist, it, scal, block=block,
+                                 key=key, ncols=ncols)
+    o = (pool["ox"], pool["oy"], pool["oz"])
+    d = (pool["dx"], pool["dy"], pool["dz"])
+    rec = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
+    consts = tables.shade_rows  # None: plane-fed K3
+    if consts is None:
+        # solid/checker/noise textures read no `valid` mask (image textures will)
+        mtype, fuzz, refidx, malb, texv = shade_params_p(tables, rec, plain=plain)
+        planes = dict(zip(REC_F, (
+            *rec.p, *rec.normal, mtype, fuzz, refidx, *malb, *texv, *u_ball, u_choice)))
+    else:
+        planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u_ball, u_choice)))
+        specials = tables.shade_consts[1]
+        if specials:
+            planes.update(zip(REC_SP, eval_special_p(
+                tables, specials, rec.mat, rec.u, rec.v, rec.p,
+                valid=rec.hit & pool["act"], plain=plain)))
+    (shade_flush_plain if plain else shade_flush)(
+        pool, rec.hit, planes, bg, fb, lost, max_depth=max_depth, gradient=gradient,
+        consts=consts)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from art_tpu_torch.ops._build import BLOCK
-from art_tpu_torch.render.integrator import render_wavefront
+from art_tpu_torch.render.integrator import render_wavefront, use_short_path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,18 +80,22 @@ def apply_gamma(fb: np.ndarray, gamma: float) -> np.ndarray:
 
 
 def render_scene(scene, cfg: RenderConfig, verbose: bool = False, *,
-                 device="cuda", uniforms=None, plain: bool = False):
+                 device="cuda", uniforms=None, plain: bool = False,
+                 short_path: bool | None = None):
     """Render a CompiledScene; returns (framebuffer (ny,nx,3), stats dict).
 
     Row 0 of the framebuffer is the bottom scanline (pixel = j*nx + i).
     ``uniforms`` injects a ``(tile, chunk, it) -> (ncols, R)`` source (tests);
     ``None`` uses Philox seeded by ``cfg.seed``.  ``plain`` runs the plain
-    PyTorch twins of the kernels (on any device)."""
+    PyTorch twins of the kernels (on any device).  ``short_path``: None takes
+    the short path (K11) where ``art_tpu``'s gate does, False never, True
+    also for dielectric scenes (``integrator.use_short_path``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
                            "is False")
     tables = scene.tables.to(device)
+    short = use_short_path(tables, short_path)
     n_pixels = cfg.nx * cfg.ny
     n_prims_max = max(tables.n_spheres, tables.n_quads, tables.n_boxes, 1)
     tile_pixels, spp_chunk, n_slots = plan_batches(
@@ -101,7 +105,7 @@ def render_scene(scene, cfg: RenderConfig, verbose: bool = False, *,
     if verbose:
         print(f"render {cfg.nx}x{cfg.ny} spp={cfg.spp} depth={cfg.max_depth} "
               f"tiles={n_tiles}x{tile_pixels}px chunks={n_chunks}x{spp_chunk}spp "
-              f"slots={n_slots} device={device}", file=sys.stderr)
+              f"slots={n_slots} device={device} short_path={short}", file=sys.stderr)
 
     fb = np.zeros((n_pixels, 3), np.float32)
     counts_chunk = sample_counts(tile_pixels, spp_chunk, n_slots)
@@ -117,7 +121,7 @@ def render_scene(scene, cfg: RenderConfig, verbose: bool = False, *,
                 tile_pixels=tile_pixels, total_pixels=n_pixels, nx=cfg.nx,
                 ny=cfg.ny, max_depth=cfg.max_depth, gradient_bg=scene.gradient_bg,
                 n_slots=n_slots, tile=tile, chunk=chunk, seed=cfg.seed,
-                uniforms=uniforms, plain=plain,
+                uniforms=uniforms, plain=plain, short_path=short,
             )
             # raw radiance sums until the final normalization
             fb[lo:hi] += batch.cpu().numpy()[: hi - lo]
@@ -137,6 +141,7 @@ def render_scene(scene, cfg: RenderConfig, verbose: bool = False, *,
         "n_slots": n_slots,
         "iterations": total_iters,
         "occupancy": total_rays / (total_iters * n_slots) if total_iters else 0.0,
+        "short_path": short,
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu"),
     }

@@ -2,11 +2,12 @@
 
 Port of the sphere / quad / box / material / texture part of
 ``art_tpu/scene/builder.py`` (``_Compiler`` at ``builder.py:186-407``,
-``finish:481-642`` and ``_shade_consts:855-938``), including the value
-dedup of material and texture rows and the ``mat_packed`` / ``tex_packed``
-/ ``quad_attr_packed`` row layouts, so the tables come out identical to
-``art_tpu``'s.  Constant media (M8) and every texture but solid and checker
-(M10) belong to later slices of the port and raise ``NotImplementedError``.
+``finish:481-642``, ``_shade_consts:855-938`` and ``_sp_consts:940-1019``),
+including the value dedup of material and texture rows and the
+``mat_packed`` / ``tex_packed`` / ``quad_attr_packed`` row layouts, so the
+tables come out identical to ``art_tpu``'s.  Constant media (M8) and the
+image, noodle and felt textures (M10) belong to later slices of the port
+and raise ``NotImplementedError``.
 
 ``tables_from_numpy`` carries tables compiled by ``art_tpu`` (as numpy
 arrays) into this package — the tests use it to run both packages on the
@@ -27,19 +28,21 @@ from art_tpu_torch.scene import objects as O
 from art_tpu_torch.scene import textures as X
 from art_tpu_torch.scene.tables import (
     MAX_BAKED_MATS,
+    MAX_SP_PRIMS,
     MatType,
     SceneTables,
     TexType,
     box_rows,
     quad_rows,
     shade_rows,
+    sp_rows,
     sphere_rows,
 )
 
 _SLICE = ("art_tpu_torch's slices so far port spheres, quads and boxes with "
-          "solid/checker textures")
+          "solid, checker and noise textures")
 _M8 = f"{_SLICE}; constant media come with M8"
-_M10 = f"{_SLICE}; image, noise, noodle and felt textures come with M10"
+_M10 = f"{_SLICE}; image, noodle and felt textures come with M10"
 
 
 def _rot_y(theta: float, p: np.ndarray) -> np.ndarray:
@@ -146,8 +149,11 @@ class _Compiler:
             row["type"] = int(TexType.CHECKER)
             row["params"][0] = 1.0 / tex.scale  # inv_scale (src/texture.cuh:33)
             row["child"] = (self.tex_id(tex.even), self.tex_id(tex.odd))
-        elif isinstance(tex, (X.ImageTexture, X.NoiseTexture, X.NoodleTexture,
-                              X.FeltTexture, X.UVOffset)):
+        elif isinstance(tex, X.NoiseTexture):
+            row["type"] = int(TexType.NOISE)
+            row["params"][0] = float(tex.scale)
+        elif isinstance(tex, (X.ImageTexture, X.NoodleTexture, X.FeltTexture,
+                              X.UVOffset)):
             raise NotImplementedError(f"{type(tex).__name__}: {_M10}")
         else:
             raise TypeError(f"unknown texture type: {type(tex)!r}")
@@ -301,6 +307,7 @@ class _Compiler:
                       *x["rgb"], *x["rgb2"]] for x in self.texs], f32),
                 tex_types_present=tuple(sorted({x["type"] for x in self.texs})),
             )
+        arrays["sp_consts"] = self._sp_consts(arrays)
         return _tables(arrays)
 
     def _quad_attr_packed(self) -> np.ndarray:
@@ -319,21 +326,23 @@ class _Compiler:
     def _shade_consts(self):
         """Baked material/texture constants for the shade kernel's baked mode
         (``art_tpu/scene/builder.py:_shade_consts``), gated as there: at
-        most 24 materials, each texture a solid or a checker of solids.
+        most 24 materials, each texture a solid, a checker of solids or a
+        special leaf (noise here; image, noodle and felt come with M10).
 
         Returns ``(mats, specials)`` or None; ``mats[i] = (mtype, fuzz,
         ref_idx, metal_rgb3, tex_kind, tex_data)`` with tex_kind 0 solid
-        (rgb3) or 1 checker (inv_scale, even3, odd3), every value rounded to
-        float32.  ``specials`` (image / noise / noodle / felt leaves) stays
-        empty: those textures come with M10 and ``tex_id`` refuses them."""
+        (rgb3), 1 checker (inv_scale, even3, odd3) or 2 special, every value
+        rounded to float32; ``specials[j] = (mat_id, "noise", scale)``, whose
+        value the integrator evaluates outside the kernel
+        (``ops/texture_eval.py:eval_special_p``)."""
         if not self.mats or len(self.mats) > MAX_BAKED_MATS:
             return None
 
         def f32(v):
             return float(np.float32(v))
 
-        mats = []
-        for m in self.mats:
+        mats, specials = [], []
+        for mid, m in enumerate(self.mats):
             ty = int(m["type"])
             tex_kind, tex_data = 0, (0.0, 0.0, 0.0)
             if ty in (MatType.LAMBERTIAN, MatType.DIFFUSE_LIGHT, MatType.ISOTROPIC):
@@ -347,11 +356,74 @@ class _Compiler:
                     tex_kind = 1
                     tex_data = (f32(tx["params"][0]), tuple(f32(v) for v in even["rgb"]),
                                 tuple(f32(v) for v in odd["rgb"]))
+                elif tx["type"] == TexType.NOISE:
+                    tex_kind = 2
+                    specials.append((mid, "noise", f32(tx["params"][0])))
                 else:
                     raise NotImplementedError(f"texture kind {tx['type']}: {_M10}")
             mats.append((ty, f32(m["fuzz"]), f32(m["ref_idx"]),
                          tuple(f32(v) for v in m["rgb"]), tex_kind, tex_data))
-        return (tuple(mats), ())
+        return (tuple(mats), tuple(specials))
+
+    def _sp_consts(self, arrays: dict):
+        """The short path's gate and constants (``art_tpu/scene/builder.py:
+        _sp_consts``): small fully-static scenes — no boxes, no media, no
+        moving sphere, 1..16 spheres and quads, materials lambertian, metal,
+        dielectric or diffuse_light, textures solid, checker of solids or
+        noise (marble).
+
+        Returns ``(spheres, quads, mats)`` of float32-rounded Python floats
+        or None: ``spheres[i] = (cx, cy, cz, r, mat)``, ``quads[i] = (n(3),
+        D, avec(3), ca, bvec(3), cb, mat)`` (``pack_quads``' layout),
+        ``mats[i] = (type, fuzz, ref_idx, metal_rgb3, tex_kind, solid_or_even3,
+        inv_scale_or_noise_scale, odd3)`` with tex_kind 0 solid, 1 checker,
+        2 marble.  The values are those of the float32 tables in
+        ``arrays``."""
+        if self.boxes:
+            return None
+        if not 0 < len(self.spheres) + len(self.quads) <= MAX_SP_PRIMS:
+            return None
+        if self.spheres and np.any(arrays["sph_vel"] != 0.0):
+            return None  # moving spheres (the tables' has_moving)
+
+        def f32(v):
+            return float(np.float32(v))
+
+        mats = []
+        for m in self.mats:
+            ty = int(m["type"])
+            if ty not in (MatType.LAMBERTIAN, MatType.METAL, MatType.DIELECTRIC,
+                          MatType.DIFFUSE_LIGHT):
+                return None
+            tex_kind, s_rgb, isc, o_rgb = 0, (0.0,) * 3, 0.0, (0.0,) * 3
+            if ty in (MatType.LAMBERTIAN, MatType.DIFFUSE_LIGHT):
+                tx = self.texs[int(m["tex"])]
+                if tx["type"] == TexType.SOLID:
+                    s_rgb = tuple(f32(v) for v in tx["rgb"])
+                elif tx["type"] == TexType.CHECKER:
+                    even, odd = (self.texs[int(c)] for c in tx["child"])
+                    if even["type"] != TexType.SOLID or odd["type"] != TexType.SOLID:
+                        return None
+                    tex_kind = 1
+                    isc = f32(tx["params"][0])
+                    s_rgb = tuple(f32(v) for v in even["rgb"])
+                    o_rgb = tuple(f32(v) for v in odd["rgb"])
+                elif tx["type"] == TexType.NOISE:
+                    tex_kind = 2
+                    isc = f32(tx["params"][0])
+                else:
+                    return None
+            mats.append((ty, f32(m["fuzz"]), f32(m["ref_idx"]),
+                         *(f32(v) for v in m["rgb"]), tex_kind, *s_rgb, isc, *o_rgb))
+        spheres = tuple(
+            (*map(float, arrays["sph_center"][i]), float(arrays["sph_radius"][i]),
+             int(arrays["sph_mat"][i])) for i in range(len(self.spheres)))
+        quads = tuple(
+            (*map(float, arrays["quad_n"][i]), float(arrays["quad_d"][i]),
+             *map(float, arrays["quad_avec"][i]), float(arrays["quad_ca"][i]),
+             *map(float, arrays["quad_bvec"][i]), float(arrays["quad_cb"][i]),
+             int(arrays["quad_mat"][i])) for i in range(len(self.quads)))
+        return (spheres, quads, tuple(mats))
 
 
 # one dummy row per empty table, as art_tpu's empty_tables()
@@ -402,6 +474,8 @@ def _tables(arrays: dict) -> SceneTables:
                      for k, p in (("spheres", "sph"), ("quads", "quad"), ("boxes", "box")))
     rotated = bool(a.get("has_rotated_boxes", False))
     consts = a.get("shade_consts")
+    sp = a.get("sp_consts")
+    sp_sph, sp_quad, sp_mat = sp_rows(sp)
     return SceneTables(
         **t,
         sph_rows=sphere_rows(t["sph_center"], t["sph_vel"], t["sph_radius"],
@@ -416,6 +490,7 @@ def _tables(arrays: dict) -> SceneTables:
         tex_types_present=tuple(int(x) for x in a["tex_types_present"]),
         shade_consts=consts,
         shade_rows=shade_rows(consts),
+        sp_consts=sp, sp_sph_rows=sp_sph, sp_quad_rows=sp_quad, sp_mat_rows=sp_mat,
     )
 
 
@@ -425,15 +500,16 @@ def tables_from_numpy(arrays: dict, camera: dict) -> tuple[SceneTables, Camera]:
     ``arrays`` maps ``SceneTables`` field names (at least the material and
     texture fields and those of each primitive kind present; optionally
     ``n_spheres``, ``n_quads``, ``n_boxes``, ``has_moving``,
-    ``has_rotated_boxes``, ``tex_types_present`` and ``shade_consts``) to
-    values; ``camera`` maps the ``Camera`` field names to (3,) or scalar
-    arrays.  Scenes with media raise ``NotImplementedError`` (M8), and so do
-    baked constants with special texture leaves (M10)."""
+    ``has_rotated_boxes``, ``tex_types_present``, ``shade_consts`` and
+    ``sp_consts``) to values; ``camera`` maps the ``Camera`` field names to
+    (3,) or scalar arrays.  Scenes with media raise ``NotImplementedError``
+    (M8), and so do baked constants with image, noodle or felt leaves
+    (M10)."""
     if int(arrays.get("n_media", 0)):
         raise NotImplementedError(f"n_media={int(arrays['n_media'])}: {_M8}")
     consts = arrays.get("shade_consts")
-    if consts is not None and consts[1]:
-        raise NotImplementedError(f"shade_consts with special texture leaves: {_M10}")
+    if consts is not None and any(s[1] != "noise" for s in consts[1]):
+        raise NotImplementedError(f"shade_consts with image, noodle or felt leaves: {_M10}")
     if "tex_types_present" not in arrays:
         arrays = dict(arrays, tex_types_present=tuple(
             sorted({int(x) for x in np.asarray(arrays["tex_type"])})))

@@ -26,8 +26,17 @@ Beside them, the kernels' own tables (built once per scene, on the host):
   (``csrc/shade_flush.cu``), from ``shade_consts``: ``[mtype fuzz ref_idx
   malb(3) tex_kind isc rgb_or_even(3) odd(3) 0 0]``, holding the values
   ``art_tpu``'s baked kernel compiles in (fuzz 0, ref_idx 1, albedo 0 and
-  texture value 0 where a material family does not use them); ``None``
-  when the scene fails the baked gate.
+  texture value 0 where a material family does not use them), tex_kind 2
+  (a special leaf: noise) taking its value from the ``sp0..sp2`` planes;
+  ``None`` when the scene fails the baked gate.
+* ``sp_sph_rows`` (S, 6), ``sp_quad_rows`` (Q, 13) and ``sp_mat_rows``
+  (M, 14), the short-path kernel's (``csrc/sp_step.cu``), from
+  ``sp_consts``: spheres ``[cx cy cz r inv_r mat]`` with ``inv_r`` the
+  float32 rounding of the float64 ``1 / r`` (as ``art_tpu``'s kernel bakes
+  it, ``sp_kernel.py:139``), quads ``pack_quads``' 12 values and the
+  material, materials the 14-value tuple of ``sp_consts``; ``None`` when the
+  scene fails the short-path gate.  The TPU compiles these constants into
+  its kernel; here they are tables the kernel stages in shared memory.
 """
 
 from __future__ import annotations
@@ -35,10 +44,12 @@ from __future__ import annotations
 import dataclasses
 from enum import IntEnum
 
+import numpy as np
 import torch
 
 
 MAX_BAKED_MATS = 24  # the baked shade mode's gate (art_tpu builder.py:877)
+MAX_SP_PRIMS = 16  # the short path's gate (art_tpu builder.py:953); so <= 16 materials
 
 
 class MatType(IntEnum):
@@ -121,6 +132,12 @@ class SceneTables:
     # (mats, specials) or None, and their kernel table
     shade_consts: tuple | None = None
     shade_rows: torch.Tensor | None = None
+    # the short path's constants (scene/builder._sp_consts): (spheres,
+    # quads, mats) or None, and their kernel tables
+    sp_consts: tuple | None = None
+    sp_sph_rows: torch.Tensor | None = None
+    sp_quad_rows: torch.Tensor | None = None
+    sp_mat_rows: torch.Tensor | None = None
 
     def to(self, device) -> "SceneTables":
         """The same tables with every tensor on ``device``."""
@@ -163,7 +180,8 @@ def shade_rows(shade_consts) -> torch.Tensor | None:
     """(M,16) float32 constants of the baked shade kernel from
     ``shade_consts``'s material tuples (mtype, fuzz, ref_idx, metal_rgb3,
     tex_kind, tex_data); tex_kind 0 is a solid (rgb3), 1 a checker of solids
-    (inv_scale, even3, odd3)."""
+    (inv_scale, even3, odd3), 2 a special leaf (its value rides the sp
+    planes; the row's texture values stay 0)."""
     if shade_consts is None:
         return None
     rows = []
@@ -178,9 +196,21 @@ def shade_rows(shade_consts) -> torch.Tensor | None:
                 row[8:11] = data
             elif kind == 1:
                 row[7], row[8:11], row[11:14] = data[0], data[1], data[2]
-            else:
-                raise NotImplementedError(
-                    "special texture leaves (image, noise, noodle, felt) come "
-                    "with M10 in a later slice of art_tpu_torch")
         rows.append(row)
     return torch.tensor(rows, dtype=torch.float32)
+
+
+def sp_rows(sp_consts):
+    """The short-path kernel's (S,6) sphere, (Q,13) quad and (M,14) material
+    float32 tables from ``sp_consts``, or three Nones."""
+    if sp_consts is None:
+        return None, None, None
+    spheres, quads, mats = sp_consts
+    sph = [(cx, cy, cz, r, float(np.float32(1.0 / r)), float(m))
+           for cx, cy, cz, r, m in spheres]
+
+    def table(rows, cols):
+        return torch.tensor(rows, dtype=torch.float32).reshape(len(rows), cols)
+
+    return (table(sph, 6), table([(*q[:12], float(q[12])) for q in quads], 13),
+            table([tuple(map(float, m)) for m in mats], 14))

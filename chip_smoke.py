@@ -15,18 +15,28 @@ Phases (each runs; any failure exits non-zero without the final result):
     1200x800; K5 quad hit, K6 box hit (rotated: cornell_box; unrotated: a
     scene of translated boxes) and baked K3 (cornell_box, and a checker
     scene) at cornell_box 600x600's R;
+    K7 turbulence (depth 7, depth 2, with a per-lane octave mask) at the
+    hit points of perlin rays 20 iterations into a render (R = 2^17), baked
+    K3 with perlin's noise planes on those rays, and K11 (the short path)
+    on the quads and perlin tables in both uniform modes, from a random
+    pool and from a pool 20 iterations into a render;
  3. the in-kernel Philox uniforms: range, mean, variance, and that they
     change across iterations and slots;
  4. renders through ``render_scene`` on the card, each with the launch
     counts set to 0 just before it and read just after:
     three_spheres 400x225 @ 16 (baked K3), bouncing_spheres 1200x800 @ 64
-    (K1, K2, plane-fed K3) and cornell_box 600x600 @ 64, this slice's main
-    path (K1, K5, K6, K2, baked K3); then, per scene, the kernel path
-    against the plain path on the same injected uniforms and, with
-    independent seeds, statistically.
+    (K1, K2, plane-fed K3) and cornell_box 600x600 @ 64 (K1, K5, K6, K2,
+    baked K3); then the short path (K11 alone): quads and perlin 1200x600
+    @ 64, checkered_spheres and simple_light_book 1200x600 @ 16, and perlin
+    1200x600 @ 64 staged (K1, K2, K7, baked K3 with its noise planes), which
+    must agree statistically with the short-path image; then, per scene
+    (and for perlin staged), the kernel path against the plain path on the
+    same injected uniforms and, with independent seeds, statistically.
 
-Standard output ends with a JSON line of per-kernel results, the card's
-name and power limit, and then ``{"ok": true, "device": {...}}``.  Needs
+Standard output ends with a JSON line of per-kernel results (each kernel's
+``launches`` counted in the render of the newest path that runs it, named
+by ``launches_path``), the card's name and power limit, and then
+``{"ok": true, "device": {...}}``.  Needs
 ``torch.cuda.is_available()``.
 """
 
@@ -43,14 +53,25 @@ import numpy as np
 SEED = 2026
 SPIN_CYCLES = 40_000_000  # ~20 ms of device spin: longer than any call's host enqueue
 # (scene, nx, ny, spp) of the renders
-MAIN = ("cornell_box", 600, 600, 64)  # this slice's main path
+CORNELL = ("cornell_box", 600, 600, 64)
 BOUNCING = ("bouncing_spheres", 1200, 800, 64)
 THREE = ("three_spheres", 400, 225, 16)
+# this slice's paths: (label, scene, nx, ny, spp, short_path); the first is
+# its main path
+SHORT = [("perlin", "perlin", 1200, 600, 64, None),
+         ("quads", "quads", 1200, 600, 64, None),
+         ("checkered_spheres", "checkered_spheres", 1200, 600, 16, None),
+         ("simple_light_book", "simple_light_book", 1200, 600, 16, None),
+         ("perlin staged", "perlin", 1200, 600, 64, False)]
 # (nx, ny, spp) of the kernel-vs-plain renders, per scene
 SAME_UNIFORMS = {"three_spheres": (64, 32, 16), "bouncing_spheres": (64, 32, 16),
-                 "cornell_box": (64, 64, 16)}
+                 "cornell_box": (64, 64, 16), "quads": (64, 32, 16),
+                 "checkered_spheres": (64, 32, 16), "perlin": (64, 32, 16),
+                 "simple_light_book": (64, 32, 16), "perlin staged": (64, 32, 16)}
 INDEPENDENT = {"three_spheres": (96, 64, 256), "bouncing_spheres": (96, 64, 256),
-               "cornell_box": (96, 96, 256)}
+               "cornell_box": (96, 96, 256), "quads": (96, 64, 256),
+               "checkered_spheres": (96, 64, 256), "perlin": (96, 64, 256),
+               "simple_light_book": (96, 64, 256)}
 KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "refill": ("art_tpu_torch/csrc/refill.cu", "art_tpu/ops/refill_kernel.py:284"),
     "sphere_hit": ("art_tpu_torch/csrc/sphere_hit.cu",
@@ -61,12 +82,18 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                           "art_tpu/ops/shade_kernel.py:331"),
     "quad_hit": ("art_tpu_torch/csrc/quad_hit.cu", "art_tpu/ops/pallas_kernels.py:1890"),
     "box_hit": ("art_tpu_torch/csrc/box_hit.cu", "art_tpu/ops/pallas_kernels.py:2139"),
+    "turb": ("art_tpu_torch/csrc/turb.cu", "art_tpu/ops/perlin_kernel.py:113"),
+    "sp_step": ("art_tpu_torch/csrc/sp_step.cu", "art_tpu/ops/sp_kernel.py:571"),
 }
-# which renders of phase 4 must launch which kernels (the launch-count gate)
+# which renders of phase 4 must launch which kernels (the launch-count gate);
+# a render may launch no kernel of KERNELS outside its own list
 PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          "bouncing_spheres": ("refill", "sphere_hit", "shade_flush"),
          "cornell_box": ("refill", "quad_hit", "box_hit", "sphere_hit",
-                         "shade_flush_baked")}
+                         "shade_flush_baked"),
+         "perlin": ("sp_step",), "quads": ("sp_step",), "checkered_spheres": ("sp_step",),
+         "simple_light_book": ("sp_step",),
+         "perlin staged": ("refill", "sphere_hit", "turb", "shade_flush_baked")}
 # The least time the card could take (NVIDIA H100
 # SXM data sheet): bytes over the HBM rate, or operations over the FP32 rate
 # outside the tensor cores, which counts an FMA as two operations; these
@@ -82,6 +109,11 @@ OPS_BOX_WINNER = 80  # the winner's face, normal and (u, v), once per hit
 OPS_PHILOX = 80  # one Philox4x32-10 call: 10 rounds of 2 mul, 2 mulhi, 4 xor/add
 OPS_CAMERA = 45  # one camera ray
 OPS_SHADE = 60  # the dielectric scatter, the longest material path
+# one noise octave: 8 lattice corners of (mix3 5, 3 Wang hashes 28, 3 u2m11
+# 15, normalisation 11, weight and dot 18) plus ~30 for floor, fractions
+# and the smoothstep; integer operations counted at the FP32 rate
+OPS_NOISE = 650
+OPS_SP_BOUNCE = 100  # the short path's background, material row and scatter
 
 
 def log(*args):
@@ -430,7 +462,7 @@ def quad_box_checks(checks: Checks, dev, results: dict):
     from art_tpu_torch.render.renderer import RenderConfig, plan_batches
 
     rng = np.random.default_rng(SEED + 1)
-    name, nx, ny, spp = MAIN
+    name, nx, ny, spp = CORNELL
     cornell = build_scene(name, nx, ny).to(dev)
     tables = cornell.tables
     tile_pixels, _, R = plan_batches(nx * ny, spp, tables.n_quads, RenderConfig(), dev)
@@ -563,6 +595,231 @@ def quad_box_checks(checks: Checks, dev, results: dict):
     log(f"  box_hit unrotated: kernel {results['box_hit']['ms_unrotated']:.4f} ms")
 
 
+def _bits_equal(a, b) -> int:
+    """Lanes whose float32 bits differ (two NaNs count as equal)."""
+    import torch
+
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    return int((~same).sum())
+
+
+N_OUT = 8  # live slots at their last bounce with a pixel outside the tile
+
+
+def _sp_pool(rng, R, tile_pixels, dev):
+    """A random pool with radiance >= 0 (so a pixel's sum cannot cancel),
+    pixels inside the tile but for ``N_OUT`` live slots at their last
+    bounce whose deaths must count into ``lost``."""
+    import torch
+
+    pool = _random_pool(rng, R, dev)
+    for n in ("r0", "r1", "r2"):
+        pool[n].abs_()
+    pool["pix"].remainder_(tile_pixels)
+    pool["pix"][:N_OUT] = torch.tensor([-1, tile_pixels, tile_pixels + 1, -7, 1 << 30,
+                                        tile_pixels * 2, -(1 << 30), tile_pixels + 99],
+                                       dtype=torch.int32, device=dev)
+    pool["act"][:N_OUT] = True
+    pool["bounce"][:N_OUT] = 49
+    return pool
+
+
+def turb_sp_checks(checks: Checks, dev, results: dict):
+    """K7 and K11 against their twins at quads and perlin 1200x600's R
+    (2^17), then timed."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import perlin, perlin_kernel
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.ops.intersect import closest_surface_p
+    from art_tpu_torch.ops.shade_kernel import (
+        REC_BAKED,
+        REC_SP,
+        STATE_F,
+        shade_flush,
+        shade_flush_plain,
+    )
+    from art_tpu_torch.ops.sp_kernel import sp_step, sp_step_plain
+    from art_tpu_torch.ops.texture_eval import eval_special_p
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    rng = np.random.default_rng(SEED + 2)
+    _, _, nx, ny, spp, _ = SHORT[0]
+    scenes = {name: build_scene(name, nx, ny).to(dev) for name in ("quads", "perlin")}
+    tile_pixels, spp_chunk, R = plan_batches(nx * ny, spp, 2, RenderConfig(), dev)
+    log(f"  R = {R} slots, tile {tile_pixels} px, {spp_chunk} spp per chunk")
+    scal = rk.RefillScal(spp_chunk, tile_pixels, 0, nx * ny, nx, ny)
+    q0 = spp_chunk * 1000 + 3  # a queue head inside the tile
+
+    def refilled(scene, base, it, **src):
+        """``base`` after the plain refill (the state the bounce sees)."""
+        pool = _clone(base)
+        rk.fused_refill_plain(pool, scene.camera,
+                              torch.tensor([q0, 0], dtype=torch.int64, device=dev), 0,
+                              torch.zeros(it + 1, dtype=torch.int64, device=dev), it, scal,
+                              ncols=10, **src)
+        return pool
+
+    def hits(scene, pool):
+        return closest_surface_p(scene.tables, (pool["ox"], pool["oy"], pool["oz"]),
+                                 (pool["dx"], pool["dy"], pool["dz"]), pool["tm"], T_MIN,
+                                 plain=True)
+
+    def rendered_pool(scene, iters):
+        """The pool after ``iters`` short-path iterations from an empty one."""
+        pool = rk.new_pool(R, dev)
+        q = torch.zeros(2, dtype=torch.int64, device=dev)
+        hist = torch.zeros(iters, dtype=torch.int64, device=dev)
+        fb = torch.zeros((tile_pixels, 3), device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        for it in range(iters):
+            sp_step(pool, scene.camera, q, it % 2, hist, it, scal, scene.tables,
+                    scene.background, fb, lost, key=(7, 0, 0), ncols=10, max_depth=50,
+                    gradient=scene.gradient_bg)
+        return pool
+
+    rendered = {name: rendered_pool(scene, 20) for name, scene in scenes.items()}
+
+    # ---- K7: turbulence at the hit points of perlin rays 20 iterations into
+    # a render (the misses at p ~ o + 1e30 d, as the staged path feeds them) ----
+    perl = scenes["perlin"]
+    rec = hits(perl, refilled(perl, rendered["perlin"], 5, key=(1984, 2, 1)))
+    p = tuple(c.contiguous() for c in rec.p)
+    mask = torch.from_numpy(rng.integers(0, 8, R).astype(np.int32)).to(dev)
+    k7_err = 0.0
+    for label, depth, m in (("depth 7", 7, None), ("depth 2", 2, None),
+                            ("depth 7 masked", 7, mask)):
+        k = perlin_kernel.turb(*p, depth, m)
+        q = perlin.turb_p(*p, depth, m)
+        torch.cuda.synchronize()
+        bad = _bits_equal(k, q)
+        checks.expect(bad == 0, f"K7 {label}: {bad} of {R} lanes differ in bits "
+                                f"({int(rec.hit.sum())} hits, "
+                                f"{int((~rec.hit).sum())} misses)")
+        k7_err = max(k7_err, _max_diff(k, q, torch.isfinite(q)))
+    results["turb"]["max_abs_err"] = k7_err
+
+    # ---- baked K3 with the noise planes, on the same rays ----
+    state = _sp_pool(rng, R, tile_pixels, dev)
+    after = refilled(perl, rendered["perlin"], 5, key=(1984, 2, 1))
+    for n in ("ox", "oy", "oz", "dx", "dy", "dz"):
+        state[n].copy_(after[n])
+    u = torch.from_numpy(rng.random((4, R), dtype=np.float32)).to(dev)
+    planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u)))
+    planes.update(zip(REC_SP, eval_special_p(perl.tables, perl.tables.shade_consts[1],
+                                             rec.mat, rec.u, rec.v, rec.p, plain=True)))
+    out = []
+    for fn in (shade_flush, shade_flush_plain):
+        pool, fb = _clone(state), torch.zeros((tile_pixels, 3), device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        fn(pool, rec.hit, planes, perl.background, fb, lost, max_depth=50,
+           gradient=perl.gradient_bg, consts=perl.tables.shade_rows)
+        torch.cuda.synchronize()
+        out.append((pool, fb, lost))
+    (kp, kfb, kl), (pp, pfb, pl) = out
+    bad = sum(_bits_equal(kp[n], pp[n]) for n in STATE_F)
+    bad += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "act"))
+    fb_rel = float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max())
+    checks.expect(bad == 0 and int(kl) == int(pl) == N_OUT and fb_rel <= 1e-6,
+                  f"K3 baked with noise planes (perlin): {bad} plane mismatches, "
+                  f"{int((state['act'] & ~pp['act']).sum())} died, out-of-tile deaths "
+                  f"{int(kl)} (plain {int(pl)}, want {N_OUT}), flush max rel err "
+                  f"{fb_rel:.3g} (<= 1e-6)")
+
+    results["turb"]["ms"] = _timed_ms(lambda: perlin_kernel.turb(*p, 7), 20)
+    results["turb"]["plain_ms"] = _timed_ms(lambda: perlin.turb_p(*p, 7), 3)
+    # 3 planes in, 1 out; 7 octaves of noise per lane
+    _set_bound(results["turb"], R * 16, R * 7 * OPS_NOISE)
+
+    # ---- K11: both uniform modes, from a random pool and a rendered one ----
+    def run(fn, scene, base, src):
+        pool = _clone(base)
+        q = torch.tensor([q0, 0], dtype=torch.int64, device=dev)
+        hist = torch.zeros(6, dtype=torch.int64, device=dev)
+        fb = torch.zeros((tile_pixels, 3), device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        died = fn(pool, scene.camera, q, 0, hist, 5, scal, scene.tables, scene.background,
+                  fb, lost, ncols=10, max_depth=50, gradient=scene.gradient_bg, **src)
+        torch.cuda.synchronize()
+        return pool, q, hist, fb, lost, died
+
+    k11_err = 0.0
+    block = torch.from_numpy(rng.random((10, R), dtype=np.float32)).to(dev)
+    for sname, scene in scenes.items():
+        for pool_label, base, n_out in (
+                ("random pool", _sp_pool(rng, R, tile_pixels, dev), N_OUT),
+                ("pool after 20 iterations", rendered[sname], 0)):
+            for mode, src in (("injected", dict(block=block)),
+                              ("philox", dict(key=(1984, 2, 1)))):
+                kp, kq, kh, kfb, kl, kd = run(sp_step, scene, base, src)
+                pp, pq, ph, pfb, pl, pd = run(sp_step_plain, scene, base, src)
+                bad = sum(_bits_equal(kp[n], pp[n]) for n in rk.POOL_F)
+                bad += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+                fb_rel = float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max())
+                ok = (bad == 0 and torch.equal(kq, pq) and torch.equal(kh, ph)
+                      and torch.equal(kd, pd) and int(kl) == int(pl) == n_out
+                      and fb_rel <= 1e-6)
+                checks.expect(ok, f"K11 {sname} {pool_label} {mode}: take "
+                                  f"{int(kq[1] - kq[0])} (plain {int(pq[1] - pq[0])}), live "
+                                  f"{int(kh[5])} ({int(ph[5])}), died {int(kd.sum())} "
+                                  f"({int((kd != pd).sum())} differ), {bad} plane "
+                                  f"mismatches, out-of-tile deaths {int(kl)} (plain "
+                                  f"{int(pl)}, want {n_out}), flush max rel err "
+                                  f"{fb_rel:.3g} (<= 1e-6)")
+                k11_err = max(k11_err, float((kfb - pfb).abs().max()),
+                              *(_max_diff(kp[n], pp[n]) for n in rk.POOL_F))
+
+        # timed from the rendered pool, Philox uniforms
+        work = _clone(rendered[sname])
+        q_t = torch.zeros(2, dtype=torch.int64, device=dev)
+        hist_t = torch.zeros(6, dtype=torch.int64, device=dev)
+        fb_t = torch.zeros((tile_pixels, 3), device=dev)
+        lost_t = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def reset(base=rendered[sname]):
+            _restore(work, base)
+            q_t.fill_(q0)
+
+        def step(fn, scene=scene):
+            fn(work, scene.camera, q_t, 0, hist_t, 5, scal, scene.tables, scene.background,
+               fb_t, lost_t, key=(1984, 2, 1), ncols=10, max_depth=50,
+               gradient=scene.gradient_bg)
+
+        key = "" if sname == "perlin" else f"_{sname}"  # perlin: this slice's main path
+        results["sp_step"][f"ms{key}"] = _timed_ms(lambda: step(sp_step), 20, reset=reset)
+        results["sp_step"][f"plain_ms{key}"] = _timed_ms(lambda: step(sp_step_plain), 3,
+                                                         reset=reset)
+        # what this step's data needs: the slots live after the refill, the
+        # taken ones and the hits (on perlin, every hit is on marble)
+        after = refilled(scene, rendered[sname], 5, key=(1984, 2, 1))
+        live = after["act"]
+        n_live, was = int(live.sum()), int(rendered[sname]["act"].sum())
+        taken = n_live - was
+        n_hit = int((hits(scene, after).hit & live).sum())
+        prims = scene.tables.n_spheres * OPS_SPHERE + scene.tables.n_quads * OPS_QUAD
+        marble = n_hit if sname == "perlin" else 0
+        # act of every slot in and died out; a slot live before the refill
+        # reads its state (60 B); a live slot writes radiance, bounce and act
+        # (17 B) and o, d, throughput (36 B; counted for every live slot);
+        # a taken slot tm and pix (8 B); the framebuffer adds are not counted
+        entry = results["sp_step"] if sname == "perlin" else {}
+        _set_bound(entry, R * 2 + was * 60 + n_live * (17 + 36) + taken * 8,
+                   n_live * (3 * OPS_PHILOX + prims + OPS_SP_BOUNCE) + taken * OPS_CAMERA
+                   + marble * 7 * OPS_NOISE)
+        if sname != "perlin":
+            results["sp_step"][f"bound_ms{key}"] = entry["bound_ms"]
+            results["sp_step"][f"bound_by{key}"] = entry["bound_by"]
+        log(f"  K11 {sname} step: {n_live} live ({taken} taken), {n_hit} hits")
+    results["sp_step"]["max_abs_err"] = k11_err
+    _log_kernels(results, ("turb", "sp_step"))
+    r = results["sp_step"]
+    log(f"  sp_step on quads: kernel {r['ms_quads']:.4f} ms, plain "
+        f"{r['plain_ms_quads']:.4f} ms, bound {r['bound_ms_quads']:.4f} ms "
+        f"({r['bound_by_quads']})")
+
+
 def philox_checks(checks: Checks, dev):
     import torch
 
@@ -621,27 +878,44 @@ def _light_rows(scene, ny: int):
     return int(np.floor(min(ts) * ny)), int(np.ceil(max(ts) * ny))
 
 
-def _render(checks, dev, name, nx, ny, spp, results, counts_by_render, scene=None):
+def _render(checks, dev, name, nx, ny, spp, results, counts_by_render, scene=None,
+            label=None, short_path=None):
     """One render with the launch counts set to 0 just before it and read
-    just after; checks that it launched every kernel of its path."""
+    just after; checks that it launched every kernel of its path (PATHS
+    under ``label``, by default the scene's name) and no other."""
     from art_tpu_torch.models import build_scene
     from art_tpu_torch.ops import _build
     from art_tpu_torch.render.renderer import RenderConfig, render_scene
 
+    label = label or name
     scene = scene or build_scene(name, nx, ny)
     _build.launches.clear()
-    fb, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
+    fb, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev,
+                          short_path=short_path)
     counts = dict(_build.launches)
-    counts_by_render[name] = counts
-    unused = [k for k in KERNELS if k not in PATHS[name] and counts.get(k, 0)]
-    checks.expect(all(counts.get(k, 0) > 0 for k in PATHS[name]) and not unused,
-                  f"{name} {nx}x{ny} @ {spp} launched {PATHS[name]}: {counts}")
+    counts_by_render[label] = counts
+    unused = [k for k in KERNELS if k not in PATHS[label] and counts.get(k, 0)]
+    checks.expect(all(counts.get(k, 0) > 0 for k in PATHS[label]) and not unused,
+                  f"{label} {nx}x{ny} @ {spp} launched {PATHS[label]} and no other "
+                  f"kernel: {counts}")
     checks.expect(bool(np.isfinite(fb).all() and (fb >= 0).all()),
-                  f"{name} {nx}x{ny} @ {spp}: finite, >= 0")
-    log(f"  {name} {nx}x{ny} @ {spp}: {st['seconds']:.3f} s, {st['rays']:.0f} rays, "
+                  f"{label} {nx}x{ny} @ {spp}: finite, >= 0")
+    log(f"  {label} {nx}x{ny} @ {spp}: {st['seconds']:.3f} s, {st['rays']:.0f} rays, "
         f"{st['mrays_per_sec']:.2f} Mrays/s, {st['iterations']} iterations, occupancy "
-        f"{st['occupancy']:.3f}, R {st['n_slots']}, {st['tile_pixels']} px tiles")
+        f"{st['occupancy']:.3f}, R {st['n_slots']}, {st['tile_pixels']} px tiles, "
+        f"short path {st['short_path']}")
+    results["_renders"][f"{label} {nx}x{ny} @ {spp}"] = {
+        k: st[k] for k in ("seconds", "rays", "mrays_per_sec", "iterations", "occupancy",
+                           "short_path")}
     return fb, st
+
+
+def _statistics(a, b):
+    """16x8 luminance correlation and channel-mean difference of two
+    renders (tests/test_parity.py:_compare)."""
+    a, b = _down(a[::-1]), _down(b[::-1])
+    corr = float(np.corrcoef(a.mean(-1).ravel(), b.mean(-1).ravel())[0, 1])
+    return corr, float(np.abs(a.mean((0, 1)) - b.mean((0, 1))).max())
 
 
 def render_checks(checks: Checks, dev, smi: str, results: dict):
@@ -651,6 +925,7 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     from art_tpu_torch.render.renderer import RenderConfig, plan_batches, render_scene
 
     counts_by_render: dict = {}
+    results["_renders"] = {}
     name, nx, ny, spp = THREE
     fb, _ = _render(checks, dev, name, nx, ny, spp, results, counts_by_render)
     top = fb[-1].mean(axis=0)
@@ -659,7 +934,7 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     name, nx, ny, spp = BOUNCING
     _render(checks, dev, name, nx, ny, spp, results, counts_by_render)
 
-    name, nx, ny, spp = MAIN
+    name, nx, ny, spp = CORNELL
     scene = build_scene(name, nx, ny)
     fb, st = _render(checks, dev, name, nx, ny, spp, results, counts_by_render, scene)
     lum = fb.mean(axis=(1, 2))
@@ -668,20 +943,35 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     checks.expect(lo <= brightest <= hi,
                   f"{name}: brightest row {brightest} (mean {lum[brightest]:.3f}) lies in "
                   f"the ceiling light's rows {lo}..{hi} (frame mean {lum.mean():.3f})")
-    results["_render"] = {k: st[k] for k in ("seconds", "rays", "mrays_per_sec",
-                                              "iterations", "occupancy", "n_slots",
-                                              "tile_pixels")}
-    results["_render"].update(scene=f"{name} {nx}x{ny} @ {spp}", card=smi)
-    for k in KERNELS:  # counts of this slice's main path (cornell_box)
-        results[k]["launches"] = counts_by_render[name].get(k, 0)
-        results[k]["launches_by_render"] = {
-            scene: c.get(k, 0) for scene, c in counts_by_render.items()}
-    # plane-fed K3 is not on cornell_box's path: its count is bouncing_spheres'
-    results["shade_flush"]["launches"] = counts_by_render["bouncing_spheres"]["shade_flush"]
 
-    for name in ("three_spheres", "bouncing_spheres", "cornell_box"):
+    images = {}
+    for label, name, nx, ny, spp, short in SHORT:
+        images[label], _ = _render(checks, dev, name, nx, ny, spp, results,
+                                   counts_by_render, label=label, short_path=short)
+    corr, mean_diff = _statistics(images["perlin"], images["perlin staged"])
+    checks.expect(corr >= 0.98 and mean_diff <= 0.02,
+                  f"perlin 1200x600 @ 64, short path against staged: luminance corr "
+                  f"{corr:.4f} (>= 0.98), channel mean diff {mean_diff:.4f} (<= 0.02)")
+    label, name, nx, ny, spp, _ = SHORT[0]
+    results["_render"] = dict(results["_renders"][f"{label} {nx}x{ny} @ {spp}"],
+                              scene=f"{label} {nx}x{ny} @ {spp}", card=smi)
+    # each kernel's count is that of the newest path that runs it: this
+    # slice's main path (perlin, short path) and its other paths first,
+    # then cornell_box's and bouncing_spheres' (the earlier slices' main
+    # paths), then three_spheres'
+    order = [lab for lab, *_ in SHORT] + ["cornell_box", "bouncing_spheres",
+                                          "three_spheres"]
+    for k in KERNELS:
+        path = next(lab for lab in order if k in PATHS[lab])
+        results[k]["launches"] = counts_by_render[path].get(k, 0)
+        results[k]["launches_path"] = path
+        results[k]["launches_by_render"] = {
+            lab: c.get(k, 0) for lab, c in counts_by_render.items()}
+
+    for label in SAME_UNIFORMS:
         # same injected uniforms through both paths
-        nx, ny, spp = SAME_UNIFORMS[name]
+        name, short_path = label.split()[0], (False if "staged" in label else None)
+        nx, ny, spp = SAME_UNIFORMS[label]
         cfg = RenderConfig(nx=nx, ny=ny, spp=spp)
         R = plan_batches(nx * ny, spp, 488, cfg, dev)[2]
 
@@ -690,13 +980,18 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                 (10, R), dtype=np.float32)
 
         scene = build_scene(name, nx, ny)
-        kfb, kst = render_scene(scene, cfg, device=dev, uniforms=uniforms)
-        pfb, pst = render_scene(scene, cfg, device=dev, uniforms=uniforms, plain=True)
+        kfb, kst = render_scene(scene, cfg, device=dev, uniforms=uniforms,
+                                short_path=short_path)
+        pfb, pst = render_scene(scene, cfg, device=dev, uniforms=uniforms, plain=True,
+                                short_path=short_path)
         close = float((np.abs(kfb - pfb).max(axis=-1) <= 1e-3).mean())
         checks.expect(kst["iterations"] == pst["iterations"] and close >= 0.98,
-                      f"{name} {nx}x{ny} @ {spp}, same uniforms: iterations "
+                      f"{label} {nx}x{ny} @ {spp}, same uniforms: iterations "
                       f"{kst['iterations']} vs {pst['iterations']}, {close:.4f} of "
-                      f"pixels within 1e-3, rays {kst['rays']:.0f} vs {pst['rays']:.0f}")
+                      f"pixels within 1e-3, rays {kst['rays']:.0f} vs {pst['rays']:.0f}, "
+                      f"short path {kst['short_path']}")
+        if label not in INDEPENDENT:
+            continue
         # independent seeds: kernels with Philox seed 1, plain with seed 2
         nx, ny, spp = INDEPENDENT[name]
         scene = build_scene(name, nx, ny)
@@ -704,9 +999,7 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                               device=dev)
         pfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=2),
                               device=dev, plain=True)
-        a, b = _down(kfb[::-1]), _down(pfb[::-1])
-        corr = float(np.corrcoef(a.mean(-1).ravel(), b.mean(-1).ravel())[0, 1])
-        mean_diff = float(np.abs(a.mean((0, 1)) - b.mean((0, 1))).max())
+        corr, mean_diff = _statistics(kfb, pfb)
         checks.expect(corr >= 0.98 and mean_diff <= 0.02,
                       f"{name} {nx}x{ny} @ {spp}, independent seeds: luminance corr "
                       f"{corr:.4f} (>= 0.98), channel mean diff {mean_diff:.4f} (<= 0.02)")
@@ -735,12 +1028,15 @@ def main() -> int:
                  results)
     checks.phase("2b. K5, K6, baked K3 against their plain twins", quad_box_checks,
                  checks, dev, results)
+    checks.phase("2c. K7, K11 against their plain twins", turb_sp_checks, checks, dev,
+                 results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     render = results.pop("_render", {})
+    renders = results.pop("_renders", {})
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
-        for name, (src, rep) in KERNELS.items()], "render": render,
+        for name, (src, rep) in KERNELS.items()], "render": render, "renders": renders,
         "card": smi}))
     if checks.failed:
         log(f"FAILED: {checks.failed}")

@@ -1,11 +1,12 @@
 """Profile one tile of an art_tpu_torch render on the card.
 
-    python3 scripts/profile_torch_tile.py [scene [nx ny spp]]
+    python3 scripts/profile_torch_tile.py [scene [nx ny spp [staged|short]]]
 
 Renders the first (tile, chunk) dispatch that ``render_scene`` would make
-for ``scene`` at ``nx`` x ``ny`` @ ``spp`` (default cornell_box 600x600 @ 64):
-once to warm up, once timed without the profiler, once under
-``torch.profiler`` (CPU + CUDA activity).  Prints one JSON line: the card,
+for ``scene`` at ``nx`` x ``ny`` @ ``spp`` (default cornell_box 600x600 @ 64)
+on the path ``render_scene`` picks, or on the staged or the short path
+(K11) when the fifth argument asks: once to warm up, once timed without
+the profiler, once under ``torch.profiler`` (CPU + CUDA activity).  Prints one JSON line: the card,
 the wall seconds of both timed runs, the device busy time (the union of
 the device activity intervals), the idle share of the profiled wall time,
 the loop's iterations, device launches per iteration, and the device time
@@ -42,7 +43,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from art_tpu_torch.models import build_scene
-    from art_tpu_torch.render.integrator import render_wavefront
+    from art_tpu_torch.render.integrator import render_wavefront, use_short_path
     from art_tpu_torch.render.renderer import RenderConfig, plan_batches
 
     if not torch.cuda.is_available():
@@ -50,6 +51,7 @@ def main() -> int:
         return 1
     name = sys.argv[1] if len(sys.argv) > 1 else "cornell_box"
     nx, ny, spp = (int(a) for a in sys.argv[2:5]) if len(sys.argv) > 4 else (600, 600, 64)
+    short_path = {"staged": False, "short": True}[sys.argv[5]] if len(sys.argv) > 5 else None
     dev = torch.device("cuda", 0)
     scene = build_scene(name, nx, ny)
     tables = scene.tables.to(dev)
@@ -61,7 +63,8 @@ def main() -> int:
         out = render_wavefront(
             tables, scene.camera, 0, spp_chunk, scene.background, tile_pixels=tile_pixels,
             total_pixels=nx * ny, nx=nx, ny=ny, max_depth=cfg.max_depth,
-            gradient_bg=scene.gradient_bg, n_slots=R, tile=0, chunk=0, seed=cfg.seed)
+            gradient_bg=scene.gradient_bg, n_slots=R, tile=0, chunk=0, seed=cfg.seed,
+            short_path=short_path)
         torch.cuda.synchronize()
         return out
 
@@ -80,12 +83,15 @@ def main() -> int:
     for e in dev_events:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-    loops = sum(n for k, (_, n) in by_name.items() if "refill_apply" in k)
+    # one refill_apply (staged) or sp_step_kernel (short path) per iteration
+    loops = sum(n for k, (_, n) in by_name.items()
+                if "refill_apply" in k or "sp_step_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(json.dumps({
         "card": smi.stdout.strip(), "scene": f"{name} {nx}x{ny} @ {spp}",
+        "short_path": use_short_path(tables, short_path),
         "tile_pixels": tile_pixels, "spp_chunk": spp_chunk, "n_slots": R,
         "rays": rays, "iterations": iters, "loop_iterations": loops,
         "wall_s": wall_plain, "wall_profiled_s": wall, "device_busy_ms": busy_ms,

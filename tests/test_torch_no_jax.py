@@ -18,8 +18,11 @@ names = [m.name for m in pkgutil.walk_packages(art_tpu_torch.__path__, "art_tpu_
 for name in names:
     importlib.import_module(name)
 assert "art_tpu" not in sys.modules
-print(len(names))
+print(" ".join(names))
 """
+# the modules each slice added (slice 3: noise, turbulence, the short path)
+NEW_MODULES = ("art_tpu_torch.ops.perlin", "art_tpu_torch.ops.perlin_kernel",
+               "art_tpu_torch.ops.sp_kernel")
 
 
 def test_port_imports_without_jax():
@@ -28,4 +31,5 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 23 and set(NEW_MODULES) <= set(names)

@@ -20,7 +20,17 @@ cornell_box is a closed room: nearly every path runs to max_depth, so its
 iteration count is max_depth on both sides, but a path that leaves its twin
 early runs on for dozens of segments, so its traced ray count is held to
 1% (measured at 32x32 @ 4: 0.26%, 0.07% and 0.04% for seeds 1984, 7 and 3)
-and its pixels to the same 98% within 1e-3."""
+and its pixels to the same 98% within 1e-3.
+
+perlin renders staged (``short_path=False``: art_tpu on the CPU always runs
+staged) with the same budgets; the turbulence kernel's twin serves its
+noise leaf.  The short path (K11's twin) is held to the staged path twice:
+on the same injected uniforms, where both must agree as kernel and plain
+renders do (equal iterations, ≥ 98% of pixels within 1e-3), and on
+independent Philox seeds, statistically, with the image comparison of
+tests/test_parity.py:_compare (16x8 luminance correlation ≥ 0.98,
+channel-mean difference ≤ 0.02; measured at 64x32 @ 16: quads 0.9994 /
+0.0006, perlin 0.9981 / 0.0019)."""
 
 import dataclasses
 
@@ -71,7 +81,7 @@ def _threefry(seed, R, ncols=10):
 
 
 @pytest.mark.parametrize("name,seed", [("three_spheres", 1984), ("bouncing_spheres", 7),
-                                       ("cornell_box", 1984)])
+                                       ("cornell_box", 1984), ("perlin", 1984)])
 def test_render_matches_art_tpu(name, seed):
     """bouncing_spheres' seed 7 was picked: it is one of the seeds whose
     longest path stays in step, so the exact iteration count can be held.
@@ -85,7 +95,8 @@ def test_render_matches_art_tpu(name, seed):
                                 JaxConfig(nx=nx, ny=ny, spp=SPP, seed=seed))
     fb, st = render_scene(build_scene(name, nx, ny),
                           RenderConfig(nx=nx, ny=ny, spp=SPP, seed=seed), device="cpu",
-                          uniforms=_threefry(seed, jst["n_slots"]))
+                          uniforms=_threefry(seed, jst["n_slots"]), short_path=False)
+    assert not st["short_path"]
     for k in ("tile_pixels", "spp_chunk", "n_slots", "spp"):
         assert st[k] == jst[k], k
     assert st["iterations"] == jst["iterations"]
@@ -94,6 +105,44 @@ def test_render_matches_art_tpu(name, seed):
     close = np.abs(fb - jfb).max(axis=-1) <= 1e-3
     assert close.mean() >= 0.98, close.mean()
     assert set(jst) <= set(st)
+
+
+@pytest.mark.parametrize("name,short_path", [
+    ("quads", None), ("checkered_spheres", None), ("perlin", None),
+    ("simple_light_book", None), ("three_spheres", True)])
+def test_short_path_render_matches_staged_same_uniforms(name, short_path):
+    """The short path's render (K11's twin) against the staged render on
+    the same injected uniforms; three_spheres forced onto the short path,
+    dielectric chain included."""
+    scene = build_scene(name, NX, NY)
+    cfg = RenderConfig(nx=NX, ny=NY, spp=SPP)
+    R = plan_batches(NX * NY, SPP, 4, cfg, "cpu")[2]
+    uniforms = _threefry(5, R)
+    sfb, sst = render_scene(scene, cfg, device="cpu", uniforms=uniforms,
+                            short_path=short_path)
+    fb, st = render_scene(scene, cfg, device="cpu", uniforms=uniforms, short_path=False)
+    assert sst["short_path"] and not st["short_path"]
+    assert sst["iterations"] == st["iterations"]
+    assert abs(sst["rays"] - st["rays"]) <= 1e-3 * st["rays"]
+    assert (np.abs(sfb - fb).max(axis=-1) <= 1e-3).mean() >= 0.98
+    assert np.isfinite(sfb).all() and (sfb >= 0).all() and sfb.max() > 0
+
+
+@pytest.mark.parametrize("name", ["quads", "perlin"])
+def test_short_path_render_matches_staged_statistically(name):
+    """Independent Philox seeds through the two paths (module docstring)."""
+    from test_parity import _down
+
+    nx, ny, spp = 64, 32, 16
+    scene = build_scene(name, nx, ny)
+    a, sa = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=1), device="cpu")
+    b, sb = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=2), device="cpu",
+                         short_path=False)
+    assert sa["short_path"] and not sb["short_path"]
+    a, b = _down(np.clip(a[::-1], 0.0, 1.0)), _down(np.clip(b[::-1], 0.0, 1.0))
+    corr = float(np.corrcoef(a.mean(-1).ravel(), b.mean(-1).ravel())[0, 1])
+    mean_diff = float(np.abs(a.mean((0, 1)) - b.mean((0, 1))).max())
+    assert corr >= 0.98 and mean_diff <= 0.02, (corr, mean_diff)
 
 
 def test_bouncing_render_lockstep():
@@ -275,6 +324,16 @@ def test_cli_later_slice_options_raise():
 def test_cli_lists_scenes(capsys):
     assert cli.main(["--list-scenes"]) == 0
     assert "bouncing_spheres" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["perlin", "checkered_spheres", "simple_light_book"])
+def test_cli_writes_a_texture_scene_ppm(tmp_path, name):
+    out = tmp_path / f"{name}.ppm"
+    rc = cli.main(["--scene", name, "--nx", "16", "--ny", "8", "--spp", "2",
+                   "--device", "cpu", "--out", str(out)])
+    assert rc == 0
+    img = read_ppm(out.read_text())
+    assert img.shape == (8, 16, 3) and (img >= 0).all() and img.max() > 0
 
 
 def test_render_config_defaults_match_art_tpu():

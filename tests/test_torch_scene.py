@@ -1,8 +1,9 @@
 """art_tpu_torch's scene layer against art_tpu's: the compiled tables and the
 camera of the ported scenes (cornell_box in both wall variants, and a
 hand-built scene of translated, unrotated boxes), the baked shade
-constants, the kernels' row tables, ``tables_from_numpy`` (how tests carry
-art_tpu's tables into the port), and the cuRAND XORWOW stream.
+constants with their noise leaves, the short path's gate and constants
+(``sp_consts``), the kernels' row tables, ``tables_from_numpy`` (how tests
+carry art_tpu's tables into the port), and the cuRAND XORWOW stream.
 
 Tolerance: float tables and camera 1e-6 (both build in float32 from the same
 float64 host values, so they agree exactly in practice); integer tables,
@@ -34,12 +35,14 @@ from art_tpu_torch.scene.tables import SceneTables
 # the test workers share the cores: one intra-op thread per worker
 torch.set_num_threads(1)
 
-SLICE_SCENES = ["bouncing_spheres", "three_spheres", "cornell_box", "quads"]
+SLICE_SCENES = ["bouncing_spheres", "three_spheres", "cornell_box", "quads",
+                "checkered_spheres", "perlin", "simple_light_book"]
 # art_tpu's fields (the kernels' row tables are the port's own)
 ARRAY_FIELDS = [f.name for f in dataclasses.fields(SceneTables)
                 if f.type == "torch.Tensor" and not f.name.endswith("_rows")]
 META = ("n_spheres", "n_quads", "n_boxes", "has_moving", "has_rotated_boxes",
-        "shade_consts")
+        "shade_consts", "sp_consts")
+SP_ROWS = ("sp_sph_rows", "sp_quad_rows", "sp_mat_rows")
 
 
 def _jax_arrays(scene):
@@ -86,6 +89,11 @@ def test_tables_from_numpy_round_trip(name):
     _assert_tables_equal(tables, arrays)
     built = build_scene(name, 64, 32)
     np.testing.assert_array_equal(tables.sph_rows.numpy(), built.tables.sph_rows.numpy())
+    for k in SP_ROWS:
+        a, b = getattr(tables, k), getattr(built.tables, k)
+        assert (a is None) == (b is None), k
+        if a is not None:
+            np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=k)
     for k, v in cam.items():
         np.testing.assert_array_equal(np.asarray(getattr(camera, k)), v)
 
@@ -125,11 +133,13 @@ def test_later_slice_scenes_raise(name):
 @pytest.mark.parametrize("obj", [
     O.ConstantMedium(O.Sphere((0, 0, 0), 1.0, Lambertian((0.5, 0.5, 0.5))), 0.5,
                      (1.0, 1.0, 1.0)),
-    O.Sphere((0, 0, 0), 1.0, Lambertian(X.NoiseTexture(4.0))),
+    O.Sphere((0, 0, 0), 1.0, Lambertian(X.FeltTexture())),
     O.Sphere((0, 0, 0), 1.0, Lambertian(X.ImageTexture("earthmap.jpg"))),
+    O.Sphere((0, 0, 0), 1.0, Lambertian(X.NoodleTexture())),
 ])
 def test_later_slice_objects_raise_in_builder(obj):
-    """Media (M8) and image/noise textures (M10) are not ported yet."""
+    """Media (M8) and image, felt and noodle textures (M10) are not ported
+    yet."""
     b = SceneBuilder().add(obj)
     b.set_camera(lookfrom=(0, 0, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
                  vfov_degrees=40.0, aspect=1.0)
@@ -219,13 +229,77 @@ def test_kernel_rows_equal_art_tpu_packed_tables(name):
 
 
 @pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "cornell_legacy",
-                                  "unrotated_boxes", "bouncing_spheres"])
+                                  "unrotated_boxes", "bouncing_spheres", "perlin",
+                                  "simple_light_book"])
 def test_shade_consts_match_art_tpu(name):
-    """The baked gate and constants: ≤ 24 materials with solid or
-    checker-of-solids textures bake; bouncing_spheres' 82 do not."""
+    """The baked gate and constants: ≤ 24 materials with solid,
+    checker-of-solids or noise textures bake (noise as a special leaf);
+    bouncing_spheres' 82 do not."""
     jscene, scene = _scene_pair(name)
     assert scene.tables.shade_consts == jscene.tables.shade_consts
     assert (scene.tables.shade_rows is None) == (name == "bouncing_spheres")
+    if name in ("perlin", "simple_light_book"):
+        assert scene.tables.shade_consts[1] == ((0, "noise", 4.0),)
+        rows = scene.tables.shade_rows.numpy()
+        assert rows[0, 6] == 2.0 and not rows[0, 7:].any()
+
+
+def _light_checker(b_mod, O, M, X):
+    """A checker ground, a fuzzy metal ball and a quad light: the light and
+    checker case of art_tpu's tests/test_sp_kernel.py:41-58."""
+    check = X.Checker(0.8, X.SolidColor((0.9, 0.9, 0.9)), X.SolidColor((0.1, 0.2, 0.3)))
+    b = b_mod.SceneBuilder().add(
+        O.Sphere((0, -100.5, -1), 100.0, M.Lambertian(check)),
+        O.Sphere((0, 0, -1), 0.5, M.Metal((0.8, 0.6, 0.2), 0.3)),
+        O.Quad((-1, 2, -2), (2, 0, 0), (0, 0, 2), M.DiffuseLight((4, 4, 4))),
+    )
+    b.set_camera(lookfrom=(0, 0, 2), lookat=(0, 0, -1), vup=(0, 1, 0),
+                 vfov_degrees=60.0, aspect=2.0, aperture=0.0, focus_dist=3.0)
+    b.set_background((0, 0, 0), gradient=False)
+    return b.compile()
+
+
+def light_checker_scenes():
+    """The light-and-checker scene in both packages."""
+    from art_tpu.scene import textures as JX
+
+    return _light_checker(jax_builder, JO, JM, JX), _light_checker(port_builder, O, PM, X)
+
+
+SP_SCENES = ["quads", "checkered_spheres", "perlin", "simple_light_book", "light_checker",
+             "three_spheres"]
+
+
+@pytest.mark.parametrize("name", SP_SCENES + ["cornell_box", "bouncing_spheres",
+                                              "unrotated_boxes"])
+def test_sp_consts_match_art_tpu(name):
+    """The short path's gate and its float32 constants: the small static
+    scenes pass (three_spheres too: its dielectric keeps it staged only at
+    the integrator), cornell_box (boxes), bouncing_spheres (488 spheres,
+    moving) and the box scene do not."""
+    jscene, scene = light_checker_scenes() if name == "light_checker" else _scene_pair(name)
+    assert scene.tables.sp_consts == jscene.tables.sp_consts
+    assert (scene.tables.sp_consts is None) == (name not in SP_SCENES)
+
+
+@pytest.mark.parametrize("name", SP_SCENES)
+def test_sp_rows_layout(name):
+    """sp_sph_rows [c(3) r inv_r mat] with inv_r the float32 of the float64
+    1 / r (art_tpu's kernel bakes it so); sp_quad_rows art_tpu's pack_quads
+    row plus the material; sp_mat_rows the 14-value material tuple."""
+    jscene, scene = light_checker_scenes() if name == "light_checker" else _scene_pair(name)
+    spheres, quads, mats = scene.tables.sp_consts
+    sph = scene.tables.sp_sph_rows.numpy()
+    assert sph.shape == (len(spheres), 6) and sph.dtype == np.float32
+    for row, (cx, cy, cz, r, m) in zip(sph, spheres):
+        np.testing.assert_array_equal(row[:4], (cx, cy, cz, r))
+        assert row[4] == np.float32(1.0 / r) and row[5] == m
+    qr = scene.tables.sp_quad_rows.numpy()
+    assert qr.shape == (len(quads), 13)
+    np.testing.assert_array_equal(qr[:, :12], np.asarray(jscene.tables.quad_packed)[:len(quads)])
+    np.testing.assert_array_equal(qr[:, 12], [q[12] for q in quads])
+    np.testing.assert_array_equal(scene.tables.sp_mat_rows.numpy(),
+                                  np.asarray(mats, np.float32).reshape(-1, 14))
 
 
 def test_shade_rows_layout():

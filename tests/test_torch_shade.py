@@ -20,7 +20,12 @@ the plane-fed twin on the same inputs bit for bit (the table holds the
 float32 values the fetch returns), and it is held to art_tpu's
 ``shade_flush(consts=..., interpret=True)`` — the Pallas kernel's baked
 mode, which takes its in-ball radius as ``exp(log(u)/3)`` — with the
-budget and tolerances above."""
+budget and tolerances above.  On the marble scenes (perlin,
+simple_light_book) the hit record carries the special leaf planes
+``sp0..sp2`` from ``eval_special_p``; each package computes its own hit
+points, and the r = 1000 ground sphere turns a last-ulp shift of one into
+~1e-3 of turbulence, so there the float planes get rtol 5e-3 / atol 5e-4
+with 8 outliers per plane (tests/test_sp_kernel.py:175-186)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,12 +36,14 @@ from art_tpu.models import build_scene as jax_build_scene
 from art_tpu.ops.flush_kernel import flush_accumulate
 from art_tpu.ops.intersect import closest_surface_p as jax_closest
 from art_tpu.ops.shade_kernel import shade_flush as jax_shade_flush
+from art_tpu.ops.texture_eval import eval_special_p as jax_eval_special_p
 from art_tpu.render.integrator import _bounce_step
 from art_tpu_torch.core.vecmath import T_MIN
 from art_tpu_torch.models import build_scene
 from art_tpu_torch.ops.intersect import closest_surface_p
 from art_tpu_torch.ops.shade import shade_params_p
-from art_tpu_torch.ops.shade_kernel import REC_BAKED, REC_F, STATE_F, shade_flush
+from art_tpu_torch.ops.shade_kernel import REC_BAKED, REC_F, REC_SP, STATE_F, shade_flush
+from art_tpu_torch.ops.texture_eval import eval_special_p
 from test_torch_scene import unrotated_scenes
 
 # the test workers share the cores: one intra-op thread per worker
@@ -212,6 +219,11 @@ def _shade(scene, pool, rec, u, fb0, baked):
     pool = {k: v.clone() for k, v in pool.items()}
     if baked:
         planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u)))
+        specials = scene.tables.shade_consts[1]
+        if specials:
+            planes.update(zip(REC_SP, eval_special_p(
+                scene.tables, specials, rec.mat, rec.u, rec.v, rec.p,
+                valid=rec.hit & pool["act"])))
     else:
         mtype, fuzz, refidx, malb, texv = shade_params_p(scene.tables, rec)
         planes = dict(zip(REC_F, (*rec.p, *rec.normal, mtype, fuzz, refidx, *malb,
@@ -225,7 +237,8 @@ def _shade(scene, pool, rec, u, fb0, baked):
     return pool, fb
 
 
-@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "unrotated_boxes"])
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "unrotated_boxes",
+                                  "perlin"])
 def test_baked_twin_equals_plane_fed(name):
     x, _, scene, pool, rec, u = _baked_case(name, 3)
     assert scene.tables.shade_rows is not None
@@ -237,10 +250,12 @@ def test_baked_twin_equals_plane_fed(name):
     assert int((pool["act"] & ~b["act"]).sum()) > 0  # some slots died and flushed
 
 
-@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "unrotated_boxes"])
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "unrotated_boxes",
+                                  "perlin", "simple_light_book"])
 def test_baked_matches_art_tpu_consts_kernel(name):
     x, jscene, scene, pool, rec, u = _baked_case(name, 8)
     got, fb = _shade(scene, pool, rec, u, x["fb0"], baked=True)
+    noise = bool(scene.tables.shade_consts[1])
 
     J = jnp.asarray
     jt = jscene.tables
@@ -252,6 +267,10 @@ def test_baked_matches_art_tpu_consts_kernel(name):
                  ny=jrec.normal[1], nz=jrec.normal[2], mat=jrec.mat.astype(jnp.float32),
                  ub0=J(x["u_ball"][0]), ub1=J(x["u_ball"][1]), ub2=J(x["u_ball"][2]),
                  uch=J(x["u_choice"]))
+    if noise:
+        sp = jax_eval_special_p(jt, jt.shade_consts[1], jrec.mat, jrec.u, jrec.v, jrec.p,
+                                valid=jrec.hit & J(x["active"]))
+        rec_b.update(zip(REC_SP, sp))
     new, died, fb_k = jax_shade_flush(
         state, jrec.hit, rec_b, J(np.asarray(scene.background, np.float32)),
         J(_fb_window(x["fb0"])), jnp.int32(0), max_depth=MAX_DEPTH,
@@ -263,9 +282,17 @@ def test_baked_matches_art_tpu_consts_kernel(name):
     agree = got_act == still
     np.testing.assert_array_equal(got["bounce"].numpy(), np.asarray(new["bounce"]))
     for n in STATE_F:
-        np.testing.assert_allclose(got[n].numpy()[agree], np.asarray(new[n])[agree],
-                                   rtol=2e-4, atol=2e-5, err_msg=n)
-    if agree.all():
+        if noise:
+            bad = ~np.isclose(got[n].numpy()[agree], np.asarray(new[n])[agree],
+                              rtol=5e-3, atol=5e-4)
+            assert int(bad.sum()) <= 8, (n, int(bad.sum()))
+        else:
+            np.testing.assert_allclose(got[n].numpy()[agree], np.asarray(new[n])[agree],
+                                       rtol=2e-4, atol=2e-5, err_msg=n)
+    if noise:  # some rays hit the marble and survived with its texture value
+        hit_noise = (rec.mat == 0) & rec.hit & pool["act"]
+        assert bool((got["t0"] != pool["t0"])[hit_noise].any())
+    if agree.all() and not noise:
         # the TPU flush rounds each sample to bf16: within that rounding
         died = np.asarray(died)
         rad = np.stack([got[n].numpy() for n in ("r0", "r1", "r2")], 1)
