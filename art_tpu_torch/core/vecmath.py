@@ -31,6 +31,14 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+def device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 0-dim tensor on ``like``'s device, to divide by: ATen on
+    CUDA turns ``x / python_scalar`` (and ``x / cpu_scalar_tensor``) into
+    ``x * (1 / scalar)``, which rounds differently from ``art_tpu``'s
+    division."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
 def p_dot(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 

@@ -1,8 +1,9 @@
 """The reference scene suite on the port's DSL (``art_tpu/models/scenes.py``).
 
 The port has ``bouncing_spheres`` (``scenes.py:70``), ``checkered_spheres``
-(``scenes.py:151``), ``perlin`` (``scenes.py:179``), ``quads``
-(``scenes.py:193``), ``simple_light_book`` (``scenes.py:239``),
+(``scenes.py:151``), ``earth`` (``scenes.py:166``), ``perlin``
+(``scenes.py:179``), ``quads`` (``scenes.py:193``), ``simple_light``
+(``scenes.py:212``), ``simple_light_book`` (``scenes.py:239``),
 ``cornell_box`` (``scenes.py:266``) and ``three_spheres`` (``scenes.py:461``)
 with the same construction order, so their tables equal ``art_tpu``'s.  The
 other reference scenes are listed with their defaults and raise
@@ -16,7 +17,14 @@ import numpy as np
 from art_tpu_torch.scene.builder import CompiledScene, SceneBuilder
 from art_tpu_torch.scene.materials import Dielectric, DiffuseLight, Lambertian, Metal
 from art_tpu_torch.scene.objects import Box, Quad, RotateY, Sphere, Translate
-from art_tpu_torch.scene.textures import Checker, NoiseTexture, SolidColor
+from art_tpu_torch.scene.textures import (
+    Checker,
+    FeltTexture,
+    ImageTexture,
+    NoiseTexture,
+    SolidColor,
+    UVOffset,
+)
 
 UT_ORANGE = (1.0, 0.51, 0.0)  # src/main.cu:168
 
@@ -130,6 +138,20 @@ def checkered_spheres(nx: int, ny: int) -> CompiledScene:
     return b.compile()
 
 
+def earth(nx: int, ny: int) -> CompiledScene:
+    """src/main.cu:282-308: one image-textured sphere under a gradient sky
+    (the texture from its decoded copy, ``utils/images.py``)."""
+    b = SceneBuilder().set_name("earth")
+    b.add(Sphere((0, 0, 0), 2.0, Lambertian(ImageTexture("earthmap.jpg"))))
+    b.set_camera(
+        lookfrom=(0, 0, 12), lookat=(0, 0, 0), vup=(0, 1, 0),
+        vfov_degrees=20.0, aspect=nx / ny, aperture=0.0, focus_dist=12.0,
+        time0=0.0, time1=1.0,
+    )
+    b.set_background(gradient=True)
+    return b.compile()
+
+
 def perlin(nx: int, ny: int, scale: float = 4.0) -> CompiledScene:
     """src/main.cu:310-329: a marble ground and ball (scale 4.0, as
     src/main.cu:903 passes it)."""
@@ -161,6 +183,32 @@ def quads_scene(nx: int, ny: int) -> CompiledScene:
         time0=0.0, time1=1.0,
     )
     b.set_background(gradient=True)
+    return b.compile()
+
+
+def simple_light(nx: int, ny: int) -> CompiledScene:
+    """src/main.cu:360-400: a pool ball (an image turned by a uv offset)
+    under a glass clear coat, on felt, under a sphere and a quad light."""
+    b = SceneBuilder().set_name("simple_light")
+    felt = FeltTexture((0.06, 0.36, 0.18), 16.0, 0.08, 4.0, 0.03)
+    b.add(Sphere((0, -1000, 0), 1000.0, Lambertian(felt)))
+    ball_tex = UVOffset(ImageTexture("poolball.jpg"), 60.0 / 360.0)
+    center = (0.0, 2.0, 0.0)
+    b.add(Sphere(center, 2.0, Lambertian(ball_tex)))
+    b.add(Sphere(center, 2.0 + 0.02, Dielectric(1.5)))  # the clear-coat shell
+    b.add(
+        Sphere((0, 7, 0), 2.0, DiffuseLight((4, 4, 4))),
+        Quad((3, 1, -2), (2, 0, 0), (0, 2, 0), DiffuseLight((4, 4, 4))),
+    )
+    lookfrom = np.array([26.0, 3.0, 6.0])
+    lookat = np.array([0.0, 2.0, 0.0])
+    b.set_camera(
+        lookfrom=lookfrom, lookat=lookat, vup=(0, 1, 0),
+        vfov_degrees=20.0, aspect=nx / ny, aperture=0.0,
+        focus_dist=float(np.linalg.norm(lookfrom - lookat)),
+        time0=0.0, time1=1.0,
+    )
+    b.set_background((0, 0, 0), gradient=False)
     return b.compile()
 
 
@@ -242,18 +290,17 @@ def _later_slice(name: str, milestone: str, needs: str):
 SCENES = {
     "bouncing_spheres": bouncing_spheres,
     "checkered_spheres": checkered_spheres,
-    "earth": _later_slice("earth", "M10", "it needs image textures"),
+    "earth": earth,
     "perlin": perlin,
     "quads": quads_scene,
-    "simple_light": _later_slice("simple_light", "M10",
-                                 "it needs image and felt textures"),
+    "simple_light": simple_light,
     "simple_light_book": simple_light_book,
     "cornell_box": cornell_box,
     "cornell_smoke": _later_slice("cornell_smoke", "M8", "it needs constant media"),
-    "final_scene": _later_slice("final_scene", "M8, M10, M12",
-                                "it needs media, image textures and the box grid"),
-    "original_scene": _later_slice("original_scene", "M10, M12",
-                                   "it needs noodle/felt textures and the box grid"),
+    "final_scene": _later_slice("final_scene", "M8, M12",
+                                "it needs constant media and the box grid"),
+    "original_scene": _later_slice("original_scene", "M8, M12",
+                                   "it needs constant media and the box grid"),
     "three_spheres": three_spheres,
 }
 

@@ -60,6 +60,8 @@ _SIGNATURES = {
                     ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
                     ctypes.c_uint, ctypes.c_uint, ctypes.POINTER(ctypes.c_float), _I, _I,
                     _I, _P, _I, _P, _I, _P, _I, _P],
+    "art_flush_accumulate": [_P, _P, ctypes.POINTER(_P), _I, _P, _I, _P, _I, _P],
+    "art_table_gather": [_P, _I, _P, _P, _I, _P],
 }
 
 

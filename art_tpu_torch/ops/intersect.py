@@ -6,7 +6,10 @@ The plain PyTorch candidate passes and winner attributes of spheres
 (``box_candidates_p:333``, ``box_attributes_p:433``), and
 ``closest_surface_p`` (``:519``), which merges the three kinds through
 their kernels (``ops/intersect_kernels.py``) unless asked for the plain
-path.  Media join with a later slice (M8).
+path.  A sphere's (u, v) comes from its normal in PyTorch glue
+(``sphere_uv``) when the scene has image or uv_offset textures, as
+``art_tpu`` computes it outside its kernel.  Media join with a later slice
+(M8).
 
 The quad and box passes read the kernels' row tables (``quad_rows``,
 ``box_rows``), so each is its kernel's plain twin.  ``quad_rows`` holds the
@@ -18,6 +21,7 @@ and not as its jnp pass (which subtracts the offset per ray).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -25,6 +29,7 @@ import torch
 from art_tpu_torch.core.vecmath import (
     BIG,
     PARALLEL_EPS,
+    device_scalar,
     p_cross,
     p_dot,
     p_ray_at,
@@ -35,7 +40,7 @@ from art_tpu_torch.core.vecmath import (
     sqrt,
 )
 from art_tpu_torch.ops.gather import take_rows
-from art_tpu_torch.scene.tables import SceneTables
+from art_tpu_torch.scene.tables import SceneTables, TexType
 
 
 class HitRecordP(NamedTuple):
@@ -158,8 +163,8 @@ def box_candidates_p(tables: SceneTables, o, d, t_min):
 def sphere_attributes_p(tables: SceneTables, o, d, time, t, idx):
     """Normal and material of the winning sphere (src/sphere.cuh:69-86).
 
-    Returns (normal 3-tuple, mat int32).  UV is zero for the slice's scenes
-    (no image or uv_offset texture reads it)."""
+    Returns (normal 3-tuple, mat int32); ``sphere_uv`` gives (u, v) from
+    the normal where a scene reads it."""
     tab = torch.cat([tables.sph_center, tables.sph_vel,
                      tables.sph_radius[:, None],
                      tables.sph_mat.to(torch.float32)[:, None]], dim=1)
@@ -173,6 +178,16 @@ def sphere_attributes_p(tables: SceneTables, o, d, time, t, idx):
     inv_r = 1.0 / row[:, 6]
     normal = ((p[0] - cx) * inv_r, (p[1] - cy) * inv_r, (p[2] - cz) * inv_r)
     return normal, row[:, 7].to(torch.int32)
+
+
+def sphere_uv(normal):
+    """Spherical (u, v) from a sphere's signed-radius normal
+    (src/sphere.cuh:42-49), in the dividing form of ``art_tpu``'s
+    ``sphere_attributes_p`` (``intersect.py:403-408``; its TPU kernel's
+    epilogue multiplies by 0.5/pi instead)."""
+    theta = torch.acos(torch.clamp(-normal[1], -1.0, 1.0))
+    phi = torch.atan2(-normal[2], normal[0]) + math.pi
+    return phi / device_scalar(2.0 * math.pi, phi), theta / device_scalar(math.pi, theta)
 
 
 def quad_attributes_p(tables: SceneTables, o, d, t, idx):
@@ -247,10 +262,12 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
 
     Each kind goes through its kernel, which takes ``t_min`` as an argument
     (``art_tpu``'s Pallas kernels bake ``T_MIN``, ``intersect.py:533-536``);
-    ``plain`` runs the plain twins instead.  A miss keeps normal (1, 0, 0),
-    u = v = 0 and material 0."""
+    ``plain`` runs the plain twins instead.  A miss keeps normal (1, 0, 0)
+    and material 0 (u = v = 0 unless the scene reads a sphere's (u, v))."""
     from art_tpu_torch.ops import intersect_kernels as K
 
+    # (u, v) only feeds image and uv_offset textures (art_tpu's needs_uv)
+    needs_uv = bool({TexType.IMAGE, TexType.UV_OFFSET} & set(tables.tex_types_present))
     best = None  # (t, normal, u, v, mat) of the closest hit so far
     if tables.n_quads:
         t, idx = (K.quad_closest_hit_plain if plain else K.quad_closest_hit)(
@@ -268,7 +285,8 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
         t, normal, mat = (K.sphere_hit_attrs_plain if plain else K.sphere_hit_attrs)(
             tables, o, d, time, t_min)
         zero = torch.zeros_like(t)
-        cand = (t, normal, zero, zero, mat)
+        u, v = sphere_uv(normal) if needs_uv else (zero, zero)
+        cand = (t, normal, u, v, mat)
         best = cand if best is None else _closer(best, cand)
     if best is None:  # nothing to hit
         t = torch.full_like(o[0], BIG)

@@ -9,8 +9,9 @@
   glue), box (K6) and sphere (K2), merged -> shade + integrate + flush (K3).
   K3 runs baked when the scene has ``shade_consts`` (``art_tpu``'s default
   gate, ``integrator.py:139,655-676``): the parameters come from the
-  material id, and a noise material's value from ``eval_special_p`` (the
-  turbulence kernel K7).  Otherwise the material/texture planes are fetched
+  material id, and a special material's value from ``eval_special_p``
+  (noise, noodle and felt through the turbulence kernel K7, images through
+  the compacted fetch, K4 and K8).  Otherwise the material/texture planes are fetched
   first (PyTorch glue, ``shade_params_p``) and K3 runs plane-fed.
   The short path (``use_short_path``, ``art_tpu``'s gate at
   ``integrator.py:406-421``) runs the whole iteration as one kernel call
@@ -175,9 +176,10 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
                 tables: SceneTables, bg, fb, lost, *, block=None, key=None, ncols: int,
                 max_depth: int, gradient: bool, plain: bool = False) -> None:
     """One staged iteration, in place (the short path's ``sp_step`` in
-    several calls): refill (K1), the closest hit (K5, K6, K2), noise leaf
-    values (K7) for baked special materials, shade + flush (K3).  ``plain``
-    takes every kernel's plain twin."""
+    several calls): refill (K1), the closest hit (K5, K6, K2), the special
+    leaves of baked materials (turbulence through K7, image texels through
+    the compacted fetch, K4 and K8), shade + flush (K3).  ``plain`` takes
+    every kernel's plain twin."""
     refill = rk.fused_refill_plain if plain else rk.fused_refill
     u_ball, u_choice, _ = refill(pool, cam, q, parity, hist, it, scal, block=block,
                                  key=key, ncols=ncols)
@@ -185,9 +187,10 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
     d = (pool["dx"], pool["dy"], pool["dz"])
     rec = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
     consts = tables.shade_rows  # None: plane-fed K3
+    # the lanes whose texture value K3 reads: the image fetch skips the rest
+    valid = rec.hit & pool["act"]
     if consts is None:
-        # solid/checker/noise textures read no `valid` mask (image textures will)
-        mtype, fuzz, refidx, malb, texv = shade_params_p(tables, rec, plain=plain)
+        mtype, fuzz, refidx, malb, texv = shade_params_p(tables, rec, valid, plain=plain)
         planes = dict(zip(REC_F, (
             *rec.p, *rec.normal, mtype, fuzz, refidx, *malb, *texv, *u_ball, u_choice)))
     else:
@@ -195,8 +198,7 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
         specials = tables.shade_consts[1]
         if specials:
             planes.update(zip(REC_SP, eval_special_p(
-                tables, specials, rec.mat, rec.u, rec.v, rec.p,
-                valid=rec.hit & pool["act"], plain=plain)))
+                tables, specials, rec.mat, rec.u, rec.v, rec.p, valid=valid, plain=plain)))
     (shade_flush_plain if plain else shade_flush)(
         pool, rec.hit, planes, bg, fb, lost, max_depth=max_depth, gradient=gradient,
         consts=consts)

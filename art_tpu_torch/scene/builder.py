@@ -1,13 +1,13 @@
 """Scene compiler: DSL object graph -> flat SoA tables (the ported subset).
 
-Port of the sphere / quad / box / material / texture part of
+Port of the sphere / quad / box / material / texture / image part of
 ``art_tpu/scene/builder.py`` (``_Compiler`` at ``builder.py:186-407``,
 ``finish:481-642``, ``_shade_consts:855-938`` and ``_sp_consts:940-1019``),
-including the value dedup of material and texture rows and the
-``mat_packed`` / ``tex_packed`` / ``quad_attr_packed`` row layouts, so the
-tables come out identical to ``art_tpu``'s.  Constant media (M8) and the
-image, noodle and felt textures (M10) belong to later slices of the port
-and raise ``NotImplementedError``.
+including the value dedup of material and texture rows, the image dedup by
+asset name and by array identity, and the ``mat_packed`` / ``tex_packed`` /
+``quad_attr_packed`` row layouts, so the tables and the image atlas come out
+identical to ``art_tpu``'s.  Constant media (M8) belong to a later slice of
+the port and raise ``NotImplementedError``.
 
 ``tables_from_numpy`` carries tables compiled by ``art_tpu`` (as numpy
 arrays) into this package — the tests use it to run both packages on the
@@ -38,11 +38,10 @@ from art_tpu_torch.scene.tables import (
     sp_rows,
     sphere_rows,
 )
+from art_tpu_torch.utils.images import ImageAtlas, asset_path, load_image_rgb
 
-_SLICE = ("art_tpu_torch's slices so far port spheres, quads and boxes with "
-          "solid, checker and noise textures")
-_M8 = f"{_SLICE}; constant media come with M8"
-_M10 = f"{_SLICE}; image, noodle and felt textures come with M10"
+_M8 = ("art_tpu_torch's slices so far port spheres, quads and boxes; constant "
+       "media come with M8")
 
 
 def _rot_y(theta: float, p: np.ndarray) -> np.ndarray:
@@ -126,8 +125,10 @@ class _Compiler:
         self.boxes: list[tuple] = []  # (bmin, bmax, cos, sin, off, mat_id)
         self.mats: list[dict] = []
         self.texs: list[dict] = []
+        self.images: list[np.ndarray] = []
         self._mat_ids: dict[int, int] = {}
         self._tex_ids: dict[int, int] = {}
+        self._img_ids: dict = {}  # asset name or id() of an array -> image index
         # value-dedup maps: identical parameter rows share one table row
         # (bouncing_spheres builds 488 material instances from 82 rows)
         self._mat_rows: dict[tuple, int] = {}
@@ -149,12 +150,30 @@ class _Compiler:
             row["type"] = int(TexType.CHECKER)
             row["params"][0] = 1.0 / tex.scale  # inv_scale (src/texture.cuh:33)
             row["child"] = (self.tex_id(tex.even), self.tex_id(tex.odd))
+        elif isinstance(tex, X.ImageTexture):
+            row["type"] = int(TexType.IMAGE)
+            row["img"] = self.img_id(tex.image)
         elif isinstance(tex, X.NoiseTexture):
             row["type"] = int(TexType.NOISE)
             row["params"][0] = float(tex.scale)
-        elif isinstance(tex, (X.ImageTexture, X.NoodleTexture, X.FeltTexture,
-                              X.UVOffset)):
-            raise NotImplementedError(f"{type(tex).__name__}: {_M10}")
+        elif isinstance(tex, X.NoodleTexture):
+            row["type"] = int(TexType.NOODLE)
+            d = np.asarray(tex.direction, np.float64)
+            d = d / np.linalg.norm(d)
+            row["params"][:7] = [float(tex.stripes_k), float(tex.wiggle_amp),
+                                 float(tex.wiggle_freq), float(tex.octaves), *d.tolist()]
+            row["rgb"] = tuple(np.asarray(tex.noodle, np.float64))
+            row["rgb2"] = tuple(np.asarray(tex.gap, np.float64))
+        elif isinstance(tex, X.FeltTexture):
+            row["type"] = int(TexType.FELT)
+            row["rgb"] = tuple(np.asarray(tex.base, np.float64))
+            row["params"][:4] = [float(tex.mottling_scale), float(tex.mottling_amt),
+                                 float(tex.fiber_scale), float(tex.fiber_amt)]
+        elif isinstance(tex, X.UVOffset):
+            row["type"] = int(TexType.UV_OFFSET)
+            row["params"][0] = float(tex.u_offset_turns)
+            row["params"][1] = float(tex.v_offset)
+            row["child"] = (self.tex_id(tex.base), 0)
         else:
             raise TypeError(f"unknown texture type: {type(tex)!r}")
 
@@ -167,6 +186,21 @@ class _Compiler:
             self._tex_rows[content] = idx
         self._tex_ids[key] = idx
         return idx
+
+    def img_id(self, image) -> int:
+        """Atlas index of an image: an asset name (its decoded copy, one
+        entry per name) or an (H, W, 3) uint8 array (one entry per object)."""
+        key = image if isinstance(image, str) else id(image)
+        if key in self._img_ids:
+            return self._img_ids[key]
+        if isinstance(image, str):
+            rgb = load_image_rgb(asset_path(image))
+        else:
+            self._keepalive.append(image)
+            rgb = np.asarray(image, np.uint8)
+        self.images.append(rgb)
+        self._img_ids[key] = len(self.images) - 1
+        return self._img_ids[key]
 
     def mat_id(self, mat: M.Material) -> int:
         key = id(mat)
@@ -307,6 +341,8 @@ class _Compiler:
                       *x["rgb"], *x["rgb2"]] for x in self.texs], f32),
                 tex_types_present=tuple(sorted({x["type"] for x in self.texs})),
             )
+        if self.images:
+            arrays["atlas"] = ImageAtlas.pack(self.images)
         arrays["sp_consts"] = self._sp_consts(arrays)
         return _tables(arrays)
 
@@ -327,14 +363,17 @@ class _Compiler:
         """Baked material/texture constants for the shade kernel's baked mode
         (``art_tpu/scene/builder.py:_shade_consts``), gated as there: at
         most 24 materials, each texture a solid, a checker of solids or a
-        special leaf (noise here; image, noodle and felt come with M10).
+        special leaf — image (under at most one uv_offset wrapper, whose
+        offsets fold into the fetch), noise, noodle or felt.
 
         Returns ``(mats, specials)`` or None; ``mats[i] = (mtype, fuzz,
         ref_idx, metal_rgb3, tex_kind, tex_data)`` with tex_kind 0 solid
         (rgb3), 1 checker (inv_scale, even3, odd3) or 2 special, every value
-        rounded to float32; ``specials[j] = (mat_id, "noise", scale)``, whose
-        value the integrator evaluates outside the kernel
-        (``ops/texture_eval.py:eval_special_p``)."""
+        rounded to float32; ``specials[j]`` is ``(mat_id, "image", img,
+        du, dv)``, ``(mat_id, "noise", scale)``, ``(mat_id, "noodle", k,
+        amp, f, octaves, dx, dy, dz, rgb3, rgb2_3)`` or ``(mat_id, "felt",
+        m_scale, m_amt, f_scale, f_amt, rgb3)``, whose value the integrator
+        evaluates outside the kernel (``ops/texture_eval.py:eval_special_p``)."""
         if not self.mats or len(self.mats) > MAX_BAKED_MATS:
             return None
 
@@ -347,6 +386,13 @@ class _Compiler:
             tex_kind, tex_data = 0, (0.0, 0.0, 0.0)
             if ty in (MatType.LAMBERTIAN, MatType.DIFFUSE_LIGHT, MatType.ISOTROPIC):
                 tx = self.texs[int(m["tex"])]
+                du = dv = 0.0
+                if tx["type"] == TexType.UV_OFFSET:
+                    du, dv = f32(tx["params"][0]), f32(tx["params"][1])
+                    tx = self.texs[int(tx["child"][0])]
+                    if tx["type"] != TexType.IMAGE:
+                        return None  # a uv wrapper over a non-image: no scene has one
+                p = tx["params"]
                 if tx["type"] == TexType.SOLID:
                     tex_data = tuple(f32(v) for v in tx["rgb"])
                 elif tx["type"] == TexType.CHECKER:
@@ -354,13 +400,26 @@ class _Compiler:
                     if even["type"] != TexType.SOLID or odd["type"] != TexType.SOLID:
                         return None
                     tex_kind = 1
-                    tex_data = (f32(tx["params"][0]), tuple(f32(v) for v in even["rgb"]),
+                    tex_data = (f32(p[0]), tuple(f32(v) for v in even["rgb"]),
                                 tuple(f32(v) for v in odd["rgb"]))
+                elif tx["type"] == TexType.IMAGE:
+                    tex_kind = 2
+                    specials.append((mid, "image", int(tx["img"]), du, dv))
                 elif tx["type"] == TexType.NOISE:
                     tex_kind = 2
-                    specials.append((mid, "noise", f32(tx["params"][0])))
+                    specials.append((mid, "noise", f32(p[0])))
+                elif tx["type"] == TexType.NOODLE:
+                    tex_kind = 2
+                    specials.append((mid, "noodle", f32(p[0]), f32(p[1]), f32(p[2]),
+                                     int(p[3]), f32(p[4]), f32(p[5]), f32(p[6]),
+                                     tuple(f32(v) for v in tx["rgb"]),
+                                     tuple(f32(v) for v in tx["rgb2"])))
+                elif tx["type"] == TexType.FELT:
+                    tex_kind = 2
+                    specials.append((mid, "felt", f32(p[0]), f32(p[1]), f32(p[2]),
+                                     f32(p[3]), tuple(f32(v) for v in tx["rgb"])))
                 else:
-                    raise NotImplementedError(f"texture kind {tx['type']}: {_M10}")
+                    return None
             mats.append((ty, f32(m["fuzz"]), f32(m["ref_idx"]),
                          tuple(f32(v) for v in m["rgb"]), tex_kind, tex_data))
         return (tuple(mats), tuple(specials))
@@ -491,6 +550,7 @@ def _tables(arrays: dict) -> SceneTables:
         shade_consts=consts,
         shade_rows=shade_rows(consts),
         sp_consts=sp, sp_sph_rows=sp_sph, sp_quad_rows=sp_quad, sp_mat_rows=sp_mat,
+        atlas=a.get("atlas") or ImageAtlas.empty(),
     )
 
 
@@ -501,18 +561,20 @@ def tables_from_numpy(arrays: dict, camera: dict) -> tuple[SceneTables, Camera]:
     texture fields and those of each primitive kind present; optionally
     ``n_spheres``, ``n_quads``, ``n_boxes``, ``has_moving``,
     ``has_rotated_boxes``, ``tex_types_present``, ``shade_consts`` and
-    ``sp_consts``) to values; ``camera`` maps the ``Camera`` field names to
-    (3,) or scalar arrays.  Scenes with media raise ``NotImplementedError``
-    (M8), and so do baked constants with image, noodle or felt leaves
-    (M10)."""
+    ``sp_consts``) to values, and ``atlas`` to a mapping of ``art_tpu``'s
+    ``ImageAtlas`` fields (``data``, ``heights``, ``widths``, ``hmax``,
+    ``wmax``) when the scene has images; ``camera`` maps the ``Camera``
+    field names to (3,) or scalar arrays.  Scenes with media raise
+    ``NotImplementedError`` (M8)."""
     if int(arrays.get("n_media", 0)):
         raise NotImplementedError(f"n_media={int(arrays['n_media'])}: {_M8}")
-    consts = arrays.get("shade_consts")
-    if consts is not None and any(s[1] != "noise" for s in consts[1]):
-        raise NotImplementedError(f"shade_consts with image, noodle or felt leaves: {_M10}")
     if "tex_types_present" not in arrays:
         arrays = dict(arrays, tex_types_present=tuple(
             sorted({int(x) for x in np.asarray(arrays["tex_type"])})))
+    if arrays.get("atlas") is not None:
+        atlas = arrays["atlas"]
+        arrays = dict(arrays, atlas=ImageAtlas.from_numpy(
+            *(atlas[k] for k in ("data", "heights", "widths", "hmax", "wmax"))))
     cam = Camera(**{
         f.name: (np.asarray(camera[f.name], np.float32)
                  if np.ndim(camera[f.name]) else np.float32(camera[f.name]))

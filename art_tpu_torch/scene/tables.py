@@ -3,8 +3,9 @@
 Spheres, quads, oriented boxes, materials and textures with the same
 fields, dtypes and row layouts as ``art_tpu``'s ``SceneTables``
 (``tables.py:68-200``), so tables compiled by either package compare field
-by field, and ``shade_consts`` in its ``(mats, specials)`` form.  Media
-arrive with a later slice; their count is here and is 0.
+by field, the image atlas (``utils/images.py``), and ``shade_consts`` in its
+``(mats, specials)`` form.  Media arrive with a later slice; their count is
+here and is 0.
 
 Beside them, the kernels' own tables (built once per scene, on the host):
 
@@ -27,7 +28,8 @@ Beside them, the kernels' own tables (built once per scene, on the host):
   malb(3) tex_kind isc rgb_or_even(3) odd(3) 0 0]``, holding the values
   ``art_tpu``'s baked kernel compiles in (fuzz 0, ref_idx 1, albedo 0 and
   texture value 0 where a material family does not use them), tex_kind 2
-  (a special leaf: noise) taking its value from the ``sp0..sp2`` planes;
+  (a special leaf: image, noise, noodle or felt) taking its value from the
+  ``sp0..sp2`` planes;
   ``None`` when the scene fails the baked gate.
 * ``sp_sph_rows`` (S, 6), ``sp_quad_rows`` (Q, 13) and ``sp_mat_rows``
   (M, 14), the short-path kernel's (``csrc/sp_step.cu``), from
@@ -46,6 +48,8 @@ from enum import IntEnum
 
 import numpy as np
 import torch
+
+from art_tpu_torch.utils.images import ImageAtlas
 
 
 MAX_BAKED_MATS = 24  # the baked shade mode's gate (art_tpu builder.py:877)
@@ -116,7 +120,7 @@ class SceneTables:
     tex_rgb2: torch.Tensor  # (T,3)
     tex_params: torch.Tensor  # (T,8)
     tex_child: torch.Tensor  # (T,2) int32
-    tex_img: torch.Tensor  # (T,) int32
+    tex_img: torch.Tensor  # (T,) int32 atlas image id
     # ---- row-packed lookup tables (one fetch per bounce, ops/gather.py) ----
     mat_packed: torch.Tensor  # (M,8) [type tex fuzz ref_idx r g b 0]
     tex_packed: torch.Tensor  # (T,18) [type p0..p7 child0 child1 img rgb(3) rgb2(3)]
@@ -138,10 +142,12 @@ class SceneTables:
     sp_sph_rows: torch.Tensor | None = None
     sp_quad_rows: torch.Tensor | None = None
     sp_mat_rows: torch.Tensor | None = None
+    # the image textures' texels (an empty 1x1 atlas when there is none)
+    atlas: ImageAtlas = dataclasses.field(default_factory=ImageAtlas.empty)
 
     def to(self, device) -> "SceneTables":
-        """The same tables with every tensor on ``device``."""
-        return dataclasses.replace(self, **{
+        """The same tables with every tensor, the atlas's too, on ``device``."""
+        return dataclasses.replace(self, atlas=self.atlas.to(device), **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)

@@ -19,7 +19,13 @@ Phases (each runs; any failure exits non-zero without the final result):
     hit points of perlin rays 20 iterations into a render (R = 2^17), baked
     K3 with perlin's noise planes on those rays, and K11 (the short path)
     on the quads and perlin tables in both uniform modes, from a random
-    pool and from a pool 20 iterations into a render;
+    pool and from a pool 20 iterations into a render; K4 (flush_accumulate)
+    in its compaction use on an earth pool 20 iterations into a render
+    (R = 2^17) and on a colliding flush into a window at a base row, K8
+    (table_gather_u24) on that pool's texel slots with out-of-range indices,
+    and the compacted fetch against the dense gather at 0, about 30% and
+    100% needy lanes, timed against the one-call dense gather; the launches
+    and device time of felt's plain-PyTorch noise;
  3. the in-kernel Philox uniforms: range, mean, variance, and that they
     change across iterations and slots;
  4. renders through ``render_scene`` on the card, each with the launch
@@ -29,9 +35,12 @@ Phases (each runs; any failure exits non-zero without the final result):
     baked K3); then the short path (K11 alone): quads and perlin 1200x600
     @ 64, checkered_spheres and simple_light_book 1200x600 @ 16, and perlin
     1200x600 @ 64 staged (K1, K2, K7, baked K3 with its noise planes), which
-    must agree statistically with the short-path image; then, per scene
-    (and for perlin staged), the kernel path against the plain path on the
-    same injected uniforms and, with independent seeds, statistically.
+    must agree statistically with the short-path image; then the image
+    scenes, three renders each: earth 1200x600 @ 64 (K1, K2, K4, K8, baked
+    K3) and simple_light 1200x600 @ 16 (K1, K5, K2, K7, K4, K8, baked K3);
+    then, per scene (and for perlin staged), the kernel path against the
+    plain path on the same injected uniforms and, with independent seeds,
+    statistically.
 
 Standard output ends with a JSON line of per-kernel results (each kernel's
 ``launches`` counted in the render of the newest path that runs it, named
@@ -56,8 +65,12 @@ SPIN_CYCLES = 40_000_000  # ~20 ms of device spin: longer than any call's host e
 CORNELL = ("cornell_box", 600, 600, 64)
 BOUNCING = ("bouncing_spheres", 1200, 800, 64)
 THREE = ("three_spheres", 400, 225, 16)
-# this slice's paths: (label, scene, nx, ny, spp, short_path); the first is
-# its main path
+# the image slice's paths, three renders each: (label, scene, nx, ny, spp,
+# short_path); the first is the newest slice's main path
+IMAGE = [("earth", "earth", 1200, 600, 64, None),
+         ("simple_light", "simple_light", 1200, 600, 16, None)]
+IMAGE_RENDERS = 3
+# the short-path slice's paths, the first its main path
 SHORT = [("perlin", "perlin", 1200, 600, 64, None),
          ("quads", "quads", 1200, 600, 64, None),
          ("checkered_spheres", "checkered_spheres", 1200, 600, 16, None),
@@ -67,11 +80,13 @@ SHORT = [("perlin", "perlin", 1200, 600, 64, None),
 SAME_UNIFORMS = {"three_spheres": (64, 32, 16), "bouncing_spheres": (64, 32, 16),
                  "cornell_box": (64, 64, 16), "quads": (64, 32, 16),
                  "checkered_spheres": (64, 32, 16), "perlin": (64, 32, 16),
-                 "simple_light_book": (64, 32, 16), "perlin staged": (64, 32, 16)}
+                 "simple_light_book": (64, 32, 16), "perlin staged": (64, 32, 16),
+                 "earth": (64, 32, 16), "simple_light": (64, 32, 16)}
 INDEPENDENT = {"three_spheres": (96, 64, 256), "bouncing_spheres": (96, 64, 256),
                "cornell_box": (96, 96, 256), "quads": (96, 64, 256),
                "checkered_spheres": (96, 64, 256), "perlin": (96, 64, 256),
-               "simple_light_book": (96, 64, 256)}
+               "simple_light_book": (96, 64, 256), "earth": (96, 64, 256),
+               "simple_light": (96, 64, 256)}
 KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "refill": ("art_tpu_torch/csrc/refill.cu", "art_tpu/ops/refill_kernel.py:284"),
     "sphere_hit": ("art_tpu_torch/csrc/sphere_hit.cu",
@@ -84,6 +99,10 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "box_hit": ("art_tpu_torch/csrc/box_hit.cu", "art_tpu/ops/pallas_kernels.py:2139"),
     "turb": ("art_tpu_torch/csrc/turb.cu", "art_tpu/ops/perlin_kernel.py:113"),
     "sp_step": ("art_tpu_torch/csrc/sp_step.cu", "art_tpu/ops/sp_kernel.py:571"),
+    "flush_accumulate": ("art_tpu_torch/csrc/flush_accumulate.cu",
+                         "art_tpu/ops/flush_kernel.py:196"),
+    "table_gather_u24": ("art_tpu_torch/csrc/table_gather.cu",
+                         "art_tpu/ops/flush_kernel.py:147"),
 }
 # which renders of phase 4 must launch which kernels (the launch-count gate);
 # a render may launch no kernel of KERNELS outside its own list
@@ -93,7 +112,11 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
                          "shade_flush_baked"),
          "perlin": ("sp_step",), "quads": ("sp_step",), "checkered_spheres": ("sp_step",),
          "simple_light_book": ("sp_step",),
-         "perlin staged": ("refill", "sphere_hit", "turb", "shade_flush_baked")}
+         "perlin staged": ("refill", "sphere_hit", "turb", "shade_flush_baked"),
+         "earth": ("refill", "sphere_hit", "flush_accumulate", "table_gather_u24",
+                   "shade_flush_baked"),
+         "simple_light": ("refill", "quad_hit", "sphere_hit", "turb", "flush_accumulate",
+                          "table_gather_u24", "shade_flush_baked")}
 # The least time the card could take (NVIDIA H100
 # SXM data sheet): bytes over the HBM rate, or operations over the FP32 rate
 # outside the tensor cores, which counts an FMA as two operations; these
@@ -114,6 +137,8 @@ OPS_SHADE = 60  # the dielectric scatter, the longest material path
 # and the smoothstep; integer operations counted at the FP32 rate
 OPS_NOISE = 650
 OPS_SP_BOUNCE = 100  # the short path's background, material row and scatter
+OPS_FLUSH = 8  # K4 a lane: load, test, shift, window, index; an add a channel
+OPS_GATHER = 4  # K8 a lane: two range tests, a select
 
 
 def log(*args):
@@ -820,6 +845,173 @@ def turb_sp_checks(checks: Checks, dev, results: dict):
         f"({r['bound_by_quads']})")
 
 
+def compact_checks(checks: Checks, dev, results: dict):
+    """K4, K8 and the compacted fetch against their twins at earth
+    1200x600's R (2^17), on a pool 20 staged iterations into a render."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import flush_kernel as fk
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.ops.intersect import closest_surface_p
+    from art_tpu_torch.render.integrator import staged_step
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    rng = np.random.default_rng(SEED + 3)
+    _, name, nx, ny, spp, _ = IMAGE[0]
+    scene = build_scene(name, nx, ny).to(dev)
+    tables = scene.tables
+    tile_pixels, spp_chunk, R = plan_batches(nx * ny, spp, 1, RenderConfig(), dev)
+    scal = rk.RefillScal(spp_chunk, tile_pixels, 0, nx * ny, nx, ny)
+    pool = rk.new_pool(R, dev)
+    q = torch.zeros(2, dtype=torch.int64, device=dev)
+    hist = torch.zeros(21, dtype=torch.int64, device=dev)
+    fb = torch.zeros((tile_pixels, 3), device=dev)
+    lost = torch.zeros(1, dtype=torch.int32, device=dev)
+    for it in range(21):  # 20 iterations, then the refill of the 21st
+        if it == 20:
+            rk.fused_refill_plain(pool, scene.camera, q, it % 2, hist, it, scal,
+                                  key=(7, 0, 0), ncols=10)
+            break
+        staged_step(pool, scene.camera, q, it % 2, hist, it, scal, tables, scene.background,
+                    fb, lost, key=(7, 0, 0), ncols=10, max_depth=50,
+                    gradient=scene.gradient_bg)
+    rec = closest_surface_p(tables, (pool["ox"], pool["oy"], pool["oz"]),
+                            (pool["dx"], pool["dy"], pool["dz"]), pool["tm"], T_MIN,
+                            plain=True)
+    needy = rec.hit & pool["act"]  # earth's one material is the image
+    atlas = tables.atlas
+    flat = atlas.texel_index(torch.zeros_like(rec.mat), rec.u, rec.v)
+    n_needy = int(needy.sum())
+    log(f"  R = {R}, earth pool after 20 iterations: {int(pool['act'].sum())} live, "
+        f"{n_needy} needy ({n_needy / R:.3f}), atlas {atlas.data.shape[0]} texels")
+
+    # ---- K4 in its compaction use: slot rank[r] <- ray id r over needy lanes ----
+    rank = cf._rank(needy)
+    ray_id = torch.arange(R, dtype=torch.float32, device=dev)
+    n_hi = -(-R // fk.LANES)
+    k4 = fk.flush_accumulate(rank, needy, (ray_id,), torch.zeros(n_hi, fk.LANES, device=dev))
+    p4 = fk.flush_accumulate_plain(rank, needy, (ray_id,),
+                                   torch.zeros(n_hi, fk.LANES, device=dev))
+    torch.cuda.synchronize()
+    bad = _bits_equal(k4, p4)
+    slots = k4.view(-1)[:n_needy].to(torch.int64)
+    ids_ok = torch.equal(slots, torch.nonzero(needy).view(-1))
+    checks.expect(bad == 0 and ids_ok and not bool(k4.view(-1)[n_needy:].any()),
+                  f"K4 compaction on the earth pool: {bad} of {n_hi * fk.LANES} slots "
+                  f"differ from the twin in bits; slots are the needy ray ids in order: "
+                  f"{ids_ok}")
+    k4_err = _max_diff(k4, p4)
+
+    # ---- K4 on a colliding 3-channel flush into a window at base row 7 ----
+    win, base = 96, 7
+    pix = torch.from_numpy(rng.integers(0, (win + 20) * 128, R).astype(np.int32)).to(dev)
+    pix[:64] = torch.from_numpy(rng.integers(-(1 << 30), 0, 64).astype(np.int32)).to(dev)
+    died = torch.from_numpy(rng.random(R) < 0.6).to(dev)
+    vals = tuple(torch.from_numpy(rng.random(R, dtype=np.float32) * 4).to(dev)
+                 for _ in range(3))
+    fb0 = torch.from_numpy(rng.random((win, 384), dtype=np.float32)).to(dev)
+    base_t = torch.tensor([base], dtype=torch.int32, device=dev)
+    kf = fk.flush_accumulate(pix, died, vals, fb0.clone(), base_t)
+    pf = fk.flush_accumulate_plain(pix, died, vals, fb0.clone(), base_t)
+    torch.cuda.synchronize()
+    rel = float(((kf - pf).abs() / pf.abs().clamp_min(1e-30)).max())
+    hi = (pix.long() & 0xFFFFFFFF) >> 7
+    inside = int((died & (hi >= base) & (hi < base + win)).sum())
+    checks.expect(rel <= 1e-5 and bool((kf >= fb0).all()),
+                  f"K4 colliding flush, window of {win} rows at base {base}: {inside} of "
+                  f"{int(died.sum())} dying lanes inside, max rel err {rel:.3g} (<= 1e-5), "
+                  f"radiance >= 0")
+    k4_err = max(k4_err, float((kf - pf).abs().max()))
+    results["flush_accumulate"]["max_abs_err"] = k4_err
+
+    # ---- K8: the route-back on this pool's texel slots, out-of-range included ----
+    table = cf.compact_gather(atlas.data, flat, needy)  # any (R,) int32 table
+    idx = rank.clone()
+    idx[:256] = torch.from_numpy(np.concatenate([
+        rng.integers(-(1 << 30), 0, 128), rng.integers(R, 1 << 30, 128)]).astype(np.int32)
+    ).to(dev)
+    k8, p8 = fk.table_gather_u24(table, idx), fk.table_gather_u24_plain(table, idx)
+    torch.cuda.synchronize()
+    bad = int((k8 != p8).sum())
+    checks.expect(bad == 0 and not bool(k8[:256].any()),
+                  f"K8 on the earth pool: {bad} of {R} lanes differ, 256 out-of-range "
+                  f"indices read 0")
+    results["table_gather_u24"]["max_abs_err"] = float((k8 - p8).abs().max())
+
+    # ---- the compacted fetch against the dense gather ----
+    masks = {"0": torch.zeros_like(needy), "rendered": needy,
+             "30%": torch.from_numpy(rng.random(R) < 0.3).to(dev),
+             "100%": torch.ones_like(needy)}
+    for label, m in masks.items():
+        got = cf.compact_gather(atlas.data, flat, m)
+        want = torch.where(m, atlas.data.index_select(0, flat), 0)
+        torch.cuda.synchronize()
+        checks.expect(torch.equal(got, want),
+                      f"compact_gather at {label} needy ({int(m.sum())} lanes) equals "
+                      f"where(needy, data[flat], 0)")
+
+    # ---- times: K4 and K8 as the fetch calls them, on this pool ----
+    zeros = torch.zeros(n_hi, fk.LANES, device=dev)
+    work = zeros.clone()
+    r4 = results["flush_accumulate"]
+    for key, fn in (("ms", fk.flush_accumulate), ("plain_ms", fk.flush_accumulate_plain)):
+        r4[key] = _timed_ms(lambda fn=fn: fn(rank, needy, (ray_id,), work),
+                            20 if key == "ms" else 5, reset=lambda: work.copy_(zeros))
+    # the library call: one index_put_ over every lane, the others to a spare
+    # element past the slots
+    spare = torch.zeros(n_hi * fk.LANES + 1, device=dev)
+    lib_idx = torch.where(needy, rank.long(), n_hi * fk.LANES)
+    r4["library_ms"] = _timed_ms(
+        lambda: spare.index_put_((lib_idx,), ray_id, accumulate=True), 20,
+        reset=lambda: spare.zero_())
+    # pix and died of every lane in; a needy lane's value in, its slot read
+    # and written
+    _set_bound(r4, R * 5 + n_needy * 12, R * OPS_FLUSH)
+    slots_tab = torch.where(torch.arange(n_hi * fk.LANES, device=dev) < n_needy,
+                            atlas.data.index_select(0, flat.index_select(
+                                0, k4.view(-1).to(torch.int32))), 0)
+    r8 = results["table_gather_u24"]
+    r8["ms"] = _timed_ms(lambda: fk.table_gather_u24(slots_tab, rank), 20)
+    r8["plain_ms"] = _timed_ms(lambda: fk.table_gather_u24_plain(slots_tab, rank), 5)
+    r8["library_ms"] = _timed_ms(lambda: slots_tab.index_select(0, rank), 20)
+    # idx in and out for every lane; the table entries the ranks reach once
+    _set_bound(r8, R * 8 + (n_needy + 1) * 4, R * OPS_GATHER)
+    fetch = {"needy": n_needy, "R": R}
+    fetch["compact_ms"] = _timed_ms(lambda: cf.compact_gather(atlas.data, flat, needy), 20)
+    fetch["dense_ms"] = _timed_ms(lambda: atlas.data.index_select(0, flat), 20)
+    fetch["dense_where_ms"] = _timed_ms(
+        lambda: torch.where(needy, atlas.data.index_select(0, flat), 0), 20)
+    results["_compact_fetch"] = fetch
+
+    # felt's mottling noise stays plain PyTorch (jnp outside any Pallas
+    # kernel in art_tpu): its device launches and device time on this pool's
+    # hit points at simple_light's mottling scale
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from art_tpu_torch.ops.perlin import noise_p
+
+    pts = tuple((c * 16.0).contiguous() for c in rec.p)
+    noise_p(*pts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        noise_p(*pts)
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    results["_noise_p"] = {"launches": launches, "ms": _timed_ms(lambda: noise_p(*pts), 5),
+                           "R": R}
+    _log_kernels(results, ("flush_accumulate", "table_gather_u24"))
+    log(f"  felt's noise_p (plain PyTorch): {launches} device launches, "
+        f"{results['_noise_p']['ms']:.4f} ms at R = {R}")
+    log(f"  library: index_put_ {r4['library_ms']:.4f} ms, index_select "
+        f"{r8['library_ms']:.4f} ms; compact_gather {fetch['compact_ms']:.4f} ms against "
+        f"the dense gather {fetch['dense_ms']:.4f} ms ({fetch['dense_where_ms']:.4f} ms "
+        f"with its where)")
+
+
 def philox_checks(checks: Checks, dev):
     import torch
 
@@ -952,15 +1144,35 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     checks.expect(corr >= 0.98 and mean_diff <= 0.02,
                   f"perlin 1200x600 @ 64, short path against staged: luminance corr "
                   f"{corr:.4f} (>= 0.98), channel mean diff {mean_diff:.4f} (<= 0.02)")
-    label, name, nx, ny, spp, _ = SHORT[0]
+
+    # the image scenes, three renders each; the launch counts are the first's
+    for label, name, nx, ny, spp, short in IMAGE:
+        scene = build_scene(name, nx, ny)
+        seconds = []
+        for rep in range(IMAGE_RENDERS):
+            counts = {}
+            images[label], st = _render(checks, dev, name, nx, ny, spp, results, counts,
+                                        scene=scene, label=label, short_path=short)
+            seconds.append(st["seconds"])
+            if rep == 0:
+                counts_by_render.update(counts)
+        results["_renders"][f"{label} {nx}x{ny} @ {spp}"]["seconds_each"] = seconds
+    fb = images["earth"]
+    h, w = fb.shape[0] // 2, fb.shape[1] // 2
+    top, mid = fb[-1].mean(axis=0), fb[h - 20:h + 20, w - 20:w + 20].mean(axis=(0, 1))
+    checks.expect(top[2] > top[0] and float(mid.max() - mid.min()) > 0.02,
+                  f"earth: top row blue-ish sky (mean rgb {top}), the globe's centre "
+                  f"textured, not grey (mean rgb {mid})")
+
+    label, name, nx, ny, spp, _ = IMAGE[0]
     results["_render"] = dict(results["_renders"][f"{label} {nx}x{ny} @ {spp}"],
                               scene=f"{label} {nx}x{ny} @ {spp}", card=smi)
     # each kernel's count is that of the newest path that runs it: this
-    # slice's main path (perlin, short path) and its other paths first,
-    # then cornell_box's and bouncing_spheres' (the earlier slices' main
-    # paths), then three_spheres'
-    order = [lab for lab, *_ in SHORT] + ["cornell_box", "bouncing_spheres",
-                                          "three_spheres"]
+    # slice's main path (earth) and its other path (simple_light) first,
+    # then the short-path slice's paths, then cornell_box's and
+    # bouncing_spheres' (the earlier slices' main paths), then three_spheres'
+    order = [lab for lab, *_ in IMAGE + SHORT] + ["cornell_box", "bouncing_spheres",
+                                                  "three_spheres"]
     for k in KERNELS:
         path = next(lab for lab in order if k in PATHS[lab])
         results[k]["launches"] = counts_by_render[path].get(k, 0)
@@ -1020,7 +1232,8 @@ def main() -> int:
     checks = Checks()
     results = {name: {"launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
                       "bound_ms": None, "bound_by": None,
-                      # no single PyTorch call computes any of these functions
+                      # no single PyTorch call computes these functions but K4's
+                      # and K8's (index_put_, index_select: phase 2d)
                       "library_ms": None}
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
@@ -1030,14 +1243,18 @@ def main() -> int:
                  checks, dev, results)
     checks.phase("2c. K7, K11 against their plain twins", turb_sp_checks, checks, dev,
                  results)
+    checks.phase("2d. K4, K8 and the compacted fetch against their plain twins",
+                 compact_checks, checks, dev, results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     render = results.pop("_render", {})
     renders = results.pop("_renders", {})
+    fetch = results.pop("_compact_fetch", {})
+    noise = results.pop("_noise_p", {})
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
         for name, (src, rep) in KERNELS.items()], "render": render, "renders": renders,
-        "card": smi}))
+        "compact_fetch": fetch, "noise_p": noise, "card": smi}))
     if checks.failed:
         log(f"FAILED: {checks.failed}")
         return 1

@@ -9,8 +9,9 @@ on the path ``render_scene`` picks, or on the staged or the short path
 the profiler, once under ``torch.profiler`` (CPU + CUDA activity).  Prints one JSON line: the card,
 the wall seconds of both timed runs, the device busy time (the union of
 the device activity intervals), the idle share of the profiled wall time,
-the loop's iterations, device launches per iteration, and the device time
-and launch count of the top kernels.  Needs a CUDA device.
+the loop's iterations, device launches per iteration, the device time
+and launch count of the top kernels, and the host (self CPU) time and call
+count of the top operators.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ def main() -> int:
     loops = sum(n for k, (_, n) in by_name.items()
                 if "refill_apply" in k or "sp_step_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:15]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(json.dumps({
@@ -99,6 +101,8 @@ def main() -> int:
         "device_launches": len(dev_events),
         "launches_per_iteration": len(dev_events) / max(loops, 1),
         "top": [{"name": k[:90], "ms": ms, "launches": n} for k, (ms, n) in top],
+        "top_host": [{"name": a.key[:60], "self_cpu_ms": a.self_cpu_time_total / 1e3,
+                      "calls": a.count} for a in host],
     }))
     return 0
 

@@ -20,9 +20,11 @@ for name in names:
 assert "art_tpu" not in sys.modules
 print(" ".join(names))
 """
-# the modules each slice added (slice 3: noise, turbulence, the short path)
+# the modules the latest slices added (slice 3: noise, turbulence, the short
+# path; slice 4: images, the flush and table-gather kernels, the compacted fetch)
 NEW_MODULES = ("art_tpu_torch.ops.perlin", "art_tpu_torch.ops.perlin_kernel",
-               "art_tpu_torch.ops.sp_kernel")
+               "art_tpu_torch.ops.sp_kernel", "art_tpu_torch.utils.images",
+               "art_tpu_torch.ops.flush_kernel", "art_tpu_torch.ops.compact_fetch")
 
 
 def test_port_imports_without_jax():
@@ -32,4 +34,4 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 23 and set(NEW_MODULES) <= set(names)
+    assert len(names) >= 26 and set(NEW_MODULES) <= set(names)

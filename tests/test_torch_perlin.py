@@ -1,7 +1,8 @@
 """The port's Perlin noise (ops/perlin.py) and turbulence (K7's twin,
 ops/perlin_kernel.py) against art_tpu's jnp ``perlin`` module and its
 Pallas ``turb_pallas`` in interpret mode, plus the noise texture leaves of
-``texture_eval`` (R = 8192, inputs from a numpy seed).
+``texture_eval`` and its felt special leaf (R = 8192, inputs from a numpy
+seed).
 
 Tolerances: the uint32 hashes (wanghash, mix3 with negative lattice
 coordinates, u2m11) bit for bit.  Noise and turbulence to 2e-6 absolute
@@ -162,8 +163,21 @@ def test_eval_special_noise_matches_art_tpu(name):
 
 
 def test_special_leaves_of_later_slices_raise():
-    t = build_scene("perlin", 32, 16).tables
-    z = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="M10"):
-        texture_eval.eval_special_p(t, ((0, "felt", 1.0, 1.0, 1.0, 1.0, (0, 0, 0)),),
-                                    torch.zeros(4, dtype=torch.int32), z, z, (z, z, z))
+    """The felt leaf that raised before its slice (M10) now evaluates on
+    perlin's hit points: art_tpu's value within 1e-5 on the felt material,
+    its gain clamped to [0.7, 1.2], and 0 on every other material."""
+    jt, t = jax_build_scene("perlin", 32, 16).tables, build_scene("perlin", 32, 16).tables
+    felt = ((1, "felt", 16.0, 0.5, 4.0, 0.5, (0.2, 0.4, 0.6)),)
+    p, _ = _hits_on_perlin(12)
+    mat = np.random.default_rng(12).integers(0, 2, R).astype(np.int32)
+    z = np.zeros(R, np.float32)
+    want = jax_texture_eval.eval_special_p(jt, felt, jnp.asarray(mat), jnp.asarray(z),
+                                           jnp.asarray(z), tuple(map(jnp.asarray, p)))
+    got = texture_eval.eval_special_p(t, felt, torch.from_numpy(mat), torch.from_numpy(z),
+                                      torch.from_numpy(z), tuple(map(torch.from_numpy, p)))
+    for c, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+        on = g.numpy()[mat == 1]
+        base = felt[0][6][c]
+        assert (on >= 0.7 * base - 1e-6).all() and (on <= 1.2 * base + 1e-6).all()
+        assert not g.numpy()[mat != 1].any()

@@ -22,9 +22,13 @@ early runs on for dozens of segments, so its traced ray count is held to
 1% (measured at 32x32 @ 4: 0.26%, 0.07% and 0.04% for seeds 1984, 7 and 3)
 and its pixels to the same 98% within 1e-3.
 
-perlin renders staged (``short_path=False``: art_tpu on the CPU always runs
-staged) with the same budgets; the turbulence kernel's twin serves its
-noise leaf.  The short path (K11's twin) is held to the staged path twice:
+perlin, earth and simple_light render staged (``short_path=False``:
+art_tpu on the CPU always runs staged) with the same budgets; the
+turbulence kernel's twin serves the noise and felt leaves, K4 and K8's twins
+the compacted image fetch (art_tpu's CPU path gathers densely; both are
+exact on the lanes that read a texel).  At 32x16 @ 4 earth and
+simple_light agreed with art_tpu for each of seeds 1984, 7 and 5: equal
+iterations and rays, every pixel within 1e-3.  The short path (K11's twin) is held to the staged path twice:
 on the same injected uniforms, where both must agree as kernel and plain
 renders do (equal iterations, ≥ 98% of pixels within 1e-3), and on
 independent Philox seeds, statistically, with the image comparison of
@@ -81,7 +85,8 @@ def _threefry(seed, R, ncols=10):
 
 
 @pytest.mark.parametrize("name,seed", [("three_spheres", 1984), ("bouncing_spheres", 7),
-                                       ("cornell_box", 1984), ("perlin", 1984)])
+                                       ("cornell_box", 1984), ("perlin", 1984),
+                                       ("earth", 1984), ("simple_light", 1984)])
 def test_render_matches_art_tpu(name, seed):
     """bouncing_spheres' seed 7 was picked: it is one of the seeds whose
     longest path stays in step, so the exact iteration count can be held.
@@ -326,7 +331,8 @@ def test_cli_lists_scenes(capsys):
     assert "bouncing_spheres" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name", ["perlin", "checkered_spheres", "simple_light_book"])
+@pytest.mark.parametrize("name", ["perlin", "checkered_spheres", "simple_light_book",
+                                  "earth", "simple_light"])
 def test_cli_writes_a_texture_scene_ppm(tmp_path, name):
     out = tmp_path / f"{name}.ppm"
     rc = cli.main(["--scene", name, "--nx", "16", "--ny", "8", "--spp", "2",

@@ -1,13 +1,14 @@
-"""art_tpu_torch's scene layer against art_tpu's: the compiled tables and the
-camera of the ported scenes (cornell_box in both wall variants, and a
-hand-built scene of translated, unrotated boxes), the baked shade
-constants with their noise leaves, the short path's gate and constants
+"""art_tpu_torch's scene layer against art_tpu's: the compiled tables, the
+image atlas and the camera of the ported scenes (cornell_box in both wall
+variants, and a hand-built scene of translated, unrotated boxes), the baked
+shade constants with their special leaves (noise; earth's image;
+simple_light's felt and uv-offset image), the short path's gate and constants
 (``sp_consts``), the kernels' row tables, ``tables_from_numpy`` (how tests
 carry art_tpu's tables into the port), and the cuRAND XORWOW stream.
 
 Tolerance: float tables and camera 1e-6 (both build in float32 from the same
 float64 host values, so they agree exactly in practice); integer tables,
-the kernel row tables and static metadata exactly."""
+the atlas, the kernel row tables and static metadata exactly."""
 
 import dataclasses
 
@@ -36,20 +37,23 @@ from art_tpu_torch.scene.tables import SceneTables
 torch.set_num_threads(1)
 
 SLICE_SCENES = ["bouncing_spheres", "three_spheres", "cornell_box", "quads",
-                "checkered_spheres", "perlin", "simple_light_book"]
+                "checkered_spheres", "perlin", "simple_light_book", "earth",
+                "simple_light"]
 # art_tpu's fields (the kernels' row tables are the port's own)
 ARRAY_FIELDS = [f.name for f in dataclasses.fields(SceneTables)
                 if f.type == "torch.Tensor" and not f.name.endswith("_rows")]
 META = ("n_spheres", "n_quads", "n_boxes", "has_moving", "has_rotated_boxes",
         "shade_consts", "sp_consts")
 SP_ROWS = ("sp_sph_rows", "sp_quad_rows", "sp_mat_rows")
+ATLAS = ("data", "heights", "widths", "hmax", "wmax")
 
 
 def _jax_arrays(scene):
     t = scene.tables
     arrays = {k: np.asarray(getattr(t, k)) for k in ARRAY_FIELDS}
     arrays.update({k: getattr(t, k) for k in META},
-                  tex_types_present=t.tex_types_present)
+                  tex_types_present=t.tex_types_present,
+                  atlas={k: np.asarray(getattr(t.atlas, k)) for k in ATLAS})
     cam = {f.name: np.asarray(getattr(scene.camera, f.name))
            for f in dataclasses.fields(scene.camera)}
     return arrays, cam
@@ -66,6 +70,10 @@ def _assert_tables_equal(port: SceneTables, want: dict):
     for k in META:
         assert getattr(port, k) == want[k], k
     assert port.tex_types_present == tuple(want["tex_types_present"])
+    assert port.atlas.data.dtype == torch.int32
+    for k in ATLAS:
+        np.testing.assert_array_equal(np.asarray(getattr(port.atlas, k)),
+                                      want["atlas"][k].astype(np.int64), err_msg=k)
 
 
 @pytest.mark.parametrize("name", SLICE_SCENES)
@@ -133,18 +141,38 @@ def test_later_slice_scenes_raise(name):
 @pytest.mark.parametrize("obj", [
     O.ConstantMedium(O.Sphere((0, 0, 0), 1.0, Lambertian((0.5, 0.5, 0.5))), 0.5,
                      (1.0, 1.0, 1.0)),
-    O.Sphere((0, 0, 0), 1.0, Lambertian(X.FeltTexture())),
-    O.Sphere((0, 0, 0), 1.0, Lambertian(X.ImageTexture("earthmap.jpg"))),
-    O.Sphere((0, 0, 0), 1.0, Lambertian(X.NoodleTexture())),
+    O.ConstantMedium(O.Box((0, 0, 0), (1, 1, 1), Lambertian((0.5, 0.5, 0.5))), 0.01,
+                     (0.2, 0.2, 0.2)),
+    O.Translate(O.ConstantMedium(O.Sphere((0, 0, 0), 1.0, Lambertian((1, 1, 1))), 0.2,
+                                 X.NoiseTexture(4.0)), (1.0, 0.0, 0.0)),
+    O.Group(O.Sphere((0, 0, 0), 1.0, Lambertian(X.ImageTexture("earthmap.jpg"))),
+            O.ConstantMedium(O.Sphere((0, 0, 0), 2.0, Lambertian((1, 1, 1))), 0.1,
+                             (1.0, 1.0, 1.0))),
 ])
 def test_later_slice_objects_raise_in_builder(obj):
-    """Media (M8) and image, felt and noodle textures (M10) are not ported
-    yet."""
+    """Media (M8) are not ported yet: alone, around a box, under a
+    transform, with a texture, or beside an image-textured sphere."""
     b = SceneBuilder().add(obj)
     b.set_camera(lookfrom=(0, 0, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
                  vfov_degrees=40.0, aspect=1.0)
-    with pytest.raises(NotImplementedError, match="slice.*M(8|10)"):
+    with pytest.raises(NotImplementedError, match="slice.*M8"):
         b.compile()
+
+
+@pytest.mark.parametrize("tex,kind", [
+    (X.FeltTexture(), "felt"), (X.ImageTexture("earthmap.jpg"), "image"),
+    (X.NoodleTexture(), "noodle"), (X.UVOffset(X.ImageTexture("8ball.jpg"), 0.25, 0.1), "image"),
+])
+def test_m10_textures_compile(tex, kind):
+    """Felt, image, noodle and uv_offset textures compile and bake as one
+    special leaf each; only the image kinds fill the atlas."""
+    b = SceneBuilder().add(O.Sphere((0, 0, 0), 1.0, Lambertian(tex)))
+    b.set_camera(lookfrom=(0, 0, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
+                 vfov_degrees=40.0, aspect=1.0)
+    t = b.compile().tables
+    (special,) = t.shade_consts[1]
+    assert special[:2] == (0, kind) and t.sp_consts is None
+    assert (t.atlas.data.shape[0] > 1) == (kind == "image")
 
 
 def test_tables_move_between_devices():
@@ -230,11 +258,12 @@ def test_kernel_rows_equal_art_tpu_packed_tables(name):
 
 @pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "cornell_legacy",
                                   "unrotated_boxes", "bouncing_spheres", "perlin",
-                                  "simple_light_book"])
+                                  "simple_light_book", "earth", "simple_light"])
 def test_shade_consts_match_art_tpu(name):
     """The baked gate and constants: ≤ 24 materials with solid,
-    checker-of-solids or noise textures bake (noise as a special leaf);
-    bouncing_spheres' 82 do not."""
+    checker-of-solids or special textures bake (noise, image, felt; the
+    pool ball's uv offset folds into its image leaf); bouncing_spheres' 82
+    do not."""
     jscene, scene = _scene_pair(name)
     assert scene.tables.shade_consts == jscene.tables.shade_consts
     assert (scene.tables.shade_rows is None) == (name == "bouncing_spheres")
@@ -242,6 +271,12 @@ def test_shade_consts_match_art_tpu(name):
         assert scene.tables.shade_consts[1] == ((0, "noise", 4.0),)
         rows = scene.tables.shade_rows.numpy()
         assert rows[0, 6] == 2.0 and not rows[0, 7:].any()
+    if name == "earth":
+        assert scene.tables.shade_consts[1] == ((0, "image", 0, 0.0, 0.0),)
+    if name == "simple_light":
+        felt, ball = scene.tables.shade_consts[1]
+        assert felt[:2] == (0, "felt") and ball == (1, "image", 0, float(np.float32(1 / 6)),
+                                                    0.0)
 
 
 def _light_checker(b_mod, O, M, X):
@@ -271,12 +306,13 @@ SP_SCENES = ["quads", "checkered_spheres", "perlin", "simple_light_book", "light
 
 
 @pytest.mark.parametrize("name", SP_SCENES + ["cornell_box", "bouncing_spheres",
-                                              "unrotated_boxes"])
+                                              "unrotated_boxes", "earth", "simple_light"])
 def test_sp_consts_match_art_tpu(name):
     """The short path's gate and its float32 constants: the small static
     scenes pass (three_spheres too: its dielectric keeps it staged only at
     the integrator), cornell_box (boxes), bouncing_spheres (488 spheres,
-    moving) and the box scene do not."""
+    moving), the box scene, earth and simple_light (image and felt
+    textures) do not."""
     jscene, scene = light_checker_scenes() if name == "light_checker" else _scene_pair(name)
     assert scene.tables.sp_consts == jscene.tables.sp_consts
     assert (scene.tables.sp_consts is None) == (name not in SP_SCENES)

@@ -20,12 +20,17 @@ the plane-fed twin on the same inputs bit for bit (the table holds the
 float32 values the fetch returns), and it is held to art_tpu's
 ``shade_flush(consts=..., interpret=True)`` — the Pallas kernel's baked
 mode, which takes its in-ball radius as ``exp(log(u)/3)`` — with the
-budget and tolerances above.  On the marble scenes (perlin,
-simple_light_book) the hit record carries the special leaf planes
+budget and tolerances above.  On the scenes with special leaves (the
+marble of perlin and simple_light_book, earth's image, simple_light's felt
+and uv-offset pool ball) the hit record carries the special leaf planes
 ``sp0..sp2`` from ``eval_special_p``; each package computes its own hit
 points, and the r = 1000 ground sphere turns a last-ulp shift of one into
-~1e-3 of turbulence, so there the float planes get rtol 5e-3 / atol 5e-4
-with 8 outliers per plane (tests/test_sp_kernel.py:175-186)."""
+~1e-3 of turbulence, and a last-ulp (u, v) on a texel edge into the
+neighbouring texel, so there the float planes get rtol 5e-3 / atol 5e-4
+with 8 outliers per plane (tests/test_sp_kernel.py:175-186).  The baked
+twin equals the plane-fed twin bit for bit on earth and simple_light too:
+the plane-fed image leaf reaches the texel through the uv_offset redirect
+of ``eval_texture_p``, the baked one through the folded offset."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -238,7 +243,7 @@ def _shade(scene, pool, rec, u, fb0, baked):
 
 
 @pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "unrotated_boxes",
-                                  "perlin"])
+                                  "perlin", "earth", "simple_light"])
 def test_baked_twin_equals_plane_fed(name):
     x, _, scene, pool, rec, u = _baked_case(name, 3)
     assert scene.tables.shade_rows is not None
@@ -251,7 +256,7 @@ def test_baked_twin_equals_plane_fed(name):
 
 
 @pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "unrotated_boxes",
-                                  "perlin", "simple_light_book"])
+                                  "perlin", "simple_light_book", "earth", "simple_light"])
 def test_baked_matches_art_tpu_consts_kernel(name):
     x, jscene, scene, pool, rec, u = _baked_case(name, 8)
     got, fb = _shade(scene, pool, rec, u, x["fb0"], baked=True)
