@@ -1,0 +1,96 @@
+// Shared box helpers of K6 (box_hit.cu) and K9/K10 (box_grid.cu).
+//
+// The slab division guard and the winner's face normal and make_box (u, v)
+// (art_tpu/ops/pallas_kernels.py:_safe_div_dir:1937 and
+// _box_write_winner_attrs:2053; src/quad.cuh:145-162): the slab is run once
+// more for the winner, its entry face taken if |t - t_entry| <= |t - t_exit|,
+// else its exit face; the normal faces against the ray and is rotated back
+// to world in the rotated form.  Plain twin: ops/intersect.py
+// box_attributes_rows, the same operations in the same order.
+#pragma once
+
+#include "common.cuh"
+
+namespace art {
+
+__device__ __forceinline__ float safe_inv(float d) {
+  // _safe_div_dir: |d| < 1e-12 -> +-1e-12 by the sign test d >= 0
+  const float s = fabsf(d) < 1e-12f ? (d >= 0.0f ? 1e-12f : -1e-12f) : d;
+  return 1.0f / s;
+}
+
+// the ray in a box's frame: o - off, then R(-theta) (rotated form only)
+template <bool kRotated>
+__device__ __forceinline__ void to_box_frame(float ct, float st, float offx, float offy,
+                                             float offz, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float& lox,
+                                             float& loy, float& loz, float& ldx,
+                                             float& ldy, float& ldz) {
+  if (kRotated) {
+    const float tx = ox - offx, ty = oy - offy, tz = oz - offz;
+    lox = ct * tx - st * tz; loy = ty; loz = st * tx + ct * tz;
+    ldx = ct * dx - st * dz; ldy = dy; ldz = st * dx + ct * dz;
+  } else {
+    lox = ox; loy = oy; loz = oz;
+    ldx = dx; ldy = dy; ldz = dz;
+  }
+}
+
+struct BoxAttrs {
+  float nx, ny, nz, u, v;
+};
+
+// face normal and (u, v) of the hit at t on the box [mn, mx] (box frame)
+template <bool kRotated>
+__device__ __forceinline__ BoxAttrs box_winner_attrs(
+    float ox, float oy, float oz, float dx, float dy, float dz, float t, float mnx,
+    float mny, float mnz, float mxx, float mxy, float mxz, float ct, float st,
+    float offx, float offy, float offz) {
+  float lox, loy, loz, ldx, ldy, ldz;
+  to_box_frame<kRotated>(ct, st, offx, offy, offz, ox, oy, oz, dx, dy, dz, lox, loy,
+                         loz, ldx, ldy, ldz);
+  const float ix = safe_inv(ldx), iy = safe_inv(ldy), iz = safe_inv(ldz);
+  const float tax = (mnx - lox) * ix, tbx = (mxx - lox) * ix;
+  const float tay = (mny - loy) * iy, tby = (mxy - loy) * iy;
+  const float taz = (mnz - loz) * iz, tbz = (mxz - loz) * iz;
+  const float t0x = fminf(tax, tbx), t1x = fmaxf(tax, tbx);
+  const float t0y = fminf(tay, tby), t1y = fmaxf(tay, tby);
+  const float t0z = fminf(taz, tbz), t1z = fmaxf(taz, tbz);
+  const float t_entry = fmaxf(fmaxf(t0x, t0y), t0z);
+  const float t_exit = fminf(fminf(t1x, t1y), t1z);
+  const int axis_entry = t0x >= fmaxf(t0y, t0z) ? 0 : (t0y >= t0z ? 1 : 2);
+  const int axis_exit = t1x <= fminf(t1y, t1z) ? 0 : (t1y <= t1z ? 1 : 2);
+  const bool is_entry = fabsf(t - t_entry) <= fabsf(t - t_exit);
+  const int axis = is_entry ? axis_entry : axis_exit;
+  const float d_axis = axis == 0 ? ldx : (axis == 1 ? ldy : ldz);
+  const float sgn = d_axis >= 0.0f ? 1.0f : -1.0f;
+  const float n_val = -sgn;  // shading normal faces against the ray
+  const bool pos_face = (is_entry ? -sgn : sgn) > 0.0f;
+  const float nlx = axis == 0 ? n_val : 0.0f;
+  const float nly = axis == 1 ? n_val : 0.0f;
+  const float nlz = axis == 2 ? n_val : 0.0f;
+  BoxAttrs a;
+  if (kRotated) {  // world = R(theta) * local
+    a.nx = ct * nlx + st * nlz;
+    a.nz = -st * nlx + ct * nlz;
+  } else {
+    a.nx = nlx;
+    a.nz = nlz;
+  }
+  a.ny = nly;
+  const float x = lox + t * ldx, y = loy + t * ldy, z = loz + t * ldz;
+  const float wx = mxx - mnx, wy = mxy - mny, wz = mxz - mnz;
+  if (axis == 0) {
+    a.u = pos_face ? (mxz - z) / wz : (z - mnz) / wz;
+    a.v = (y - mny) / wy;
+  } else if (axis == 1) {
+    a.u = (x - mnx) / wx;
+    a.v = pos_face ? (mxz - z) / wz : (z - mnz) / wz;
+  } else {
+    a.u = pos_face ? (x - mnx) / wx : (mxx - x) / wx;
+    a.v = (y - mny) / wy;
+  }
+  return a;
+}
+
+}  // namespace art

@@ -12,8 +12,10 @@
 // more to find the face: the entry face if |t - t_entry| <= |t - t_exit|,
 // else the exit face; the normal faces against the ray and is rotated back
 // to world; u, v are make_box's per-face coordinates (src/quad.cuh:145-162).
-// Output (t, normal x3, u, v, mat); a miss writes t = BIG, normal (1, 0, 0),
-// u = v = 0, material 0 (the values closest_surface_p blends in for misses).
+// The slab guard and the winner's attributes are shared with K9/K10 through
+// box_attrs.cuh.  Output (t, normal x3, u, v, mat); a miss writes t = BIG,
+// normal (1, 0, 0), u = v = 0, material 0 (the values closest_surface_p
+// blends in for misses).
 // The guard keeps every slab factor finite (|1/d| <= 1e12), so min/max see
 // no NaN.  Both forms are templates: kRotated (cornell_box) and the folded
 // axis-aligned one.  Plain twin: ops/intersect_kernels.py box_hit_attrs_plain
@@ -27,7 +29,7 @@
 // as broadcasts; the scan carries only (t, index) and the winner's row is
 // re-read from global memory (48 B, cached) for its attributes.
 
-#include "common.cuh"
+#include "box_attrs.cuh"
 
 namespace {
 
@@ -39,29 +41,6 @@ struct BoxPlanes {
   float *t, *nx, *ny, *nz, *u, *v;
   int* mat;
 };
-
-__device__ __forceinline__ float safe_inv(float d) {
-  // _safe_div_dir: |d| < 1e-12 -> +-1e-12 by the sign test d >= 0
-  const float s = fabsf(d) < 1e-12f ? (d >= 0.0f ? 1e-12f : -1e-12f) : d;
-  return 1.0f / s;
-}
-
-// the ray in the frame of box row r
-template <bool kRotated>
-__device__ __forceinline__ void to_box_frame(const float* r, float ox, float oy,
-                                             float oz, float dx, float dy, float dz,
-                                             float& lox, float& loy, float& loz,
-                                             float& ldx, float& ldy, float& ldz) {
-  if (kRotated) {
-    const float tx = ox - r[8], ty = oy - r[9], tz = oz - r[10];
-    const float ct = r[6], st = r[7];
-    lox = ct * tx - st * tz; loy = ty; loz = st * tx + ct * tz;
-    ldx = ct * dx - st * dz; ldy = dy; ldz = st * dx + ct * dz;
-  } else {
-    lox = ox; loy = oy; loz = oz;
-    ldx = dx; ldy = dy; ldz = dz;
-  }
-}
 
 template <bool kRotated>
 __global__ void __launch_bounds__(art::kBlock)
@@ -86,8 +65,10 @@ box_hit_kernel(const float* __restrict__ rows, int B, int R, float t_min,
     for (int b = 0; b < n; ++b) {
       const float* r = sh + b * kRow;
       float lox, loy, loz, ldx, ldy, ldz;
-      to_box_frame<kRotated>(r, ox, oy, oz, dx, dy, dz, lox, loy, loz, ldx, ldy, ldz);
-      const float ix = safe_inv(ldx), iy = safe_inv(ldy), iz = safe_inv(ldz);
+      art::to_box_frame<kRotated>(r[6], r[7], r[8], r[9], r[10], ox, oy, oz, dx, dy, dz,
+                                  lox, loy, loz, ldx, ldy, ldz);
+      const float ix = art::safe_inv(ldx), iy = art::safe_inv(ldy),
+                  iz = art::safe_inv(ldz);
       const float tax = (r[0] - lox) * ix, tbx = (r[3] - lox) * ix;
       const float tay = (r[1] - loy) * iy, tby = (r[4] - loy) * iy;
       const float taz = (r[2] - loz) * iz, tbz = (r[5] - loz) * iz;
@@ -109,55 +90,13 @@ box_hit_kernel(const float* __restrict__ rows, int B, int R, float t_min,
     p.u[i] = 0.f; p.v[i] = 0.f; p.mat[i] = 0;
     return;
   }
-  // ---- winner attributes (_box_write_winner_attrs) ----
+  // ---- winner attributes (_box_write_winner_attrs, box_attrs.cuh) ----
   const float* r = rows + (size_t)best_b * kRow;
-  const float mnx = r[0], mny = r[1], mnz = r[2], mxx = r[3], mxy = r[4], mxz = r[5];
-  float lox, loy, loz, ldx, ldy, ldz;
-  to_box_frame<kRotated>(r, ox, oy, oz, dx, dy, dz, lox, loy, loz, ldx, ldy, ldz);
-  const float ix = safe_inv(ldx), iy = safe_inv(ldy), iz = safe_inv(ldz);
-  const float tax = (mnx - lox) * ix, tbx = (mxx - lox) * ix;
-  const float tay = (mny - loy) * iy, tby = (mxy - loy) * iy;
-  const float taz = (mnz - loz) * iz, tbz = (mxz - loz) * iz;
-  const float t0x = fminf(tax, tbx), t1x = fmaxf(tax, tbx);
-  const float t0y = fminf(tay, tby), t1y = fmaxf(tay, tby);
-  const float t0z = fminf(taz, tbz), t1z = fmaxf(taz, tbz);
-  const float t_entry = fmaxf(fmaxf(t0x, t0y), t0z);
-  const float t_exit = fminf(fminf(t1x, t1y), t1z);
-  const int axis_entry = t0x >= fmaxf(t0y, t0z) ? 0 : (t0y >= t0z ? 1 : 2);
-  const int axis_exit = t1x <= fminf(t1y, t1z) ? 0 : (t1y <= t1z ? 1 : 2);
-  const bool is_entry = fabsf(best - t_entry) <= fabsf(best - t_exit);
-  const int axis = is_entry ? axis_entry : axis_exit;
-  const float d_axis = axis == 0 ? ldx : (axis == 1 ? ldy : ldz);
-  const float sgn = d_axis >= 0.0f ? 1.0f : -1.0f;
-  const float n_val = -sgn;  // shading normal faces against the ray
-  const bool pos_face = (is_entry ? -sgn : sgn) > 0.0f;
-  const float nlx = axis == 0 ? n_val : 0.0f;
-  const float nly = axis == 1 ? n_val : 0.0f;
-  const float nlz = axis == 2 ? n_val : 0.0f;
-  if (kRotated) {  // world = R(theta) * local
-    const float ct = r[6], st = r[7];
-    p.nx[i] = ct * nlx + st * nlz;
-    p.nz[i] = -st * nlx + ct * nlz;
-  } else {
-    p.nx[i] = nlx;
-    p.nz[i] = nlz;
-  }
-  p.ny[i] = nly;
-  const float x = lox + best * ldx, y = loy + best * ldy, z = loz + best * ldz;
-  const float wx = mxx - mnx, wy = mxy - mny, wz = mxz - mnz;
-  float u, v;
-  if (axis == 0) {
-    u = pos_face ? (mxz - z) / wz : (z - mnz) / wz;
-    v = (y - mny) / wy;
-  } else if (axis == 1) {
-    u = (x - mnx) / wx;
-    v = pos_face ? (mxz - z) / wz : (z - mnz) / wz;
-  } else {
-    u = pos_face ? (x - mnx) / wx : (mxx - x) / wx;
-    v = (y - mny) / wy;
-  }
-  p.u[i] = u;
-  p.v[i] = v;
+  const art::BoxAttrs at = art::box_winner_attrs<kRotated>(
+      ox, oy, oz, dx, dy, dz, best, r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7],
+      r[8], r[9], r[10]);
+  p.nx[i] = at.nx; p.ny[i] = at.ny; p.nz[i] = at.nz;
+  p.u[i] = at.u; p.v[i] = at.v;
   p.mat[i] = (int)r[11];
 }
 

@@ -16,6 +16,9 @@
 //  * the normal is the generic (p - c) / r, not the TPU's rsqrt form;
 //  * t_min is an argument (the TPU kernel bakes T_MIN in at compile time,
 //    so art_tpu sends any other t_min down its jnp path).
+// An optional device count n_live makes every lane at or past *n_live a miss
+// (the compacted tail pass of ops/compact_sphere.py, whose needy count stays
+// on the device): a block wholly past it writes misses and tests no sphere.
 //
 // Bound on the H100: FP32 issue — about 25 flops per (ray, sphere), so
 // R x S x 25 ≈ 1.6 GFLOP per call at R = 2^17, S = 488; memory traffic is
@@ -42,10 +45,17 @@ struct SpherePlanes {
 
 __global__ void __launch_bounds__(art::kBlock)
 sphere_hit_kernel(const float* __restrict__ rows, int S, int R, float t_min,
-                  SpherePlanes p) {
+                  const int* __restrict__ n_live, SpherePlanes p) {
   __shared__ float sh[kTile * kRow];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < R;
+  const int n = n_live ? min(*n_live, R) : R;
+  if ((int)(blockIdx.x * blockDim.x) >= n) {  // the whole block misses
+    if (i < R) {
+      p.t[i] = art::kBig; p.nx[i] = 1.f; p.ny[i] = 0.f; p.nz[i] = 0.f; p.mat[i] = 0;
+    }
+    return;
+  }
+  const bool live = i < n;
   const float ox = live ? p.ox[i] : 0.f, oy = live ? p.oy[i] : 0.f,
               oz = live ? p.oz[i] : 0.f;
   const float dx = live ? p.dx[i] : 0.f, dy = live ? p.dy[i] : 0.f,
@@ -81,7 +91,8 @@ sphere_hit_kernel(const float* __restrict__ rows, int S, int R, float t_min,
       }
     }
   }
-  if (!live) return;
+  if (i >= R) return;
+  if (!live) best = art::kBig;
   p.t[i] = best;
   if (best < art::kBig) {
     const float inv_r = 1.0f / br;
@@ -96,9 +107,10 @@ sphere_hit_kernel(const float* __restrict__ rows, int S, int R, float t_min,
 
 }  // namespace
 
-// planes: ox oy oz dx dy dz tm (in), t nx ny nz mat (out); all (R,)
+// planes: ox oy oz dx dy dz tm (in), t nx ny nz mat (out); all (R,);
+// n_live: a device int or null (every lane live)
 extern "C" int art_sphere_hit(const float* rows, int S, int R, float t_min,
-                              void* const* planes, void* stream) {
+                              const int* n_live, void* const* planes, void* stream) {
   SpherePlanes p;
   p.ox = (const float*)planes[0]; p.oy = (const float*)planes[1];
   p.oz = (const float*)planes[2]; p.dx = (const float*)planes[3];
@@ -109,7 +121,7 @@ extern "C" int art_sphere_hit(const float* rows, int S, int R, float t_min,
   p.mat = (int*)planes[11];
   const int grid = (R + art::kBlock - 1) / art::kBlock;
   if (grid > 0)
-    sphere_hit_kernel<<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(rows, S, R,
-                                                                      t_min, p);
+    sphere_hit_kernel<<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
+        rows, S, R, t_min, n_live, p);
   return (int)cudaGetLastError();
 }

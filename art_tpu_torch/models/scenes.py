@@ -1,32 +1,62 @@
 """The reference scene suite on the port's DSL (``art_tpu/models/scenes.py``).
 
-The port has ``bouncing_spheres`` (``scenes.py:70``), ``checkered_spheres``
-(``scenes.py:151``), ``earth`` (``scenes.py:166``), ``perlin``
-(``scenes.py:179``), ``quads`` (``scenes.py:193``), ``simple_light``
-(``scenes.py:212``), ``simple_light_book`` (``scenes.py:239``),
-``cornell_box`` (``scenes.py:266``) and ``three_spheres`` (``scenes.py:461``)
-with the same construction order, so their tables equal ``art_tpu``'s.  The
-other reference scenes are listed with their defaults and raise
-``NotImplementedError``, naming their milestone in ROADMAP.md.
+Every scene of ``art_tpu``'s registry, built in the same construction
+order, so their tables equal ``art_tpu``'s: ``bouncing_spheres``
+(``scenes.py:70``), ``checkered_spheres`` (``:151``), ``earth`` (``:166``),
+``perlin`` (``:179``), ``quads`` (``:193``), ``simple_light`` (``:212``),
+``simple_light_book`` (``:239``), ``cornell_box`` (``:266``),
+``cornell_smoke`` (``:314``), ``final_scene`` (``:368``),
+``original_scene`` (``:417``) and ``three_spheres`` (``:461``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
 from art_tpu_torch.scene.builder import CompiledScene, SceneBuilder
 from art_tpu_torch.scene.materials import Dielectric, DiffuseLight, Lambertian, Metal
-from art_tpu_torch.scene.objects import Box, Quad, RotateY, Sphere, Translate
+from art_tpu_torch.scene.objects import (
+    Box,
+    ConstantMedium,
+    Quad,
+    RotateY,
+    Sphere,
+    Translate,
+)
 from art_tpu_torch.scene.textures import (
     Checker,
     FeltTexture,
     ImageTexture,
     NoiseTexture,
+    NoodleTexture,
     SolidColor,
     UVOffset,
 )
 
 UT_ORANGE = (1.0, 0.51, 0.0)  # src/main.cu:168
+
+
+def random_in_unit_cube(seed: int) -> np.ndarray:
+    """Bit-exact port of the deterministic LCG+xorshift hash (src/util.cuh:3-11)."""
+    s = np.uint32((1103515245 * (seed + 1) + 12345) & 0xFFFFFFFF)
+
+    def next01():
+        nonlocal s
+        s ^= np.uint32(s << np.uint32(13))
+        s ^= np.uint32(s >> np.uint32(17))
+        s ^= np.uint32(s << np.uint32(5))
+        return float(s & np.uint32(0xFFFFFF)) * (1.0 / 16777216.0)
+
+    return np.array([next01(), next01(), next01()])
+
+
+def rotate_y_deg(p: np.ndarray, deg: float) -> np.ndarray:
+    """src/main.cu:489-496"""
+    r = math.radians(deg)
+    c, s = math.cos(r), math.sin(r)
+    return np.array([c * p[0] + s * p[2], p[1], -s * p[0] + c * p[2]])
 
 
 def pick_ut_color(r: float) -> tuple:
@@ -277,14 +307,130 @@ def cornell_box(nx: int, ny: int, legacy_walls: bool = False) -> CompiledScene:
     return b.compile()
 
 
-def _later_slice(name: str, milestone: str, needs: str):
-    def build(nx: int, ny: int) -> CompiledScene:
-        raise NotImplementedError(
-            f"scene {name!r} is not in art_tpu_torch yet: {needs} ({milestone}, "
-            "a later slice)"
-        )
+def cornell_smoke(nx: int, ny: int) -> CompiledScene:
+    """src/main.cu:452-486: the Cornell room with its two boxes as smoke
+    (constant media in rotated box boundaries)."""
+    b = SceneBuilder().set_name("cornell_smoke")
+    red = Lambertian((0.65, 0.05, 0.05))
+    white = Lambertian((0.73, 0.73, 0.73))
+    green = Lambertian((0.12, 0.45, 0.15))
+    light = DiffuseLight((7.0, 7.0, 7.0))
 
-    return build
+    b.add(
+        Quad((555, 0, 0), (0, 555, 0), (0, 0, 555), green, inward=True),
+        Quad((0, 0, 0), (0, 555, 0), (0, 0, 555), red, inward=True),
+        Quad((0, 555, 0), (555, 0, 0), (0, 0, 555), white, inward=True),
+        Quad((0, 0, 0), (555, 0, 0), (0, 0, 555), white, inward=True),
+        Quad((0, 0, 555), (555, 0, 0), (0, 555, 0), white, inward=True),
+        Quad((113, 554, 127), (330, 0, 0), (0, 0, 305), light, inward=True),
+    )
+    b1 = Translate(RotateY(Box((0, 0, 0), (165, 330, 165), white), 15.0), (265, 0, 295))
+    b2 = Translate(RotateY(Box((0, 0, 0), (165, 165, 165), white), -18.0), (130, 0, 65))
+    b.add(
+        ConstantMedium(b1, 0.01, (0.5, 0.5, 0.5)),
+        ConstantMedium(b2, 0.01, (1.0, 1.0, 1.0)),
+    )
+    lookfrom = np.array([278.0, 278.0, -800.0])
+    lookat = np.array([278.0, 278.0, 0.0])
+    b.set_camera(
+        lookfrom=lookfrom, lookat=lookat, vup=(0, 1, 0),
+        vfov_degrees=40.0, aspect=nx / ny, aperture=0.0,
+        focus_dist=float(np.linalg.norm(lookfrom - lookat)),
+        time0=0.0, time1=1.0,
+    )
+    b.set_background((0, 0, 0), gradient=False)
+    return b.compile()
+
+
+def _ground_boxes(b: SceneBuilder, ground) -> None:
+    """20x20 box ground with the stable height hash (src/main.cu:509-514)."""
+    S = 20
+    for ix in range(S):
+        for iz in range(S):
+            w = 100.0
+            x0 = -1000.0 + ix * w
+            z0 = -1000.0 + iz * w
+            y1 = 1.0 + 100.0 * ((ix * 13 + iz * 37) % 100) / 100.0
+            b.add(Box((x0, 0.0, z0), (x0 + w, y1, z0 + w), ground))
+
+
+def _ball_cluster(b: SceneBuilder, white) -> None:
+    """1000-ball cluster with baked 15-degree rotation (src/main.cu:546-552)."""
+    for j in range(1000):
+        p = random_in_unit_cube(j) * 165.0
+        p = rotate_y_deg(p, 15.0) + np.array([-100.0, 270.0, 395.0])
+        b.add(Sphere(tuple(p), 10.0, white))
+
+
+def _big_scene_camera(b: SceneBuilder, nx: int, ny: int) -> None:
+    lookfrom = np.array([478.0, 278.0, -600.0])
+    lookat = np.array([278.0, 278.0, 0.0])
+    b.set_camera(
+        lookfrom=lookfrom, lookat=lookat, vup=(0, 1, 0),
+        vfov_degrees=40.0, aspect=nx / ny, aperture=0.0,
+        focus_dist=float(np.linalg.norm(lookfrom - lookat)),
+        time0=0.0, time1=1.0,
+    )
+
+
+def final_scene(nx: int, ny: int) -> CompiledScene:
+    """Book-2 final scene (src/main.cu:498-562): a 20x20 box field, a quad
+    light, a moving sphere, glass, metal, blue fog in a glass ball, a global
+    thin fog, the earth image, a marble sphere and a 1000-ball cluster."""
+    b = SceneBuilder().set_name("final_scene")
+    white = Lambertian((0.73, 0.73, 0.73))
+    ground = Lambertian((0.48, 0.83, 0.53))
+    light = DiffuseLight((7, 7, 7))
+
+    _ground_boxes(b, ground)
+    b.add(Quad((123, 554, 147), (300, 0, 0), (0, 0, 265), light, inward=True))
+    b.add(Sphere((400.0, 400.0, 200.0), 50.0, Lambertian((0.7, 0.3, 0.1)),
+                 center2=(430.0, 400.0, 200.0)))
+    b.add(
+        Sphere((260, 150, 45), 50.0, Dielectric(1.5)),
+        Sphere((0, 150, 145), 50.0, Metal((0.8, 0.8, 0.9), 1.0)),
+    )
+    # blue fog in a visible glass boundary (src/main.cu:529-532)
+    b.add(Sphere((360, 150, 145), 70.0, Dielectric(1.5)))
+    b.add(ConstantMedium(Sphere((360, 150, 145), 70.0, Dielectric(1.5)), 0.2,
+                         (0.2, 0.4, 0.9)))
+    # global thin white fog (src/main.cu:535-536)
+    b.add(ConstantMedium(Sphere((0, 0, 0), 5000.0, Dielectric(1.5)), 0.0001,
+                         (1.0, 1.0, 1.0)))
+    b.add(Sphere((400, 200, 400), 100.0, Lambertian(ImageTexture("earthmap.jpg"))))
+    b.add(Sphere((220, 280, 300), 80.0, Lambertian(NoiseTexture(0.2))))
+    _ball_cluster(b, white)
+    _big_scene_camera(b, nx, ny)
+    b.set_background((0, 0, 0), gradient=False)
+    return b.compile()
+
+
+def original_scene(nx: int, ny: int) -> CompiledScene:
+    """Custom variant: porcelain boxes, 8-ball, noodle sphere (src/main.cu:564-635)."""
+    b = SceneBuilder().set_name("original_scene")
+    white = Lambertian((0.73, 0.73, 0.73))
+    ground = Lambertian((0.88, 0.50, 0.76))
+    light = DiffuseLight((7, 7, 7))
+
+    _ground_boxes(b, ground)
+    b.add(Quad((123, 554, 147), (300, 0, 0), (0, 0, 265), light, inward=True))
+    b.add(Sphere((400.0, 400.0, 200.0), 50.0, Lambertian((0.0488, 0.0148, 0.0171)),
+                 center2=(430.0, 400.0, 200.0)))
+    b.add(
+        Sphere((260, 150, 45), 50.0, Dielectric(1.5)),
+        Sphere((0, 150, 145), 50.0, Metal((0.6387, 0.3605, 0.8826), 1.0)),
+    )
+    # 8-ball + clear coat (src/main.cu:594-606)
+    b.add(Sphere((360.0, 150.0, 145.0), 70.0, Lambertian(ImageTexture("8ball.jpg"))))
+    b.add(Sphere((360.0, 150.0, 145.0), 70.5, Dielectric(1.5)))
+    b.add(ConstantMedium(Sphere((0, 0, 0), 5000.0, Dielectric(1.5)), 0.0001,
+                         (1.0, 1.0, 1.0)))
+    b.add(Sphere((400, 200, 400), 100.0, Metal((0.23, 0.24, 0.85), 0.02)))
+    b.add(Sphere((220, 280, 300), 80.0, Lambertian(NoodleTexture(0.2))))
+    _ball_cluster(b, white)
+    _big_scene_camera(b, nx, ny)
+    b.set_background((0.043, 0.030, 0.094), gradient=False)  # src/main.cu:1276
+    return b.compile()
 
 
 SCENES = {
@@ -296,11 +442,9 @@ SCENES = {
     "simple_light": simple_light,
     "simple_light_book": simple_light_book,
     "cornell_box": cornell_box,
-    "cornell_smoke": _later_slice("cornell_smoke", "M8", "it needs constant media"),
-    "final_scene": _later_slice("final_scene", "M8, M12",
-                                "it needs constant media and the box grid"),
-    "original_scene": _later_slice("original_scene", "M8, M12",
-                                   "it needs constant media and the box grid"),
+    "cornell_smoke": cornell_smoke,
+    "final_scene": final_scene,
+    "original_scene": original_scene,
     "three_spheres": three_spheres,
 }
 

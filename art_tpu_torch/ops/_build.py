@@ -45,7 +45,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns cudaGetLastError() as int)
 _SIGNATURES = {
-    "art_sphere_hit": [_P, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
+    "art_sphere_hit": [_P, _I, _I, ctypes.c_float, _P, ctypes.POINTER(_P), _P],
     "art_refill": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
                    ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
                    ctypes.c_uint, ctypes.c_uint, _P],
@@ -62,6 +62,10 @@ _SIGNATURES = {
                     _I, _P, _I, _P, _I, _P, _I, _P],
     "art_flush_accumulate": [_P, _P, ctypes.POINTER(_P), _I, _P, _I, _P, _I, _P],
     "art_table_gather": [_P, _I, _P, _P, _I, _P],
+    "art_box_grid": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I, ctypes.c_float,
+                     ctypes.POINTER(_P), _P],
+    "art_box_grid_cells": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I,
+                           ctypes.c_float, ctypes.POINTER(_P), _P],
 }
 
 

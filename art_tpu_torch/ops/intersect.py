@@ -3,16 +3,19 @@
 The plain PyTorch candidate passes and winner attributes of spheres
 (``sphere_candidates_p:218``, ``sphere_attributes_p:373``), quads
 (``quad_candidates_p:304``, ``quad_attributes_p:414``) and oriented boxes
-(``box_candidates_p:333``, ``box_attributes_p:433``), and
+(``box_candidates_p:333``, ``box_attributes_p:433``), the lattice form of
+the grid kernels (``box_grid_candidates_p``, ``box_grid_attributes_p``),
 ``closest_surface_p`` (``:519``), which merges the three kinds through
-their kernels (``ops/intersect_kernels.py``) unless asked for the plain
-path.  A sphere's (u, v) comes from its normal in PyTorch glue
+their kernels (``ops/intersect_kernels.py``, ``ops/compact_sphere.py``)
+unless asked for the plain path, and the constant media
+(``apply_media_p:844``, ``_gb_first_hit:758``), plain PyTorch as in
+``art_tpu``.  A sphere's (u, v) comes from its normal in PyTorch glue
 (``sphere_uv``) when the scene has image or uv_offset textures, as
-``art_tpu`` computes it outside its kernel.  Media join with a later slice
-(M8).
+``art_tpu`` computes it outside its kernel.
 
-The quad and box passes read the kernels' row tables (``quad_rows``,
-``box_rows``), so each is its kernel's plain twin.  ``quad_rows`` holds the
+The sphere, quad and box passes read the kernels' row tables
+(``sph_rows`` and its head and tail, ``quad_rows``, ``box_rows``, the grid's
+cells), so each is its kernel's plain twin.  ``quad_rows`` holds the
 same float32 values as ``art_tpu``'s quad fields; ``box_rows`` folds the
 offsets of unrotated boxes into min/max as the TPU kernel's table does, so
 on such boxes ``box_candidates_p`` rounds as ``art_tpu``'s Pallas kernel
@@ -35,6 +38,7 @@ from art_tpu_torch.core.vecmath import (
     p_ray_at,
     p_rotate_y,
     p_rotate_y_inv,
+    p_sub,
     p_where,
     safe_dir,
     sqrt,
@@ -55,26 +59,25 @@ class HitRecordP(NamedTuple):
     mat: torch.Tensor  # (R,) int32
 
 
-def sphere_candidates_p(tables: SceneTables, o, d, time, t_min):
-    """Best sphere hit per ray: (t_best (R,), idx (R,) int32).
+def sphere_candidates_p(rows, o, d, time, t_min):
+    """Best sphere hit per ray over (S, 10) ``sphere_rows`` rows [c(3) v(3)
+    r mat r*r 0]: (t_best (R,), idx (R,) int32), (BIG, 0) where none is
+    hit.
 
     Half-b quadratic with the center at the ray's shutter time (reference
-    src/sphere.cuh:51-89) over (R,1)x(1,S) broadcasts."""
-    c0 = tables.sph_center
-    r = tables.sph_radius
+    src/sphere.cuh:51-89) over (R,1)x(1,S) broadcasts; a static sphere's
+    c + time * 0 is c."""
+    if rows.shape[0] == 0:
+        return torch.full_like(o[0], BIG), torch.zeros(o[0].shape, dtype=torch.int32,
+                                                      device=o[0].device)
     ox, oy, oz = (c[:, None] for c in o)
     dx, dy, dz = (c[:, None] for c in d)
     a = dx * dx + dy * dy + dz * dz
-    cx, cy, cz = c0[None, :, 0], c0[None, :, 1], c0[None, :, 2]
-    if tables.has_moving:
-        vel = tables.sph_vel
-        tcol = time[:, None]
-        cx = cx + tcol * vel[None, :, 0]
-        cy = cy + tcol * vel[None, :, 1]
-        cz = cz + tcol * vel[None, :, 2]
+    tcol = time[:, None]
+    cx, cy, cz = (rows[None, :, k] + tcol * rows[None, :, 3 + k] for k in range(3))
     ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
     b = ocx * dx + ocy * dy + ocz * dz
-    csq = ocx * ocx + ocy * ocy + ocz * ocz - (r * r)[None, :]
+    csq = ocx * ocx + ocy * ocy + ocz * ocz - rows[None, :, 8]
     disc = b * b - a * csq
     s = sqrt(torch.clamp_min(disc, 0.0))
     inv_a = 1.0 / a
@@ -160,20 +163,73 @@ def box_candidates_p(tables: SceneTables, o, d, t_min):
     return _closest(t)
 
 
-def sphere_attributes_p(tables: SceneTables, o, d, time, t, idx):
-    """Normal and material of the winning sphere (src/sphere.cuh:69-86).
+def grid_cells(tables: SceneTables, grouped: bool):
+    """The box grid's cells as (C, 4) float32 rows [ix iz h mat]: K9's
+    ``box_grid_cell_rows`` (``grouped``) or K10's every cell in row-major
+    order (empty cells have h = y0 and are never hit)."""
+    if grouped:
+        return tables.box_grid_cell_rows
+    kx, kz = tables.box_grid_kx, tables.box_grid_kz
+    g = tables.box_grid_rows
+    ix = torch.arange(kx, dtype=torch.float32, device=g.device).repeat_interleave(kz)
+    iz = torch.arange(kz, dtype=torch.float32, device=g.device).repeat(kx)
+    return torch.stack([ix, iz, g[:, 0::2].reshape(-1), g[:, 1::2].reshape(-1)], dim=1)
+
+
+def box_grid_candidates_p(tables: SceneTables, cells, o, d, t_min):
+    """Best grid-box hit per ray over ``cells`` (``grid_cells``) in their
+    order: (t_best, idx int32), (BIG, -1) on a miss.
+
+    The lattice form of ``art_tpu``'s grid kernels
+    (``pallas_kernels.py:2200-2294``, ``:2342-2432``): per ray the guarded
+    inverses, ``ex0 = (x0 - ox) ix``, ``sxv = w ix`` (z alike) and the shared
+    floor plane ``(y0 - oy) iy``; per cell the x slab ``ex0 + f32(ix) sxv``
+    and ``+ sxv``, the z slab alike, the top plane ``(h - oy) iy``, then the
+    slab test with the entry plane if beyond ``t_min``, else the exit plane."""
+    x0, z0, w, y0 = (tables.box_grid_x0, tables.box_grid_z0, tables.box_grid_w,
+                     tables.box_grid_y0)
+    inv = tuple(1.0 / safe_dir(c) for c in d)
+    ex0, sxv = ((x0 - o[0]) * inv[0])[:, None], (w * inv[0])[:, None]
+    ez0, szv = ((z0 - o[2]) * inv[2])[:, None], (w * inv[2])[:, None]
+    ty0p = ((y0 - o[1]) * inv[1])[:, None]
+    ta = ex0 + cells[None, :, 0] * sxv
+    tb = ta + sxv
+    xlo, xhi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+    ta = ez0 + cells[None, :, 1] * szv
+    tb = ta + szv
+    zlo, zhi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+    ty1 = (cells[None, :, 2] - o[1][:, None]) * inv[1][:, None]
+    ylo, yhi = torch.minimum(ty0p, ty1), torch.maximum(ty0p, ty1)
+    t0 = torch.maximum(torch.maximum(xlo, zlo), ylo)
+    t1 = torch.minimum(torch.minimum(xhi, zhi), yhi)
+    through = t0 < t1
+    t = torch.where(through & (t0 > t_min), t0,
+                    torch.where(through & (t1 > t_min), t1, BIG))
+    return _closest(t)
+
+
+def box_grid_attributes_p(tables: SceneTables, cells, o, d, t, idx):
+    """``box_attributes_rows`` of the winning cell's box, rebuilt from its
+    cell in float32 as the grid kernels rebuild it: min ``(x0 + f32(ix) w,
+    y0, z0 + f32(iz) w)``, max ``(min_x + w, h, min_z + w)``, unrotated."""
+    cell = take_rows(cells, idx)
+    w = tables.box_grid_w
+    mnx = tables.box_grid_x0 + cell[:, 0] * w
+    mnz = tables.box_grid_z0 + cell[:, 1] * w
+    one, zero = torch.ones_like(mnx), torch.zeros_like(mnx)
+    row = torch.stack([mnx, torch.full_like(mnx, tables.box_grid_y0), mnz, mnx + w,
+                       cell[:, 2], mnz + w, one, zero, zero, zero, zero, cell[:, 3]], dim=1)
+    return box_attributes_rows(row, o, d, t)
+
+
+def sphere_attributes_p(rows, o, d, time, t, idx):
+    """Normal and material of the winning row of ``rows`` (the table
+    ``sphere_candidates_p`` scanned; src/sphere.cuh:69-86).
 
     Returns (normal 3-tuple, mat int32); ``sphere_uv`` gives (u, v) from
     the normal where a scene reads it."""
-    tab = torch.cat([tables.sph_center, tables.sph_vel,
-                     tables.sph_radius[:, None],
-                     tables.sph_mat.to(torch.float32)[:, None]], dim=1)
-    row = take_rows(tab, idx)
-    cx, cy, cz = row[:, 0], row[:, 1], row[:, 2]
-    if tables.has_moving:
-        cx = cx + time * row[:, 3]
-        cy = cy + time * row[:, 4]
-        cz = cz + time * row[:, 5]
+    row = take_rows(rows, idx)
+    cx, cy, cz = (row[:, k] + time * row[:, 3 + k] for k in range(3))
     p = p_ray_at(o, d, t)
     inv_r = 1.0 / row[:, 6]
     normal = ((p[0] - cx) * inv_r, (p[1] - cy) * inv_r, (p[2] - cz) * inv_r)
@@ -209,10 +265,15 @@ def quad_attributes_p(tables: SceneTables, o, d, t, idx):
 
 
 def box_attributes_p(tables: SceneTables, o, d, t, idx):
+    """``box_attributes_rows`` of the winning box's ``box_rows`` row."""
+    return box_attributes_rows(take_rows(tables.box_rows, idx), o, d, t)
+
+
+def box_attributes_rows(row, o, d, t):
     """Face normal + the reference's per-face UV (make_box,
-    src/quad.cuh:145-162) for the winning box's ``box_rows`` row: returns
-    (normal 3-tuple, u, v, mat int32).  Every divisor is a tensor."""
-    row = take_rows(tables.box_rows, idx)  # (R,12)
+    src/quad.cuh:145-162) for each ray's (R, 12) box row [min(3) max(3) cos
+    sin off(3) mat]: returns (normal 3-tuple, u, v, mat int32).  Every
+    divisor is a tensor."""
     mnx, mny, mnz = row[:, 0], row[:, 1], row[:, 2]
     mxx, mxy, mxz = row[:, 3], row[:, 4], row[:, 5]
     cos_t, sin_t = row[:, 6], row[:, 7]
@@ -262,8 +323,14 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
 
     Each kind goes through its kernel, which takes ``t_min`` as an argument
     (``art_tpu``'s Pallas kernels bake ``T_MIN``, ``intersect.py:533-536``);
-    ``plain`` runs the plain twins instead.  A miss keeps normal (1, 0, 0)
-    and material 0 (u = v = 0 unless the scene reads a sphere's (u, v))."""
+    ``plain`` runs the plain twins instead.  The kernels are ``art_tpu``'s
+    default routes (``intersect.py:540-709``): boxes on a detected grid go
+    to K9 when the builder set ``box_grid_cells``, else to K10, other boxes
+    to K6; a sphere tail of at least 512 rows takes the split pass
+    (``ops/compact_sphere.py``), other spheres K2.  A miss keeps normal
+    (1, 0, 0) and material 0 (u = v = 0 unless the scene reads a sphere's
+    (u, v))."""
+    from art_tpu_torch.ops import compact_sphere
     from art_tpu_torch.ops import intersect_kernels as K
 
     # (u, v) only feeds image and uv_offset textures (art_tpu's needs_uv)
@@ -279,11 +346,21 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
                 torch.where(hit, alpha, zero), torch.where(hit, beta, zero),
                 torch.where(hit, mat, torch.zeros_like(mat)))
     if tables.n_boxes:
-        cand = (K.box_hit_attrs_plain if plain else K.box_hit_attrs)(tables, o, d, t_min)
+        if not tables.box_grid_kx:
+            box = K.box_hit_attrs_plain if plain else K.box_hit_attrs
+        elif tables.box_grid_cell_rows is not None:
+            box = K.box_grid_cells_hit_attrs_plain if plain else K.box_grid_cells_hit_attrs
+        else:
+            box = K.box_grid_hit_attrs_plain if plain else K.box_grid_hit_attrs
+        cand = box(tables, o, d, t_min)
         best = cand if best is None else _closer(best, cand)
     if tables.n_spheres:
-        t, normal, mat = (K.sphere_hit_attrs_plain if plain else K.sphere_hit_attrs)(
-            tables, o, d, time, t_min)
+        if compact_sphere.use_split(tables):
+            t, normal, mat = compact_sphere.sphere_hit_attrs_split(
+                tables, o, d, time, t_min, plain=plain)
+        else:
+            t, normal, mat = (K.sphere_hit_attrs_plain if plain else K.sphere_hit_attrs)(
+                tables, o, d, time, t_min)
         zero = torch.zeros_like(t)
         u, v = sphere_uv(normal) if needs_uv else (zero, zero)
         cand = (t, normal, u, v, mat)
@@ -296,6 +373,122 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
     t, normal, u, v, mat = best
     return HitRecordP(hit=t < BIG, t=t, p=p_ray_at(o, d, t), normal=normal, u=u, v=v,
                       mat=mat)
+
+
+def _gb_first_hit(tables: SceneTables, m: int, o, d, time, t_lo):
+    """Closest hit with t > ``t_lo`` over medium ``m``'s kind-2 boundary
+    primitives (``art_tpu/ops/intersect.py:758-841``): one
+    ``boundary->hit(r, t_lo, inf)`` of src/constant_medium.cuh:38-44.
+    Returns ((R,) t, (R,) hit); a Python loop over the medium's own rows."""
+    best = torch.full_like(o[0], BIG)
+    hit = torch.zeros(o[0].shape, dtype=torch.bool, device=o[0].device)
+
+    def consider(t_c, ok):
+        nonlocal best, hit
+        ok = ok & (t_c > t_lo) & (t_c < best)
+        best = torch.where(ok, t_c, best)
+        hit = hit | ok
+
+    for i in (i for i, mi in enumerate(tables.gb_sph_meds) if mi == m):
+        row = tables.gb_sph[i]
+        c = tuple(row[k] + time * row[3 + k] for k in range(3))
+        t1, t2, crosses = _sphere_interval(o, d, c, row[6])
+        # the near root beyond t_lo, else the far one (src/sphere.cuh:51-89)
+        consider(torch.where(t1 > t_lo, t1, t2), crosses)
+
+    for i in (i for i, mi in enumerate(tables.gb_quad_meds) if mi == m):
+        row = tables.gb_quad[i]
+        q, u, v, w, n = (tuple(row[k + c] for c in range(3)) for k in (0, 3, 6, 9, 12))
+        denom = p_dot(n, d)
+        ok = denom.abs() > PARALLEL_EPS  # src/quad.cuh:63-65
+        t_c = (row[15] - p_dot(n, o)) / torch.where(ok, denom, 1.0)
+        pl = p_sub(p_ray_at(o, d, t_c), q)
+        alpha, beta = p_dot(w, p_cross(pl, v)), p_dot(w, p_cross(u, pl))
+        consider(t_c, ok & (alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0))
+
+    for i in (i for i, mi in enumerate(tables.gb_box_meds) if mi == m):
+        row = tables.gb_box[i]
+        entry, exit_ = _box_interval(o, d, row[0:3], row[3:6], row[6], row[7], row[8:11])
+        consider(torch.where(entry > t_lo, entry, exit_), entry < exit_)
+    return best, hit
+
+
+def _sphere_interval(o, d, c, r):
+    """(entry, exit, crosses) of the ray's line through the sphere (c, r):
+    the two roots of the full quadratic, valid where disc > 0."""
+    oc = (o[0] - c[0], o[1] - c[1], o[2] - c[2])
+    a, b = p_dot(d, d), p_dot(oc, d)
+    disc = b * b - a * (p_dot(oc, oc) - r * r)
+    s = sqrt(torch.clamp_min(disc, 0.0))
+    return (-b - s) / a, (-b + s) / a, disc > 0.0
+
+
+def _box_interval(o, d, mn, mx, cos_t, sin_t, off):
+    """(entry, exit) of the ray through an oriented box: the ray in the
+    box frame, then the slabs (the guarded slab factors are finite, so
+    ``art_tpu``'s fold from (-BIG, BIG) gives the same values)."""
+    lo = p_rotate_y_inv((o[0] - off[0], o[1] - off[1], o[2] - off[2]), cos_t, sin_t)
+    t0s, t1s = _slabs(lo, p_rotate_y_inv(d, cos_t, sin_t), mn, mx)
+    return (torch.maximum(torch.maximum(t0s[0], t0s[1]), t0s[2]),
+            torch.minimum(torch.minimum(t1s[0], t1s[1]), t1s[2]))
+
+
+def apply_media_p(tables: SceneTables, o, d, t_min, surf: HitRecordP, u_media,
+                  time=None) -> HitRecordP:
+    """Medium scatter events over the surface hit record
+    (``art_tpu/ops/intersect.py:844-958``), plain PyTorch as in ``art_tpu``
+    (no kernel there).  For each medium, in a Python loop with its kind
+    fixed per scene: the boundary interval over (-inf, inf) (a sphere's two
+    roots, a box's slabs, or kind 2's two traversals, the second from
+    entry + 1e-4), kept for kinds 0 and 1 when exit - entry > 1e-4; clipped
+    to [t_min, best t]; a free flight -log(max(1e-6, u)) / density drawn
+    from ``u_media[m]``; a scatter inside the interval at t_m = rec1 +
+    distance / |d| wins when t_m < best t (strict).  A scattered ray gets
+    the medium's isotropic material, normal (1, 0, 0) and u = v = 0.
+    ``time`` (the ray's shutter time) only moves kind-2 moving spheres."""
+    if not tables.n_media:
+        return surf
+    if time is None:
+        time = torch.zeros_like(o[0])
+    ray_len = sqrt(p_dot(d, d))
+    len_ok = (ray_len > 0.0) & torch.isfinite(ray_len)
+    best_t = surf.t
+    in_medium = torch.zeros_like(surf.hit)
+    mat = surf.mat
+    for m, kind in enumerate(tables.med_kinds):
+        if kind == 0:
+            entry, exit_, bnd_ok = _sphere_interval(o, d, tables.med_center[m],
+                                                    tables.med_radius[m])
+        elif kind == 1:
+            entry, exit_ = _box_interval(o, d, tables.med_min[m], tables.med_max[m],
+                                         tables.med_cos[m], tables.med_sin[m],
+                                         tables.med_off[m])
+            bnd_ok = entry < exit_
+        else:  # kind 2: two traversals of the boundary's primitives
+            entry, hit1 = _gb_first_hit(tables, m, o, d, time, torch.full_like(o[0], -BIG))
+            # the second hit is searched from rec1.t + 1e-4 (src/constant_medium.cuh:40)
+            exit_, hit2 = _gb_first_hit(tables, m, o, d, time, entry + 1e-4)
+            bnd_ok = hit1 & hit2
+        if kind != 2:  # the same rule on an analytic interval
+            bnd_ok = bnd_ok & ((exit_ - entry) > 1e-4)
+        rec1 = torch.clamp_min(entry, t_min)
+        rec2 = torch.minimum(exit_, best_t)
+        ok = bnd_ok & (rec1 < rec2) & len_ok
+        distance_inside = (rec2 - rec1) * ray_len
+        hit_distance = tables.med_neg_inv_density[m] * torch.log(
+            torch.clamp_min(u_media[m], 1e-6))
+        t_m = rec1 + hit_distance / ray_len
+        accept = ok & (hit_distance <= distance_inside) & (t_m < best_t)
+        best_t = torch.where(accept, t_m, best_t)
+        in_medium = in_medium | accept
+        mat = torch.where(accept, tables.med_mat[m], mat)
+    zero = torch.zeros_like(best_t)
+    return HitRecordP(
+        hit=surf.hit | in_medium, t=best_t,
+        p=p_where(in_medium, p_ray_at(o, d, best_t), surf.p),
+        normal=p_where(in_medium, (torch.ones_like(best_t), zero, zero), surf.normal),
+        u=torch.where(in_medium, zero, surf.u), v=torch.where(in_medium, zero, surf.v),
+        mat=mat)
 
 
 def background_color_p(d, bg, gradient: bool):

@@ -12,6 +12,14 @@
 * K6 ``box_hit_attrs`` (``csrc/box_hit.cu``), replacing
   ``box_hit_attrs_planar`` (``_box_kernel``): the closest oriented box's t,
   face normal, make_box (u, v) and material.
+* K10 ``box_grid_hit_attrs`` and K9 ``box_grid_cells_hit_attrs``
+  (``csrc/box_grid.cu``), replacing ``box_grid_hit_attrs`` (``:2297``) and
+  ``box_grid_static_hit_attrs`` (``:2435``): K6's outputs over a regular
+  lattice of unrotated boxes on one floor (``scene/builder._detect_box_grid``),
+  K10 over every cell in row-major order from the run-time table
+  ``box_grid_rows``, K9 over the non-empty cells in ``box_grid_cells``
+  order (``box_grid_cell_rows``); the two pick different, equally close
+  cells on an exact tie.
 
 Each takes ``t_min`` as a run-time argument.  A miss gives ``t = BIG``,
 index -1 (K5), normal ``(1, 0, 0)``, u = v = 0 and material 0 — the values
@@ -21,6 +29,8 @@ kernel for CUDA tensors and runs the plain twin for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from art_tpu_torch.core.vecmath import BIG, T_MIN
@@ -28,6 +38,9 @@ from art_tpu_torch.ops import _build
 from art_tpu_torch.ops.intersect import (
     box_attributes_p,
     box_candidates_p,
+    box_grid_attributes_p,
+    box_grid_candidates_p,
+    grid_cells,
     quad_candidates_p,
     sphere_attributes_p,
     sphere_candidates_p,
@@ -37,6 +50,8 @@ from art_tpu_torch.scene.tables import SceneTables
 NAME = "sphere_hit"
 QUAD = "quad_hit"
 BOX = "box_hit"
+GRID = "box_grid"  # K10
+GRID_CELLS = "box_grid_cells"  # K9
 _RAY = ("ox", "oy", "oz", "dx", "dy", "dz")
 
 
@@ -48,29 +63,46 @@ def _miss_defaults(hit, normal, rest):
     return normal, tuple(torch.where(hit, x, torch.zeros_like(x)) for x in rest)
 
 
-def sphere_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN):
-    """Plain PyTorch K2: the candidate pass plus the winner attributes."""
-    t, idx = sphere_candidates_p(tables, o, d, tm, t_min)
-    normal, mat = sphere_attributes_p(tables, o, d, tm, t, idx)
+def sphere_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN, *, rows=None,
+                           n_live=None):
+    """Plain PyTorch K2: the candidate pass plus the winner attributes over
+    ``rows`` (default ``tables.sph_rows``); lanes at or past ``n_live`` miss."""
+    rows = tables.sph_rows if rows is None else rows
+    t, idx = sphere_candidates_p(rows, o, d, tm, t_min)
+    if n_live is not None:
+        lane = torch.arange(t.shape[0], dtype=torch.int32, device=t.device)
+        t = torch.where(lane < n_live, t, BIG)
+    if rows.shape[0] == 0:
+        zero = torch.zeros_like(t)
+        return t, (torch.ones_like(t), zero, zero), torch.zeros_like(idx)
+    normal, mat = sphere_attributes_p(rows, o, d, tm, t, idx)
     normal, (mat,) = _miss_defaults(t < BIG, normal, (mat,))
     return t, normal, mat
 
 
-def sphere_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN):
-    """K2: the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+def sphere_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN, *, rows=None,
+                     n_live=None):
+    """K2 over ``rows`` (default ``tables.sph_rows``): the CUDA kernel for
+    CUDA tensors, the plain twin for CPU tensors.  ``n_live``, a (1,) int32
+    tensor on the rays' device or None, makes every lane at or past
+    ``n_live[0]`` a miss without testing a sphere (the compacted tail pass)."""
     if o[0].device.type == "cpu":
-        return sphere_hit_attrs_plain(tables, o, d, tm, t_min)
+        return sphere_hit_attrs_plain(tables, o, d, tm, t_min, rows=rows, n_live=n_live)
     dev = o[0].device
     ins = (*o, *d, tm)
     R = ins[0].shape[0]
     _build.check_planes(_RAY + ("tm",), ins, R, torch.float32, dev)
-    rows = _build.check_table("sph_rows", tables.sph_rows, 10, dev)
+    rows = _build.check_table("sphere rows", tables.sph_rows if rows is None else rows,
+                              10, dev)
+    if n_live is not None:
+        _build.check_planes(("n_live",), (n_live,), 1, torch.int32, dev)
     t = torch.empty(R, dtype=torch.float32, device=dev)
     nx, ny, nz = (torch.empty_like(t) for _ in range(3))
     mat = torch.empty(R, dtype=torch.int32, device=dev)
     ptrs = _build.pointers((*ins, t, nx, ny, nz, mat))
-    rc = _build.library().art_sphere_hit(rows.data_ptr(), rows.shape[0], R, float(t_min),
-                                         ptrs, _build.stream_handle(dev))
+    rc = _build.library().art_sphere_hit(
+        rows.data_ptr(), rows.shape[0], R, float(t_min),
+        None if n_live is None else n_live.data_ptr(), ptrs, _build.stream_handle(dev))
     _build.check(rc, NAME)
     _build.launches[NAME] += 1
     return t, (nx, ny, nz), mat
@@ -131,3 +163,66 @@ def box_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
     _build.check(rc, BOX)
     _build.launches[BOX] += 1
     return t, (nx, ny, nz), u, v, mat
+
+
+def _grid_plain(tables: SceneTables, o, d, t_min, grouped: bool):
+    cells = grid_cells(tables, grouped)
+    t, idx = box_grid_candidates_p(tables, cells, o, d, t_min)
+    normal, u, v, mat = box_grid_attributes_p(tables, cells, o, d, t, idx.clamp_min(0))
+    normal, (u, v, mat) = _miss_defaults(t < BIG, normal, (u, v, mat))
+    return t, normal, u, v, mat
+
+
+def box_grid_hit_attrs_plain(tables: SceneTables, o, d, t_min=T_MIN):
+    """Plain PyTorch K10: every cell of the grid in row-major order."""
+    return _grid_plain(tables, o, d, t_min, grouped=False)
+
+
+def box_grid_cells_hit_attrs_plain(tables: SceneTables, o, d, t_min=T_MIN):
+    """Plain PyTorch K9: the non-empty cells in ``box_grid_cells`` order."""
+    return _grid_plain(tables, o, d, t_min, grouped=True)
+
+
+def _grid_launch(tables: SceneTables, o, d, t_min, grouped: bool):
+    dev = o[0].device
+    ins = (*o, *d)
+    R = ins[0].shape[0]
+    _build.check_planes(_RAY, ins, R, torch.float32, dev)
+    if grouped:
+        cells = _build.check_table("box_grid_cell_rows", tables.box_grid_cell_rows, 4, dev)
+        n = cells.shape[0]
+    else:
+        cells = _build.check_table("box_grid_rows", tables.box_grid_rows,
+                                   2 * tables.box_grid_kz, dev)
+        n = tables.box_grid_kx
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    nx, ny, nz, u, v = (torch.empty_like(t) for _ in range(5))
+    mat = torch.empty(R, dtype=torch.int32, device=dev)
+    ptrs = _build.pointers((*ins, t, nx, ny, nz, u, v, mat))
+    lattice = (ctypes.c_float * 4)(tables.box_grid_x0, tables.box_grid_z0,
+                                   tables.box_grid_w, tables.box_grid_y0)
+    lib, name = _build.library(), GRID_CELLS if grouped else GRID
+    fn = lib.art_box_grid_cells if grouped else lib.art_box_grid
+    rc = fn(cells.data_ptr(), n, tables.box_grid_kz, lattice, R, float(t_min), ptrs,
+            _build.stream_handle(dev))
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return t, (nx, ny, nz), u, v, mat
+
+
+def box_grid_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
+    """K10: (t, normal, u, v, mat) over the run-time (kx, 2 kz) cell table
+    ``box_grid_rows``; the CUDA kernel for CUDA tensors, the plain twin for
+    CPU tensors."""
+    if o[0].device.type == "cpu":
+        return box_grid_hit_attrs_plain(tables, o, d, t_min)
+    return _grid_launch(tables, o, d, t_min, grouped=False)
+
+
+def box_grid_cells_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
+    """K9: as K10 over ``box_grid_cell_rows``, the non-empty cells in
+    ``box_grid_cells`` order; the CUDA kernel for CUDA tensors, the plain
+    twin for CPU tensors."""
+    if o[0].device.type == "cpu":
+        return box_grid_cells_hit_attrs_plain(tables, o, d, t_min)
+    return _grid_launch(tables, o, d, t_min, grouped=True)

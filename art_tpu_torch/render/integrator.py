@@ -6,7 +6,10 @@
 * ``render_wavefront`` — the production path: a persistent pool of R ray
   slots refilled from the sample-major (pixel, sample) queue.  The staged
   iteration is refill (K1) -> closest quad (K5, its attributes in PyTorch
-  glue), box (K6) and sphere (K2), merged -> shade + integrate + flush (K3).
+  glue), box (K6, or K9/K10 on a box grid) and sphere (K2, or the split
+  pass over a sphere tail: K2, K4, K2), merged -> constant media
+  (``apply_media_p``, plain PyTorch as in ``art_tpu``) -> shade + integrate
+  + flush (K3).
   K3 runs baked when the scene has ``shade_consts`` (``art_tpu``'s default
   gate, ``integrator.py:139,655-676``): the parameters come from the
   material id, and a special material's value from ``eval_special_p``
@@ -40,7 +43,7 @@ import torch
 from art_tpu_torch.core.camera import Camera
 from art_tpu_torch.core.vecmath import T_MIN
 from art_tpu_torch.ops import refill_kernel as rk
-from art_tpu_torch.ops.intersect import closest_surface_p
+from art_tpu_torch.ops.intersect import apply_media_p, closest_surface_p
 from art_tpu_torch.ops.shade import bounce_p, shade_params_p
 from art_tpu_torch.ops.shade_kernel import (
     REC_BAKED,
@@ -83,11 +86,13 @@ def use_short_path(tables: SceneTables, short_path: bool | None = None) -> bool:
 
 
 def _bounce_step(tables, o, d, tm, throughput, radiance, active,
-                 u_ball, u_choice, background, gradient_bg, *, plain=True):
-    """One shared bounce: intersect -> background/emission -> scatter.
+                 u_ball, u_choice, u_media, background, gradient_bg, *, plain=True):
+    """One shared bounce: intersect -> media -> background/emission ->
+    scatter (``art_tpu/render/integrator.py:162-186``).
 
     Returns (new_o, new_d, new_throughput, new_radiance, survived)."""
-    rec = closest_surface_p(tables, o, d, tm, T_MIN, plain=plain)
+    surf = closest_surface_p(tables, o, d, tm, T_MIN, plain=plain)
+    rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm)
     params = shade_params_p(tables, rec, valid=active & rec.hit)
     return bounce_p(o, d, throughput, radiance, active, rec.hit, rec.p, rec.normal,
                     params, u_ball, u_choice, background, gradient_bg)
@@ -122,7 +127,8 @@ def trace(tables: SceneTables, origins, directions, times, uniforms, background,
         rays += int(alive.sum())
         o, d, thr, rad, alive = _bounce_step(
             tables, o, d, times, thr, rad, alive,
-            tuple(U[rk.U_BALL]), U[rk.U_CHOICE], background, gradient_bg)
+            tuple(U[rk.U_BALL]), U[rk.U_CHOICE], U[rk.U_MEDIA:], background,
+            gradient_bg)
     return torch.stack(rad, dim=1), rays
 
 
@@ -176,16 +182,17 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
                 tables: SceneTables, bg, fb, lost, *, block=None, key=None, ncols: int,
                 max_depth: int, gradient: bool, plain: bool = False) -> None:
     """One staged iteration, in place (the short path's ``sp_step`` in
-    several calls): refill (K1), the closest hit (K5, K6, K2), the special
-    leaves of baked materials (turbulence through K7, image texels through
-    the compacted fetch, K4 and K8), shade + flush (K3).  ``plain`` takes
-    every kernel's plain twin."""
+    several calls): refill (K1), the closest hit (K5, K6 or K9/K10, K2 or
+    the split pass), the media, the special leaves of baked materials
+    (turbulence through K7, image texels through the compacted fetch, K4 and
+    K8), shade + flush (K3).  ``plain`` takes every kernel's plain twin."""
     refill = rk.fused_refill_plain if plain else rk.fused_refill
-    u_ball, u_choice, _ = refill(pool, cam, q, parity, hist, it, scal, block=block,
-                                 key=key, ncols=ncols)
+    u_ball, u_choice, u_media = refill(pool, cam, q, parity, hist, it, scal, block=block,
+                                       key=key, ncols=ncols)
     o = (pool["ox"], pool["oy"], pool["oz"])
     d = (pool["dx"], pool["dy"], pool["dz"])
-    rec = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
+    surf = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
+    rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=pool["tm"])
     consts = tables.shade_rows  # None: plane-fed K3
     # the lanes whose texture value K3 reads: the image fetch skips the rest
     valid = rec.hit & pool["act"]

@@ -1,13 +1,19 @@
-"""Scene compiler: DSL object graph -> flat SoA tables (the ported subset).
+"""Scene compiler: DSL object graph -> flat SoA tables.
 
-Port of the sphere / quad / box / material / texture / image part of
-``art_tpu/scene/builder.py`` (``_Compiler`` at ``builder.py:186-407``,
+Port of ``art_tpu/scene/builder.py``'s sphere / quad / box / medium /
+material / texture / image compiler (``_Compiler`` at ``builder.py:186-478``,
 ``finish:481-642``, ``_shade_consts:855-938`` and ``_sp_consts:940-1019``),
 including the value dedup of material and texture rows, the image dedup by
-asset name and by array identity, and the ``mat_packed`` / ``tex_packed`` /
-``quad_attr_packed`` row layouts, so the tables and the image atlas come out
-identical to ``art_tpu``'s.  Constant media (M8) belong to a later slice of
-the port and raise ``NotImplementedError``.
+asset name and by array identity, the ``mat_packed`` / ``tex_packed`` /
+``quad_attr_packed`` row layouts and the media tables (analytic sphere and
+box boundaries, and the kind-2 ``gb_*`` rows of any other boundary), so the
+tables and the image atlas come out identical to ``art_tpu``'s.  Two
+derived parts of ``finish`` are ported too: the box grid
+(``_detect_box_grid``, ``builder.py:103-183``) and the sphere tail
+(``pack_spheres`` / ``pack_tail_spheres``, ``pallas_kernels.py:976-1075``).
+The other tables of ``finish`` (``builder.py:669-848``: static cells, skip
+bins, cell bins, MXU features, clusters, the BVH) serve opt-in kernels that
+are not ported.
 
 ``tables_from_numpy`` carries tables compiled by ``art_tpu`` (as numpy
 arrays) into this package — the tests use it to run both packages on the
@@ -33,15 +39,18 @@ from art_tpu_torch.scene.tables import (
     SceneTables,
     TexType,
     box_rows,
+    grid_cell_rows,
     quad_rows,
     shade_rows,
     sp_rows,
     sphere_rows,
+    split_sphere_rows,
 )
 from art_tpu_torch.utils.images import ImageAtlas, asset_path, load_image_rgb
 
-_M8 = ("art_tpu_torch's slices so far port spheres, quads and boxes; constant "
-       "media come with M8")
+TAIL_MIN = 192  # the smallest sphere tail (art_tpu pallas_kernels.py:973 _TAIL_MIN)
+GRID_MIN_BOXES = 64  # the box grid's gate (art_tpu builder.py:115)
+GRID_MAX_CELLS = 1024  # K9's cell table only up to this many boxes (builder.py:158)
 
 
 def _rot_y(theta: float, p: np.ndarray) -> np.ndarray:
@@ -123,6 +132,12 @@ class _Compiler:
         self.spheres: list[tuple] = []  # (c0, vel, radius, mat_id)
         self.quads: list[tuple] = []  # (q, u, v, mat_id, inward)
         self.boxes: list[tuple] = []  # (bmin, bmax, cos, sin, off, mat_id)
+        self.media: list[dict] = []  # kind, boundary parameters, nid, phase mat
+        # kind-2 (general) medium boundary primitives, tagged by medium index
+        self.gb_sph: list[tuple] = []  # (med, c0, vel, radius)
+        self.gb_quad: list[tuple] = []  # (med, q, u, v)
+        self.gb_box: list[tuple] = []  # (med, bmin, bmax, cos, sin, off)
+        self._in_boundary = False
         self.mats: list[dict] = []
         self.texs: list[dict] = []
         self.images: list[np.ndarray] = []
@@ -236,6 +251,12 @@ class _Compiler:
         self._mat_ids[key] = idx
         return idx
 
+    def _prim_mat(self, mat) -> int:
+        """A primitive's material id; a medium's boundary is never shaded
+        (its phase material is the medium's), so its primitives intern
+        nothing (``art_tpu/scene/builder.py:342-350``)."""
+        return 0 if self._in_boundary else self.mat_id(mat)
+
     def visit(self, obj, xf: _Xform, material_override):
         if isinstance(obj, O.Translate):
             off = xf.offset + xf.apply_vector(obj.offset)
@@ -252,25 +273,75 @@ class _Compiler:
             c0 = xf.apply_point(obj.center)
             vel = (xf.apply_point(obj.center2) - c0 if obj.center2 is not None
                    else np.zeros(3))
-            self.spheres.append((c0, vel, float(obj.radius), self.mat_id(mat)))
+            self.spheres.append((c0, vel, float(obj.radius), self._prim_mat(mat)))
         elif isinstance(obj, O.Quad):
             mat = material_override or obj.material
             self.quads.append((xf.apply_point(obj.q), xf.apply_vector(obj.u),
-                               xf.apply_vector(obj.v), self.mat_id(mat),
+                               xf.apply_vector(obj.v), self._prim_mat(mat),
                                bool(obj.inward)))
         elif isinstance(obj, O.Box):
             mat = material_override or obj.material
             a = np.asarray(obj.a, np.float64)
             b = np.asarray(obj.b, np.float64)
             self.boxes.append((np.minimum(a, b), np.maximum(a, b), math.cos(xf.theta),
-                               math.sin(xf.theta), xf.offset.copy(), self.mat_id(mat)))
+                               math.sin(xf.theta), xf.offset.copy(),
+                               self._prim_mat(mat)))
         elif isinstance(obj, O.Group):
             for child in obj.children:
                 self.visit(child, xf, material_override)
         elif isinstance(obj, O.ConstantMedium):
-            raise NotImplementedError(f"{type(obj).__name__}: {_M8}")
+            if self._in_boundary:
+                raise TypeError("a ConstantMedium boundary cannot contain another "
+                                "ConstantMedium (the reference's boundary->hit chain "
+                                "has no such nesting either, "
+                                "src/constant_medium.cuh:38-44)")
+            self._visit_medium(obj, xf)
         else:
             raise TypeError(f"unknown scene object: {type(obj)!r}")
+
+    def _visit_medium(self, med: O.ConstantMedium, xf: _Xform):
+        """One medium (``art_tpu/scene/builder.py:408-478``): a static sphere
+        boundary is kind 0, a box kind 1 (both resolved through Translate,
+        RotateY and WithMaterial); any other boundary, a moving sphere
+        included, is kind 2, its primitives in the ``gb_*`` tables."""
+        node, inner = med.boundary, _Xform(xf.theta, xf.offset.copy())
+        while isinstance(node, (O.Translate, O.RotateY, O.WithMaterial)):
+            if isinstance(node, O.Translate):
+                inner = _Xform(inner.theta, inner.offset + inner.apply_vector(node.offset))
+            elif isinstance(node, O.RotateY):
+                inner = _Xform(inner.theta + math.radians(node.degrees), inner.offset)
+            node = node.obj  # a material override does not matter to a boundary
+        mat_id = self.mat_id(M.Isotropic(med.texture))
+        nid = -1.0 / med.density  # src/constant_medium.cuh:25
+        entry = dict(kind=2, center=np.zeros(3), radius=1.0, bmin=np.zeros(3),
+                     bmax=np.ones(3), cos=1.0, sin=0.0, off=np.zeros(3), nid=nid,
+                     mat=mat_id)
+        if isinstance(node, O.Sphere) and node.center2 is None:
+            entry.update(kind=0, center=inner.apply_point(node.center),
+                         radius=abs(float(node.radius)))
+        elif isinstance(node, O.Box):
+            a, b = np.asarray(node.a, np.float64), np.asarray(node.b, np.float64)
+            entry.update(kind=1, bmin=np.minimum(a, b), bmax=np.maximum(a, b),
+                         cos=math.cos(inner.theta), sin=math.sin(inner.theta),
+                         off=inner.offset.copy())
+        else:
+            med_idx = len(self.media)
+            saved = (self.spheres, self.quads, self.boxes)
+            self.spheres, self.quads, self.boxes = [], [], []
+            self._in_boundary = True
+            try:
+                self.visit(med.boundary, xf, None)
+                bnd = (self.spheres, self.quads, self.boxes)
+            finally:
+                self.spheres, self.quads, self.boxes = saved
+                self._in_boundary = False
+            if not any(bnd):
+                raise TypeError("ConstantMedium boundary contains no geometry "
+                                f"({type(med.boundary).__name__})")
+            self.gb_sph += [(med_idx, c0, vel, r) for c0, vel, r, _ in bnd[0]]
+            self.gb_quad += [(med_idx, q, u, v) for q, u, v, _, _ in bnd[1]]
+            self.gb_box += [(med_idx, *box[:5]) for box in bnd[2]]
+        self.media.append(entry)
 
     def finish(self) -> SceneTables:
         f32 = np.float32
@@ -328,6 +399,7 @@ class _Compiler:
                 # a 180-degree rotation has sin == 0 but cos == -1
                 has_rotated_boxes=bool(np.any((sins != 0.0) | (coss != 1.0))),
             )
+        arrays.update(self._media_arrays())
         if self.texs:
             arrays.update(
                 tex_type=np.asarray([x["type"] for x in self.texs], np.int32),
@@ -345,6 +417,44 @@ class _Compiler:
             arrays["atlas"] = ImageAtlas.pack(self.images)
         arrays["sp_consts"] = self._sp_consts(arrays)
         return _tables(arrays)
+
+    def _media_arrays(self) -> dict:
+        """The media and kind-2 boundary tables (``art_tpu/scene/builder.py:
+        545-590``), empty when the scene has no medium."""
+        f32, out = np.float32, {}
+        if self.media:
+            med = self.media
+            out.update(
+                med_kind=np.asarray([m["kind"] for m in med], np.int32),
+                med_center=np.stack([m["center"] for m in med]).astype(f32),
+                med_radius=np.asarray([m["radius"] for m in med], f32),
+                med_min=np.stack([m["bmin"] for m in med]).astype(f32),
+                med_max=np.stack([m["bmax"] for m in med]).astype(f32),
+                med_cos=np.asarray([m["cos"] for m in med], f32),
+                med_sin=np.asarray([m["sin"] for m in med], f32),
+                med_off=np.stack([m["off"] for m in med]).astype(f32),
+                med_neg_inv_density=np.asarray([m["nid"] for m in med], f32),
+                med_mat=np.asarray([m["mat"] for m in med], np.int32),
+                n_media=len(med), med_kinds=tuple(int(m["kind"]) for m in med),
+            )
+        if self.gb_sph:
+            out.update(gb_sph=np.asarray([[*g[1], *g[2], g[3]] for g in self.gb_sph], f32),
+                       gb_sph_meds=tuple(int(g[0]) for g in self.gb_sph))
+        if self.gb_quad:
+            rows = []
+            for _, q, u, v in self.gb_quad:
+                q, u, v = (np.asarray(x, np.float64) for x in (q, u, v))
+                n = np.cross(u, v)
+                nn = float(np.dot(n, n))
+                normal = n / math.sqrt(nn)
+                rows.append([*q, *u, *v, *(n / nn), *normal, float(np.dot(normal, q))])
+            out.update(gb_quad=np.asarray(rows, f32),
+                       gb_quad_meds=tuple(int(g[0]) for g in self.gb_quad))
+        if self.gb_box:
+            out.update(gb_box=np.asarray([[*g[1], *g[2], g[3], g[4], *g[5]]
+                                          for g in self.gb_box], f32),
+                       gb_box_meds=tuple(int(g[0]) for g in self.gb_box))
+        return out
 
     def _quad_attr_packed(self) -> np.ndarray:
         """(Q, 16) [q u v w n mat] rows for the winner attributes, w and n
@@ -438,7 +548,7 @@ class _Compiler:
         inv_scale_or_noise_scale, odd3)`` with tex_kind 0 solid, 1 checker,
         2 marble.  The values are those of the float32 tables in
         ``arrays``."""
-        if self.boxes:
+        if self.boxes or self.media:
             return None
         if not 0 < len(self.spheres) + len(self.quads) <= MAX_SP_PRIMS:
             return None
@@ -509,6 +619,20 @@ _EMPTY = dict(
     box_sin=np.zeros((1,), np.float32),
     box_off=np.zeros((1, 3), np.float32),
     box_mat=np.zeros((1,), np.int32),
+    med_kind=np.zeros((1,), np.int32),
+    med_center=np.zeros((1, 3), np.float32),
+    med_radius=np.ones((1,), np.float32),
+    med_min=np.zeros((1, 3), np.float32),
+    med_max=np.ones((1, 3), np.float32),
+    med_cos=np.ones((1,), np.float32),
+    med_sin=np.zeros((1,), np.float32),
+    med_off=np.zeros((1, 3), np.float32),
+    med_neg_inv_density=-np.ones((1,), np.float32),
+    med_mat=np.zeros((1,), np.int32),
+    gb_sph=np.zeros((1, 7), np.float32),
+    gb_quad=np.zeros((1, 16), np.float32),
+    gb_box=np.zeros((1, 11), np.float32),
+    box_grid=np.zeros((1, 1, 2), np.float32),
     tex_type=np.zeros((1,), np.int32),
     tex_rgb=np.ones((1, 3), np.float32),
     tex_rgb2=np.zeros((1, 3), np.float32),
@@ -525,25 +649,121 @@ _ARRAY_FIELDS = tuple(k for k in _EMPTY if k != "tex_types_present") + (
     "mat_type", "mat_tex", "mat_rgb", "mat_fuzz", "mat_ref_idx", "mat_packed")
 
 
+_GRID_META = ("box_grid_kx", "box_grid_kz", "box_grid_x0", "box_grid_z0", "box_grid_w",
+              "box_grid_y0", "box_grid_mat", "box_grid_cells")
+_TAIL_META = ("sph_n_tail", "sph_tail_r", "sph_tail_mat", "sph_tail_box")
+_MEDIA_META = ("med_kinds", "gb_sph_meds", "gb_quad_meds", "gb_box_meds")
+
+
+def _detect_box_grid(a: dict, n_b: int, rotated: bool) -> dict:
+    """The box-grid fields (``box_grid`` and ``_GRID_META``) of float32 box
+    tables, or {} — ``art_tpu/scene/builder.py:_detect_box_grid`` step for
+    step: at least 64 boxes, none rotated, one floor y0, one cell width w
+    for every box in x and z, every box on one (x, z) lattice as the grid
+    kernels rebuild it (``x0 + f32(k) * w`` in float32), at most 4 B cells
+    and one box a cell."""
+    if n_b < GRID_MIN_BOXES or rotated:
+        return {}
+    f32 = np.float32
+    mn = np.asarray(a["box_min"][:n_b]) + np.asarray(a["box_off"][:n_b])
+    mx = np.asarray(a["box_max"][:n_b]) + np.asarray(a["box_off"][:n_b])
+    mat = np.asarray(a["box_mat"][:n_b])
+    y0 = mn[0, 1]
+    if not np.all(mn[:, 1] == y0):
+        return {}
+    wx, wz = mx[:, 0] - mn[:, 0], mx[:, 2] - mn[:, 2]
+    w = wx[0]
+    if w <= 0 or not (np.all(wx == w) and np.all(wz == w)):
+        return {}
+    gx0, gz0 = mn[:, 0].min(), mn[:, 2].min()
+    kxs = np.rint((mn[:, 0] - gx0) / w).astype(np.int64)
+    kzs = np.rint((mn[:, 2] - gz0) / w).astype(np.int64)
+    # the fit as the kernels rebuild it, in float32 at each step (an int64
+    # times float32 product would promote to float64)
+    rx = f32(gx0) + kxs.astype(f32) * f32(w)
+    rz = f32(gz0) + kzs.astype(f32) * f32(w)
+    if not (np.all(rx == mn[:, 0].astype(f32)) and np.all(rz == mn[:, 2].astype(f32))):
+        return {}
+    kx, kz = int(kxs.max()) + 1, int(kzs.max()) + 1
+    if kx * kz > 4 * n_b or len(np.unique(kxs * kz + kzs)) != n_b:
+        return {}
+    grid = np.zeros((kx, kz, 2), f32)
+    grid[:, :, 0] = y0  # empty cells: zero height, never hit
+    grid[kxs, kzs, 0] = mx[:, 1]
+    grid[kxs, kzs, 1] = mat.astype(f32)
+    cells = None
+    if n_b <= GRID_MAX_CELLS:
+        groups: dict = {}
+        for b in range(n_b):
+            groups.setdefault((float(mx[b, 1]), float(mat[b])), []).append(
+                (int(kxs[b]), int(kzs[b])))
+        cells = tuple(sorted((h, m, tuple(sorted(g))) for (h, m), g in groups.items()))
+    return dict(box_grid=grid, box_grid_kx=kx, box_grid_kz=kz, box_grid_x0=float(gx0),
+                box_grid_z0=float(gz0), box_grid_w=float(w), box_grid_y0=float(y0),
+                box_grid_mat=float(mat[0]) if np.all(mat == mat[0]) else -1.0,
+                box_grid_cells=cells)
+
+
+def _sphere_tail(rows: np.ndarray) -> dict:
+    """``_TAIL_META`` of (S, 10) float32 sphere rows: the largest (radius,
+    material)-uniform group of at least ``TAIL_MIN`` static spheres, first
+    among equals in ``np.unique``'s order (``pack_spheres``), and its box,
+    centers ± |r| inflated by 1e-3 + 1e-6 max|coord| in float64
+    (``pack_tail_spheres``); {} when there is none."""
+    stat = rows[~np.any(rows[:, 3:6] != 0.0, axis=1)]
+    if len(stat) < TAIL_MIN:
+        return {}
+    keys, counts = np.unique(stat[:, 6:8], axis=0, return_counts=True)
+    k = int(np.argmax(counts))
+    if counts[k] < TAIL_MIN:
+        return {}
+    tail_r, tail_mat = float(keys[k, 0]), float(keys[k, 1])
+    tail = stat[(stat[:, 6] == tail_r) & (stat[:, 7] == tail_mat)]
+    c = tail[:, 0:3].astype(np.float64)
+    r = np.abs(tail[:, 6:7].astype(np.float64))
+    lo, hi = (c - r).min(axis=0), (c + r).max(axis=0)
+    eps = 1e-3 + 1e-6 * float(np.max(np.abs(np.concatenate([lo, hi]))))
+    return dict(sph_n_tail=int(counts[k]), sph_tail_r=tail_r, sph_tail_mat=tail_mat,
+                sph_tail_box=tuple(float(v) for v in np.concatenate([lo - eps, hi + eps])))
+
+
 def _tables(arrays: dict) -> SceneTables:
+    """SceneTables from ``art_tpu``-named arrays; the box grid and the
+    sphere tail are derived from them unless given."""
     a = {**_EMPTY, **arrays}
     t = {k: torch.from_numpy(np.array(a[k])) for k in _ARRAY_FIELDS}
     # a count not given is the number of rows given (0 for a dummy table)
-    n_s, n_q, n_b = (int(a.get(f"n_{k}", len(arrays.get(f"{p}_mat", ()))))
-                     for k, p in (("spheres", "sph"), ("quads", "quad"), ("boxes", "box")))
+    n_s, n_q, n_b, n_m = (int(a.get(f"n_{k}", len(arrays.get(p, ())))) for k, p in (
+        ("spheres", "sph_mat"), ("quads", "quad_mat"), ("boxes", "box_mat"),
+        ("media", "med_kind")))
     rotated = bool(a.get("has_rotated_boxes", False))
     consts = a.get("shade_consts")
     sp = a.get("sp_consts")
     sp_sph, sp_quad, sp_mat = sp_rows(sp)
+    sph = sphere_rows(t["sph_center"], t["sph_vel"], t["sph_radius"], t["sph_mat"])[:n_s]
+    grid = ({k: a[k] for k in _GRID_META} if "box_grid_kx" in arrays
+            else _detect_box_grid(a, n_b, rotated))
+    if "box_grid" in grid:  # detected here (a given grid is in t already)
+        t["box_grid"] = torch.from_numpy(grid.pop("box_grid"))
+    tail = ({k: a[k] for k in _TAIL_META} if "sph_n_tail" in arrays
+            else _sphere_tail(sph.numpy()))
+    head_rows, tail_rows = split_sphere_rows(sph, tail.get("sph_n_tail", 0),
+                                             tail.get("sph_tail_r", 1.0),
+                                             tail.get("sph_tail_mat", 0.0))
+    media = {k: tuple(int(x) for x in a.get(k, ())) for k in _MEDIA_META}
+    if "med_kinds" not in arrays:
+        media["med_kinds"] = tuple(int(x) for x in a["med_kind"][:n_m])
     return SceneTables(
         **t,
-        sph_rows=sphere_rows(t["sph_center"], t["sph_vel"], t["sph_radius"],
-                             t["sph_mat"])[:n_s],
+        sph_rows=sph,
+        sph_head_rows=head_rows, sph_tail_rows=tail_rows,
         quad_rows=quad_rows(t["quad_n"], t["quad_d"], t["quad_avec"], t["quad_ca"],
                             t["quad_bvec"], t["quad_cb"])[:n_q],
         box_rows=box_rows(t["box_min"], t["box_max"], t["box_cos"], t["box_sin"],
                           t["box_off"], t["box_mat"], rotated)[:n_b],
-        n_spheres=n_s, n_quads=n_q, n_boxes=n_b,
+        box_grid_rows=t["box_grid"].reshape(t["box_grid"].shape[0], -1).contiguous(),
+        box_grid_cell_rows=grid_cell_rows(grid.get("box_grid_cells")),
+        n_spheres=n_s, n_quads=n_q, n_boxes=n_b, n_media=n_m, **media, **grid, **tail,
         has_moving=bool(a.get("has_moving", bool(np.any(a["sph_vel"] != 0.0)))),
         has_rotated_boxes=rotated,
         tex_types_present=tuple(int(x) for x in a["tex_types_present"]),
@@ -558,16 +778,18 @@ def tables_from_numpy(arrays: dict, camera: dict) -> tuple[SceneTables, Camera]:
     """Port tables + camera from ``art_tpu`` fields given as numpy arrays.
 
     ``arrays`` maps ``SceneTables`` field names (at least the material and
-    texture fields and those of each primitive kind present; optionally
-    ``n_spheres``, ``n_quads``, ``n_boxes``, ``has_moving``,
-    ``has_rotated_boxes``, ``tex_types_present``, ``shade_consts`` and
-    ``sp_consts``) to values, and ``atlas`` to a mapping of ``art_tpu``'s
-    ``ImageAtlas`` fields (``data``, ``heights``, ``widths``, ``hmax``,
-    ``wmax``) when the scene has images; ``camera`` maps the ``Camera``
-    field names to (3,) or scalar arrays.  Scenes with media raise
-    ``NotImplementedError`` (M8)."""
-    if int(arrays.get("n_media", 0)):
-        raise NotImplementedError(f"n_media={int(arrays['n_media'])}: {_M8}")
+    texture fields and those of each primitive kind and medium present;
+    optionally ``n_spheres``, ``n_quads``, ``n_boxes``, ``n_media``,
+    ``has_moving``, ``has_rotated_boxes``, ``tex_types_present``,
+    ``shade_consts``, ``sp_consts``, ``med_kinds``, the ``gb_*_meds`` of
+    kind-2 boundaries, the box grid (``box_grid`` with ``box_grid_kx`` and
+    the other ``box_grid_*`` fields) and the sphere tail (``sph_n_tail``,
+    ``sph_tail_r``, ``sph_tail_mat``, ``sph_tail_box``); a grid or tail not
+    given is derived from the tables as ``art_tpu``'s builder derives it) to
+    values, and ``atlas`` to a mapping of ``art_tpu``'s ``ImageAtlas``
+    fields (``data``, ``heights``, ``widths``, ``hmax``, ``wmax``) when the
+    scene has images; ``camera`` maps the ``Camera`` field names to (3,) or
+    scalar arrays."""
     if "tex_types_present" not in arrays:
         arrays = dict(arrays, tex_types_present=tuple(
             sorted({int(x) for x in np.asarray(arrays["tex_type"])})))

@@ -1,11 +1,14 @@
 """Flat SoA scene tables — the ported subset of ``art_tpu/scene/tables.py``.
 
-Spheres, quads, oriented boxes, materials and textures with the same
-fields, dtypes and row layouts as ``art_tpu``'s ``SceneTables``
+Spheres, quads, oriented boxes, constant media (with their kind-2
+boundary tables ``gb_*``), materials and textures with the same fields,
+dtypes and row layouts as ``art_tpu``'s ``SceneTables``
 (``tables.py:68-200``), so tables compiled by either package compare field
-by field, the image atlas (``utils/images.py``), and ``shade_consts`` in its
-``(mats, specials)`` form.  Media arrive with a later slice; their count is
-here and is 0.
+by field, the image atlas (``utils/images.py``), ``shade_consts`` in its
+``(mats, specials)`` form, the box-grid fields of ``_detect_box_grid``
+(``box_grid`` and its static ``box_grid_*``) and the sphere tail of
+``pack_spheres`` / ``pack_tail_spheres`` (``sph_n_tail``, ``sph_tail_r``,
+``sph_tail_mat``, ``sph_tail_box``).
 
 Beside them, the kernels' own tables (built once per scene, on the host):
 
@@ -39,6 +42,17 @@ Beside them, the kernels' own tables (built once per scene, on the host):
   material, materials the 14-value tuple of ``sp_consts``; ``None`` when the
   scene fails the short-path gate.  The TPU compiles these constants into
   its kernel; here they are tables the kernel stages in shared memory.
+* ``box_grid_rows`` (kx, 2 kz), the run-time cell table of the grid kernel
+  K10 (``csrc/box_grid.cu``): height at ``[ix, 2 iz]``, material at
+  ``[ix, 2 iz + 1]``, ``box_grid`` reshaped as ``box_grid_hit_attrs``
+  reads it; and ``box_grid_cell_rows`` (C, 4), K9's cells ``[ix iz h mat]``
+  in ``box_grid_cells`` order (the non-empty cells grouped by (height,
+  material)), ``None`` when the builder left ``box_grid_cells`` unset.
+* ``sph_head_rows`` and ``sph_tail_rows``, ``sph_rows`` split for the
+  compacted tail pass (``ops/compact_sphere.py``): the tail (the static
+  spheres of radius ``sph_tail_r`` and material ``sph_tail_mat``) and every
+  other sphere, each in scene order (``sph_rows`` and an empty table when
+  the scene has no tail).
 """
 
 from __future__ import annotations
@@ -108,6 +122,27 @@ class SceneTables:
     box_off: torch.Tensor  # (B,3) world offset
     box_mat: torch.Tensor  # (B,) int32
     box_rows: torch.Tensor  # (B,12) kernel rows, see the module docstring
+    # ---- constant media (reference src/constant_medium.cuh) ----
+    med_kind: torch.Tensor  # (C,) int32: 0 sphere, 1 box, 2 general boundary
+    med_center: torch.Tensor  # (C,3) sphere center
+    med_radius: torch.Tensor  # (C,)
+    med_min: torch.Tensor  # (C,3) box bounds
+    med_max: torch.Tensor  # (C,3)
+    med_cos: torch.Tensor  # (C,)
+    med_sin: torch.Tensor  # (C,)
+    med_off: torch.Tensor  # (C,3)
+    med_neg_inv_density: torch.Tensor  # (C,) -1/density
+    med_mat: torch.Tensor  # (C,) int32 isotropic phase material
+    # kind-2 boundaries, one row per primitive (owner in gb_*_meds)
+    gb_sph: torch.Tensor  # (Gs,7) [c(3) vel(3) radius]
+    gb_quad: torch.Tensor  # (Gq,16) [q(3) u(3) v(3) w(3) n(3) d]
+    gb_box: torch.Tensor  # (Gb,11) [min(3) max(3) cos sin off(3)]
+    # ---- regular box grid (builder._detect_box_grid) ----
+    box_grid: torch.Tensor  # (kx,kz,2) [y1, mat]; (1,1,2) zeros without a grid
+    box_grid_rows: torch.Tensor  # (kx,2kz) K10's table, see the module docstring
+    # ---- the sphere tail, split from sph_rows (module docstring) ----
+    sph_head_rows: torch.Tensor  # (S - n_tail, 10)
+    sph_tail_rows: torch.Tensor  # (n_tail, 10)
     # ---- materials ----
     mat_type: torch.Tensor  # (M,) int32 MatType
     mat_tex: torch.Tensor  # (M,) int32 texture id
@@ -131,7 +166,29 @@ class SceneTables:
     n_quads: int = 0
     n_boxes: int = 0
     n_media: int = 0
+    med_kinds: tuple = ()  # per-medium boundary kind, static per scene
+    gb_sph_meds: tuple = ()  # owning medium of each gb_* row
+    gb_quad_meds: tuple = ()
+    gb_box_meds: tuple = ()
     has_rotated_boxes: bool = False
+    # the box grid's lattice (box_grid_kx == 0: no grid), uniform material
+    # (-1.0 when mixed) and, for B <= 1024, K9's cells ((h, mat, ((ix, iz),
+    # ...)), ...) and their kernel table
+    box_grid_kx: int = 0
+    box_grid_kz: int = 0
+    box_grid_x0: float = 0.0
+    box_grid_z0: float = 0.0
+    box_grid_w: float = 1.0
+    box_grid_y0: float = 0.0
+    box_grid_mat: float = -1.0
+    box_grid_cells: tuple | None = None
+    box_grid_cell_rows: torch.Tensor | None = None
+    # the largest (radius, material)-uniform group of >= 192 static spheres
+    # and its inflated AABB (x0, y0, z0, x1, y1, z1); () without a tail
+    sph_n_tail: int = 0
+    sph_tail_r: float = 1.0
+    sph_tail_mat: float = 0.0
+    sph_tail_box: tuple = ()
     # baked material/texture constants (scene/builder._shade_consts):
     # (mats, specials) or None, and their kernel table
     shade_consts: tuple | None = None
@@ -180,6 +237,28 @@ def box_rows(bmin, bmax, cos_t, sin_t, off, mat, rotated: bool) -> torch.Tensor:
         bmin, bmax, off = bmin + off, bmax + off, torch.zeros_like(off)
     return torch.cat([bmin, bmax, cos_t[:, None], sin_t[:, None], off,
                       mat.to(torch.float32)[:, None]], dim=1).contiguous()
+
+
+def grid_cell_rows(cells) -> torch.Tensor | None:
+    """(C, 4) float32 rows [ix iz h mat] of K9, in ``box_grid_cells``
+    order, or None."""
+    if cells is None:
+        return None
+    return torch.tensor([(ix, iz, h, m) for h, m, group in cells for ix, iz in group],
+                        dtype=torch.float32).reshape(-1, 4)
+
+
+def split_sphere_rows(rows, n_tail: int, tail_r: float, tail_mat: float):
+    """(head, tail) tables of the (S, 10) ``sphere_rows`` ``rows``: the tail
+    is every static sphere of radius ``tail_r`` and material ``tail_mat``
+    (``pack_spheres``' selection), each part in scene order."""
+    if not n_tail:
+        return rows, rows[:0]
+    tail = (rows[:, 3:6] == 0.0).all(dim=1) & (rows[:, 6] == tail_r) & (rows[:, 7] == tail_mat)
+    if int(tail.sum()) != n_tail:
+        raise ValueError(f"sph_n_tail={n_tail} but {int(tail.sum())} spheres match "
+                         f"the tail's radius {tail_r} and material {tail_mat}")
+    return rows[~tail].contiguous(), rows[tail].contiguous()
 
 
 def shade_rows(shade_consts) -> torch.Tensor | None:

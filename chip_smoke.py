@@ -26,6 +26,16 @@ Phases (each runs; any failure exits non-zero without the final result):
     and the compacted fetch against the dense gather at 0, about 30% and
     100% needy lanes, timed against the one-call dense gather; the launches
     and device time of felt's plain-PyTorch noise;
+    2e. on a final_scene pool 20 iterations into a render (R = 2^17): K9
+    (box_grid_cells) and K10 (box_grid, final_scene's table with its cell
+    list dropped) equal to their twins, K9 against K10 and against K6 over
+    the same 400 boxes; K10 equal to its twin on the 40x40 box field's pool
+    (its own path: 1600 cells, two shared-memory tiles, rays whose winners
+    lie in the second tile) and timed there; the split sphere pass equal to
+    its twin and to the full-table K2 but on exact head/tail ties, K2 with
+    n_live equal to its twin on the compacted slots; times of each, of the
+    split against the full-table K2, and the launches of the split, of
+    apply_media_p and of a whole staged final_scene iteration;
  3. the in-kernel Philox uniforms: range, mean, variance, and that they
     change across iterations and slots;
  4. renders through ``render_scene`` on the card, each with the launch
@@ -38,9 +48,14 @@ Phases (each runs; any failure exits non-zero without the final result):
     must agree statistically with the short-path image; then the image
     scenes, three renders each: earth 1200x600 @ 64 (K1, K2, K4, K8, baked
     K3) and simple_light 1200x600 @ 16 (K1, K5, K2, K7, K4, K8, baked K3);
-    then, per scene (and for perlin staged), the kernel path against the
-    plain path on the same injected uniforms and, with independent seeds,
-    statistically.
+    then the big scenes: final_scene 800x800 @ 16 three times (this slice's
+    main path: K1, K5, K9, the split sphere pass's K2 and K4, K8, K7, baked
+    K3 and the media in PyTorch), original_scene 800x800 @ 16, cornell_smoke
+    600x600 @ 64 (K1, K5, baked K3, two box media) and a 40x40 box field
+    (1600 boxes: K10), each finite, >= 0 and not black; then, per scene
+    (perlin staged and the box field included), the kernel path against the
+    plain path on the same injected uniforms (``n_uniform_cols`` rows) and,
+    but for the box field, with independent seeds, statistically.
 
 Standard output ends with a JSON line of per-kernel results (each kernel's
 ``launches`` counted in the render of the newest path that runs it, named
@@ -65,8 +80,15 @@ SPIN_CYCLES = 40_000_000  # ~20 ms of device spin: longer than any call's host e
 CORNELL = ("cornell_box", 600, 600, 64)
 BOUNCING = ("bouncing_spheres", 1200, 800, 64)
 THREE = ("three_spheres", 400, 225, 16)
+# the big-scene slice's paths: (label, scene, nx, ny, spp, renders); the
+# first is the newest slice's main path; "box field" is the 40x40 field of
+# _box_field (1600 boxes, so no K9 cell table: K10)
+BIG_SCENES = [("final_scene", "final_scene", 800, 800, 16, 3),
+              ("original_scene", "original_scene", 800, 800, 16, 1),
+              ("cornell_smoke", "cornell_smoke", 600, 600, 64, 1),
+              ("box field", "box field", 160, 90, 4, 1)]
 # the image slice's paths, three renders each: (label, scene, nx, ny, spp,
-# short_path); the first is the newest slice's main path
+# short_path)
 IMAGE = [("earth", "earth", 1200, 600, 64, None),
          ("simple_light", "simple_light", 1200, 600, 16, None)]
 IMAGE_RENDERS = 3
@@ -81,12 +103,15 @@ SAME_UNIFORMS = {"three_spheres": (64, 32, 16), "bouncing_spheres": (64, 32, 16)
                  "cornell_box": (64, 64, 16), "quads": (64, 32, 16),
                  "checkered_spheres": (64, 32, 16), "perlin": (64, 32, 16),
                  "simple_light_book": (64, 32, 16), "perlin staged": (64, 32, 16),
-                 "earth": (64, 32, 16), "simple_light": (64, 32, 16)}
+                 "earth": (64, 32, 16), "simple_light": (64, 32, 16),
+                 "cornell_smoke": (64, 64, 16), "final_scene": (64, 64, 16),
+                 "original_scene": (64, 64, 16), "box field": (64, 36, 16)}
 INDEPENDENT = {"three_spheres": (96, 64, 256), "bouncing_spheres": (96, 64, 256),
                "cornell_box": (96, 96, 256), "quads": (96, 64, 256),
                "checkered_spheres": (96, 64, 256), "perlin": (96, 64, 256),
                "simple_light_book": (96, 64, 256), "earth": (96, 64, 256),
-               "simple_light": (96, 64, 256)}
+               "simple_light": (96, 64, 256), "cornell_smoke": (64, 64, 256),
+               "final_scene": (64, 64, 256), "original_scene": (64, 64, 256)}
 KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "refill": ("art_tpu_torch/csrc/refill.cu", "art_tpu/ops/refill_kernel.py:284"),
     "sphere_hit": ("art_tpu_torch/csrc/sphere_hit.cu",
@@ -103,6 +128,9 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                          "art_tpu/ops/flush_kernel.py:196"),
     "table_gather_u24": ("art_tpu_torch/csrc/table_gather.cu",
                          "art_tpu/ops/flush_kernel.py:147"),
+    "box_grid_cells": ("art_tpu_torch/csrc/box_grid.cu",
+                       "art_tpu/ops/pallas_kernels.py:2435"),
+    "box_grid": ("art_tpu_torch/csrc/box_grid.cu", "art_tpu/ops/pallas_kernels.py:2297"),
 }
 # which renders of phase 4 must launch which kernels (the launch-count gate);
 # a render may launch no kernel of KERNELS outside its own list
@@ -116,7 +144,16 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          "earth": ("refill", "sphere_hit", "flush_accumulate", "table_gather_u24",
                    "shade_flush_baked"),
          "simple_light": ("refill", "quad_hit", "sphere_hit", "turb", "flush_accumulate",
-                          "table_gather_u24", "shade_flush_baked")}
+                          "table_gather_u24", "shade_flush_baked"),
+         # the split sphere pass launches K2 twice and K4 once an iteration
+         "final_scene": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
+                         "flush_accumulate", "table_gather_u24", "turb",
+                         "shade_flush_baked"),
+         "original_scene": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
+                            "flush_accumulate", "table_gather_u24", "turb",
+                            "shade_flush_baked"),
+         "cornell_smoke": ("refill", "quad_hit", "shade_flush_baked"),
+         "box field": ("refill", "box_grid", "shade_flush_baked")}
 # The least time the card could take (NVIDIA H100
 # SXM data sheet): bytes over the HBM rate, or operations over the FP32 rate
 # outside the tensor cores, which counts an FMA as two operations; these
@@ -139,6 +176,11 @@ OPS_NOISE = 650
 OPS_SP_BOUNCE = 100  # the short path's background, material row and scatter
 OPS_FLUSH = 8  # K4 a lane: load, test, shift, window, index; an add a channel
 OPS_GATHER = 4  # K8 a lane: two range tests, a select
+# a grid cell with the x and z slabs hoisted per column and row, as the TPU
+# kernels compute them: the top plane 2, y slab 2, t0 and t1 4, the entry /
+# exit choice 4, the merge 6, the amortized x and z slabs 2 (the port's
+# simple kernel recomputes the slabs per cell: ~28)
+OPS_GRID_CELL = 20
 
 
 def log(*args):
@@ -1012,6 +1054,284 @@ def compact_checks(checks: Checks, dev, results: dict):
         f"with its where)")
 
 
+def _box_field(nx: int, ny: int):
+    """A 40x40 field of boxes (1600 > 1024, so the builder sets no K9 cell
+    table and the grid goes to K10, as in art_tpu) under a gradient sky."""
+    from art_tpu_torch.scene import materials as M
+    from art_tpu_torch.scene import objects as O
+    from art_tpu_torch.scene.builder import SceneBuilder
+
+    mats = [M.Lambertian((0.7, 0.6, 0.5)), M.Lambertian((0.3, 0.5, 0.7))]
+    b = SceneBuilder().set_name("box field")
+    for ix in range(40):
+        for iz in range(40):
+            h = 1.0 + (ix * 7 + iz * 11) % 9
+            b.add(O.Box((ix * 4.0, 0.0, iz * 4.0), (ix * 4.0 + 4.0, h, iz * 4.0 + 4.0),
+                        mats[(ix + iz) % 2]))
+    b.set_camera(lookfrom=(80, 60, -60), lookat=(80, 0, 80), vup=(0, 1, 0),
+                 vfov_degrees=50.0, aspect=nx / ny, time0=0.0, time1=1.0)
+    b.set_background(gradient=True)
+    return b.compile()
+
+
+def _profiled_launches(fn) -> int:
+    """Device launches of one call of ``fn`` (after a warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _staged_pool(scene, nx, ny, spp, dev, iters):
+    """The pool of a render of ``scene`` at nx x ny @ spp (the R that
+    plan_batches picks on the card) after ``iters`` staged iterations, its
+    dead slots refilled by the plain K1: a dict of the pool, its queue and
+    tile state, and the refill's media uniforms."""
+    import torch
+
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.render.integrator import n_uniform_cols, staged_step
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    tables = scene.tables
+    tile_pixels, spp_chunk, R = plan_batches(nx * ny, spp, tables.n_spheres, RenderConfig(),
+                                             dev)
+    s = dict(R=R, ncols=n_uniform_cols(tables), pool=rk.new_pool(R, dev),
+             scal=rk.RefillScal(spp_chunk, tile_pixels, 0, nx * ny, nx, ny),
+             q=torch.zeros(2, dtype=torch.int64, device=dev),
+             hist=torch.zeros(21, dtype=torch.int64, device=dev),
+             fb=torch.zeros((tile_pixels, 3), device=dev),
+             lost=torch.zeros(1, dtype=torch.int32, device=dev))
+    for it in range(iters):
+        staged_step(s["pool"], scene.camera, s["q"], it % 2, s["hist"], it, s["scal"], tables,
+                    scene.background, s["fb"], s["lost"], key=(7, 0, 0), ncols=s["ncols"],
+                    max_depth=50, gradient=scene.gradient_bg)
+    s["u_media"] = rk.fused_refill_plain(s["pool"], scene.camera, s["q"], 0, s["hist"], iters,
+                                         s["scal"], key=(7, 0, 0), ncols=s["ncols"])[2]
+    torch.cuda.synchronize()
+    return s
+
+
+def _equal(a, b) -> int:
+    """Values that differ between two (t, normal, u, v, mat) or (t, normal,
+    mat) results."""
+    fa, fb = [a[0], *a[1], *a[2:]], [b[0], *b[1], *b[2:]]
+    return sum(int((x != y).sum()) for x, y in zip(fa, fb))
+
+
+def box_field_checks(checks: Checks, dev, results: dict):
+    """K10 on its own path: the 40x40 box field's pool (1600 cells, so the
+    kernel walks two shared-memory tiles and restarts its (ix, iz) walk at
+    the second), bit-equal to its twin, with winners in the second tile;
+    K10's time and bound at that path's shapes."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    _, name, nx, ny, spp, _ = BIG_SCENES[-1]
+    scene = _box_field(nx, ny).to(dev)
+    tables = scene.tables
+    s = _staged_pool(scene, nx, ny, spp, dev, 1)
+    R, pool = s["R"], s["pool"]
+    o = (pool["ox"], pool["oy"], pool["oz"])
+    d = (pool["dx"], pool["dy"], pool["dz"])
+    k, p = K.box_grid_hit_attrs(tables, o, d), K.box_grid_hit_attrs_plain(tables, o, d)
+    torch.cuda.synchronize()
+    hit = k[0] < BIG
+    # the winner's cell, from a point just inside the box behind the hit
+    eps = 1e-3 * tables.box_grid_w
+    ix = torch.floor((o[0] + k[0] * d[0] - eps * k[1][0] - tables.box_grid_x0)
+                     / tables.box_grid_w)
+    iz = torch.floor((o[2] + k[0] * d[2] - eps * k[1][2] - tables.box_grid_z0)
+                     / tables.box_grid_w)
+    cells = tables.box_grid_kx * tables.box_grid_kz
+    second = int((hit & (ix * tables.box_grid_kz + iz >= 1024)).sum())
+    bad = _equal(k, p)
+    checks.expect(cells > 1024 and tables.box_grid_cell_rows is None and bad == 0
+                  and second > 0,
+                  f"K10 on the {name} pool ({cells} cells, no K9 cell list, R = {R}, "
+                  f"{int(pool['act'].sum())} live after 1 iteration): {bad} values differ "
+                  f"from the twin; {int(hit.sum())} hits, {second} in cells past the first "
+                  f"1024-cell tile")
+    r = results["box_grid"]
+    r["max_abs_err"] = max(r["max_abs_err"] or 0.0, *(
+        _max_diff(x, y) for x, y in zip([k[0], *k[1], k[2], k[3]], [p[0], *p[1], p[2], p[3]])))
+    r["ms"] = _timed_ms(lambda: K.box_grid_hit_attrs(tables, o, d), 20)
+    r["plain_ms"] = _timed_ms(lambda: K.box_grid_hit_attrs_plain(tables, o, d), 3)
+    # 6 planes in and 7 out a ray, the (kx, 2 kz) table once
+    _set_bound(r, R * 52 + cells * 8, R * cells * OPS_GRID_CELL + int(hit.sum()) *
+               OPS_BOX_WINNER)
+    r.update(cells=cells, R=R, shapes=f"{name} {nx}x{ny} @ {spp}")
+
+
+def grid_split_checks(checks: Checks, dev, results: dict):
+    """K9, K10, the split sphere pass (K2 with n_live, K4) and the media
+    against their twins and each other at final_scene 800x800's R (2^17),
+    on a pool 20 staged iterations into a render; then K10 on the box
+    field's pool (box_field_checks)."""
+    import dataclasses
+
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG, T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import compact_sphere as cs
+    from art_tpu_torch.ops import intersect_kernels as K
+    from art_tpu_torch.ops.intersect import apply_media_p, closest_surface_p
+    from art_tpu_torch.render.integrator import staged_step
+
+    _, name, nx, ny, spp, _ = BIG_SCENES[0]
+    scene = build_scene(name, nx, ny).to(dev)
+    tables = scene.tables
+    s = _staged_pool(scene, nx, ny, spp, dev, 20)
+    R, ncols, scal, pool = s["R"], s["ncols"], s["scal"], s["pool"]
+    q, hist, fb, lost, u_media = s["q"], s["hist"], s["fb"], s["lost"], s["u_media"]
+    o = (pool["ox"], pool["oy"], pool["oz"])
+    d = (pool["dx"], pool["dy"], pool["dz"])
+    tm = pool["tm"]
+    log(f"  R = {R}, final_scene pool after 20 iterations: {int(pool['act'].sum())} live; "
+        f"{tables.n_boxes} grid boxes ({tables.box_grid_kx}x{tables.box_grid_kz}), "
+        f"{tables.n_spheres} spheres ({tables.sph_n_tail} in the tail), "
+        f"{tables.n_media} media")
+
+    # ---- K9 and K10 against their twins, each other and K6 ----
+    t10 = dataclasses.replace(tables, box_grid_cells=None, box_grid_cell_rows=None)
+    t6 = dataclasses.replace(tables, box_grid_kx=0)
+    k9, p9 = K.box_grid_cells_hit_attrs(tables, o, d), K.box_grid_cells_hit_attrs_plain(
+        tables, o, d)
+    k10, p10 = K.box_grid_hit_attrs(t10, o, d), K.box_grid_hit_attrs_plain(t10, o, d)
+    k6 = K.box_hit_attrs(t6, o, d)
+    torch.cuda.synchronize()
+    hits = int((k9[0] < BIG).sum())
+    for label, k, p in (("K9", k9, p9), ("K10", k10, p10)):
+        bad = _equal(k, p)
+        checks.expect(bad == 0, f"{label} on the final_scene pool: {bad} values differ from "
+                                f"the twin ({hits} hits of {R})")
+        results["box_grid_cells" if label == "K9" else "box_grid"]["max_abs_err"] = max(
+            _max_diff(x, y) for x, y in zip([k[0], *k[1], k[2], k[3]],
+                                            [p[0], *p[1], p[2], p[3]]))
+    same_t = bool(torch.equal(k9[0], k10[0]))
+    attrs = torch.ones(R, dtype=torch.bool, device=dev)
+    for x, y in zip([*k9[1], k9[2], k9[3], k9[4]], [*k10[1], k10[2], k10[3], k10[4]]):
+        attrs &= x == y
+    share = float(attrs[k9[0] < BIG].float().mean())
+    checks.expect(same_t and share >= 0.999,
+                  f"K9 against K10: hit mask and t equal {same_t}, attributes equal on "
+                  f"{share:.5f} of the hits (>= 0.999)")
+    # the lattice's incremental slabs (ex0 + ix sxv) round otherwise than
+    # K6's (min - o) / d; a ray grazing a box it starts on can then hit it
+    # just past t_min in one and not the other, so an equal hit mask and t
+    # within 2e-5 everywhere cannot hold; the bars sit near what this pool
+    # gives (on an H100: 9 flips, 242 of 61363 hits beyond 2e-5; on the CPU
+    # twins, an 8192-ray final_scene pool: 2 flips, 8 of 3781 hits)
+    h9, h6 = k9[0] < BIG, k6[0] < BIG
+    both = h9 & h6
+    rel = ((k9[0] - k6[0]).abs() / k6[0].abs().clamp_min(1e-30))[both]
+    far, flips = int((rel > 2e-5).sum()), int((h9 != h6).sum())
+    checks.expect(flips <= 30 and far <= int(both.sum()) // 200,
+                  f"K9 against K6 over the same 400 boxes: {flips} hit-mask flips "
+                  f"(<= 30), {far} of {int(both.sum())} hits beyond 2e-5 relative "
+                  f"(<= 0.5%), t max rel err {float(rel.max()):.3g}")
+    results["_grid"] = {"hits": hits, "k9_k6_flips": flips,
+                        "k9_k6_t_max_rel": float(rel.max()), "k9_k6_beyond_2e-5": far}
+
+    # ---- the split against its twin and the full-table K2 ----
+    split = cs.sphere_hit_attrs_split(tables, o, d, tm)
+    split_p = cs.sphere_hit_attrs_split(tables, o, d, tm, plain=True)
+    full = K.sphere_hit_attrs(tables, o, d, tm)
+    head = K.sphere_hit_attrs(tables, o, d, tm, rows=tables.sph_head_rows)
+    tail = K.sphere_hit_attrs(tables, o, d, tm, rows=tables.sph_tail_rows)
+    torch.cuda.synchronize()
+    ties = int(((head[0] == tail[0]) & (head[0] < BIG)).sum())
+    bad_p, bad_f = _equal(split, split_p), _equal(split, full)
+    needy = cs.tail_box_needy(tables.sph_tail_box, o, d, T_MIN)
+    n_needy = int(needy.sum())
+    checks.expect(bad_p == 0 and bad_f == 0,
+                  f"split sphere pass: {bad_p} values differ from its twin, {bad_f} from the "
+                  f"full-table K2 ({ties} exact head/tail ties), {n_needy} needy lanes "
+                  f"({n_needy / R:.3f})")
+    # K2 with n_live on the compacted slots, against its twin
+    ray_k = cf.compact_ray_ids(needy)
+    rays_k = torch.stack([*o, *d]).index_select(1, ray_k)
+    ok_, dk_ = tuple(rays_k[0:3]), tuple(rays_k[3:6])
+    z = torch.zeros_like(rays_k[0])
+    cnt = needy.sum(dtype=torch.int32).reshape(1)
+    kt = K.sphere_hit_attrs(tables, ok_, dk_, z, rows=tables.sph_tail_rows, n_live=cnt)
+    pt = K.sphere_hit_attrs_plain(tables, ok_, dk_, z, rows=tables.sph_tail_rows, n_live=cnt)
+    torch.cuda.synchronize()
+    bad = _equal(kt, pt)
+    checks.expect(bad == 0 and bool((kt[0][n_needy:] == BIG).all()),
+                  f"K2 with n_live = {n_needy} on {ray_k.shape[0]} compacted slots: {bad} "
+                  f"values differ from the twin, every slot past the count misses")
+    r2 = results["sphere_hit"]
+    r2["ms_tail_n_live"] = _timed_ms(lambda: K.sphere_hit_attrs(
+        tables, ok_, dk_, z, rows=tables.sph_tail_rows, n_live=cnt), 20)
+    r2["plain_ms_tail_n_live"] = _timed_ms(lambda: K.sphere_hit_attrs_plain(
+        tables, ok_, dk_, z, rows=tables.sph_tail_rows, n_live=cnt), 3)
+    r2["n_live"] = n_needy
+    # the needy lanes against the 1000 tail rows; 7 planes in, 5 out a live slot
+    by_bytes, by_ops = n_needy * 48, n_needy * tables.sph_n_tail * OPS_SPHERE
+    r2["bound_ms_tail_n_live"] = max(by_bytes / HBM_BYTES_PER_S, by_ops / FP32_OPS_PER_S) * 1e3
+    split_ms = _timed_ms(lambda: cs.sphere_hit_attrs_split(tables, o, d, tm), 20)
+    full_ms = _timed_ms(lambda: K.sphere_hit_attrs(tables, o, d, tm), 20)
+    results["_split"] = {
+        "R": R, "needy": n_needy, "ties": ties, "split_ms": split_ms, "full_k2_ms": full_ms,
+        "split_plain_ms": _timed_ms(
+            lambda: cs.sphere_hit_attrs_split(tables, o, d, tm, plain=True), 3),
+        "split_launches": _profiled_launches(lambda: cs.sphere_hit_attrs_split(
+            tables, o, d, tm)),
+        "full_k2_launches": _profiled_launches(lambda: K.sphere_hit_attrs(tables, o, d, tm))}
+
+    # ---- the media: launches of apply_media_p and of a whole staged iteration ----
+    surf = closest_surface_p(tables, o, d, tm, T_MIN)
+    results["_media"] = {
+        "n_media": tables.n_media,
+        "launches": _profiled_launches(lambda: apply_media_p(tables, o, d, T_MIN, surf,
+                                                             u_media, time=tm)),
+        "ms": _timed_ms(lambda: apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm),
+                        10),
+        "staged_step_launches": _profiled_launches(lambda: staged_step(
+            _clone(pool), scene.camera, q.clone(), 0, hist.clone(), 20, scal, tables,
+            scene.background, fb.clone(), lost.clone(), key=(7, 0, 0), ncols=ncols,
+            max_depth=50, gradient=scene.gradient_bg))}
+
+    # ---- times and bounds: 6 planes in and 7 out a ray, the cell list once;
+    # K10 on final_scene's table beside K9 (same work), and at its own
+    # path's shapes in box_field_checks ----
+    r = results["box_grid_cells"]
+    cells = tables.box_grid_cell_rows.shape[0]
+    r["ms"] = _timed_ms(lambda: K.box_grid_cells_hit_attrs(tables, o, d), 20)
+    r["plain_ms"] = _timed_ms(lambda: K.box_grid_cells_hit_attrs_plain(tables, o, d), 3)
+    _set_bound(r, R * 52 + cells * 16, R * cells * OPS_GRID_CELL + hits * OPS_BOX_WINNER)
+    r["cells"] = cells
+    r = results["box_grid"]
+    r["ms_final_scene_table"] = _timed_ms(lambda: K.box_grid_hit_attrs(t10, o, d), 20)
+    r["plain_ms_final_scene_table"] = _timed_ms(
+        lambda: K.box_grid_hit_attrs_plain(t10, o, d), 3)
+    results["box_hit"]["ms_final_scene_boxes"] = _timed_ms(lambda: K.box_hit_attrs(t6, o, d),
+                                                           20)
+    box_field_checks(checks, dev, results)
+    _log_kernels(results, ("box_grid_cells", "box_grid"))
+    log(f"  K10 on final_scene's table: {r['ms_final_scene_table']:.4f} ms (plain "
+        f"{r['plain_ms_final_scene_table']:.4f} ms)")
+    s = results["_split"]
+    log(f"  split sphere pass {s['split_ms']:.4f} ms ({s['split_launches']} launches) "
+        f"against the full-table K2 {s['full_k2_ms']:.4f} ms ({s['full_k2_launches']}); "
+        f"K2 tail at n_live {n_needy}: {r2['ms_tail_n_live']:.4f} ms; K6 over the same "
+        f"boxes {results['box_hit']['ms_final_scene_boxes']:.4f} ms")
+    m = results["_media"]
+    log(f"  apply_media_p ({m['n_media']} media): {m['launches']} launches, {m['ms']:.4f} ms; "
+        f"one staged final_scene iteration: {m['staged_step_launches']} launches")
+
+
 def philox_checks(checks: Checks, dev):
     import torch
 
@@ -1114,6 +1434,7 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     import torch
 
     from art_tpu_torch.models import build_scene
+    from art_tpu_torch.render.integrator import n_uniform_cols
     from art_tpu_torch.render.renderer import RenderConfig, plan_batches, render_scene
 
     counts_by_render: dict = {}
@@ -1164,15 +1485,52 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                   f"earth: top row blue-ish sky (mean rgb {top}), the globe's centre "
                   f"textured, not grey (mean rgb {mid})")
 
-    label, name, nx, ny, spp, _ = IMAGE[0]
+    # the big scenes (box grid, sphere tail, media); the launch counts are
+    # each path's first render's
+    for label, name, nx, ny, spp, reps in BIG_SCENES:
+        scene = _box_field(nx, ny) if name == "box field" else build_scene(name, nx, ny)
+        seconds = []
+        for rep in range(reps):
+            counts = {}
+            images[label], st = _render(checks, dev, name, nx, ny, spp, results, counts,
+                                        scene=scene, label=label)
+            seconds.append(st["seconds"])
+            if rep == 0:
+                counts_by_render.update(counts)
+        results["_renders"][f"{label} {nx}x{ny} @ {spp}"]["seconds_each"] = seconds
+        fb = images[label]
+        checks.expect(bool(np.isfinite(fb).all() and (fb >= 0).all()) and fb.mean() > 1e-3,
+                      f"{label}: finite, >= 0 and not black (mean {fb.mean():.4f}, max "
+                      f"{fb.max():.3f})")
+
+    # the split sphere pass against the full-table K2 end to end: the main
+    # path's render with the split off and on, in turns
+    from art_tpu_torch.ops import compact_sphere
+
+    label, name, nx, ny, spp, _ = BIG_SCENES[0]
+    scene = build_scene(name, nx, ny)
+    use_split = compact_sphere.use_split
+    ab: dict = {"full_k2": [], "split": []}
+    for mode in ("full_k2", "split", "split", "full_k2"):
+        compact_sphere.use_split = use_split if mode == "split" else (lambda t: False)
+        try:
+            _, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
+        finally:
+            compact_sphere.use_split = use_split
+        ab[mode].append(st["seconds"])
+    results.setdefault("_split", {})["render_seconds"] = ab
+    log(f"  {label} {nx}x{ny} @ {spp}, split off / on / on / off: "
+        f"{ab['full_k2'][0]:.3f} / {ab['split'][0]:.3f} / {ab['split'][1]:.3f} / "
+        f"{ab['full_k2'][1]:.3f} s")
+
     results["_render"] = dict(results["_renders"][f"{label} {nx}x{ny} @ {spp}"],
                               scene=f"{label} {nx}x{ny} @ {spp}", card=smi)
     # each kernel's count is that of the newest path that runs it: this
-    # slice's main path (earth) and its other path (simple_light) first,
-    # then the short-path slice's paths, then cornell_box's and
+    # slice's main path (final_scene) and its other paths first, then the
+    # image slice's, the short-path slice's, then cornell_box's and
     # bouncing_spheres' (the earlier slices' main paths), then three_spheres'
-    order = [lab for lab, *_ in IMAGE + SHORT] + ["cornell_box", "bouncing_spheres",
-                                                  "three_spheres"]
+    order = [lab for lab, *_ in BIG_SCENES + IMAGE + SHORT] + ["cornell_box", "bouncing_spheres",
+                                                        "three_spheres"]
     for k in KERNELS:
         path = next(lab for lab in order if k in PATHS[lab])
         results[k]["launches"] = counts_by_render[path].get(k, 0)
@@ -1186,12 +1544,13 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
         nx, ny, spp = SAME_UNIFORMS[label]
         cfg = RenderConfig(nx=nx, ny=ny, spp=spp)
         R = plan_batches(nx * ny, spp, 488, cfg, dev)[2]
+        scene = _box_field(nx, ny) if label == "box field" else build_scene(name, nx, ny)
+        ncols = n_uniform_cols(scene.tables)  # 9 + the media (at least one column)
 
-        def uniforms(tile, chunk, it, R=R):
+        def uniforms(tile, chunk, it, R=R, ncols=ncols):
             return np.random.default_rng([SEED, tile, chunk, it]).random(
-                (10, R), dtype=np.float32)
+                (ncols, R), dtype=np.float32)
 
-        scene = build_scene(name, nx, ny)
         kfb, kst = render_scene(scene, cfg, device=dev, uniforms=uniforms,
                                 short_path=short_path)
         pfb, pst = render_scene(scene, cfg, device=dev, uniforms=uniforms, plain=True,
@@ -1245,16 +1604,15 @@ def main() -> int:
                  results)
     checks.phase("2d. K4, K8 and the compacted fetch against their plain twins",
                  compact_checks, checks, dev, results)
+    checks.phase("2e. K9, K10, the split sphere pass and the media", grid_split_checks,
+                 checks, dev, results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
-    render = results.pop("_render", {})
-    renders = results.pop("_renders", {})
-    fetch = results.pop("_compact_fetch", {})
-    noise = results.pop("_noise_p", {})
+    extra = {key: results.pop(f"_{key}", {}) for key in (
+        "render", "renders", "compact_fetch", "noise_p", "grid", "split", "media")}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
-        for name, (src, rep) in KERNELS.items()], "render": render, "renders": renders,
-        "compact_fetch": fetch, "noise_p": noise, "card": smi}))
+        for name, (src, rep) in KERNELS.items()], **extra, "card": smi}))
     if checks.failed:
         log(f"FAILED: {checks.failed}")
         return 1

@@ -21,10 +21,12 @@ assert "art_tpu" not in sys.modules
 print(" ".join(names))
 """
 # the modules the latest slices added (slice 3: noise, turbulence, the short
-# path; slice 4: images, the flush and table-gather kernels, the compacted fetch)
+# path; slice 4: images, the flush and table-gather kernels, the compacted
+# fetch; slice 5: the split sphere pass)
 NEW_MODULES = ("art_tpu_torch.ops.perlin", "art_tpu_torch.ops.perlin_kernel",
                "art_tpu_torch.ops.sp_kernel", "art_tpu_torch.utils.images",
-               "art_tpu_torch.ops.flush_kernel", "art_tpu_torch.ops.compact_fetch")
+               "art_tpu_torch.ops.flush_kernel", "art_tpu_torch.ops.compact_fetch",
+               "art_tpu_torch.ops.compact_sphere")
 
 
 def test_port_imports_without_jax():
@@ -34,4 +36,4 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 26 and set(NEW_MODULES) <= set(names)
+    assert len(names) >= 27 and set(NEW_MODULES) <= set(names)

@@ -331,6 +331,24 @@ def test_cli_lists_scenes(capsys):
     assert "bouncing_spheres" in capsys.readouterr().out
 
 
+def test_cli_lists_every_scene(capsys):
+    """All twelve scenes of the registry, the media scenes included."""
+    assert cli.main(["--list-scenes"]) == 0
+    listed = capsys.readouterr().out.split()
+    assert len(listed) == 12
+    assert {"cornell_smoke", "final_scene", "original_scene"} <= set(listed)
+
+
+@pytest.mark.parametrize("name", ["cornell_smoke", "final_scene", "original_scene"])
+def test_cli_writes_a_media_scene_ppm(tmp_path, name):
+    out = tmp_path / f"{name}.ppm"
+    rc = cli.main(["--scene", name, "--nx", "16", "--ny", "8", "--spp", "2",
+                   "--device", "cpu", "--out", str(out)])
+    assert rc == 0
+    img = read_ppm(out.read_text())
+    assert img.shape == (8, 16, 3) and (img >= 0).all() and img.max() > 0
+
+
 @pytest.mark.parametrize("name", ["perlin", "checkered_spheres", "simple_light_book",
                                   "earth", "simple_light"])
 def test_cli_writes_a_texture_scene_ppm(tmp_path, name):

@@ -1,6 +1,7 @@
 """art_tpu_torch's scene layer against art_tpu's: the compiled tables, the
-image atlas and the camera of the ported scenes (cornell_box in both wall
-variants, and a hand-built scene of translated, unrotated boxes), the baked
+image atlas and the camera of every scene of the registry (cornell_box in
+both wall variants, and a hand-built scene of translated, unrotated boxes),
+the media tables of medium objects and scenes, the baked
 shade constants with their special leaves (noise; earth's image;
 simple_light's felt and uv-offset image), the short path's gate and constants
 (``sp_consts``), the kernels' row tables, ``tables_from_numpy`` (how tests
@@ -132,31 +133,67 @@ def test_xorwow_stream_matches_art_tpu():
     assert got == want
 
 
-@pytest.mark.parametrize("name", sorted(set(SCENES) - set(SLICE_SCENES)))
-def test_later_slice_scenes_raise(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_scene(name, 32, 16)
+MEDIA_SCENES = ["cornell_smoke", "final_scene", "original_scene"]
+MEDIA_META = ("n_media", "med_kinds", "gb_sph_meds", "gb_quad_meds", "gb_box_meds")
 
 
-@pytest.mark.parametrize("obj", [
-    O.ConstantMedium(O.Sphere((0, 0, 0), 1.0, Lambertian((0.5, 0.5, 0.5))), 0.5,
-                     (1.0, 1.0, 1.0)),
-    O.ConstantMedium(O.Box((0, 0, 0), (1, 1, 1), Lambertian((0.5, 0.5, 0.5))), 0.01,
-                     (0.2, 0.2, 0.2)),
-    O.Translate(O.ConstantMedium(O.Sphere((0, 0, 0), 1.0, Lambertian((1, 1, 1))), 0.2,
-                                 X.NoiseTexture(4.0)), (1.0, 0.0, 0.0)),
-    O.Group(O.Sphere((0, 0, 0), 1.0, Lambertian(X.ImageTexture("earthmap.jpg"))),
-            O.ConstantMedium(O.Sphere((0, 0, 0), 2.0, Lambertian((1, 1, 1))), 0.1,
-                             (1.0, 1.0, 1.0))),
-])
-def test_later_slice_objects_raise_in_builder(obj):
-    """Media (M8) are not ported yet: alone, around a box, under a
-    transform, with a texture, or beside an image-textured sphere."""
-    b = SceneBuilder().add(obj)
-    b.set_camera(lookfrom=(0, 0, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
-                 vfov_degrees=40.0, aspect=1.0)
-    with pytest.raises(NotImplementedError, match="slice.*M8"):
-        b.compile()
+def test_every_registry_scene_is_ported():
+    assert sorted(SCENES) == sorted(SLICE_SCENES + MEDIA_SCENES)
+
+
+@pytest.mark.parametrize("name", MEDIA_SCENES)
+def test_media_scenes_match_art_tpu(name):
+    """The scenes with constant media: tables (media, grid and tail
+    included), camera to 1e-6 and background as art_tpu's."""
+    nx, ny = 48, 48
+    js = jax_build_scene(name, nx, ny)
+    want, cam = _jax_arrays(js)
+    scene = build_scene(name, nx, ny)
+    _assert_tables_equal(scene.tables, want)
+    for k in MEDIA_META + ("box_grid_kx", "box_grid_cells", "sph_n_tail", "sph_tail_box"):
+        assert getattr(scene.tables, k) == getattr(js.tables, k), k
+    for k, v in cam.items():
+        np.testing.assert_allclose(np.asarray(getattr(scene.camera, k)), v,
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+    assert scene.background == js.background and scene.gradient_bg == js.gradient_bg
+    assert scene.tables.n_media == (1 if name == "original_scene" else 2)
+
+
+def _medium_objects(O, M, X):
+    """A medium alone, around a box, under a transform with a texture, and
+    beside an image-textured sphere — in either package's DSL."""
+    return [
+        O.ConstantMedium(O.Sphere((0, 0, 0), 1.0, M.Lambertian((0.5, 0.5, 0.5))), 0.5,
+                         (1.0, 1.0, 1.0)),
+        O.ConstantMedium(O.Box((0, 0, 0), (1, 1, 1), M.Lambertian((0.5, 0.5, 0.5))), 0.01,
+                         (0.2, 0.2, 0.2)),
+        O.Translate(O.ConstantMedium(O.Sphere((0, 0, 0), 1.0, M.Lambertian((1, 1, 1))), 0.2,
+                                     X.NoiseTexture(4.0)), (1.0, 0.0, 0.0)),
+        O.Group(O.Sphere((0, 0, 0), 1.0, M.Lambertian(X.ImageTexture("earthmap.jpg"))),
+                O.ConstantMedium(O.Sphere((0, 0, 0), 2.0, M.Lambertian((1, 1, 1))), 0.1,
+                                 (1.0, 1.0, 1.0))),
+    ]
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_medium_objects_compile_as_art_tpu(k):
+    """Media (M8) compile: their media tables, phase materials and textures
+    equal art_tpu's."""
+    from art_tpu.scene import textures as JX
+
+    scenes = []
+    for b_mod, objs in ((jax_builder, _medium_objects(JO, JM, JX)),
+                        (port_builder, _medium_objects(O, PM, X))):
+        b = b_mod.SceneBuilder().add(objs[k])
+        b.set_camera(lookfrom=(0, 0, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
+                     vfov_degrees=40.0, aspect=1.0)
+        scenes.append(b.compile())
+    want, _ = _jax_arrays(scenes[0])
+    t = scenes[1].tables
+    _assert_tables_equal(t, want)
+    for name in MEDIA_META:
+        assert getattr(t, name) == getattr(scenes[0].tables, name), name
+    assert t.n_media == 1 and t.mat_type.numpy()[t.med_mat.numpy()[0]] == 4  # isotropic
 
 
 @pytest.mark.parametrize("tex,kind", [
@@ -370,8 +407,15 @@ def test_tables_from_numpy_carries_quads_and_boxes(name):
                                       getattr(scene.tables, k).numpy(), err_msg=k)
 
 
-def test_tables_from_numpy_refuses_media():
-    arrays, cam = _jax_arrays(jax_build_scene("cornell_smoke", 32, 32))
-    arrays["n_media"] = 2
-    with pytest.raises(NotImplementedError, match="M8"):
-        tables_from_numpy(arrays, cam)
+def test_tables_from_numpy_carries_media():
+    """cornell_smoke's two box media (kind 1) through tables_from_numpy."""
+    js = jax_build_scene("cornell_smoke", 32, 32)
+    arrays, cam = _jax_arrays(js)
+    arrays.update({k: getattr(js.tables, k) for k in MEDIA_META})
+    tables, _ = tables_from_numpy(arrays, cam)
+    _assert_tables_equal(tables, arrays)
+    assert tables.n_media == 2 and tables.med_kinds == (1, 1)
+    built = build_scene("cornell_smoke", 32, 32).tables
+    for k in ("med_min", "med_max", "med_cos", "med_sin", "med_off", "med_neg_inv_density",
+              "med_mat"):
+        assert torch.equal(getattr(tables, k), getattr(built, k)), k
