@@ -7,7 +7,8 @@ The plain PyTorch candidate passes and winner attributes of spheres
 the grid kernels (``box_grid_candidates_p``, ``box_grid_attributes_p``),
 ``closest_surface_p`` (``:519``), which merges the three kinds through
 their kernels (``ops/intersect_kernels.py``, ``ops/compact_sphere.py``)
-unless asked for the plain path, and the constant media
+unless asked for the plain path, the slab test of the culling passes
+(``slab_interval``), and the constant media
 (``apply_media_p:844``, ``_gb_first_hit:758``), plain PyTorch as in
 ``art_tpu``.  A sphere's (u, v) comes from its normal in PyTorch glue
 (``sphere_uv``) when the scene has image or uv_offset textures, as
@@ -145,6 +146,27 @@ def _slabs(lo, ld, mn, mx):
         t0s.append(torch.minimum(ta, tb))
         t1s.append(torch.maximum(ta, tb))
     return t0s, t1s
+
+
+def slab_interval(box, o, d, t_min: float):
+    """((R,) bool could-hit, (R,) entry t) of the box (x0, y0, z0, x1, y1,
+    z1) over the ray's (t_min, inf) segment: the culling test of the split
+    pass and of K16 and K17 (``art_tpu``'s ``tail_box_interval`` and
+    ``_slab_interval``, ``pallas_kernels.py:1150``).  A zero direction
+    component becomes 1e-20 (not IEEE inf semantics): an origin inside that
+    slab then spans the whole line, one outside it a one-sided huge interval
+    — both err toward could-hit."""
+    x0, y0, z0, x1, y1, z1 = box
+    t_near = torch.full_like(o[0], t_min)
+    t_far = torch.full_like(o[0], BIG)
+    for lo, hi, oc, dc in ((x0, x1, o[0], d[0]), (y0, y1, o[1], d[1]),
+                           (z0, z1, o[2], d[2])):
+        inv = 1.0 / torch.where(dc == 0.0, 1e-20, dc)
+        ta = (lo - oc) * inv
+        tb = (hi - oc) * inv
+        t_near = torch.maximum(t_near, torch.minimum(ta, tb))
+        t_far = torch.minimum(t_far, torch.maximum(ta, tb))
+    return t_far >= t_near, t_near
 
 
 def box_candidates_p(tables: SceneTables, o, d, t_min):
@@ -326,11 +348,22 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
     ``plain`` runs the plain twins instead.  The kernels are ``art_tpu``'s
     default routes (``intersect.py:540-709``): boxes on a detected grid go
     to K9 when the builder set ``box_grid_cells``, else to K10, other boxes
-    to K6; a sphere tail of at least 512 rows takes the split pass
-    (``ops/compact_sphere.py``), other spheres K2.  A miss keeps normal
+    to K6.  Spheres go, in ``art_tpu``'s order of precedence
+    (``intersect.py:654-708``) under the switches of ``ops/routes.py``: to
+    K17 (``ART_TPU_SPH_CELLBIN``, where the builder made cell bins); to the
+    split pass (``ops/compact_sphere.py``; opt-in here under
+    ``ART_TPU_COMPACT_SPH``, for a tail of at least 512 rows and a pool of
+    ``SPH_K < R < 2^24`` slots) with the occlusion gate
+    (``ART_TPU_OCC_GATE``) and K16's tail-only call (``ART_TPU_SPH_SKIP``
+    with ``ART_TPU_COMPACT_SKIP``); under ``ART_TPU_SPH_FORCE_BRANCH=dense``
+    to the split's dense branch instead (``art_tpu``'s fallbacks,
+    ``compact_sphere.py:156-213``, without its MXU tail: K17 under
+    ``ART_TPU_COMPACT_CELLBIN``, else K16 under ``ART_TPU_SPH_SKIP``, else
+    the full-table K2); to K16 (``ART_TPU_SPH_SKIP``, where the builder
+    made skip bins); else to the full-table K2.  A miss keeps normal
     (1, 0, 0) and material 0 (u = v = 0 unless the scene reads a sphere's
     (u, v))."""
-    from art_tpu_torch.ops import compact_sphere
+    from art_tpu_torch.ops import compact_sphere, routes
     from art_tpu_torch.ops import intersect_kernels as K
 
     # (u, v) only feeds image and uv_offset textures (art_tpu's needs_uv)
@@ -355,9 +388,22 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
         cand = box(tables, o, d, t_min)
         best = cand if best is None else _closer(best, cand)
     if tables.n_spheres:
-        if compact_sphere.use_split(tables):
+        r = routes.ROUTES
+        cellbin = tables.sph_cellbin_meta is not None
+        skip = r.sph_skip and tables.sph_skip_bins is not None
+        split = r.compact_sph and compact_sphere.use_split(tables, o[0].shape[0])
+        dense = split and r.force_branch == "dense"  # the split's dense branch
+        if cellbin and (r.sph_cellbin or dense and r.compact_cellbin):
+            t, normal, mat = (K.sphere_cellbin_hit_attrs_plain if plain
+                              else K.sphere_cellbin_hit_attrs)(tables, o, d, time, t_min)
+        elif split and not dense:
             t, normal, mat = compact_sphere.sphere_hit_attrs_split(
-                tables, o, d, time, t_min, plain=plain)
+                tables, o, d, time, t_min, plain=plain,
+                occ_t=best[0] if r.occ_gate and best is not None else None,
+                skip_tail=skip and r.compact_skip)
+        elif skip:
+            t, normal, mat = (K.sphere_skip_hit_attrs_plain if plain
+                              else K.sphere_skip_hit_attrs)(tables, o, d, time, t_min)
         else:
             t, normal, mat = (K.sphere_hit_attrs_plain if plain else K.sphere_hit_attrs)(
                 tables, o, d, time, t_min)

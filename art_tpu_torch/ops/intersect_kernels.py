@@ -5,6 +5,14 @@
   ``_sphere_kernel``): the closest hit with ``t > t_min`` over all spheres
   in scene order (moving centers at the ray's shutter time), its
   signed-radius normal ``(p - c) / r`` and its material id.
+* K16 ``sphere_skip_hit_attrs`` (``csrc/sphere_skip.cu``), replacing
+  ``sphere_skip_hit_attrs`` (``:1353``), and K17
+  ``sphere_cellbin_hit_attrs`` (``csrc/sphere_cellbin.cu``), replacing
+  ``sphere_cellbin_hit_attrs`` (``:1798``): K2's outputs over a head of rows
+  and contiguous segments with boxes (``scene/cull.py``): K16's skip bins
+  over a sphere tail, K17's lattice cells with an occlusion bound.  Their
+  twins are K2's twin over the head and over each segment, masked per ray by
+  the kernels' slab tests and merged with a strict ``<``.
 * K5 ``quad_closest_hit`` (``csrc/quad_hit.cu``), replacing
   ``quad_closest_hit_planar`` (``_quad_kernel``): the closest quad's t and
   index; ``closest_surface_p`` gets its normal and (alpha, beta) from
@@ -33,7 +41,7 @@ import ctypes
 
 import torch
 
-from art_tpu_torch.core.vecmath import BIG, T_MIN
+from art_tpu_torch.core.vecmath import BIG, T_MIN, p_where
 from art_tpu_torch.ops import _build
 from art_tpu_torch.ops.intersect import (
     box_attributes_p,
@@ -44,10 +52,13 @@ from art_tpu_torch.ops.intersect import (
     quad_candidates_p,
     sphere_attributes_p,
     sphere_candidates_p,
+    slab_interval,
 )
 from art_tpu_torch.scene.tables import SceneTables
 
 NAME = "sphere_hit"
+SKIP = "sphere_skip"  # K16
+CELLBIN = "sphere_cellbin"  # K17
 QUAD = "quad_hit"
 BOX = "box_hit"
 GRID = "box_grid"  # K10
@@ -106,6 +117,99 @@ def sphere_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN, *, rows=None,
     _build.check(rc, NAME)
     _build.launches[NAME] += 1
     return t, (nx, ny, nz), mat
+
+
+def culled_plain(rows, meta, o, d, tm, t_min, *, occlusion: bool, head: bool = True,
+                 n_live=None):
+    """The twin of K16 (``occlusion`` False) and K17 (True) over ``rows`` and
+    ``meta`` = (n_head, segments, box): K2's twin over the head rows (none
+    unless ``head``), then over each segment's rows, taken where the ray's
+    slab test of the segment's box passes (with ``occlusion``, at t_near <=
+    the running best t) and the segment's t is strictly closer; lanes at or
+    past ``n_live`` miss (``csrc/sphere.cuh`` segmented_hit)."""
+    n_head, segs, box = meta
+    n_head = n_head if head else 0
+    t, normal, mat = sphere_hit_attrs_plain(None, o, d, tm, t_min, rows=rows[:n_head],
+                                            n_live=n_live)
+    ok, t_near = slab_interval(box, o, d, t_min)
+    live = torch.ones_like(ok) if n_live is None else torch.arange(
+        t.shape[0], dtype=torch.int32, device=t.device) < n_live
+    needy = ok & live
+    if occlusion:
+        needy = needy & (t_near <= t)
+    for row0, row1, seg_box in segs:
+        ok, t_near = slab_interval(seg_box, o, d, t_min)
+        cross = needy & ok
+        if occlusion:
+            cross = cross & (t_near <= t)
+        t_s, n_s, m_s = sphere_hit_attrs_plain(None, o, d, tm, t_min, rows=rows[row0:row1])
+        better = cross & (t_s < t)
+        t, normal, mat = (torch.where(better, t_s, t), p_where(better, n_s, normal),
+                          torch.where(better, m_s, mat))
+    return t, normal, mat
+
+
+def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
+    dev = o[0].device
+    ins = (*o, *d, tm)
+    R = ins[0].shape[0]
+    _build.check_planes(_RAY + ("tm",), ins, R, torch.float32, dev)
+    rows = _build.check_table(f"{name} rows", rows, 10, dev)
+    seg = _build.check_table(f"{name} segments", seg, 8, dev)
+    if n_live is not None:
+        _build.check_planes(("n_live",), (n_live,), 1, torch.int32, dev)
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    nx, ny, nz = (torch.empty_like(t) for _ in range(3))
+    mat = torch.empty(R, dtype=torch.int32, device=dev)
+    ptrs = _build.pointers((*ins, t, nx, ny, nz, mat))
+    lib = _build.library()
+    if name == SKIP:
+        rc = lib.art_sphere_skip(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, n_head, R,
+                                 float(t_min), None if n_live is None else n_live.data_ptr(),
+                                 ptrs, _build.stream_handle(dev))
+    else:
+        rc = lib.art_sphere_cellbin(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, n_head,
+                                    R, float(t_min), ptrs, _build.stream_handle(dev))
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return t, (nx, ny, nz), mat
+
+
+def sphere_skip_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN, *,
+                                tail_only: bool = False, n_live=None):
+    """Plain PyTorch K16 over ``sph_skip_rows`` (``culled_plain``)."""
+    return culled_plain(tables.sph_skip_rows, tables.sph_skip_bins, o, d, tm, t_min,
+                        occlusion=False, head=not tail_only, n_live=n_live)
+
+
+def sphere_skip_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN, *,
+                          tail_only: bool = False, n_live=None):
+    """K16: K2's (t, normal, mat) over the head and the skip bins of the
+    sphere tail; ``tail_only`` skips the head (the split pass's call on its
+    compacted lanes), ``n_live`` as K2's.  The CUDA kernel for CUDA tensors,
+    the plain twin for CPU tensors."""
+    if o[0].device.type == "cpu":
+        return sphere_skip_hit_attrs_plain(tables, o, d, tm, t_min, tail_only=tail_only,
+                                           n_live=n_live)
+    n_head = 0 if tail_only else tables.sph_skip_bins[0]
+    return _culled_launch(SKIP, tables.sph_skip_rows, tables.sph_skip_seg, n_head, o, d, tm,
+                          t_min, n_live)
+
+
+def sphere_cellbin_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN):
+    """Plain PyTorch K17 over ``sph_cellbin_rows`` (``culled_plain``)."""
+    return culled_plain(tables.sph_cellbin_rows, tables.sph_cellbin_meta, o, d, tm, t_min,
+                        occlusion=True)
+
+
+def sphere_cellbin_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN):
+    """K17: K2's (t, normal, mat) over the head and the lattice cells with
+    the occlusion bound; the CUDA kernel for CUDA tensors, the plain twin
+    for CPU tensors."""
+    if o[0].device.type == "cpu":
+        return sphere_cellbin_hit_attrs_plain(tables, o, d, tm, t_min)
+    return _culled_launch(CELLBIN, tables.sph_cellbin_rows, tables.sph_cellbin_seg,
+                          tables.sph_cellbin_meta[0], o, d, tm, t_min)
 
 
 def quad_closest_hit_plain(tables: SceneTables, o, d, t_min=T_MIN):

@@ -6,8 +6,9 @@
 * ``render_wavefront`` — the production path: a persistent pool of R ray
   slots refilled from the sample-major (pixel, sample) queue.  The staged
   iteration is refill (K1) -> closest quad (K5, its attributes in PyTorch
-  glue), box (K6, or K9/K10 on a box grid) and sphere (K2, or the split
-  pass over a sphere tail: K2, K4, K2), merged -> constant media
+  glue), box (K6, or K9/K10 on a box grid) and sphere (the full-table K2;
+  on opt-in routes K16, K17 or the split pass, ``ops/routes.py``), merged
+  -> constant media
   (``apply_media_p``, plain PyTorch as in ``art_tpu``) -> shade + integrate
   + flush (K3).
   K3 runs baked when the scene has ``shade_consts`` (``art_tpu``'s default
@@ -183,7 +184,7 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
                 max_depth: int, gradient: bool, plain: bool = False) -> None:
     """One staged iteration, in place (the short path's ``sp_step`` in
     several calls): refill (K1), the closest hit (K5, K6 or K9/K10, K2 or
-    the split pass), the media, the special leaves of baked materials
+    an opt-in sphere route), the media, the special leaves of baked materials
     (turbulence through K7, image texels through the compacted fetch, K4 and
     K8), shade + flush (K3).  ``plain`` takes every kernel's plain twin."""
     refill = rk.fused_refill_plain if plain else rk.fused_refill

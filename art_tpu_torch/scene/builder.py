@@ -10,10 +10,11 @@ box boundaries, and the kind-2 ``gb_*`` rows of any other boundary), so the
 tables and the image atlas come out identical to ``art_tpu``'s.  Two
 derived parts of ``finish`` are ported too: the box grid
 (``_detect_box_grid``, ``builder.py:103-183``) and the sphere tail
-(``pack_spheres`` / ``pack_tail_spheres``, ``pallas_kernels.py:976-1075``).
-The other tables of ``finish`` (``builder.py:669-848``: static cells, skip
-bins, cell bins, MXU features, clusters, the BVH) serve opt-in kernels that
-are not ported.
+(``pack_spheres`` / ``pack_tail_spheres``, ``pallas_kernels.py:976-1075``),
+and the culling kernels' skip bins and cell bins (``builder.py:689-737``,
+``scene/cull.py``).  The other tables of ``finish`` (``builder.py:669-848``:
+static cells, MXU features, clusters, the BVH) serve opt-in kernels that
+are not ported yet.
 
 ``tables_from_numpy`` carries tables compiled by ``art_tpu`` (as numpy
 arrays) into this package — the tests use it to run both packages on the
@@ -32,6 +33,7 @@ from art_tpu_torch.core.camera import Camera, make_camera
 from art_tpu_torch.scene import materials as M
 from art_tpu_torch.scene import objects as O
 from art_tpu_torch.scene import textures as X
+from art_tpu_torch.scene.cull import cull_tables
 from art_tpu_torch.scene.tables import (
     MAX_BAKED_MATS,
     MAX_SP_PRIMS,
@@ -750,13 +752,14 @@ def _tables(arrays: dict) -> SceneTables:
     head_rows, tail_rows = split_sphere_rows(sph, tail.get("sph_n_tail", 0),
                                              tail.get("sph_tail_r", 1.0),
                                              tail.get("sph_tail_mat", 0.0))
+    cull = cull_tables(head_rows, tail_rows, sph, tail.get("sph_tail_box", ()))
     media = {k: tuple(int(x) for x in a.get(k, ())) for k in _MEDIA_META}
     if "med_kinds" not in arrays:
         media["med_kinds"] = tuple(int(x) for x in a["med_kind"][:n_m])
     return SceneTables(
         **t,
         sph_rows=sph,
-        sph_head_rows=head_rows, sph_tail_rows=tail_rows,
+        sph_head_rows=head_rows, sph_tail_rows=tail_rows, **cull,
         quad_rows=quad_rows(t["quad_n"], t["quad_d"], t["quad_avec"], t["quad_ca"],
                             t["quad_bvec"], t["quad_cb"])[:n_q],
         box_rows=box_rows(t["box_min"], t["box_max"], t["box_cos"], t["box_sin"],

@@ -53,6 +53,12 @@ Beside them, the kernels' own tables (built once per scene, on the host):
   spheres of radius ``sph_tail_r`` and material ``sph_tail_mat``) and every
   other sphere, each in scene order (``sph_rows`` and an empty table when
   the scene has no tail).
+* ``sph_skip_rows`` / ``sph_skip_bins`` / ``sph_skip_seg`` (K16,
+  ``csrc/sphere_skip.cu``) and ``sph_cellbin_rows`` / ``sph_cellbin_meta`` /
+  ``sph_cellbin_seg`` (K17, ``csrc/sphere_cellbin.cu``): a head of rows then
+  contiguous segments (skip bins along one axis of the tail; cells of a
+  lattice), the static ``(n_head, segments, box)`` and its device table
+  (``scene/cull.py``); None where the builder's gates leave them out.
 """
 
 from __future__ import annotations
@@ -189,6 +195,14 @@ class SceneTables:
     sph_tail_r: float = 1.0
     sph_tail_mat: float = 0.0
     sph_tail_box: tuple = ()
+    # the culling kernels' tables (scene/cull.py): K16's skip bins over a
+    # tail, K17's tail or whole-set lattice; None where they do not apply
+    sph_skip_rows: torch.Tensor | None = None
+    sph_skip_bins: tuple | None = None
+    sph_skip_seg: torch.Tensor | None = None
+    sph_cellbin_rows: torch.Tensor | None = None
+    sph_cellbin_meta: tuple | None = None
+    sph_cellbin_seg: torch.Tensor | None = None
     # baked material/texture constants (scene/builder._shade_consts):
     # (mats, specials) or None, and their kernel table
     shade_consts: tuple | None = None

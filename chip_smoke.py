@@ -36,6 +36,16 @@ Phases (each runs; any failure exits non-zero without the final result):
     n_live equal to its twin on the compacted slots; times of each, of the
     split against the full-table K2, and the launches of the split, of
     apply_media_p and of a whole staged final_scene iteration;
+    2f. K16 (skip bins: standalone, and tail-only with n_live on the split's
+    compacted slots) and K17 (cell bins: bouncing_spheres' whole-set 4x4
+    lattice, final_scene's 3x3x3 tail lattice) bit-equal to their twins on
+    a bouncing_spheres 1200x800 pool and a final_scene 800x800 pool 20
+    staged iterations in (R = 2^17), and equal in t to the full-table K2
+    with their exact ties between segments counted; K2 bit-equal to its
+    twin there; their times, the full-table K2's, and bounds from the
+    (ray, sphere) tests those rays need; then ``closest_surface_p`` under
+    every opt-in sphere route (ROUTE_RUNS) equal to its plain record and to
+    the default route's, launching the route's sphere kernels;
  3. the in-kernel Philox uniforms: range, mean, variance, and that they
     change across iterations and slots;
  4. renders through ``render_scene`` on the card, each with the launch
@@ -48,14 +58,21 @@ Phases (each runs; any failure exits non-zero without the final result):
     must agree statistically with the short-path image; then the image
     scenes, three renders each: earth 1200x600 @ 64 (K1, K2, K4, K8, baked
     K3) and simple_light 1200x600 @ 16 (K1, K5, K2, K7, K4, K8, baked K3);
-    then the big scenes: final_scene 800x800 @ 16 three times (this slice's
-    main path: K1, K5, K9, the split sphere pass's K2 and K4, K8, K7, baked
-    K3 and the media in PyTorch), original_scene 800x800 @ 16, cornell_smoke
+    then the big scenes: final_scene 800x800 @ 16 (K1, K5, K9, the
+    full-table K2 once an iteration, K4 and K8 for the image, K7, baked K3
+    and the media in PyTorch), original_scene 800x800 @ 16, cornell_smoke
     600x600 @ 64 (K1, K5, baked K3, two box media) and a 40x40 box field
-    (1600 boxes: K10), each finite, >= 0 and not black; then, per scene
-    (perlin staged and the box field included), the kernel path against the
-    plain path on the same injected uniforms (``n_uniform_cols`` rows) and,
-    but for the box field, with independent seeds, statistically.
+    (1600 boxes: K10), each finite, >= 0 and not black; then each opt-in
+    sphere route (``art_tpu_torch/ops/routes.py``) at full width, default /
+    route / route / default: bouncing_spheres 1200x800 @ 64 under
+    SPH_CELLBIN (K17), final_scene 800x800 @ 16 under SPH_CELLBIN (K17),
+    SPH_SKIP (K16), the split with OCC_GATE and K16's tail-only call, the
+    split's forced dense branch with COMPACT_CELLBIN (K17), and the split
+    alone, each route render launching its own kernels; then, per scene
+    and route (perlin staged and the box field included), the kernel path
+    against the plain path on the same injected uniforms (``n_uniform_cols``
+    rows) and, but for the box field, with independent seeds, statistically
+    (a route against the default route).
 
 Standard output ends with a JSON line of per-kernel results (each kernel's
 ``launches`` counted in the render of the newest path that runs it, named
@@ -81,9 +98,10 @@ CORNELL = ("cornell_box", 600, 600, 64)
 BOUNCING = ("bouncing_spheres", 1200, 800, 64)
 THREE = ("three_spheres", 400, 225, 16)
 # the big-scene slice's paths: (label, scene, nx, ny, spp, renders); the
-# first is the newest slice's main path; "box field" is the 40x40 field of
-# _box_field (1600 boxes, so no K9 cell table: K10)
-BIG_SCENES = [("final_scene", "final_scene", 800, 800, 16, 3),
+# first is its main path (rendered ten times more in ROUTE_RUNS' default
+# turns); "box field" is the 40x40 field of _box_field (1600 boxes, so no K9
+# cell table: K10)
+BIG_SCENES = [("final_scene", "final_scene", 800, 800, 16, 1),
               ("original_scene", "original_scene", 800, 800, 16, 1),
               ("cornell_smoke", "cornell_smoke", 600, 600, 64, 1),
               ("box field", "box field", 160, 90, 4, 1)]
@@ -131,6 +149,10 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "box_grid_cells": ("art_tpu_torch/csrc/box_grid.cu",
                        "art_tpu/ops/pallas_kernels.py:2435"),
     "box_grid": ("art_tpu_torch/csrc/box_grid.cu", "art_tpu/ops/pallas_kernels.py:2297"),
+    "sphere_skip": ("art_tpu_torch/csrc/sphere_skip.cu",
+                    "art_tpu/ops/pallas_kernels.py:1353"),
+    "sphere_cellbin": ("art_tpu_torch/csrc/sphere_cellbin.cu",
+                       "art_tpu/ops/pallas_kernels.py:1798"),
 }
 # which renders of phase 4 must launch which kernels (the launch-count gate);
 # a render may launch no kernel of KERNELS outside its own list
@@ -145,7 +167,8 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
                    "shade_flush_baked"),
          "simple_light": ("refill", "quad_hit", "sphere_hit", "turb", "flush_accumulate",
                           "table_gather_u24", "shade_flush_baked"),
-         # the split sphere pass launches K2 twice and K4 once an iteration
+         # the full-table K2 once an iteration (the split is opt-in); K4 and
+         # K8 for the earth image
          "final_scene": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
                          "flush_accumulate", "table_gather_u24", "turb",
                          "shade_flush_baked"),
@@ -153,7 +176,38 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
                             "flush_accumulate", "table_gather_u24", "turb",
                             "shade_flush_baked"),
          "cornell_smoke": ("refill", "quad_hit", "shade_flush_baked"),
-         "box field": ("refill", "box_grid", "shade_flush_baked")}
+         "box field": ("refill", "box_grid", "shade_flush_baked"),
+         # the opt-in sphere routes (ROUTE_RUNS)
+         "bouncing_spheres cellbin": ("refill", "sphere_cellbin", "shade_flush"),
+         "final_scene cellbin": ("refill", "quad_hit", "box_grid_cells", "sphere_cellbin",
+                                 "flush_accumulate", "table_gather_u24", "turb",
+                                 "shade_flush_baked"),
+         "final_scene skip": ("refill", "quad_hit", "box_grid_cells", "sphere_skip",
+                              "flush_accumulate", "table_gather_u24", "turb",
+                              "shade_flush_baked"),
+         # K2 over the head, K4 compacting, K16's tail-only call
+         "final_scene split skip": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
+                                    "sphere_skip", "flush_accumulate", "table_gather_u24",
+                                    "turb", "shade_flush_baked"),
+         # the dense branch is K17 alone
+         "final_scene split dense": ("refill", "quad_hit", "box_grid_cells", "sphere_cellbin",
+                                     "flush_accumulate", "table_gather_u24", "turb",
+                                     "shade_flush_baked"),
+         "final_scene split": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
+                               "flush_accumulate", "table_gather_u24", "turb",
+                               "shade_flush_baked")}
+# the opt-in sphere routes (art_tpu_torch/ops/routes.py), each rendered at
+# full width off / on / on / off against the default route: (label, scene,
+# nx, ny, spp, the switches); COMPACT_SKIP acts with SPH_SKIP, as in art_tpu
+ROUTE_RUNS = [
+    ("bouncing_spheres cellbin", "bouncing_spheres", 1200, 800, 64, dict(sph_cellbin=True)),
+    ("final_scene cellbin", "final_scene", 800, 800, 16, dict(sph_cellbin=True)),
+    ("final_scene skip", "final_scene", 800, 800, 16, dict(sph_skip=True)),
+    ("final_scene split skip", "final_scene", 800, 800, 16,
+     dict(compact_sph=True, occ_gate=True, sph_skip=True, compact_skip=True)),
+    ("final_scene split dense", "final_scene", 800, 800, 16,
+     dict(compact_sph=True, force_branch="dense", compact_cellbin=True)),
+    ("final_scene split", "final_scene", 800, 800, 16, dict(compact_sph=True))]
 # The least time the card could take (NVIDIA H100
 # SXM data sheet): bytes over the HBM rate, or operations over the FP32 rate
 # outside the tensor cores, which counts an FMA as two operations; these
@@ -1332,6 +1386,186 @@ def grid_split_checks(checks: Checks, dev, results: dict):
         f"one staged final_scene iteration: {m['staged_step_launches']} launches")
 
 
+def _ties(k, full):
+    """(t bit-equal, lanes whose winner differs at that equal t: exact ties
+    between segments) of a culled result against the full-table K2's."""
+    differ = k[2] != full[2]
+    for c in range(3):
+        differ |= k[1][c] != full[1][c]
+    return bool(k[0].eq(full[0]).all()), int(differ.sum())
+
+
+def _culled_tests(rows, meta, o, d, tm, occlusion, head=True, n_live=None):
+    """The (ray, sphere) tests that K16 (``occlusion`` False) or K17 (True)
+    needs on these rays, walked as its twin walks them: the live lanes times
+    the head rows, then each segment's rows times the lanes whose slab test
+    of its box passes (with ``occlusion``, at t_near <= the running best).
+    Returns (those tests, the tests the kernel's warps make: each warp of 32
+    consecutive lanes with such a lane counted whole)."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops import intersect_kernels as K
+    from art_tpu_torch.ops.intersect import slab_interval
+
+    def count(lanes, n_rows):
+        warps = torch.cat([lanes, lanes.new_zeros((-lanes.shape[0]) % 32)]).view(-1, 32)
+        return int(lanes.sum()) * n_rows, int(warps.any(dim=1).sum()) * 32 * n_rows
+
+    n_head, segs, box = meta
+    n_head = n_head if head else 0
+    t = K.sphere_hit_attrs_plain(None, o, d, tm, T_MIN, rows=rows[:n_head], n_live=n_live)[0]
+    live = torch.ones_like(t, dtype=torch.bool) if n_live is None else torch.arange(
+        t.shape[0], dtype=torch.int32, device=t.device) < n_live
+    ok, t_near = slab_interval(box, o, d, T_MIN)
+    needy = ok & live & ((t_near <= t) if occlusion else True)
+    counts = [count(live, n_head)]
+    for row0, row1, seg_box in segs:
+        ok, t_near = slab_interval(seg_box, o, d, T_MIN)
+        cross = needy & ok & ((t_near <= t) if occlusion else True)
+        counts.append(count(cross, row1 - row0))
+        t_s = K.sphere_hit_attrs_plain(None, o, d, tm, T_MIN, rows=rows[row0:row1])[0]
+        t = torch.where(cross & (t_s < t), t_s, t)
+    return tuple(sum(x) for x in zip(*counts))
+
+
+def _route_record(tables, o, d, tm, plain=False, **switches):
+    """closest_surface_p's record under the route ``switches``."""
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops import routes
+    from art_tpu_torch.ops.intersect import closest_surface_p
+
+    with routes.using(**switches):
+        rec = closest_surface_p(tables, o, d, tm, T_MIN, plain=plain)
+    return rec.t, rec.normal, rec.u, rec.v, rec.mat
+
+
+def cull_checks(checks: Checks, dev, results: dict):
+    """K16 and K17 against their twins and the full-table K2, on a
+    bouncing_spheres 1200x800 pool (K17's whole-set lattice) and a
+    final_scene 800x800 pool (K16 standalone and tail-only with n_live, K17's
+    tail lattice), 20 staged iterations in (R = 2^17); K2 bit-equal to its
+    twin on both; every opt-in route's closest_surface_p record equal to its
+    plain record and to the default route's; times and bounds."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import compact_sphere as cs
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    pools = {}
+    for name, nx, ny, spp in (BOUNCING[:4], ("final_scene", 800, 800, 16)):
+        scene = build_scene(name, nx, ny).to(dev)
+        s = _staged_pool(scene, nx, ny, spp, dev, 20)
+        pool = s["pool"]
+        pools[name] = (scene.tables, (pool["ox"], pool["oy"], pool["oz"]),
+                       (pool["dx"], pool["dy"], pool["dz"]), pool["tm"])
+        log(f"  {name} {nx}x{ny} pool after 20 iterations: R = {s['R']}, "
+            f"{int(pool['act'].sum())} live")
+    fin, fo, fd, ftm = pools["final_scene"]
+    # the split's compacted slots on the final_scene pool (phase 2e's)
+    needy = cs.tail_box_needy(fin.sph_tail_box, fo, fd, T_MIN)
+    cnt = needy.sum(dtype=torch.int32).reshape(1)
+    rays_k = torch.stack([*fo, *fd]).index_select(1, cf.compact_ray_ids(needy))
+    ko, kd, kz = tuple(rays_k[0:3]), tuple(rays_k[3:6]), torch.zeros_like(rays_k[0])
+
+    def case(tables, o, d, tm, **kw):
+        return (lambda: K.sphere_skip_hit_attrs(tables, o, d, tm, **kw),
+                lambda: K.sphere_skip_hit_attrs_plain(tables, o, d, tm, **kw))
+
+    bt, bo, bd, btm = pools["bouncing_spheres"]
+    cases = [  # (label, kernel, its twin, the full-table K2, rows, meta, occlusion, kw)
+        ("K17 whole-set lattice, bouncing_spheres", "sphere_cellbin",
+         lambda: K.sphere_cellbin_hit_attrs(bt, bo, bd, btm),
+         lambda: K.sphere_cellbin_hit_attrs_plain(bt, bo, bd, btm),
+         lambda: K.sphere_hit_attrs(bt, bo, bd, btm),
+         lambda: K.sphere_hit_attrs_plain(bt, bo, bd, btm),
+         (bt.sph_cellbin_rows, bt.sph_cellbin_meta, bo, bd, btm, True, {})),
+        ("K16 skip bins, final_scene", "sphere_skip", *case(fin, fo, fd, ftm),
+         lambda: K.sphere_hit_attrs(fin, fo, fd, ftm),
+         lambda: K.sphere_hit_attrs_plain(fin, fo, fd, ftm),
+         (fin.sph_skip_rows, fin.sph_skip_bins, fo, fd, ftm, False, {})),
+        ("K16 tail-only, n_live, final_scene's compacted slots", "sphere_skip",
+         *case(fin, ko, kd, kz, tail_only=True, n_live=cnt),
+         lambda: K.sphere_hit_attrs(fin, ko, kd, kz, rows=fin.sph_tail_rows, n_live=cnt),
+         lambda: K.sphere_hit_attrs_plain(fin, ko, kd, kz, rows=fin.sph_tail_rows,
+                                          n_live=cnt),
+         (fin.sph_skip_rows, fin.sph_skip_bins, ko, kd, kz, False,
+          dict(head=False, n_live=cnt))),
+        ("K17 tail lattice, final_scene", "sphere_cellbin",
+         lambda: K.sphere_cellbin_hit_attrs(fin, fo, fd, ftm),
+         lambda: K.sphere_cellbin_hit_attrs_plain(fin, fo, fd, ftm),
+         lambda: K.sphere_hit_attrs(fin, fo, fd, ftm),
+         lambda: K.sphere_hit_attrs_plain(fin, fo, fd, ftm),
+         (fin.sph_cellbin_rows, fin.sph_cellbin_meta, fo, fd, ftm, True, {}))]
+    suffix = {0: "", 1: "", 2: "_tail_only", 3: "_tail_lattice"}
+    cull = results.setdefault("_cull", {})
+    for n, (label, kname, kern, twin, full, full_p, bound) in enumerate(cases):
+        k, p, f, fp = kern(), twin(), full(), full_p()
+        torch.cuda.synchronize()
+        bad, bad_k2 = _equal(k, p), _equal(f, fp)
+        same_t, ties = _ties(k, f)
+        hits = int((f[0] < 1e30).sum())
+        checks.expect(bad == 0 and bad_k2 == 0 and same_t,
+                      f"{label}: {bad} values differ from the twin (K2 against its twin: "
+                      f"{bad_k2}); against the full-table K2 t bit-equal {same_t}, {ties} "
+                      f"exact ties between segments, {hits} hits")
+        rows, meta, o, d, tm, occlusion, kw = bound
+        lane_tests, warp_tests = _culled_tests(rows, meta, o, d, tm, occlusion, **kw)
+        R = o[0].shape[0]
+        ms = _timed_ms(kern, 20)
+        entry = dict(ms=ms, plain_ms=_timed_ms(twin, 3), full_k2_ms=_timed_ms(full, 20),
+                     ties=ties, hits=hits, R=R, segments=len(meta[1]), head_rows=meta[0],
+                     tests=lane_tests, warp_tests=warp_tests,
+                     full_tests=R * (meta[0] + sum(b - a for a, b, _ in meta[1])),
+                     max_abs_err=max(
+                         _max_diff(x, y) for x, y in zip([k[0], *k[1], k[2]],
+                                                         [p[0], *p[1], p[2]])))
+        # 7 planes in a live lane and 5 out a slot, the table and its
+        # segments once; the (ray, sphere) tests these rays need at K2's
+        # operations a test
+        live = int(kw["n_live"]) if "n_live" in kw else R
+        _set_bound(entry, live * 28 + R * 20 + rows.shape[0] * 40 + (len(meta[1]) + 1) * 32,
+                   lane_tests * OPS_SPHERE)
+        cull[label] = entry
+        r = results[kname]
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err"):
+            if n in (0, 1):
+                r[key] = entry[key]
+            else:
+                r[key + suffix[n]] = entry[key]
+        log(f"  {label}: kernel {ms:.4f} ms, plain {entry['plain_ms']:.4f} ms, full-table K2 "
+            f"{entry['full_k2_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}); (ray, sphere) tests: {lane_tests} needed, {warp_tests} "
+            f"by the warps, {entry['full_tests']} in the full table; {len(meta[1])} segments, "
+            f"head {meta[0]} rows")
+
+    # every opt-in route through closest_surface_p: the record equal to its
+    # plain record and, but for exact ties, to the default route's, with
+    # each route's kernels launched
+    for label, name, *_, switches in ROUTE_RUNS:
+        tables, o, d, tm = pools[name]
+        base = _route_record(tables, o, d, tm)
+        _build.launches.clear()
+        rec = _route_record(tables, o, d, tm, **switches)
+        counts = dict(_build.launches)
+        rec_p = _route_record(tables, o, d, tm, plain=True, **switches)
+        torch.cuda.synchronize()
+        bad = _equal(rec, rec_p)
+        same_t, ties = _ties((rec[0], rec[1], rec[4]), (base[0], base[1], base[4]))
+        want = [k for k in ("sphere_hit", "sphere_skip", "sphere_cellbin")
+                if k in PATHS[label]]
+        launched = [k for k in ("sphere_hit", "sphere_skip", "sphere_cellbin") if counts.get(k)]
+        checks.expect(bad == 0 and same_t and launched == want,
+                      f"closest_surface_p under {label} ({switches}): {bad} values differ "
+                      f"from its plain record; against the default route t bit-equal "
+                      f"{same_t}, {ties} ties; sphere kernels launched {counts}")
+        cull[f"closest_surface_p {label}"] = dict(ties=ties, launches=counts)
+
+
 def philox_checks(checks: Checks, dev):
     import torch
 
@@ -1430,12 +1664,40 @@ def _statistics(a, b):
     return corr, float(np.abs(a.mean((0, 1)) - b.mean((0, 1))).max())
 
 
+def _same_uniforms(checks, dev, label, name, short_path):
+    """The kernel path against the plain path on the same injected uniforms
+    (``n_uniform_cols`` rows) at SAME_UNIFORMS[name]'s size: iterations
+    equal, >= 98% of the pixels within 1e-3."""
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.render.integrator import n_uniform_cols
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches, render_scene
+
+    nx, ny, spp = SAME_UNIFORMS[label if label in SAME_UNIFORMS else name]
+    cfg = RenderConfig(nx=nx, ny=ny, spp=spp)
+    R = plan_batches(nx * ny, spp, 488, cfg, dev)[2]
+    scene = _box_field(nx, ny) if label == "box field" else build_scene(name, nx, ny)
+    ncols = n_uniform_cols(scene.tables)  # 9 + the media (at least one column)
+
+    def uniforms(tile, chunk, it):
+        return np.random.default_rng([SEED, tile, chunk, it]).random((ncols, R),
+                                                                     dtype=np.float32)
+
+    kfb, kst = render_scene(scene, cfg, device=dev, uniforms=uniforms, short_path=short_path)
+    pfb, pst = render_scene(scene, cfg, device=dev, uniforms=uniforms, plain=True,
+                            short_path=short_path)
+    close = float((np.abs(kfb - pfb).max(axis=-1) <= 1e-3).mean())
+    checks.expect(kst["iterations"] == pst["iterations"] and close >= 0.98,
+                  f"{label} {nx}x{ny} @ {spp}, same uniforms: iterations "
+                  f"{kst['iterations']} vs {pst['iterations']}, {close:.4f} of "
+                  f"pixels within 1e-3, rays {kst['rays']:.0f} vs {pst['rays']:.0f}, "
+                  f"short path {kst['short_path']}")
+
+
 def render_checks(checks: Checks, dev, smi: str, results: dict):
     import torch
 
     from art_tpu_torch.models import build_scene
-    from art_tpu_torch.render.integrator import n_uniform_cols
-    from art_tpu_torch.render.renderer import RenderConfig, plan_batches, render_scene
+    from art_tpu_torch.render.renderer import RenderConfig, render_scene
 
     counts_by_render: dict = {}
     results["_renders"] = {}
@@ -1503,34 +1765,46 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                       f"{label}: finite, >= 0 and not black (mean {fb.mean():.4f}, max "
                       f"{fb.max():.3f})")
 
-    # the split sphere pass against the full-table K2 end to end: the main
-    # path's render with the split off and on, in turns
-    from art_tpu_torch.ops import compact_sphere
+    # the opt-in sphere routes at full width, each off / on / on / off
+    # against the default route; the first "on" render is the route's path
+    # render (its launch counts)
+    from art_tpu_torch.ops import routes
+
+    results["_routes"] = {}
+    for label, name, nx, ny, spp, switches in ROUTE_RUNS:
+        scene = build_scene(name, nx, ny)
+        ab: dict = {"default": [], "route": []}
+        for rep, mode in enumerate(("default", "route", "route", "default")):
+            with routes.using(**(switches if mode == "route" else {})):
+                if rep == 1:
+                    fb, st = _render(checks, dev, name, nx, ny, spp, results, counts_by_render,
+                                     scene=scene, label=label)
+                    checks.expect(fb.mean() > 1e-3, f"{label}: not black (mean {fb.mean():.4f})")
+                else:
+                    _, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
+            ab[mode].append(st["seconds"])
+        results["_routes"][label] = dict(switches=switches, seconds=ab)
+        log(f"  {label} {nx}x{ny} @ {spp}, default / route / route / default: "
+            f"{ab['default'][0]:.3f} / {ab['route'][0]:.3f} / {ab['route'][1]:.3f} / "
+            f"{ab['default'][1]:.3f} s")
 
     label, name, nx, ny, spp, _ = BIG_SCENES[0]
-    scene = build_scene(name, nx, ny)
-    use_split = compact_sphere.use_split
-    ab: dict = {"full_k2": [], "split": []}
-    for mode in ("full_k2", "split", "split", "full_k2"):
-        compact_sphere.use_split = use_split if mode == "split" else (lambda t: False)
-        try:
-            _, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
-        finally:
-            compact_sphere.use_split = use_split
-        ab[mode].append(st["seconds"])
-    results.setdefault("_split", {})["render_seconds"] = ab
-    log(f"  {label} {nx}x{ny} @ {spp}, split off / on / on / off: "
-        f"{ab['full_k2'][0]:.3f} / {ab['split'][0]:.3f} / {ab['split'][1]:.3f} / "
-        f"{ab['full_k2'][1]:.3f} s")
-
     results["_render"] = dict(results["_renders"][f"{label} {nx}x{ny} @ {spp}"],
                               scene=f"{label} {nx}x{ny} @ {spp}", card=smi)
+    # the main path runs no split: one K2 an iteration, as one K1
+    c = counts_by_render[label]
+    checks.expect(c.get("sphere_hit") == c.get("refill"),
+                  f"{label}: the full-table K2 once an iteration ({c.get('sphere_hit')} "
+                  f"launches, K1 {c.get('refill')})")
     # each kernel's count is that of the newest path that runs it: this
-    # slice's main path (final_scene) and its other paths first, then the
-    # image slice's, the short-path slice's, then cornell_box's and
-    # bouncing_spheres' (the earlier slices' main paths), then three_spheres'
-    order = [lab for lab, *_ in BIG_SCENES + IMAGE + SHORT] + ["cornell_box", "bouncing_spheres",
-                                                        "three_spheres"]
+    # slice's K17 and K16 paths, the big-scene slice's main path (final_scene)
+    # and its other paths, then the image slice's, the short-path slice's,
+    # then cornell_box's and bouncing_spheres' (the earlier slices' main
+    # paths), then three_spheres', then the other opt-in routes
+    order = (["bouncing_spheres cellbin", "final_scene skip"]
+             + [lab for lab, *_ in BIG_SCENES + IMAGE + SHORT]
+             + ["cornell_box", "bouncing_spheres", "three_spheres"]
+             + [lab for lab, *_ in ROUTE_RUNS])
     for k in KERNELS:
         path = next(lab for lab in order if k in PATHS[lab])
         results[k]["launches"] = counts_by_render[path].get(k, 0)
@@ -1538,42 +1812,35 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
         results[k]["launches_by_render"] = {
             lab: c.get(k, 0) for lab, c in counts_by_render.items()}
 
-    for label in SAME_UNIFORMS:
-        # same injected uniforms through both paths
-        name, short_path = label.split()[0], (False if "staged" in label else None)
-        nx, ny, spp = SAME_UNIFORMS[label]
-        cfg = RenderConfig(nx=nx, ny=ny, spp=spp)
-        R = plan_batches(nx * ny, spp, 488, cfg, dev)[2]
-        scene = _box_field(nx, ny) if label == "box field" else build_scene(name, nx, ny)
-        ncols = n_uniform_cols(scene.tables)  # 9 + the media (at least one column)
-
-        def uniforms(tile, chunk, it, R=R, ncols=ncols):
-            return np.random.default_rng([SEED, tile, chunk, it]).random(
-                (ncols, R), dtype=np.float32)
-
-        kfb, kst = render_scene(scene, cfg, device=dev, uniforms=uniforms,
-                                short_path=short_path)
-        pfb, pst = render_scene(scene, cfg, device=dev, uniforms=uniforms, plain=True,
-                                short_path=short_path)
-        close = float((np.abs(kfb - pfb).max(axis=-1) <= 1e-3).mean())
-        checks.expect(kst["iterations"] == pst["iterations"] and close >= 0.98,
-                      f"{label} {nx}x{ny} @ {spp}, same uniforms: iterations "
-                      f"{kst['iterations']} vs {pst['iterations']}, {close:.4f} of "
-                      f"pixels within 1e-3, rays {kst['rays']:.0f} vs {pst['rays']:.0f}, "
-                      f"short path {kst['short_path']}")
-        if label not in INDEPENDENT:
-            continue
-        # independent seeds: kernels with Philox seed 1, plain with seed 2
-        nx, ny, spp = INDEPENDENT[name]
-        scene = build_scene(name, nx, ny)
-        kfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=1),
-                              device=dev)
-        pfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=2),
-                              device=dev, plain=True)
+    independent = {}  # default-route renders with seed 2, per scene
+    for label in list(SAME_UNIFORMS) + [lab for lab, *_ in ROUTE_RUNS]:
+        route = next((r for r in ROUTE_RUNS if r[0] == label), None)
+        name = route[1] if route else label.split()[0]
+        short_path = False if "staged" in label else None
+        with routes.using(**(route[-1] if route else {})):
+            _same_uniforms(checks, dev, label, name, short_path)
+            if route is None and label not in INDEPENDENT:
+                continue
+            # independent seeds: kernels with Philox seed 1 against the plain
+            # path (or, for a route, the default route's kernels) with seed 2
+            nx, ny, spp = INDEPENDENT[name]
+            scene = build_scene(name, nx, ny)
+            kfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=1),
+                                  device=dev)
+        if route is None:
+            pfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=2),
+                                  device=dev, plain=True)
+            against = "plain"
+        else:
+            if name not in independent:
+                independent[name] = render_scene(
+                    scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=2), device=dev)[0]
+            pfb, against = independent[name], "the default route"
         corr, mean_diff = _statistics(kfb, pfb)
         checks.expect(corr >= 0.98 and mean_diff <= 0.02,
-                      f"{name} {nx}x{ny} @ {spp}, independent seeds: luminance corr "
-                      f"{corr:.4f} (>= 0.98), channel mean diff {mean_diff:.4f} (<= 0.02)")
+                      f"{label} {nx}x{ny} @ {spp}, independent seeds against {against}: "
+                      f"luminance corr {corr:.4f} (>= 0.98), channel mean diff "
+                      f"{mean_diff:.4f} (<= 0.02)")
     torch.cuda.synchronize()
 
 
@@ -1606,10 +1873,13 @@ def main() -> int:
                  compact_checks, checks, dev, results)
     checks.phase("2e. K9, K10, the split sphere pass and the media", grid_split_checks,
                  checks, dev, results)
+    checks.phase("2f. K16 and K17, the culling sphere kernels, and the opt-in routes",
+                 cull_checks, checks, dev, results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     extra = {key: results.pop(f"_{key}", {}) for key in (
-        "render", "renders", "compact_fetch", "noise_p", "grid", "split", "media")}
+        "render", "renders", "compact_fetch", "noise_p", "grid", "split", "media", "cull",
+        "routes")}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
         for name, (src, rep) in KERNELS.items()], **extra, "card": smi}))

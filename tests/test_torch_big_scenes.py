@@ -19,7 +19,7 @@ one to 1.0):
   within 1% and >= 98% of the pixels within 1e-3, cornell_box's budgets
   (measured: rays 0.28%, 98.4% of the pixels).
 * original_scene 16x16 @ 4, lock-step: every iteration of a render, the
-  port's staged step (K1, K5, K9, the split K2/K4/K2, media, K7's noodle,
+  port's staged step (K1, K5, K9, the full-table K2, media, K7's noodle,
   the 8-ball's compacted fetch, baked K3) against art_tpu's op-by-op
   ``_bounce_step`` from the same state, with the box grid off (art_tpu's
   CPU route is the brute box test), at most 2 flips an iteration (measured:
