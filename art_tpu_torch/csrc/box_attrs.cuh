@@ -1,12 +1,16 @@
-// Shared box helpers of K6 (box_hit.cu) and K9/K10 (box_grid.cu).
+// Shared box helpers of K6 (box_hit.cu), K15's boxes (box_cluster.cu) and
+// K9/K10 (box_grid.cu).
 //
-// The slab division guard and the winner's face normal and make_box (u, v)
-// (art_tpu/ops/pallas_kernels.py:_safe_div_dir:1937 and
-// _box_write_winner_attrs:2053; src/quad.cuh:145-162): the slab is run once
-// more for the winner, its entry face taken if |t - t_entry| <= |t - t_exit|,
-// else its exit face; the normal faces against the ray and is rotated back
-// to world in the rotated form.  Plain twin: ops/intersect.py
-// box_attributes_rows, the same operations in the same order.
+// The slab division guard (art_tpu/ops/pallas_kernels.py:_safe_div_dir:1937);
+// K6's per-box candidate (box_test, _box_kernel:1943; plain twin:
+// ops/intersect.py box_candidates_rows); the winner's face normal and
+// make_box (u, v) (_box_write_winner_attrs:2053; src/quad.cuh:145-162): the
+// slab is run once more for the winner, its entry face taken if
+// |t - t_entry| <= |t - t_exit|, else its exit face; the normal faces against
+// the ray and is rotated back to world in the rotated form (plain twin:
+// ops/intersect.py box_attributes_rows, the same operations in the same
+// order); and the output of K6 and K15 (write_box_hit).  Box rows are
+// [min(3) max(3) cos sin off(3) mat] (scene/tables.py box_rows).
 #pragma once
 
 #include "common.cuh"
@@ -34,6 +38,27 @@ __device__ __forceinline__ void to_box_frame(float ct, float st, float offx, flo
     lox = ox; loy = oy; loz = oz;
     ldx = dx; ldy = dy; ldz = dz;
   }
+}
+
+constexpr int kBoxRow = 12;  // floats a box row
+
+// One (ray, box) candidate: the ray in the box frame, the slab with the
+// guarded inverses, t_entry if through and > t_min, else t_exit if through
+// and > t_min, else BIG.  r: the row's first 11 floats.
+template <bool kRotated>
+__device__ __forceinline__ float box_test(const float* r, float ox, float oy, float oz,
+                                          float dx, float dy, float dz, float t_min) {
+  float lox, loy, loz, ldx, ldy, ldz;
+  to_box_frame<kRotated>(r[6], r[7], r[8], r[9], r[10], ox, oy, oz, dx, dy, dz, lox, loy,
+                         loz, ldx, ldy, ldz);
+  const float ix = safe_inv(ldx), iy = safe_inv(ldy), iz = safe_inv(ldz);
+  const float tax = (r[0] - lox) * ix, tbx = (r[3] - lox) * ix;
+  const float tay = (r[1] - loy) * iy, tby = (r[4] - loy) * iy;
+  const float taz = (r[2] - loz) * iz, tbz = (r[5] - loz) * iz;
+  const float t0 = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)), fminf(taz, tbz));
+  const float t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fmaxf(taz, tbz));
+  const bool through = t0 < t1;
+  return (through && t0 > t_min) ? t0 : ((through && t1 > t_min) ? t1 : kBig);
 }
 
 struct BoxAttrs {
@@ -91,6 +116,47 @@ __device__ __forceinline__ BoxAttrs box_winner_attrs(
     a.v = (y - mny) / wy;
   }
   return a;
+}
+
+struct BoxPlanes {
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
+  float *t, *nx, *ny, *nz, *u, *v;
+  int* mat;
+};
+
+// planes: ox oy oz dx dy dz (in), t nx ny nz u v (f32) mat (i32) (out); all (R,)
+inline BoxPlanes box_planes(void* const* planes) {
+  BoxPlanes p;
+  p.ox = (const float*)planes[0]; p.oy = (const float*)planes[1];
+  p.oz = (const float*)planes[2]; p.dx = (const float*)planes[3];
+  p.dy = (const float*)planes[4]; p.dz = (const float*)planes[5];
+  p.t = (float*)planes[6]; p.nx = (float*)planes[7]; p.ny = (float*)planes[8];
+  p.nz = (float*)planes[9]; p.u = (float*)planes[10]; p.v = (float*)planes[11];
+  p.mat = (int*)planes[12];
+  return p;
+}
+
+// lane i's output: t and the attributes of the winning row `b` of `rows`
+// (box_winner_attrs); a miss (b < 0) writes t = BIG, normal (1, 0, 0),
+// u = v = 0 and material 0 (the values closest_surface_p blends in for misses)
+template <bool kRotated>
+__device__ __forceinline__ void write_box_hit(const BoxPlanes& p, int i,
+                                              const float* __restrict__ rows, int b,
+                                              float t, float ox, float oy, float oz,
+                                              float dx, float dy, float dz) {
+  p.t[i] = t;
+  if (b < 0) {
+    p.nx[i] = 1.f; p.ny[i] = 0.f; p.nz[i] = 0.f;
+    p.u[i] = 0.f; p.v[i] = 0.f; p.mat[i] = 0;
+    return;
+  }
+  const float* r = rows + (size_t)b * kBoxRow;
+  const BoxAttrs at = box_winner_attrs<kRotated>(ox, oy, oz, dx, dy, dz, t, r[0], r[1],
+                                                 r[2], r[3], r[4], r[5], r[6], r[7], r[8],
+                                                 r[9], r[10]);
+  p.nx[i] = at.nx; p.ny[i] = at.ny; p.nz[i] = at.nz;
+  p.u[i] = at.u; p.v[i] = at.v;
+  p.mat[i] = (int)r[11];
 }
 
 }  // namespace art

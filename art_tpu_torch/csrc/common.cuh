@@ -29,6 +29,14 @@ __device__ __forceinline__ U4 philox4x32(U4 c, uint32_t k0, uint32_t k1) {
   return c;
 }
 
+// torch.maximum / torch.minimum: a NaN operand is returned
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
 // 32 random bits -> float32 U[0,1) with 24 bits (core/rng.py:to_unit)
 __device__ __forceinline__ float to_unit(uint32_t x) {
   return (float)(x >> 8) * (1.0f / 16777216.0f);

@@ -101,14 +101,6 @@ __device__ __forceinline__ void write_hit(const SpherePlanes& p, int i, const Sp
   }
 }
 
-// torch.maximum / torch.minimum: a NaN operand is returned
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
-}
-
 // Could the ray's (t_min, inf) segment meet the box (x0 y0 z0 x1 y1 z1)?
 // Sets t_near, the entry t (ops/compact_sphere.py tail_box_interval, op for
 // op): a zero direction component becomes 1e-20, which errs toward "meets".

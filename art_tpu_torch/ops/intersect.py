@@ -3,12 +3,13 @@
 The plain PyTorch candidate passes and winner attributes of spheres
 (``sphere_candidates_p:218``, ``sphere_attributes_p:373``), quads
 (``quad_candidates_p:304``, ``quad_attributes_p:414``) and oriented boxes
-(``box_candidates_p:333``, ``box_attributes_p:433``), the lattice form of
+(``box_candidates_p:333``, ``box_attributes_p:433``), the per-ray BVH
+descent over the spheres (``bvh_sphere_candidates_p:257``), the lattice form of
 the grid kernels (``box_grid_candidates_p``, ``box_grid_attributes_p``),
 ``closest_surface_p`` (``:519``), which merges the three kinds through
 their kernels (``ops/intersect_kernels.py``, ``ops/compact_sphere.py``)
-unless asked for the plain path, the slab test of the culling passes
-(``slab_interval``), and the constant media
+unless asked for the plain path, the slab tests of the culling passes
+(``slab_interval``, ``cluster_slab``), and the constant media
 (``apply_media_p:844``, ``_gb_first_hit:758``), plain PyTorch as in
 ``art_tpu``.  A sphere's (u, v) comes from its normal in PyTorch glue
 (``sphere_uv``) when the scene has image or uv_offset textures, as
@@ -44,6 +45,7 @@ from art_tpu_torch.core.vecmath import (
     safe_dir,
     sqrt,
 )
+from art_tpu_torch.ops.bvh import traverse_closest_packed
 from art_tpu_torch.ops.gather import take_rows
 from art_tpu_torch.scene.tables import SceneTables, TexType
 
@@ -101,6 +103,42 @@ def _closest(t: torch.Tensor):
     t_best, idx = torch.min(t, dim=1)
     hit = t_best < BIG
     return torch.where(hit, t_best, BIG), torch.where(hit, idx.to(torch.int32), -1)
+
+
+def bvh_sphere_candidates_p(tables: SceneTables, o, d, time, t_min, stats=None):
+    """Best sphere hit per ray by per-ray escape-link descent of ``sph_bvh``
+    (``art_tpu/ops/intersect.py:257-300``; reference src/bvh.cuh:95-106):
+    (t_best (R,), idx (R,) int32 into ``sph_rows``), (BIG, 0) on a miss.
+
+    ``sphere_candidates_p``'s candidate (strict disc > 0, the near root if >
+    t_min, else the far root, src/sphere.cuh:51-89) against the one
+    ``sph_rows`` row each ray's walk reaches at a step, the running closest t
+    shrinking the slab window (``ops/bvh.py traverse_closest_packed``;
+    ``stats`` gets its step count).  A static row's c + time * 0 is c."""
+    rows = tables.sph_rows
+    dx, dy, dz = d
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / a
+
+    def prim_t_fn(idx, active):
+        row = rows.index_select(0, idx)
+        cx, cy, cz = (row[:, k] + time * row[:, 3 + k] for k in range(3))
+        ocx, ocy, ocz = o[0] - cx, o[1] - cy, o[2] - cz
+        b = ocx * dx + ocy * dy + ocz * dz
+        csq = ocx * ocx + ocy * ocy + ocz * ocz - row[:, 8]
+        disc = b * b - a * csq
+        s = sqrt(torch.clamp_min(disc, 0.0))
+        t1 = (-b - s) * inv_a
+        t2 = (-b + s) * inv_a
+        valid = active & (disc > 0.0)
+        big = torch.full_like(t1, BIG)
+        return torch.where(valid & (t1 > t_min), t1,
+                           torch.where(valid & (t2 > t_min), t2, big))
+
+    t_best, prim = traverse_closest_packed(
+        tables.sph_bvh, tables.n_sph_bvh_nodes, prim_t_fn, torch.stack(o, dim=-1),
+        torch.stack(d, dim=-1), t_min, t_max=BIG, stats=stats)
+    return t_best, prim.clamp_min(0)
 
 
 def quad_candidates_p(tables: SceneTables, o, d, t_min):
@@ -169,12 +207,34 @@ def slab_interval(box, o, d, t_min: float):
     return t_far >= t_near, t_near
 
 
+def cluster_slab(box, o, inv, t_min: float, best):
+    """(R,) bool: can the ray meet the box (x0, y0, z0, x1, y1, z1) between
+    t_min and its ``best`` t so far?  ``art_tpu``'s cluster test
+    (``_box_cluster_kernel``, ``pallas_kernels.py:2545-2563``): the slabs
+    with the guarded inverses ``inv`` (``1 / safe_dir(d)``), then
+    ``max(t0, t_min) <= min(t1, best)``; K15's box twin and kernel."""
+    t0s, t1s = [], []
+    for k in range(3):
+        ta = (box[k] - o[k]) * inv[k]
+        tb = (box[3 + k] - o[k]) * inv[k]
+        t0s.append(torch.minimum(ta, tb))
+        t1s.append(torch.maximum(ta, tb))
+    t0 = torch.maximum(torch.maximum(t0s[0], t0s[1]), t0s[2])
+    t1 = torch.minimum(torch.minimum(t1s[0], t1s[1]), t1s[2])
+    return t0.clamp_min(t_min) <= torch.minimum(t1, best)
+
+
 def box_candidates_p(tables: SceneTables, o, d, t_min):
     """Best box hit per ray over ``box_rows`` (slab test, replaces the
     reference's compound6 six-quad scan): (t_best, idx int32), (BIG, -1)
     on a miss."""
-    rows = tables.box_rows
-    lo, ld = _box_frame(rows, o, d, tables.has_rotated_boxes)
+    return box_candidates_rows(tables.box_rows, tables.has_rotated_boxes, o, d, t_min)
+
+
+def box_candidates_rows(rows, rotated: bool, o, d, t_min):
+    """``box_candidates_p`` over the (B, 12) ``box_rows``-layout table
+    ``rows`` (``rotated``: the table's rows are in box frames)."""
+    lo, ld = _box_frame(rows, o, d, rotated)
     t0s, t1s = _slabs(lo, ld, [rows[None, :, k] for k in range(3)],
                       [rows[None, :, k] for k in range(3, 6)])
     t_entry = torch.maximum(torch.maximum(t0s[0], t0s[1]), t0s[2])
@@ -330,6 +390,14 @@ def box_attributes_rows(row, o, d, t):
     return normal, ua, va, row[:, 11].to(torch.int32)
 
 
+def miss_defaults(hit, normal, rest):
+    """normal (1, 0, 0) and zeros where ``hit`` is False."""
+    one, zero = torch.ones_like(normal[0]), torch.zeros_like(normal[0])
+    normal = (torch.where(hit, normal[0], one), torch.where(hit, normal[1], zero),
+              torch.where(hit, normal[2], zero))
+    return normal, tuple(torch.where(hit, x, torch.zeros_like(x)) for x in rest)
+
+
 def _closer(best, cand):
     """``cand`` where it is strictly closer than ``best``: (t, normal, u, v,
     mat) tuples; ``best`` keeps exact ties."""
@@ -346,11 +414,15 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
     Each kind goes through its kernel, which takes ``t_min`` as an argument
     (``art_tpu``'s Pallas kernels bake ``T_MIN``, ``intersect.py:533-536``);
     ``plain`` runs the plain twins instead.  The kernels are ``art_tpu``'s
-    default routes (``intersect.py:540-709``): boxes on a detected grid go
-    to K9 when the builder set ``box_grid_cells``, else to K10, other boxes
-    to K6.  Spheres go, in ``art_tpu``'s order of precedence
-    (``intersect.py:654-708``) under the switches of ``ops/routes.py``: to
-    K17 (``ART_TPU_SPH_CELLBIN``, where the builder made cell bins); to the
+    routes (``intersect.py:540-709``) under the switches of
+    ``ops/routes.py``: boxes go to K15's box clusters (``ART_TPU_CLUSTER``,
+    where the builder made them), else, on a detected grid, to K9 when the
+    builder set ``box_grid_cells``, else to K10, other boxes to K6.  Spheres
+    go, in ``art_tpu``'s order of precedence (``intersect.py:654-708``): to
+    the per-ray BVH descent (``ART_TPU_BVH``, plain PyTorch on every device
+    as in ``art_tpu``, the winner's attributes from
+    ``sphere_attributes_p``); to K15's sphere clusters (``ART_TPU_CLUSTER``);
+    to K17 (``ART_TPU_SPH_CELLBIN``, where the builder made cell bins); to the
     split pass (``ops/compact_sphere.py``; opt-in here under
     ``ART_TPU_COMPACT_SPH``, for a tail of at least 512 rows and a pool of
     ``SPH_K < R < 2^24`` slots) with the occlusion gate
@@ -378,8 +450,11 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
         best = (t, p_where(hit, normal, (torch.ones_like(t), zero, zero)),
                 torch.where(hit, alpha, zero), torch.where(hit, beta, zero),
                 torch.where(hit, mat, torch.zeros_like(mat)))
+    r = routes.ROUTES
     if tables.n_boxes:
-        if not tables.box_grid_kx:
+        if r.cluster and tables.n_box_clusters:
+            box = K.box_cluster_hit_attrs_plain if plain else K.box_cluster_hit_attrs
+        elif not tables.box_grid_kx:
             box = K.box_hit_attrs_plain if plain else K.box_hit_attrs
         elif tables.box_grid_cell_rows is not None:
             box = K.box_grid_cells_hit_attrs_plain if plain else K.box_grid_cells_hit_attrs
@@ -388,12 +463,18 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
         cand = box(tables, o, d, t_min)
         best = cand if best is None else _closer(best, cand)
     if tables.n_spheres:
-        r = routes.ROUTES
         cellbin = tables.sph_cellbin_meta is not None
         skip = r.sph_skip and tables.sph_skip_bins is not None
         split = r.compact_sph and compact_sphere.use_split(tables, o[0].shape[0])
         dense = split and r.force_branch == "dense"  # the split's dense branch
-        if cellbin and (r.sph_cellbin or dense and r.compact_cellbin):
+        if r.bvh and tables.n_sph_bvh_nodes:
+            t, idx = bvh_sphere_candidates_p(tables, o, d, time, t_min)
+            normal, mat = sphere_attributes_p(tables.sph_rows, o, d, time, t, idx)
+            normal, (mat,) = miss_defaults(t < BIG, normal, (mat,))
+        elif r.cluster and tables.n_sphere_clusters:
+            t, normal, mat = (K.sphere_cluster_hit_attrs_plain if plain
+                              else K.sphere_cluster_hit_attrs)(tables, o, d, time, t_min)
+        elif cellbin and (r.sph_cellbin or dense and r.compact_cellbin):
             t, normal, mat = (K.sphere_cellbin_hit_attrs_plain if plain
                               else K.sphere_cellbin_hit_attrs)(tables, o, d, time, t_min)
         elif split and not dense:

@@ -13,6 +13,17 @@
   over a sphere tail, K17's lattice cells with an occlusion bound.  Their
   twins are K2's twin over the head and over each segment, masked per ray by
   the kernels' slab tests and merged with a strict ``<``.
+* K15's sphere half ``sphere_cluster_hit_attrs`` (``csrc/sphere_cluster.cu``),
+  replacing ``sphere_hit_attrs_clustered`` (``:896``): K17's scan with no
+  head over the spheres in BVH-leaf clusters of 64 (``scene/cull.py``), a
+  cluster scanned where its box can be met before the running best t; its
+  twin is K17's (``culled_plain`` with the occlusion bound) over that table.
+* K15's box half ``box_cluster_hit_attrs`` (``csrc/box_cluster.cu``),
+  replacing ``box_hit_attrs_clustered`` (``:2601``): K6's outputs over the
+  boxes in BVH-leaf clusters of 64, a cluster scanned where ``art_tpu``'s
+  bounded test of its box (``intersect.cluster_slab``) passes; its twin is
+  K6's twin over each cluster, masked by that test and merged with a strict
+  ``<``, then the winner's attributes.
 * K5 ``quad_closest_hit`` (``csrc/quad_hit.cu``), replacing
   ``quad_closest_hit_planar`` (``_quad_kernel``): the closest quad's t and
   index; ``closest_surface_p`` gets its normal and (alpha, beta) from
@@ -41,14 +52,19 @@ import ctypes
 
 import torch
 
-from art_tpu_torch.core.vecmath import BIG, T_MIN, p_where
+from art_tpu_torch.core.vecmath import BIG, T_MIN, p_where, safe_dir
 from art_tpu_torch.ops import _build
+from art_tpu_torch.ops.gather import take_rows
 from art_tpu_torch.ops.intersect import (
     box_attributes_p,
     box_candidates_p,
     box_grid_attributes_p,
+    box_attributes_rows,
+    box_candidates_rows,
     box_grid_candidates_p,
+    cluster_slab,
     grid_cells,
+    miss_defaults,
     quad_candidates_p,
     sphere_attributes_p,
     sphere_candidates_p,
@@ -59,19 +75,13 @@ from art_tpu_torch.scene.tables import SceneTables
 NAME = "sphere_hit"
 SKIP = "sphere_skip"  # K16
 CELLBIN = "sphere_cellbin"  # K17
+CLUSTER = "sphere_cluster"  # K15, spheres
+BOX_CLUSTER = "box_cluster"  # K15, boxes
 QUAD = "quad_hit"
 BOX = "box_hit"
 GRID = "box_grid"  # K10
 GRID_CELLS = "box_grid_cells"  # K9
 _RAY = ("ox", "oy", "oz", "dx", "dy", "dz")
-
-
-def _miss_defaults(hit, normal, rest):
-    """normal (1, 0, 0) and zeros where ``hit`` is False."""
-    one, zero = torch.ones_like(normal[0]), torch.zeros_like(normal[0])
-    normal = (torch.where(hit, normal[0], one), torch.where(hit, normal[1], zero),
-              torch.where(hit, normal[2], zero))
-    return normal, tuple(torch.where(hit, x, torch.zeros_like(x)) for x in rest)
 
 
 def sphere_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN, *, rows=None,
@@ -87,7 +97,7 @@ def sphere_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN, *, rows=N
         zero = torch.zeros_like(t)
         return t, (torch.ones_like(t), zero, zero), torch.zeros_like(idx)
     normal, mat = sphere_attributes_p(rows, o, d, tm, t, idx)
-    normal, (mat,) = _miss_defaults(t < BIG, normal, (mat,))
+    normal, (mat,) = miss_defaults(t < BIG, normal, (mat,))
     return t, normal, mat
 
 
@@ -167,6 +177,9 @@ def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
         rc = lib.art_sphere_skip(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, n_head, R,
                                  float(t_min), None if n_live is None else n_live.data_ptr(),
                                  ptrs, _build.stream_handle(dev))
+    elif name == CLUSTER:
+        rc = lib.art_sphere_cluster(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, R,
+                                    float(t_min), ptrs, _build.stream_handle(dev))
     else:
         rc = lib.art_sphere_cellbin(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, n_head,
                                     R, float(t_min), ptrs, _build.stream_handle(dev))
@@ -212,6 +225,21 @@ def sphere_cellbin_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN):
                           tables.sph_cellbin_meta[0], o, d, tm, t_min)
 
 
+def sphere_cluster_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN):
+    """Plain PyTorch K15 (spheres) over ``sph_cl_rows``: ``culled_plain``
+    with the occlusion bound and no head."""
+    return culled_plain(tables.sph_cl_rows, tables.sph_cl_meta, o, d, tm, t_min,
+                        occlusion=True, head=False)
+
+
+def sphere_cluster_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN):
+    """K15 (spheres): K2's (t, normal, mat) over the BVH-leaf clusters; the
+    CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    if o[0].device.type == "cpu":
+        return sphere_cluster_hit_attrs_plain(tables, o, d, tm, t_min)
+    return _culled_launch(CLUSTER, tables.sph_cl_rows, tables.sph_cl_seg, 0, o, d, tm, t_min)
+
+
 def quad_closest_hit_plain(tables: SceneTables, o, d, t_min=T_MIN):
     """Plain PyTorch K5: ``quad_candidates_p`` over ``quad_rows``."""
     return quad_candidates_p(tables, o, d, t_min)
@@ -242,7 +270,7 @@ def box_hit_attrs_plain(tables: SceneTables, o, d, t_min=T_MIN):
     ``box_rows``; returns (t, normal 3-tuple, u, v, mat)."""
     t, idx = box_candidates_p(tables, o, d, t_min)
     normal, u, v, mat = box_attributes_p(tables, o, d, t, idx.clamp_min(0))
-    normal, (u, v, mat) = _miss_defaults(t < BIG, normal, (u, v, mat))
+    normal, (u, v, mat) = miss_defaults(t < BIG, normal, (u, v, mat))
     return t, normal, u, v, mat
 
 
@@ -257,15 +285,61 @@ def box_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
     R = ins[0].shape[0]
     _build.check_planes(_RAY, ins, R, torch.float32, dev)
     rows = _build.check_table("box_rows", tables.box_rows, 12, dev)
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    nx, ny, nz, u, v = (torch.empty_like(t) for _ in range(5))
-    mat = torch.empty(R, dtype=torch.int32, device=dev)
-    ptrs = _build.pointers((*ins, t, nx, ny, nz, u, v, mat))
+    t, nx, ny, nz, u, v, mat = outs = _box_outputs(R, dev)
     rc = _build.library().art_box_hit(rows.data_ptr(), rows.shape[0], R, float(t_min),
-                                      int(tables.has_rotated_boxes), ptrs,
+                                      int(tables.has_rotated_boxes), _build.pointers(ins + outs),
                                       _build.stream_handle(dev))
     _build.check(rc, BOX)
     _build.launches[BOX] += 1
+    return t, (nx, ny, nz), u, v, mat
+
+
+def _box_outputs(R: int, dev):
+    """K6's output planes: t, normal x3, u, v (float32) and mat (int32)."""
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    return (t, *(torch.empty_like(t) for _ in range(5)),
+            torch.empty(R, dtype=torch.int32, device=dev))
+
+
+def box_cluster_hit_attrs_plain(tables: SceneTables, o, d, t_min=T_MIN):
+    """Plain PyTorch K15 (boxes) over ``box_cl_rows``: per cluster K6's
+    candidate pass over its rows, taken where ``cluster_slab`` passes (the
+    clusters' union box first, then the cluster's box, bounded by the running
+    best t) and strictly closer; then K6's winner attributes."""
+    rows, (_, segs, union) = tables.box_cl_rows, tables.box_cl_meta
+    inv = tuple(1.0 / safe_dir(c) for c in d)
+    t = torch.full_like(o[0], BIG)
+    idx = torch.full(t.shape, -1, dtype=torch.int32, device=t.device)
+    needy = cluster_slab(union, o, inv, t_min, t)
+    for row0, row1, box in segs:
+        cross = needy & cluster_slab(box, o, inv, t_min, t)
+        t_c, i_c = box_candidates_rows(rows[row0:row1], tables.has_rotated_boxes, o, d, t_min)
+        better = cross & (t_c < t)
+        t, idx = torch.where(better, t_c, t), torch.where(better, i_c + row0, idx)
+    normal, u, v, mat = box_attributes_rows(take_rows(rows, idx.clamp_min(0)), o, d, t)
+    normal, (u, v, mat) = miss_defaults(t < BIG, normal, (u, v, mat))
+    return t, normal, u, v, mat
+
+
+def box_cluster_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
+    """K15 (boxes): K6's (t, normal, u, v, mat) over the BVH-leaf clusters;
+    the CUDA kernel (rotated or axis-aligned form) for CUDA tensors, the
+    plain twin for CPU tensors."""
+    if o[0].device.type == "cpu":
+        return box_cluster_hit_attrs_plain(tables, o, d, t_min)
+    dev = o[0].device
+    ins = (*o, *d)
+    R = ins[0].shape[0]
+    _build.check_planes(_RAY, ins, R, torch.float32, dev)
+    rows = _build.check_table("box_cl_rows", tables.box_cl_rows, 12, dev)
+    seg = _build.check_table("box_cl_seg", tables.box_cl_seg, 8, dev)
+    t, nx, ny, nz, u, v, mat = outs = _box_outputs(R, dev)
+    rc = _build.library().art_box_cluster(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1,
+                                          R, float(t_min), int(tables.has_rotated_boxes),
+                                          _build.pointers(ins + outs),
+                                          _build.stream_handle(dev))
+    _build.check(rc, BOX_CLUSTER)
+    _build.launches[BOX_CLUSTER] += 1
     return t, (nx, ny, nz), u, v, mat
 
 
@@ -273,7 +347,7 @@ def _grid_plain(tables: SceneTables, o, d, t_min, grouped: bool):
     cells = grid_cells(tables, grouped)
     t, idx = box_grid_candidates_p(tables, cells, o, d, t_min)
     normal, u, v, mat = box_grid_attributes_p(tables, cells, o, d, t, idx.clamp_min(0))
-    normal, (u, v, mat) = _miss_defaults(t < BIG, normal, (u, v, mat))
+    normal, (u, v, mat) = miss_defaults(t < BIG, normal, (u, v, mat))
     return t, normal, u, v, mat
 
 

@@ -1,7 +1,7 @@
-"""The sphere-route switches, read once from the environment.
+"""The intersection-route switches, read once from the environment.
 
-``art_tpu`` reads its sphere-route switches once, at import
-(``art_tpu/ops/intersect.py:155-183``, ``ops/compact_sphere.py:52-60``,
+``art_tpu`` reads its route switches once, at import
+(``art_tpu/ops/intersect.py:112-183``, ``ops/compact_sphere.py:52-60``,
 ``ops/pallas_kernels.py:1084``); the port reads the same names once into
 one frozen record, ``ROUTES``, which ``ops/intersect.closest_surface_p``
 reads at call time (K16's bin count, ``ART_TPU_SPH_BINS``, is a table
@@ -9,6 +9,15 @@ shape and is read by ``scene/cull.py``).  A switch is on
 when its variable is set to a non-empty value, as in ``art_tpu``.
 
 =========================  ==================================================
+``ART_TPU_CLUSTER``        K15: spheres and boxes in BVH-leaf clusters of 64
+                           (``csrc/sphere_cluster.cu``, ``csrc/box_cluster.cu``)
+                           where the builder made them; the box clusters
+                           before the grid kernels K9 / K10, the sphere
+                           clusters before every sphere route below
+``ART_TPU_BVH``            the per-ray BVH descent over the spheres
+                           (``ops/intersect.bvh_sphere_candidates_p``, plain
+                           PyTorch on every device, as in ``art_tpu``); before
+                           every other sphere route
 ``ART_TPU_COMPACT_SPH``    the split sphere pass (``ops/compact_sphere.py``);
                            on by default in ``art_tpu``, opt-in here: on the
                            H100 it lost to the full-table K2 on every
@@ -38,6 +47,8 @@ import os
 
 @dataclasses.dataclass(frozen=True)
 class Routes:
+    cluster: bool = False
+    bvh: bool = False
     compact_sph: bool = False
     occ_gate: bool = False
     sph_skip: bool = False
@@ -52,6 +63,8 @@ def from_environ(env=os.environ) -> Routes:
         return bool(env.get(f"ART_TPU_{name}"))
 
     return Routes(
+        cluster=on("CLUSTER"),
+        bvh=on("BVH"),
         compact_sph=on("COMPACT_SPH"),
         occ_gate=on("OCC_GATE"),
         sph_skip=on("SPH_SKIP"),

@@ -33,7 +33,7 @@ from art_tpu_torch.core.camera import Camera, make_camera
 from art_tpu_torch.scene import materials as M
 from art_tpu_torch.scene import objects as O
 from art_tpu_torch.scene import textures as X
-from art_tpu_torch.scene.cull import cull_tables
+from art_tpu_torch.scene.cull import bvh_table, cluster_tables, cull_tables
 from art_tpu_torch.scene.tables import (
     MAX_BAKED_MATS,
     MAX_SP_PRIMS,
@@ -753,6 +753,11 @@ def _tables(arrays: dict) -> SceneTables:
                                              tail.get("sph_tail_r", 1.0),
                                              tail.get("sph_tail_mat", 0.0))
     cull = cull_tables(head_rows, tail_rows, sph, tail.get("sph_tail_box", ()))
+    boxes = box_rows(t["box_min"], t["box_max"], t["box_cos"], t["box_sin"], t["box_off"],
+                     t["box_mat"], rotated)[:n_b]
+    moving = bool(a.get("has_moving", bool(np.any(a["sph_vel"] != 0.0))))
+    tn = {k: v.numpy() for k, v in t.items()}
+    cull.update(cluster_tables(tn, n_s, n_b, sph, boxes), sph_bvh=bvh_table(tn, n_s, moving))
     media = {k: tuple(int(x) for x in a.get(k, ())) for k in _MEDIA_META}
     if "med_kinds" not in arrays:
         media["med_kinds"] = tuple(int(x) for x in a["med_kind"][:n_m])
@@ -762,12 +767,11 @@ def _tables(arrays: dict) -> SceneTables:
         sph_head_rows=head_rows, sph_tail_rows=tail_rows, **cull,
         quad_rows=quad_rows(t["quad_n"], t["quad_d"], t["quad_avec"], t["quad_ca"],
                             t["quad_bvec"], t["quad_cb"])[:n_q],
-        box_rows=box_rows(t["box_min"], t["box_max"], t["box_cos"], t["box_sin"],
-                          t["box_off"], t["box_mat"], rotated)[:n_b],
+        box_rows=boxes,
         box_grid_rows=t["box_grid"].reshape(t["box_grid"].shape[0], -1).contiguous(),
         box_grid_cell_rows=grid_cell_rows(grid.get("box_grid_cells")),
         n_spheres=n_s, n_quads=n_q, n_boxes=n_b, n_media=n_m, **media, **grid, **tail,
-        has_moving=bool(a.get("has_moving", bool(np.any(a["sph_vel"] != 0.0)))),
+        has_moving=moving,
         has_rotated_boxes=rotated,
         tex_types_present=tuple(int(x) for x in a["tex_types_present"]),
         shade_consts=consts,

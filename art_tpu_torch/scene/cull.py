@@ -1,4 +1,5 @@
-"""The culling sphere tables of K16 (skip bins) and K17 (cell bins).
+"""The culling tables: K16's skip bins, K17's cell bins, K15's BVH-leaf
+clusters of spheres and boxes, and the sphere BVH of the per-ray descent.
 
 Ports of ``art_tpu/ops/pallas_kernels.py:pack_skip_spheres`` (``:1089``),
 ``pack_cellbin_spheres`` (``:1407``) and ``pack_tail2d_spheres``
@@ -31,6 +32,18 @@ TPU loop device): dropped, so the row ranges are exact.  Its head and each
 of its cells hold the moving rows first; here the head and the cells keep
 scene order (a row carries its velocity), and the bins keep ``art_tpu``'s
 order (the tail in scene order, sorted stably along the bin axis).
+
+K15's tables (``cluster_tables``) port ``art_tpu``'s ``cluster_spheres``
+(``pallas_kernels.py:934``) and ``cluster_boxes`` (``:2642``) with the gates
+of ``finish`` (``scene/builder.py:812-824``: at least 32 spheres, at least
+32 boxes): the kernel rows (``sphere_rows``, ``box_rows``) in BVH-leaf order
+(``ops/bvh.py cluster_primitives``) cut into clusters of 64, each cluster a
+segment of the layout above with no head and its box rounded to float32 as
+``art_tpu``'s ``sph_cl_box`` / ``box_cl_box`` (a sphere's swept over t in
+[0, 1], a box's over its 8 rotated corners); the last cluster is shorter
+where ``art_tpu`` pads it with inert rows, and row 0 of ``seg`` holds the
+clusters' union box.  ``bvh_table`` is the packed sphere BVH of ``finish``
+(``:825-848``, at least 2 spheres; velocities zeroed unless a sphere moves).
 """
 
 from __future__ import annotations
@@ -40,11 +53,16 @@ import os
 import numpy as np
 import torch
 
+from art_tpu_torch.ops import bvh
+
 SKIP_MIN_TAIL = 512  # pallas_kernels.py:1084
 SPH_BINS = int(os.environ.get("ART_TPU_SPH_BINS", "16"))  # pallas_kernels.py:1086
 CELLBIN_MIN = 128  # pallas_kernels.py:1404
 CELLBIN_GRID = 4  # pallas_kernels.py:1407 _CELLBIN_GRID
 TAIL_LATTICE = 3  # pack_tail2d_spheres' g
+SPHERE_CLUSTER = 64  # pallas_kernels.py:775
+BOX_CLUSTER = 64  # pallas_kernels.py:2479
+CLUSTER_MIN = 32  # finish's gate for either kind (builder.py:814, :820)
 
 
 def _box(lo: np.ndarray, hi: np.ndarray) -> tuple:
@@ -169,3 +187,48 @@ def cull_tables(head: torch.Tensor, tail: torch.Tensor, sph_rows: torch.Tensor,
         out.update(sph_cellbin_rows=torch.from_numpy(cell[0]), sph_cellbin_meta=cell[1],
                    sph_cellbin_seg=seg_table(cell[1]))
     return out
+
+
+def _clusters(bmin, bmax, rows: np.ndarray, size: int):
+    """(rows in BVH-leaf order, (0, clusters, union box)) of ``rows`` in
+    clusters of ``size`` (module docstring)."""
+    ordered, boxes, n_cl, _ = bvh.cluster_primitives(bmin, bmax, rows, size)
+    n = len(rows)
+    segs = tuple((c * size, min((c + 1) * size, n), tuple(float(v) for v in boxes[c, :6]))
+                 for c in range(n_cl))
+    union = tuple(float(v) for v in np.concatenate([boxes[:, :3].min(axis=0),
+                                                    boxes[:, 3:6].max(axis=0)]))
+    return ordered, (0, segs, union)
+
+
+def cluster_tables(a: dict, n_s: int, n_b: int, sph_rows: torch.Tensor,
+                   box_rows: torch.Tensor) -> dict:
+    """K15's fields of ``SceneTables`` from ``art_tpu``-named float32 arrays
+    ``a`` and the kernel rows (module docstring); None where a kind has
+    fewer than ``CLUSTER_MIN`` primitives."""
+    out = dict(sph_cl_rows=None, sph_cl_meta=None, sph_cl_seg=None, box_cl_rows=None,
+               box_cl_meta=None, box_cl_seg=None)
+    if n_s >= CLUSTER_MIN:
+        lo, hi = bvh.sphere_world_bounds(a["sph_center"][:n_s], a["sph_vel"][:n_s],
+                                         a["sph_radius"][:n_s])
+        rows, meta = _clusters(lo, hi, sph_rows.numpy(), SPHERE_CLUSTER)
+        out.update(sph_cl_rows=torch.from_numpy(rows), sph_cl_meta=meta,
+                   sph_cl_seg=seg_table(meta))
+    if n_b >= CLUSTER_MIN:
+        lo, hi = bvh.box_world_bounds(*(a[k][:n_b] for k in (
+            "box_min", "box_max", "box_cos", "box_sin", "box_off")))
+        rows, meta = _clusters(lo, hi, box_rows.numpy(), BOX_CLUSTER)
+        out.update(box_cl_rows=torch.from_numpy(rows), box_cl_meta=meta,
+                   box_cl_seg=seg_table(meta))
+    return out
+
+
+def bvh_table(a: dict, n_s: int, has_moving: bool) -> torch.Tensor | None:
+    """``sph_bvh`` (M, 8), the packed sphere BVH of the per-ray descent
+    (module docstring); None below 2 spheres."""
+    if n_s < 2:
+        return None
+    center = a["sph_center"][:n_s]
+    vel = a["sph_vel"][:n_s] if has_moving else np.zeros_like(center)
+    tree = bvh.build_bvh(*bvh.sphere_world_bounds(center, vel, a["sph_radius"][:n_s]))
+    return torch.from_numpy(bvh.pack_bvh(tree))

@@ -59,6 +59,13 @@ Beside them, the kernels' own tables (built once per scene, on the host):
   contiguous segments (skip bins along one axis of the tail; cells of a
   lattice), the static ``(n_head, segments, box)`` and its device table
   (``scene/cull.py``); None where the builder's gates leave them out.
+* ``sph_cl_rows`` / ``sph_cl_meta`` / ``sph_cl_seg`` (K15's spheres,
+  ``csrc/sphere_cluster.cu``) and ``box_cl_rows`` / ``box_cl_meta`` /
+  ``box_cl_seg`` (K15's boxes, ``csrc/box_cluster.cu``): ``sphere_rows`` and
+  ``box_rows`` in BVH-leaf order, in clusters of 64 rows with their boxes,
+  in the layout above with no head (``scene/cull.py cluster_tables``), and
+  ``sph_bvh`` (M, 8), the packed sphere BVH of the per-ray descent
+  (``ops/bvh.py pack_bvh``); None where the builder's gates leave them out.
 """
 
 from __future__ import annotations
@@ -203,6 +210,15 @@ class SceneTables:
     sph_cellbin_rows: torch.Tensor | None = None
     sph_cellbin_meta: tuple | None = None
     sph_cellbin_seg: torch.Tensor | None = None
+    # K15's clusters and the sphere BVH (scene/cull.py); None where they do
+    # not apply
+    sph_cl_rows: torch.Tensor | None = None
+    sph_cl_meta: tuple | None = None
+    sph_cl_seg: torch.Tensor | None = None
+    box_cl_rows: torch.Tensor | None = None
+    box_cl_meta: tuple | None = None
+    box_cl_seg: torch.Tensor | None = None
+    sph_bvh: torch.Tensor | None = None
     # baked material/texture constants (scene/builder._shade_consts):
     # (mats, specials) or None, and their kernel table
     shade_consts: tuple | None = None
@@ -215,6 +231,19 @@ class SceneTables:
     sp_mat_rows: torch.Tensor | None = None
     # the image textures' texels (an empty 1x1 atlas when there is none)
     atlas: ImageAtlas = dataclasses.field(default_factory=ImageAtlas.empty)
+
+    # art_tpu's counts of the tables above (0 without them)
+    @property
+    def n_sphere_clusters(self) -> int:
+        return len(self.sph_cl_meta[1]) if self.sph_cl_meta else 0
+
+    @property
+    def n_box_clusters(self) -> int:
+        return len(self.box_cl_meta[1]) if self.box_cl_meta else 0
+
+    @property
+    def n_sph_bvh_nodes(self) -> int:
+        return 0 if self.sph_bvh is None else self.sph_bvh.shape[0]
 
     def to(self, device) -> "SceneTables":
         """The same tables with every tensor, the atlas's too, on ``device``."""

@@ -46,6 +46,17 @@ Phases (each runs; any failure exits non-zero without the final result):
     (ray, sphere) tests those rays need; then ``closest_surface_p`` under
     every opt-in sphere route (ROUTE_RUNS) equal to its plain record and to
     the default route's, launching the route's sphere kernels;
+    2g. K15 (``ART_TPU_CLUSTER``): its spheres on 2f's bouncing_spheres
+    and final_scene pools, its boxes on that final_scene pool, the box
+    field's pool (2e's) and a rotated field's (144 boxes turned about y,
+    320x240 @ 64, 20 staged iterations in, R = 2^17), each bit-equal to its
+    twin and equal in t to the full-table K2 / K6 with the exact ties
+    counted, timed beside the full-table kernel with bounds from the
+    (ray, primitive) tests those rays need; ``closest_surface_p`` under
+    CLUSTER and under BVH (``ART_TPU_BVH``, the plain per-ray descent)
+    equal to its plain record and, in t, to the default route's (with the
+    boxes through K6 under CLUSTER), launching the route's kernels and under
+    BVH no sphere kernel; the descent's steps and time a call;
  3. the in-kernel Philox uniforms: range, mean, variance, and that they
     change across iterations and slots;
  4. renders through ``render_scene`` on the card, each with the launch
@@ -63,16 +74,21 @@ Phases (each runs; any failure exits non-zero without the final result):
     and the media in PyTorch), original_scene 800x800 @ 16, cornell_smoke
     600x600 @ 64 (K1, K5, baked K3, two box media) and a 40x40 box field
     (1600 boxes: K10), each finite, >= 0 and not black; then each opt-in
-    sphere route (``art_tpu_torch/ops/routes.py``) at full width, default /
-    route / route / default: bouncing_spheres 1200x800 @ 64 under
+    sphere route (``art_tpu_torch/ops/routes.py``) at full width, route /
+    default: bouncing_spheres 1200x800 @ 64 under
     SPH_CELLBIN (K17), final_scene 800x800 @ 16 under SPH_CELLBIN (K17),
     SPH_SKIP (K16), the split with OCC_GATE and K16's tail-only call, the
     split's forced dense branch with COMPACT_CELLBIN (K17), and the split
-    alone, each route render launching its own kernels; then, per scene
-    and route (perlin staged and the box field included), the kernel path
-    against the plain path on the same injected uniforms (``n_uniform_cols``
-    rows) and, but for the box field, with independent seeds, statistically
-    (a route against the default route).
+    alone, and K15's route (CLUSTER_RUNS) default / route / route /
+    default: final_scene 800x800 @ 16 (K15's spheres and boxes),
+    bouncing_spheres 1200x800 @ 64 and the box field (K15's boxes in place
+    of K10), each route render launching its own
+    kernels; then bouncing_spheres 1200x800 @ 1 under the BVH descent (no
+    sphere kernel; the spp cut to fit the run); then, per scene and route
+    (perlin staged and the box field included), the kernel path against the
+    plain path on the same injected uniforms (``n_uniform_cols`` rows) and,
+    but for the box field's default path, with independent seeds,
+    statistically (a route against the default route).
 
 Standard output ends with a JSON line of per-kernel results (each kernel's
 ``launches`` counted in the render of the newest path that runs it, named
@@ -129,7 +145,8 @@ INDEPENDENT = {"three_spheres": (96, 64, 256), "bouncing_spheres": (96, 64, 256)
                "checkered_spheres": (96, 64, 256), "perlin": (96, 64, 256),
                "simple_light_book": (96, 64, 256), "earth": (96, 64, 256),
                "simple_light": (96, 64, 256), "cornell_smoke": (64, 64, 256),
-               "final_scene": (64, 64, 256), "original_scene": (64, 64, 256)}
+               "final_scene": (64, 64, 256), "original_scene": (64, 64, 256),
+               "box field": (64, 40, 256)}
 KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "refill": ("art_tpu_torch/csrc/refill.cu", "art_tpu/ops/refill_kernel.py:284"),
     "sphere_hit": ("art_tpu_torch/csrc/sphere_hit.cu",
@@ -153,6 +170,10 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                     "art_tpu/ops/pallas_kernels.py:1353"),
     "sphere_cellbin": ("art_tpu_torch/csrc/sphere_cellbin.cu",
                        "art_tpu/ops/pallas_kernels.py:1798"),
+    "sphere_cluster": ("art_tpu_torch/csrc/sphere_cluster.cu",
+                       "art_tpu/ops/pallas_kernels.py:896"),
+    "box_cluster": ("art_tpu_torch/csrc/box_cluster.cu",
+                    "art_tpu/ops/pallas_kernels.py:2601"),
 }
 # which renders of phase 4 must launch which kernels (the launch-count gate);
 # a render may launch no kernel of KERNELS outside its own list
@@ -195,10 +216,20 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
                                      "shade_flush_baked"),
          "final_scene split": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
                                "flush_accumulate", "table_gather_u24", "turb",
-                               "shade_flush_baked")}
-# the opt-in sphere routes (art_tpu_torch/ops/routes.py), each rendered at
-# full width off / on / on / off against the default route: (label, scene,
-# nx, ny, spp, the switches); COMPACT_SKIP acts with SPH_SKIP, as in art_tpu
+                               "shade_flush_baked"),
+         # ART_TPU_CLUSTER (CLUSTER_RUNS): K15's spheres in place of K2, its
+         # boxes in place of K9 and K10
+         "final_scene cluster": ("refill", "quad_hit", "box_cluster", "sphere_cluster",
+                                 "flush_accumulate", "table_gather_u24", "turb",
+                                 "shade_flush_baked"),
+         "bouncing_spheres cluster": ("refill", "sphere_cluster", "shade_flush"),
+         "box field cluster": ("refill", "box_cluster", "shade_flush_baked"),
+         # ART_TPU_BVH: the per-ray descent is plain PyTorch, no sphere kernel
+         "bouncing_spheres bvh": ("refill", "shade_flush")}
+# the opt-in sphere routes of the culling slice (art_tpu_torch/ops/routes.py),
+# each rendered at full width route / default against the default route:
+# (label, scene, nx, ny, spp, the switches); COMPACT_SKIP acts with SPH_SKIP,
+# as in art_tpu
 ROUTE_RUNS = [
     ("bouncing_spheres cellbin", "bouncing_spheres", 1200, 800, 64, dict(sph_cellbin=True)),
     ("final_scene cellbin", "final_scene", 800, 800, 16, dict(sph_cellbin=True)),
@@ -208,6 +239,17 @@ ROUTE_RUNS = [
     ("final_scene split dense", "final_scene", 800, 800, 16,
      dict(compact_sph=True, force_branch="dense", compact_cellbin=True)),
     ("final_scene split", "final_scene", 800, 800, 16, dict(compact_sph=True))]
+# K15's route (ART_TPU_CLUSTER), rendered default / route / route / default,
+# and the per-ray
+# BVH descent (ART_TPU_BVH), rendered once at full resolution with the spp cut
+# to fit the run's time: a descent step is ~75 PyTorch launches (~1 ms on the
+# H100's host) and a call ~180 steps, so an iteration takes ~0.15-0.19 s and a
+# 1200x800 render at 1 spp (~560 iterations) ~80 s
+CLUSTER_RUNS = [
+    ("final_scene cluster", "final_scene", 800, 800, 16, dict(cluster=True)),
+    ("bouncing_spheres cluster", "bouncing_spheres", 1200, 800, 64, dict(cluster=True)),
+    ("box field cluster", "box field", 160, 90, 4, dict(cluster=True))]
+BVH_RUN = ("bouncing_spheres bvh", "bouncing_spheres", 1200, 800, 1, dict(bvh=True))
 # The least time the card could take (NVIDIA H100
 # SXM data sheet): bytes over the HBM rate, or operations over the FP32 rate
 # outside the tensor cores, which counts an FMA as two operations; these
@@ -1128,6 +1170,13 @@ def _box_field(nx: int, ny: int):
     return b.compile()
 
 
+def _scene(name: str, nx: int, ny: int):
+    """The registry scene ``name``, or the box field."""
+    from art_tpu_torch.models import build_scene
+
+    return _box_field(nx, ny) if name == "box field" else build_scene(name, nx, ny)
+
+
 def _profiled_launches(fn) -> int:
     """Device launches of one call of ``fn`` (after a warm-up call)."""
     import torch
@@ -1388,29 +1437,36 @@ def grid_split_checks(checks: Checks, dev, results: dict):
 
 def _ties(k, full):
     """(t bit-equal, lanes whose winner differs at that equal t: exact ties
-    between segments) of a culled result against the full-table K2's."""
-    differ = k[2] != full[2]
-    for c in range(3):
-        differ |= k[1][c] != full[1][c]
+    between segments) of a culled result against the full-table kernel's:
+    (t, normal, mat) or (t, normal, u, v, mat) records."""
+    differ = k[-1] != full[-1]
+    for x, y in zip((*k[1], *k[2:-1]), (*full[1], *full[2:-1])):
+        differ |= x != y
     return bool(k[0].eq(full[0]).all()), int(differ.sum())
 
 
+def _warp_counts(lanes, n_rows):
+    """(the lanes' (ray, primitive) tests of ``n_rows`` rows, the tests the
+    kernel's warps make: each warp of 32 consecutive lanes with such a lane
+    counted whole)."""
+    import torch
+
+    warps = torch.cat([lanes, lanes.new_zeros((-lanes.shape[0]) % 32)]).view(-1, 32)
+    return int(lanes.sum()) * n_rows, int(warps.any(dim=1).sum()) * 32 * n_rows
+
+
 def _culled_tests(rows, meta, o, d, tm, occlusion, head=True, n_live=None):
-    """The (ray, sphere) tests that K16 (``occlusion`` False) or K17 (True)
-    needs on these rays, walked as its twin walks them: the live lanes times
-    the head rows, then each segment's rows times the lanes whose slab test
-    of its box passes (with ``occlusion``, at t_near <= the running best).
-    Returns (those tests, the tests the kernel's warps make: each warp of 32
-    consecutive lanes with such a lane counted whole)."""
+    """The (ray, sphere) tests that K16 (``occlusion`` False), K17 or K15's
+    spheres (True; K15 without a head) needs on these rays, walked as its
+    twin walks them: the live lanes times the head rows, then each segment's
+    rows times the lanes whose slab test of its box passes (with
+    ``occlusion``, at t_near <= the running best).  Returns (those tests,
+    the tests the kernel's warps make, ``_warp_counts``)."""
     import torch
 
     from art_tpu_torch.core.vecmath import T_MIN
     from art_tpu_torch.ops import intersect_kernels as K
     from art_tpu_torch.ops.intersect import slab_interval
-
-    def count(lanes, n_rows):
-        warps = torch.cat([lanes, lanes.new_zeros((-lanes.shape[0]) % 32)]).view(-1, 32)
-        return int(lanes.sum()) * n_rows, int(warps.any(dim=1).sum()) * 32 * n_rows
 
     n_head, segs, box = meta
     n_head = n_head if head else 0
@@ -1419,14 +1475,39 @@ def _culled_tests(rows, meta, o, d, tm, occlusion, head=True, n_live=None):
         t.shape[0], dtype=torch.int32, device=t.device) < n_live
     ok, t_near = slab_interval(box, o, d, T_MIN)
     needy = ok & live & ((t_near <= t) if occlusion else True)
-    counts = [count(live, n_head)]
+    counts = [_warp_counts(live, n_head)]
     for row0, row1, seg_box in segs:
         ok, t_near = slab_interval(seg_box, o, d, T_MIN)
         cross = needy & ok & ((t_near <= t) if occlusion else True)
-        counts.append(count(cross, row1 - row0))
+        counts.append(_warp_counts(cross, row1 - row0))
         t_s = K.sphere_hit_attrs_plain(None, o, d, tm, T_MIN, rows=rows[row0:row1])[0]
         t = torch.where(cross & (t_s < t), t_s, t)
     return tuple(sum(x) for x in zip(*counts))
+
+
+_POOLS: dict = {}
+
+
+def _pool_rays(scene, nx, ny, spp, dev, iters):
+    """(tables, o, d, tm) of ``_staged_pool``'s pool after ``iters``
+    iterations, logged."""
+    s = _staged_pool(scene, nx, ny, spp, dev, iters)
+    pool = s["pool"]
+    log(f"  {scene.name} {nx}x{ny} @ {spp} pool after {iters} iterations: R = {s['R']}, "
+        f"{int(pool['act'].sum())} live")
+    return (scene.tables, (pool["ox"], pool["oy"], pool["oz"]),
+            (pool["dx"], pool["dy"], pool["dz"]), pool["tm"])
+
+
+def _route_pools(dev):
+    """The bouncing_spheres 1200x800 and final_scene 800x800 pools 20 staged
+    iterations in (R = 2^17), built once for phases 2f and 2g."""
+    from art_tpu_torch.models import build_scene
+
+    if not _POOLS:
+        for name, nx, ny, spp in (BOUNCING[:4], ("final_scene", 800, 800, 16)):
+            _POOLS[name] = _pool_rays(build_scene(name, nx, ny).to(dev), nx, ny, spp, dev, 20)
+    return _POOLS
 
 
 def _route_record(tables, o, d, tm, plain=False, **switches):
@@ -1456,15 +1537,7 @@ def cull_checks(checks: Checks, dev, results: dict):
     from art_tpu_torch.ops import compact_sphere as cs
     from art_tpu_torch.ops import intersect_kernels as K
 
-    pools = {}
-    for name, nx, ny, spp in (BOUNCING[:4], ("final_scene", 800, 800, 16)):
-        scene = build_scene(name, nx, ny).to(dev)
-        s = _staged_pool(scene, nx, ny, spp, dev, 20)
-        pool = s["pool"]
-        pools[name] = (scene.tables, (pool["ox"], pool["oy"], pool["oz"]),
-                       (pool["dx"], pool["dy"], pool["dz"]), pool["tm"])
-        log(f"  {name} {nx}x{ny} pool after 20 iterations: R = {s['R']}, "
-            f"{int(pool['act'].sum())} live")
+    pools = _route_pools(dev)
     fin, fo, fd, ftm = pools["final_scene"]
     # the split's compacted slots on the final_scene pool (phase 2e's)
     needy = cs.tail_box_needy(fin.sph_tail_box, fo, fd, T_MIN)
@@ -1564,6 +1637,179 @@ def cull_checks(checks: Checks, dev, results: dict):
                       f"from its plain record; against the default route t bit-equal "
                       f"{same_t}, {ties} ties; sphere kernels launched {counts}")
         cull[f"closest_surface_p {label}"] = dict(ties=ties, launches=counts)
+
+
+def _rotated_field(nx: int, ny: int):
+    """A 12x12 field of boxes each turned about y (144 rotated boxes: K6's
+    rotated form by default, three box clusters under ART_TPU_CLUSTER; no
+    registry scene has 32 or more rotated boxes) under a gradient sky."""
+    from art_tpu_torch.scene import materials as M
+    from art_tpu_torch.scene import objects as O
+    from art_tpu_torch.scene.builder import SceneBuilder
+
+    mats = [M.Lambertian((0.7, 0.6, 0.5)), M.Metal((0.8, 0.8, 0.9), 0.2)]
+    b = SceneBuilder().set_name("rotated field")
+    for ix in range(12):
+        for iz in range(12):
+            h = 1.0 + (ix * 5 + iz * 3) % 7
+            box = O.Box((0.0, 0.0, 0.0), (2.0, h, 2.0), mats[(ix + iz) % 2])
+            b.add(O.Translate(O.RotateY(box, float((ix * 37 + iz * 53) % 90 - 45)),
+                              (ix * 4.0, 0.0, iz * 4.0)))
+    b.set_camera(lookfrom=(22, 30, -30), lookat=(22, 0, 22), vup=(0, 1, 0),
+                 vfov_degrees=50.0, aspect=nx / ny, time0=0.0, time1=1.0)
+    b.set_background(gradient=True)
+    return b.compile()
+
+
+def _box_cluster_tests(tables, o, d):
+    """The (ray, box) tests that K15's boxes need on these rays, walked as
+    its twin walks them: each cluster's rows times the lanes whose bounded
+    test of the union box and of the cluster's box passes; (those tests, the
+    tests the kernel's warps make, ``_warp_counts``)."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG, T_MIN, safe_dir
+    from art_tpu_torch.ops.intersect import box_candidates_rows, cluster_slab
+
+    rows, (_, segs, union) = tables.box_cl_rows, tables.box_cl_meta
+    inv = tuple(1.0 / safe_dir(c) for c in d)
+    t = torch.full_like(o[0], BIG)
+    needy = cluster_slab(union, o, inv, T_MIN, t)
+    counts = []
+    for row0, row1, box in segs:
+        cross = needy & cluster_slab(box, o, inv, T_MIN, t)
+        counts.append(_warp_counts(cross, row1 - row0))
+        t_c = box_candidates_rows(rows[row0:row1], tables.has_rotated_boxes, o, d, T_MIN)[0]
+        t = torch.where(cross & (t_c < t), t_c, t)
+    return tuple(sum(x) for x in zip(*counts))
+
+
+def cluster_checks(checks: Checks, dev, results: dict):
+    """K15's spheres and boxes against their twins and the full-table K2 / K6:
+    spheres on the bouncing_spheres 1200x800 and final_scene 800x800 pools of
+    2f; boxes on that final_scene pool, on the box field's pool (phase 2e's,
+    1 iteration in) and on a rotated field's pool (320x240 @ 64, 20 staged
+    iterations in, R = 2^17); their times, the full-table kernel's on the same
+    pool, and bounds from the (ray, primitive) tests those rays need; then
+    closest_surface_p under CLUSTER and under BVH equal to its plain record
+    and, in t, to the default route's (boxes against K6's t, not the
+    lattice's), launching the route's kernels and, under BVH, no sphere
+    kernel; the BVH descent's steps and time a call."""
+    import dataclasses
+
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG, T_MIN
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.ops import intersect_kernels as K
+    from art_tpu_torch.ops.intersect import bvh_sphere_candidates_p
+
+    pools = dict(_route_pools(dev))
+    pools["box field"] = _pool_rays(_box_field(160, 90).to(dev), 160, 90, 4, dev, 1)
+    pools["rotated field"] = _pool_rays(_rotated_field(320, 240).to(dev), 320, 240, 64, dev,
+                                        20)
+    for name, (tables, *_) in pools.items():
+        log(f"  {name}: {tables.n_spheres} spheres in {tables.n_sphere_clusters} clusters, "
+            f"{tables.n_boxes} boxes (rotated {tables.has_rotated_boxes}) in "
+            f"{tables.n_box_clusters} clusters, {tables.n_sph_bvh_nodes} BVH nodes")
+
+    def sphere_case(name):
+        t, o, d, tm = pools[name]
+        return (f"K15 spheres, {name}", "sphere_cluster", "spheres", t, o, d, tm,
+                lambda: K.sphere_cluster_hit_attrs(t, o, d, tm),
+                lambda: K.sphere_cluster_hit_attrs_plain(t, o, d, tm),
+                lambda: K.sphere_hit_attrs(t, o, d, tm))
+
+    def box_case(name):
+        t, o, d, tm = pools[name]
+        return (f"K15 boxes, {name}", "box_cluster", "boxes", t, o, d, tm,
+                lambda: K.box_cluster_hit_attrs(t, o, d),
+                lambda: K.box_cluster_hit_attrs_plain(t, o, d),
+                lambda: K.box_hit_attrs(t, o, d))
+
+    # the first case of each kernel gives its row's numbers, the others keys
+    # with a suffix
+    cases = [sphere_case("bouncing_spheres"), sphere_case("final_scene"),
+             box_case("final_scene"), box_case("box field"), box_case("rotated field")]
+    suffix = {0: "", 1: "_final_scene", 2: "", 3: "_box_field", 4: "_rotated"}
+    cl = results.setdefault("_cluster", {})
+    for n, (label, kname, kind, t, o, d, tm, kern, twin, full) in enumerate(cases):
+        k, p, f = kern(), twin(), full()
+        torch.cuda.synchronize()
+        bad = _equal(k, p)
+        same_t, ties = _ties(k, f)
+        hits = int((f[0] < BIG).sum())
+        R = o[0].shape[0]
+        checks.expect(bad == 0 and same_t,
+                      f"{label} (R = {R}): {bad} values differ from the twin; against the "
+                      f"full-table {'K2' if kind == 'spheres' else 'K6'} t bit-equal "
+                      f"{same_t}, {ties} lanes with another winner at that t (exact "
+                      f"ties), {hits} hits")
+        if kind == "spheres":
+            rows, meta = t.sph_cl_rows, t.sph_cl_meta
+            tests, warp_tests = _culled_tests(rows, meta, o, d, tm, True, head=False)
+            nbytes, nops = R * 48 + rows.shape[0] * 40, tests * OPS_SPHERE
+        else:
+            rows, meta = t.box_cl_rows, t.box_cl_meta
+            tests, warp_tests = _box_cluster_tests(t, o, d)
+            nbytes = R * 52 + rows.shape[0] * 48
+            nops = tests * OPS_BOX[t.has_rotated_boxes] + hits * OPS_BOX_WINNER
+        entry = dict(ms=_timed_ms(kern, 20), plain_ms=_timed_ms(twin, 3),
+                     full_ms=_timed_ms(full, 20), ties=ties, hits=hits, R=R,
+                     clusters=len(meta[1]), rows=rows.shape[0], tests=tests,
+                     warp_tests=warp_tests, full_tests=R * rows.shape[0],
+                     max_abs_err=max(_max_diff(x, y) for x, y in zip(
+                         [k[0], *k[1], *k[2:]], [p[0], *p[1], *p[2:]])))
+        # 7 (spheres) or 6 (boxes) planes in and 5 or 7 out a ray, the rows
+        # and the clusters' rows once
+        _set_bound(entry, nbytes + (len(meta[1]) + 1) * 32, nops)
+        cl[label] = entry
+        r = results[kname]
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err"):
+            r[key + suffix[n]] = entry[key]
+        log(f"  {label}: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+            f"full-table kernel {entry['full_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}); (ray, primitive) tests: {tests} needed, {warp_tests} by "
+            f"the warps, {entry['full_tests']} in the full table; {len(meta[1])} clusters")
+
+    # closest_surface_p under each switch: the record equal to its plain
+    # record, t equal to the default route's with the boxes through K6
+    routed = ("sphere_hit", "sphere_skip", "sphere_cellbin", "sphere_cluster", "box_hit",
+              "box_grid", "box_grid_cells", "box_cluster")
+    for name, (t, o, d, tm) in pools.items():
+        k6 = dataclasses.replace(t, box_grid_kx=0)
+        for switch in ("cluster", "bvh"):
+            if switch == "bvh" and not t.n_sph_bvh_nodes:
+                continue
+            base = _route_record(k6 if switch == "cluster" else t, o, d, tm)
+            _build.launches.clear()
+            rec = _route_record(t, o, d, tm, **{switch: True})
+            counts = {k: v for k, v in _build.launches.items() if k in routed}
+            rec_p = _route_record(t, o, d, tm, plain=True, **{switch: True})
+            torch.cuda.synchronize()
+            bad = _equal(rec, rec_p)
+            same_t, ties = _ties(rec, base)
+            if switch == "cluster":
+                want = {k for k, n in (("sphere_cluster", t.n_sphere_clusters),
+                                       ("box_cluster", t.n_box_clusters)) if n}
+            else:
+                want = {"box_grid_cells"} if t.n_boxes else set()
+            checks.expect(bad == 0 and same_t and set(counts) == want,
+                          f"closest_surface_p under {switch.upper()}, {name}: {bad} values "
+                          f"differ from its plain record; against the default route "
+                          f"{'(boxes through K6) ' if switch == 'cluster' else ''}t "
+                          f"bit-equal {same_t}, {ties} ties; kernels launched {counts}")
+            cl[f"closest_surface_p {switch} {name}"] = dict(ties=ties, launches=counts)
+        if t.n_sph_bvh_nodes:
+            stats = {}
+            bvh_sphere_candidates_p(t, o, d, tm, T_MIN, stats=stats)
+            ms = _timed_ms(lambda: _route_record(t, o, d, tm, bvh=True), 3)
+            full_ms = _timed_ms(lambda: _route_record(t, o, d, tm), 3)
+            cl[f"bvh {name}"] = dict(steps=stats["steps"], ms=ms, default_ms=full_ms,
+                                     nodes=t.n_sph_bvh_nodes)
+            log(f"  BVH descent, {name}: {stats['steps']} steps over {t.n_sph_bvh_nodes} "
+                f"nodes; closest_surface_p {ms:.3f} ms under BVH (events, host gaps "
+                f"included), {full_ms:.4f} ms by the default route")
 
 
 def philox_checks(checks: Checks, dev):
@@ -1668,14 +1914,13 @@ def _same_uniforms(checks, dev, label, name, short_path):
     """The kernel path against the plain path on the same injected uniforms
     (``n_uniform_cols`` rows) at SAME_UNIFORMS[name]'s size: iterations
     equal, >= 98% of the pixels within 1e-3."""
-    from art_tpu_torch.models import build_scene
     from art_tpu_torch.render.integrator import n_uniform_cols
     from art_tpu_torch.render.renderer import RenderConfig, plan_batches, render_scene
 
     nx, ny, spp = SAME_UNIFORMS[label if label in SAME_UNIFORMS else name]
     cfg = RenderConfig(nx=nx, ny=ny, spp=spp)
     R = plan_batches(nx * ny, spp, 488, cfg, dev)[2]
-    scene = _box_field(nx, ny) if label == "box field" else build_scene(name, nx, ny)
+    scene = _scene(name, nx, ny)
     ncols = n_uniform_cols(scene.tables)  # 9 + the media (at least one column)
 
     def uniforms(tile, chunk, it):
@@ -1765,28 +2010,38 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                       f"{label}: finite, >= 0 and not black (mean {fb.mean():.4f}, max "
                       f"{fb.max():.3f})")
 
-    # the opt-in sphere routes at full width, each off / on / on / off
-    # against the default route; the first "on" render is the route's path
-    # render (its launch counts)
+    # the opt-in routes at full width against the default route: this
+    # slice's (CLUSTER_RUNS) off / on / on / off, the earlier slices'
+    # (ROUTE_RUNS) on / off; the first "on" render is
+    # the route's path render (its launch counts)
     from art_tpu_torch.ops import routes
 
     results["_routes"] = {}
-    for label, name, nx, ny, spp, switches in ROUTE_RUNS:
-        scene = build_scene(name, nx, ny)
-        ab: dict = {"default": [], "route": []}
-        for rep, mode in enumerate(("default", "route", "route", "default")):
+    for label, name, nx, ny, spp, switches in ROUTE_RUNS + CLUSTER_RUNS:
+        scene = _scene(name, nx, ny)
+        turns = (("default", "route", "route", "default") if label in [
+            r[0] for r in CLUSTER_RUNS] else ("route", "default"))
+        seconds = []
+        for n, mode in enumerate(turns):
             with routes.using(**(switches if mode == "route" else {})):
-                if rep == 1:
+                if n == turns.index("route"):
                     fb, st = _render(checks, dev, name, nx, ny, spp, results, counts_by_render,
                                      scene=scene, label=label)
                     checks.expect(fb.mean() > 1e-3, f"{label}: not black (mean {fb.mean():.4f})")
                 else:
                     _, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
-            ab[mode].append(st["seconds"])
-        results["_routes"][label] = dict(switches=switches, seconds=ab)
-        log(f"  {label} {nx}x{ny} @ {spp}, default / route / route / default: "
-            f"{ab['default'][0]:.3f} / {ab['route'][0]:.3f} / {ab['route'][1]:.3f} / "
-            f"{ab['default'][1]:.3f} s")
+            seconds.append(st["seconds"])
+        results["_routes"][label] = dict(switches=switches, turns=turns, seconds=seconds)
+        log(f"  {label} {nx}x{ny} @ {spp}, {' / '.join(turns)}: "
+            f"{' / '.join(f'{x:.3f}' for x in seconds)} s")
+    # the BVH descent: one render (plain PyTorch intersection, no sphere kernel)
+    label, name, nx, ny, spp, switches = BVH_RUN
+    with routes.using(**switches):
+        fb, st = _render(checks, dev, name, nx, ny, spp, results, counts_by_render,
+                         label=label)
+    checks.expect(fb.mean() > 1e-3, f"{label}: not black (mean {fb.mean():.4f})")
+    results["_routes"][label] = dict(switches=switches, seconds=st["seconds"],
+                                     iterations=st["iterations"])
 
     label, name, nx, ny, spp, _ = BIG_SCENES[0]
     results["_render"] = dict(results["_renders"][f"{label} {nx}x{ny} @ {spp}"],
@@ -1797,14 +2052,15 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                   f"{label}: the full-table K2 once an iteration ({c.get('sphere_hit')} "
                   f"launches, K1 {c.get('refill')})")
     # each kernel's count is that of the newest path that runs it: this
-    # slice's K17 and K16 paths, the big-scene slice's main path (final_scene)
-    # and its other paths, then the image slice's, the short-path slice's,
-    # then cornell_box's and bouncing_spheres' (the earlier slices' main
-    # paths), then three_spheres', then the other opt-in routes
-    order = (["bouncing_spheres cellbin", "final_scene skip"]
+    # slice's K15 paths, the culling slice's K17 and K16 paths, the big-scene
+    # slice's main path (final_scene) and its other paths, then the image
+    # slice's, the short-path slice's, then cornell_box's and
+    # bouncing_spheres' (the earlier slices' main paths), then
+    # three_spheres', then the other opt-in routes
+    order = ([lab for lab, *_ in CLUSTER_RUNS] + ["bouncing_spheres cellbin", "final_scene skip"]
              + [lab for lab, *_ in BIG_SCENES + IMAGE + SHORT]
              + ["cornell_box", "bouncing_spheres", "three_spheres"]
-             + [lab for lab, *_ in ROUTE_RUNS])
+             + [lab for lab, *_ in ROUTE_RUNS] + [BVH_RUN[0]])
     for k in KERNELS:
         path = next(lab for lab in order if k in PATHS[lab])
         results[k]["launches"] = counts_by_render[path].get(k, 0)
@@ -1813,18 +2069,22 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
             lab: c.get(k, 0) for lab, c in counts_by_render.items()}
 
     independent = {}  # default-route renders with seed 2, per scene
-    for label in list(SAME_UNIFORMS) + [lab for lab, *_ in ROUTE_RUNS]:
-        route = next((r for r in ROUTE_RUNS if r[0] == label), None)
+    runs = ROUTE_RUNS + CLUSTER_RUNS + [BVH_RUN]
+    for label in list(SAME_UNIFORMS) + [lab for lab, *_ in runs]:
+        route = next((r for r in runs if r[0] == label), None)
         name = route[1] if route else label.split()[0]
+        if label == "box field":
+            name = label
         short_path = False if "staged" in label else None
         with routes.using(**(route[-1] if route else {})):
             _same_uniforms(checks, dev, label, name, short_path)
-            if route is None and label not in INDEPENDENT:
+            # the box field's default path: its same-uniform render alone
+            if route is None and (label not in INDEPENDENT or label == "box field"):
                 continue
             # independent seeds: kernels with Philox seed 1 against the plain
             # path (or, for a route, the default route's kernels) with seed 2
             nx, ny, spp = INDEPENDENT[name]
-            scene = build_scene(name, nx, ny)
+            scene = _scene(name, nx, ny)
             kfb, _ = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp, seed=1),
                                   device=dev)
         if route is None:
@@ -1875,11 +2135,13 @@ def main() -> int:
                  checks, dev, results)
     checks.phase("2f. K16 and K17, the culling sphere kernels, and the opt-in routes",
                  cull_checks, checks, dev, results)
+    checks.phase("2g. K15, the cluster-culled spheres and boxes, and the BVH route",
+                 cluster_checks, checks, dev, results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     extra = {key: results.pop(f"_{key}", {}) for key in (
         "render", "renders", "compact_fetch", "noise_p", "grid", "split", "media", "cull",
-        "routes")}
+        "cluster", "routes")}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
         for name, (src, rep) in KERNELS.items()], **extra, "card": smi}))
