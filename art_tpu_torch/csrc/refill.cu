@@ -50,41 +50,8 @@ refill_apply(art::RefillPlanes p, int R, const int* __restrict__ block_dead, int
              uint32_t tile, uint32_t chunk, uint32_t it) {
   __shared__ int red[32];
   __shared__ int warp_cnt[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const art::Rank r = art::refill_rank(p.act, R, block_dead, q, parity, sc, red, warp_cnt);
-
-  // ---- the iteration's uniforms for this slot ----
-  float u[art::kMaxCols];
-#pragma unroll
-  for (int c = 0; c < art::kMaxCols; ++c) u[c] = 0.f;
-  if (r.live && use_philox) {
-    art::philox_uniforms(i, seed, tile, chunk, it, ncols, u);
-    // ball(3) + choice(1) -> rows 0..3, media columns 9.. -> rows 4..
-#pragma unroll
-    for (int c = 0; c < 4; ++c) u_buf[(size_t)c * R + i] = u[c];
-#pragma unroll
-    for (int c = 9; c < art::kMaxCols; ++c)
-      if (c < ncols) u_buf[(size_t)(c - 5) * R + i] = u[c];
-  } else if (r.take) {
-#pragma unroll
-    for (int c = 4; c < 9; ++c) u[c] = u_buf[(size_t)c * R + i];
-  }
-
-  // ---- fresh camera ray for a taken slot ----
-  if (r.take) {
-    const art::Ray ray = art::camera_ray(r.qq, sc, cam, u);
-    p.ox[i] = ray.ox; p.oy[i] = ray.oy; p.oz[i] = ray.oz;
-    p.dx[i] = ray.dx; p.dy[i] = ray.dy; p.dz[i] = ray.dz;
-    p.tm[i] = ray.tm;
-    p.t0[i] = 1.f; p.t1[i] = 1.f; p.t2[i] = 1.f;
-    p.r0[i] = 0.f; p.r1[i] = 0.f; p.r2[i] = 0.f;
-    p.bounce[i] = 0;
-    p.pix[i] = ray.p_row;
-    p.act[i] = 1;
-  }
-
-  // ---- live slots this iteration, and the next queue head ----
-  art::refill_finish(r.was_act || r.take, block_dead, nb, q, parity, hist, it, r, red);
+  art::refill_slot(p, R, block_dead, nb, q, parity, hist, sc, cam, u_buf, ncols, use_philox,
+                   seed, tile, chunk, it, red, warp_cnt);
 }
 
 }  // namespace
@@ -97,19 +64,13 @@ extern "C" int art_refill(void* const* ptrs, int R, int parity, int ncols,
                           int use_philox, const long long* scal, const float* cam,
                           unsigned seed, unsigned tile, unsigned chunk, unsigned it,
                           void* stream) {
-  const art::RefillPlanes p = art::refill_planes(ptrs);
-  float* u_buf = (float*)ptrs[16];
-  int* block_dead = (int*)ptrs[17];
-  long long* q = (long long*)ptrs[18];
-  unsigned long long* hist = (unsigned long long*)ptrs[19];
-  art::Scal sc{scal[0], scal[1], scal[2], scal[3], scal[4], scal[5]};
-  art::Cam c;
-  for (int k = 0; k < 21; ++k) c.v[k] = cam[k];
+  const art::RefillArgs a = art::refill_args(ptrs, scal, cam);
   const int nb = (R + art::kBlock - 1) / art::kBlock;
   if (nb == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  art::refill_count<<<nb, art::kBlock, 0, s>>>(p.act, R, block_dead);
-  refill_apply<<<nb, art::kBlock, 0, s>>>(p, R, block_dead, nb, q, parity, hist, sc, c,
-                                          u_buf, ncols, use_philox, seed, tile, chunk, it);
+  art::refill_count<<<nb, art::kBlock, 0, s>>>(a.p.act, R, a.block_dead);
+  refill_apply<<<nb, art::kBlock, 0, s>>>(a.p, R, a.block_dead, nb, a.q, parity, a.hist,
+                                          a.sc, a.cam, a.u_buf, ncols, use_philox, seed,
+                                          tile, chunk, it);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@
 //  * philox_uniforms: the iteration's uniform columns for the slot;
 //  * camera_ray: the fresh ray of a taken slot;
 //  * refill_finish: the live-slot count into hist[it] and, from block 0,
-//    the next queue head (every thread of the block calls it).
+//    the next queue head (every thread of the block calls it);
+//  * refill_slot: all of the above after refill_count, for the calling
+//    thread's slot (K1's refill_apply, and K12's after its flush).
 #pragma once
 
 #include "common.cuh"
@@ -149,6 +151,77 @@ __device__ __forceinline__ void refill_finish(bool live_after, const int* block_
       q[1 - parity] = r.q0 + (total_dead < room ? total_dead : room);
     }
   }
+}
+
+// The refill of slot blockIdx.x * blockDim.x + threadIdx.x after
+// refill_count: rank, uniforms, camera ray, live count and queue head
+// (refill.cu's header note).  Every thread of the block calls it; `red` and
+// `warp_cnt` are the block's __shared__ int[32] scratch.
+__device__ __forceinline__ void refill_slot(const RefillPlanes& p, int R,
+                                            const int* __restrict__ block_dead, int nb,
+                                            long long* q, int parity, unsigned long long* hist,
+                                            const Scal& sc, const Cam& cam, float* u_buf,
+                                            int ncols, int use_philox, uint32_t seed,
+                                            uint32_t tile, uint32_t chunk, uint32_t it,
+                                            int* red, int* warp_cnt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Rank r = refill_rank(p.act, R, block_dead, q, parity, sc, red, warp_cnt);
+
+  // ---- the iteration's uniforms for this slot ----
+  float u[kMaxCols];
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) u[c] = 0.f;
+  if (r.live && use_philox) {
+    philox_uniforms(i, seed, tile, chunk, it, ncols, u);
+    // ball(3) + choice(1) -> rows 0..3, media columns 9.. -> rows 4..
+#pragma unroll
+    for (int c = 0; c < 4; ++c) u_buf[(size_t)c * R + i] = u[c];
+#pragma unroll
+    for (int c = 9; c < kMaxCols; ++c)
+      if (c < ncols) u_buf[(size_t)(c - 5) * R + i] = u[c];
+  } else if (r.take) {
+#pragma unroll
+    for (int c = 4; c < 9; ++c) u[c] = u_buf[(size_t)c * R + i];
+  }
+
+  // ---- fresh camera ray for a taken slot ----
+  if (r.take) {
+    const Ray ray = camera_ray(r.qq, sc, cam, u);
+    p.ox[i] = ray.ox; p.oy[i] = ray.oy; p.oz[i] = ray.oz;
+    p.dx[i] = ray.dx; p.dy[i] = ray.dy; p.dz[i] = ray.dz;
+    p.tm[i] = ray.tm;
+    p.t0[i] = 1.f; p.t1[i] = 1.f; p.t2[i] = 1.f;
+    p.r0[i] = 0.f; p.r1[i] = 0.f; p.r2[i] = 0.f;
+    p.bounce[i] = 0;
+    p.pix[i] = ray.p_row;
+    p.act[i] = 1;
+  }
+
+  // ---- live slots this iteration, and the next queue head ----
+  refill_finish(r.was_act || r.take, block_dead, nb, q, parity, hist, it, r, red);
+}
+
+// The launch arguments common to K1 and K12 (refill.cu's art_refill layout).
+struct RefillArgs {
+  RefillPlanes p;
+  float* u_buf;
+  int* block_dead;
+  long long* q;
+  unsigned long long* hist;
+  Scal sc;
+  Cam cam;
+};
+
+inline RefillArgs refill_args(void* const* ptrs, const long long* scal, const float* cam) {
+  RefillArgs a;
+  a.p = refill_planes(ptrs);
+  a.u_buf = (float*)ptrs[16];
+  a.block_dead = (int*)ptrs[17];
+  a.q = (long long*)ptrs[18];
+  a.hist = (unsigned long long*)ptrs[19];
+  a.sc = Scal{scal[0], scal[1], scal[2], scal[3], scal[4], scal[5]};
+  for (int k = 0; k < 21; ++k) a.cam.v[k] = cam[k];
+  return a;
 }
 
 }  // namespace art

@@ -1,8 +1,9 @@
 // The sphere kernels' shared parts: one (ray, sphere) candidate with its
-// strict-< merge, the hit's output, the conservative slab test of a box,
-// and the head-then-segments scan of the culling kernels K16
-// (sphere_skip.cu) and K17 (sphere_cellbin.cu).  K2 (sphere_hit.cu) uses
-// the candidate and the output.
+// strict-< merge (in the direct form, and in K13's expanded form), the
+// hit's output, the conservative slab test of a box, and the
+// head-then-segments scan of the culling kernels K16 (sphere_skip.cu) and
+// K17 (sphere_cellbin.cu).  K2 (sphere_hit.cu) and K13 (sphere_static.cu)
+// use the candidates and the output.
 //
 // Rules (those of the plain twins, ops/intersect_kernels.py, not the TPU
 // kernels'):
@@ -66,22 +67,59 @@ __device__ __forceinline__ SphereBest no_hit() {
   return SphereBest{kBig, 0.f, 0.f, 0.f, 1.f, 0.f};
 }
 
-// one candidate: the sphere `row` replaces `b` if its root is strictly closer
-__device__ __forceinline__ void sphere_test(const float* row, const SphereRay& q,
-                                            float t_min, SphereBest& b) {
-  const float cx = row[0] + q.tm * row[3];
-  const float cy = row[1] + q.tm * row[4];
-  const float cz = row[2] + q.tm * row[5];
+// one candidate: the sphere of centre (cx, cy, cz) (at the ray's time),
+// radius r, material mat and r2 = r * r replaces `b` if its root is
+// strictly closer
+__device__ __forceinline__ void sphere_test_at(float cx, float cy, float cz, float r,
+                                               float mat, float r2, const SphereRay& q,
+                                               float t_min, SphereBest& b) {
   const float ocx = q.ox - cx, ocy = q.oy - cy, ocz = q.oz - cz;
   const float bq = ocx * q.dx + ocy * q.dy + ocz * q.dz;
-  const float c = ocx * ocx + ocy * ocy + ocz * ocz - row[8];
+  const float c = ocx * ocx + ocy * ocy + ocz * ocz - r2;
   const float disc = bq * bq - q.a * c;
   if (disc > 0.0f) {
     const float sq = sqrtf(disc);
     const float t1 = (-bq - sq) * q.inv_a;
     const float t2 = (-bq + sq) * q.inv_a;
     const float t = t1 > t_min ? t1 : (t2 > t_min ? t2 : kBig);
-    if (t < b.t) b = SphereBest{t, cx, cy, cz, row[6], row[7]};
+    if (t < b.t) b = SphereBest{t, cx, cy, cz, r, mat};
+  }
+}
+
+// one candidate of a table row [c(3) v(3) r mat r2 .]
+__device__ __forceinline__ void sphere_test(const float* row, const SphereRay& q,
+                                            float t_min, SphereBest& b) {
+  sphere_test_at(row[0] + q.tm * row[3], row[1] + q.tm * row[4], row[2] + q.tm * row[5],
+                 row[6], row[7], row[8], q, t_min, b);
+}
+
+// A ray's terms of the expanded quadratic (K13's expand form,
+// art_tpu/ops/pallas_kernels.py:433-443): |o|^2, o.d and 2 o.
+struct ExpandedRay {
+  float oo, od, ox2, oy2, oz2;
+};
+
+__device__ __forceinline__ ExpandedRay expanded_ray(const SphereRay& q) {
+  return ExpandedRay{q.ox * q.ox + q.oy * q.oy + q.oz * q.oz,
+                     q.ox * q.dx + q.oy * q.dy + q.oz * q.dz,
+                     2.0f * q.ox, 2.0f * q.oy, 2.0f * q.oz};
+}
+
+// sphere_test_at in the expanded form of a static sphere with
+// K = |c|^2 - r^2: bq = o.d - c.d, c = (|o|^2 + K) - c.(2 o)
+__device__ __forceinline__ void sphere_test_expanded(float cx, float cy, float cz, float r,
+                                                     float mat, float K, const SphereRay& q,
+                                                     const ExpandedRay& e, float t_min,
+                                                     SphereBest& b) {
+  const float bq = e.od - (cx * q.dx + cy * q.dy + cz * q.dz);
+  const float c = (e.oo + K) - (cx * e.ox2 + cy * e.oy2 + cz * e.oz2);
+  const float disc = bq * bq - q.a * c;
+  if (disc > 0.0f) {
+    const float sq = sqrtf(disc);
+    const float t1 = (-bq - sq) * q.inv_a;
+    const float t2 = (-bq + sq) * q.inv_a;
+    const float t = t1 > t_min ? t1 : (t2 > t_min ? t2 : kBig);
+    if (t < b.t) b = SphereBest{t, cx, cy, cz, r, mat};
   }
 }
 

@@ -13,6 +13,13 @@ the sphere kernel ran 16% faster alone but the render no faster (the loop
 is host-bound), and its contracted ``b*b - a*c`` moved grazing hits' t by up
 to 1.1% from the twin's (PERF.md, "FMA contraction").
 
+K13 (``csrc/sphere_static.cu``) is the one kernel built apart:
+``static_libraries`` compiles it once per scene and quadratic form, with the
+scene's spheres in a generated header (``static_header``: the cells of
+``tables.sph_static_cells`` as exact float32 hex literals), into a shared
+library named by a hash of the header, the sources and the flags, and
+records the ``nvcc`` seconds.  A build error raises.
+
 ``launches`` counts kernel launches per wrapper name; each wrapper adds
 one where it launches its kernel (``chip_smoke.py`` reads and resets it).
 """
@@ -24,6 +31,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import math
 import shutil
 import subprocess
 import time
@@ -37,6 +45,7 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
+STATIC_SOURCE = "sphere_static.cu"  # built per scene by static_libraries, not library()
 BLOCK = 256  # threads per block of every kernel (csrc/common.cuh kBlock)
 launches: collections.Counter = collections.Counter()
 
@@ -53,6 +62,10 @@ _SIGNATURES = {
     "art_refill": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
                    ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
                    ctypes.c_uint, ctypes.c_uint, _P],
+    "art_refill_flush": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
+                         ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
+                         ctypes.c_uint, ctypes.c_uint, _P, _I, _P, _P],
+    "art_flush_dead": [ctypes.POINTER(_P), _I, _P, _I, _P, _P],
     "art_shade_flush": [ctypes.POINTER(_P), _I, ctypes.POINTER(ctypes.c_float),
                         _I, _I, _I, _P],
     "art_shade_flush_baked": [ctypes.POINTER(_P), _I, _P, _I,
@@ -68,6 +81,7 @@ _SIGNATURES = {
     "art_table_gather": [_P, _I, _P, _P, _I, _P],
     "art_box_grid": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I, ctypes.c_float,
                      ctypes.POINTER(_P), _P],
+    "art_sphere_mxu": [_P, _P, _I, _I, ctypes.POINTER(_P), _P],
     "art_box_grid_cells": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I,
                            ctypes.c_float, ctypes.POINTER(_P), _P],
 }
@@ -80,26 +94,36 @@ def nvcc_path() -> str:
     return found
 
 
+def _units() -> list[Path]:
+    """The shared library's translation units (every ``.cu`` but K13's)."""
+    return [p for p in sorted(CSRC.glob("*.cu")) if p.name != STATIC_SOURCE]
+
+
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return _units() + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest(parts) -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, data in parts:
+        digest.update(name.encode())
+        digest.update(data)
+    return digest.hexdigest()[:16]
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernels' shared library, compiled on first call."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    so = BUILD_DIR / f"libart_kernels_{digest.hexdigest()[:16]}.so"
+    so = BUILD_DIR / "libart_kernels_{}.so".format(
+        _digest((src.name, src.read_bytes()) for src in _sources()))
     seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _units()]
         jobs = [[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for obj, src in zip(objs, sorted(CSRC.glob("*.cu")))]
+                for obj, src in zip(objs, _units())]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                   text=True) for cmd in jobs]
         errs = [p.communicate()[1] for p in procs]  # waits for every nvcc
@@ -124,6 +148,102 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _hex(x: float) -> str:
+    """An exact C++17 float literal of the float32 value ``x``."""
+    if x == 0.0:
+        return "-0.0f" if math.copysign(1.0, x) < 0 else "0.0f"
+    if not math.isfinite(x):
+        raise ValueError(f"K13's cells must be finite, got {x}")
+    mant, exp = x.hex().split("p")
+    return f"{mant.rstrip('0').rstrip('.')}p{exp}f"
+
+
+def static_header(cells: tuple, tail_r: float, tail_mat: float) -> str:
+    """The per-scene header of ``csrc/sphere_static.cu``: the (moving, main,
+    tail) cells of ``scene/builder.static_sphere_cells`` as the X-macro lists
+    ``ART_STATIC_MOVING``, ``ART_STATIC_MAIN`` and ``ART_STATIC_TAIL``, and
+    the tail's radius and material."""
+    lines = ["// K13's cells for one scene, written by art_tpu_torch/ops/_build.py",
+             "#pragma once"]
+    for name, rows in zip(("MOVING", "MAIN", "TAIL"), cells):
+        lines.append(f"#define ART_STATIC_{name}(X) \\")
+        lines += ["  X(" + ", ".join(_hex(v) for v in row) + ") \\" for row in rows]
+        lines.append("")
+    lines += [f"#define ART_STATIC_TAIL_R {_hex(float(tail_r))}",
+              f"#define ART_STATIC_TAIL_MAT {_hex(float(tail_mat))}", ""]
+    return "\n".join(lines)
+
+
+_STATIC_LIBS: dict = {}  # (id(cells), expand) -> (cells, library)
+
+
+def static_libraries(jobs) -> list:
+    """K13 built for each ``(cells, tail_r, tail_mat, expand)`` of ``jobs``:
+    one scene's ``tables.sph_static_cells`` and tail in the direct
+    (``expand`` False) or expanded quadratic form.  A library is named under
+    ``_build/`` by a hash of its ``static_header``, the sources and the
+    flags; those not built yet are compiled by one ``nvcc`` each, all
+    started together.  Within the process a library is found again by its
+    cells object.  ``build_seconds`` on a library is the nvcc time this
+    process spent on it (0 if it was built before)."""
+    libs, todo = [None] * len(jobs), []
+    for k, (cells, tail_r, tail_mat, expand) in enumerate(jobs):
+        hit = _STATIC_LIBS.get((id(cells), expand))
+        if hit is not None and hit[0] is cells:
+            libs[k] = hit[1]
+            continue
+        header = static_header(cells, tail_r, tail_mat)
+        flags = NVCC_FLAGS + (f"-DART_STATIC_EXPAND={int(expand)}",)
+        digest = _digest([("flags", " ".join(flags).encode()), ("header", header.encode())]
+                         + [(p.name, p.read_bytes()) for p in _static_sources()])
+        todo.append((k, cells, expand, header, flags, BUILD_DIR / f"libart_static_{digest}.so"))
+    builds = list({job[-1]: job for job in todo if not job[-1].exists()}.values())
+    seconds, procs, tmps = {}, [], []
+    t0 = time.perf_counter()
+    try:
+        for _, _, _, header, flags, so in builds:
+            inc = so.with_suffix(f".{os.getpid()}.inc")  # the header and nvcc's messages
+            inc.mkdir(parents=True, exist_ok=True)
+            (inc / "sphere_static_cells.h").write_text(header)
+            tmps.append(so.with_suffix(f".{os.getpid()}.tmp"))
+            cmd = [nvcc_path(), *flags, "-shared", "-I", str(inc), "-o", str(tmps[-1]),
+                   str(CSRC / STATIC_SOURCE)]
+            with open(inc / "nvcc.err", "w") as err:
+                procs.append((so, cmd, inc, subprocess.Popen(cmd, stdout=err, stderr=err)))
+        while len(seconds) < len(procs):  # each build's own seconds
+            for so, _, _, proc in procs:
+                if so not in seconds and proc.poll() is not None:
+                    seconds[so] = time.perf_counter() - t0
+            time.sleep(0.02)
+        failed = [f"nvcc failed ({' '.join(cmd)}):\n{(inc / 'nvcc.err').read_text()}"
+                  for _, cmd, inc, proc in procs if proc.returncode]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for (_, _, _, _, _, so), tmp in zip(builds, tmps):
+            os.replace(tmp, so)
+    finally:
+        for _, _, inc, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(inc, ignore_errors=True)
+        for tmp in tmps:
+            tmp.unlink(missing_ok=True)
+    for k, cells, expand, _, _, so in todo:
+        lib = ctypes.CDLL(str(so))
+        lib.build_seconds = seconds.get(so, 0.0)
+        lib.art_sphere_static.argtypes = [_I, ctypes.POINTER(_P), _P]
+        lib.art_sphere_static.restype = ctypes.c_int
+        _STATIC_LIBS[(id(cells), expand)] = (cells, lib)
+        libs[k] = lib
+    return libs
+
+
+@functools.lru_cache(maxsize=None)
+def _static_sources() -> tuple:
+    return (CSRC / STATIC_SOURCE, *sorted(CSRC.glob("*.cuh")))
 
 
 def pointers(tensors) -> ctypes.Array:

@@ -28,10 +28,11 @@ through ``lax.cond``; PyTorch has no device-side cond and reading the
 count would sync every iteration, so the port runs the compact pipeline at
 the compacted fetch's capacity (``ceil(R / 128) * 128`` slots), as the
 image fetch does, and keeps it as its only branch.  ``art_tpu``'s dense
-branch (``compact_sphere.py:156-213``: K17, K16 or the full-table K2; its
-MXU tail waits for K14) is one kernel call over the whole pool, so
+branch (``compact_sphere.py:156-213``) is one call over the whole pool, so
 ``intersect.closest_surface_p`` makes it itself, under
-``ART_TPU_SPH_FORCE_BRANCH=dense`` (measurement only).  The split
+``ART_TPU_SPH_FORCE_BRANCH=dense`` (measurement only): K17, K16 or the
+full-table K2, or, under ``ART_TPU_MXU_TAIL``, ``sphere_hit_attrs_mxu_tail``
+(K2 over the head, K14 over the tail's recentered features).  The split
 equals K2 over ``sph_rows`` but on an exact tie between a head sphere that
 comes after the tail in scene order and a tail sphere (no reference scene
 has one).  With ``plain=True`` every kernel's plain twin runs.
@@ -97,4 +98,25 @@ def sphere_hit_attrs_split(tables: SceneTables, o, d, tm, t_min=T_MIN, *,
     better = t_cl < t_h  # the head keeps exact ties
     normal = tuple(torch.where(better, out[:R, 1 + c], n_h[c]) for c in range(3))
     return (torch.where(better, t_cl, t_h), normal,
+            torch.where(better, int(tables.sph_tail_mat), m_h))
+
+
+def sphere_hit_attrs_mxu_tail(tables: SceneTables, o, d, tm, t_min=T_MIN, *,
+                              plain: bool = False):
+    """The split's dense branch under ``ART_TPU_MXU_TAIL``
+    (``art_tpu/ops/compact_sphere.py:157-187``): K2 over ``sph_head_rows``,
+    K14 over ``sph_mxu_tail_feat`` with the origins shifted by
+    ``sph_tail_centroid`` (t and normals do not move with the frame), and a
+    merge in which the tail wins only on a strictly smaller t and takes
+    ``sph_tail_mat``.  Not equal to K2 over ``sph_rows``: K14's expanded
+    quadratic, 2 t_min margin and Newton step round otherwise."""
+    hit_attrs = K.sphere_hit_attrs_plain if plain else K.sphere_hit_attrs
+    t_h, n_h, m_h = hit_attrs(tables, o, d, tm, t_min, rows=tables.sph_head_rows)
+    gx, gy, gz = tables.sph_tail_centroid
+    o_g = (o[0] - gx, o[1] - gy, o[2] - gz)
+    t_c, n_c, _ = (K.sphere_mxu_hit_attrs_plain if plain else K.sphere_mxu_hit_attrs)(
+        tables.sph_mxu_tail_feat, tables.sph_mxu_tail_attr, o_g, d, tm, t_min)
+    better = t_c < t_h
+    normal = tuple(torch.where(better, n_c[c], n_h[c]) for c in range(3))
+    return (torch.where(better, t_c, t_h), normal,
             torch.where(better, int(tables.sph_tail_mat), m_h))

@@ -422,16 +422,19 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
     the per-ray BVH descent (``ART_TPU_BVH``, plain PyTorch on every device
     as in ``art_tpu``, the winner's attributes from
     ``sphere_attributes_p``); to K15's sphere clusters (``ART_TPU_CLUSTER``);
-    to K17 (``ART_TPU_SPH_CELLBIN``, where the builder made cell bins); to the
-    split pass (``ops/compact_sphere.py``; opt-in here under
-    ``ART_TPU_COMPACT_SPH``, for a tail of at least 512 rows and a pool of
-    ``SPH_K < R < 2^24`` slots) with the occlusion gate
-    (``ART_TPU_OCC_GATE``) and K16's tail-only call (``ART_TPU_SPH_SKIP``
-    with ``ART_TPU_COMPACT_SKIP``); under ``ART_TPU_SPH_FORCE_BRANCH=dense``
-    to the split's dense branch instead (``art_tpu``'s fallbacks,
-    ``compact_sphere.py:156-213``, without its MXU tail: K17 under
-    ``ART_TPU_COMPACT_CELLBIN``, else K16 under ``ART_TPU_SPH_SKIP``, else
-    the full-table K2); to K16 (``ART_TPU_SPH_SKIP``, where the builder
+    to K14 (``ART_TPU_MXU_SPHERES``, where the builder's scale gate made its
+    features); to K13 (``ART_TPU_SPH_STATIC``, for at most 2048 spheres, in
+    the builder's ``sph_expand`` form); to K17 (``ART_TPU_SPH_CELLBIN``,
+    where the builder made cell bins); to the split pass
+    (``ops/compact_sphere.py``; opt-in here under ``ART_TPU_COMPACT_SPH``,
+    for a tail of at least 512 rows and a pool of ``SPH_K < R < 2^24``
+    slots) with the occlusion gate (``ART_TPU_OCC_GATE``) and K16's
+    tail-only call (``ART_TPU_SPH_SKIP`` with ``ART_TPU_COMPACT_SKIP``);
+    under ``ART_TPU_SPH_FORCE_BRANCH=dense`` to the split's dense branch
+    instead (``art_tpu``'s fallbacks, ``compact_sphere.py:156-213``: K2 over
+    the head and K14 over the recentered tail under ``ART_TPU_MXU_TAIL``,
+    else K17 under ``ART_TPU_COMPACT_CELLBIN``, else K16 under
+    ``ART_TPU_SPH_SKIP``, else the full-table K2); to K16 (``ART_TPU_SPH_SKIP``, where the builder
     made skip bins); else to the full-table K2.  A miss keeps normal
     (1, 0, 0) and material 0 (u = v = 0 unless the scene reads a sphere's
     (u, v))."""
@@ -474,7 +477,21 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
         elif r.cluster and tables.n_sphere_clusters:
             t, normal, mat = (K.sphere_cluster_hit_attrs_plain if plain
                               else K.sphere_cluster_hit_attrs)(tables, o, d, time, t_min)
-        elif cellbin and (r.sph_cellbin or dense and r.compact_cellbin):
+        elif r.mxu_spheres and tables.mxu_sphere_pad:
+            t, normal, mat = (K.sphere_mxu_hit_attrs_plain if plain
+                              else K.sphere_mxu_hit_attrs)(
+                tables.sph_mxu_feat, tables.sph_mxu_attr, o, d, time, t_min)
+        elif r.sph_static and tables.sph_static_cells is not None:
+            t, normal, mat = (K.sphere_static_hit_attrs_plain if plain
+                              else K.sphere_static_hit_attrs)(
+                tables, o, d, time, t_min, expand=tables.sph_expand)
+        elif cellbin and r.sph_cellbin:
+            t, normal, mat = (K.sphere_cellbin_hit_attrs_plain if plain
+                              else K.sphere_cellbin_hit_attrs)(tables, o, d, time, t_min)
+        elif dense and r.mxu_tail and tables.mxu_tail_pad:
+            t, normal, mat = compact_sphere.sphere_hit_attrs_mxu_tail(
+                tables, o, d, time, t_min, plain=plain)
+        elif cellbin and dense and r.compact_cellbin:
             t, normal, mat = (K.sphere_cellbin_hit_attrs_plain if plain
                               else K.sphere_cellbin_hit_attrs)(tables, o, d, time, t_min)
         elif split and not dense:

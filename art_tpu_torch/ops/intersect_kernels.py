@@ -24,6 +24,20 @@
   bounded test of its box (``intersect.cluster_slab``) passes; its twin is
   K6's twin over each cluster, masked by that test and merged with a strict
   ``<``, then the winner's attributes.
+* K13 ``sphere_static_hit_attrs`` (``csrc/sphere_static.cu``, built per
+  scene by ``_build.static_libraries``), replacing ``sphere_static_hit_attrs``
+  (``:520``): K2's outputs over ``tables.sph_static_cells`` baked into the
+  kernel, the moving rows, then the static rows but the tail, then the tail
+  merged once (a tail row wins only on a strictly smaller t), in the direct
+  or the expanded quadratic (``expand``; the route passes the builder's
+  ``sph_expand``), with t_min = 1e-3 baked in.  Its twin walks the same
+  cells in the same order, vectorized: a first-index min over the moving and
+  main rows, another over the tail, and the strict merge.
+* K14 ``sphere_mxu_hit_attrs`` (``csrc/sphere_mxu.cu``), replacing
+  ``sphere_hit_attrs_mxu`` (``:730``): K2's outputs through the bilinear
+  features (F, attrT) of ``scene/builder.sphere_mxu_features``, with the
+  TPU kernel's 2 t_min margin, first-index argmin and one Newton step; its
+  twin sums the same feature terms in the same order (no matmul).
 * K5 ``quad_closest_hit`` (``csrc/quad_hit.cu``), replacing
   ``quad_closest_hit_planar`` (``_quad_kernel``): the closest quad's t and
   index; ``closest_surface_p`` gets its normal and (alpha, beta) from
@@ -40,7 +54,8 @@
   order (``box_grid_cell_rows``); the two pick different, equally close
   cells on an exact tie.
 
-Each takes ``t_min`` as a run-time argument.  A miss gives ``t = BIG``,
+Each but K13 and K14 (which bake 1e-3, as the TPU kernels do) takes
+``t_min`` as a run-time argument.  A miss gives ``t = BIG``,
 index -1 (K5), normal ``(1, 0, 0)``, u = v = 0 and material 0 — the values
 ``closest_surface_p`` blends in for misses.  Each wrapper launches its
 kernel for CUDA tensors and runs the plain twin for CPU tensors.
@@ -52,7 +67,7 @@ import ctypes
 
 import torch
 
-from art_tpu_torch.core.vecmath import BIG, T_MIN, p_where, safe_dir
+from art_tpu_torch.core.vecmath import BIG, T_MIN, p_ray_at, p_where, safe_dir, sqrt
 from art_tpu_torch.ops import _build
 from art_tpu_torch.ops.gather import take_rows
 from art_tpu_torch.ops.intersect import (
@@ -76,6 +91,8 @@ NAME = "sphere_hit"
 SKIP = "sphere_skip"  # K16
 CELLBIN = "sphere_cellbin"  # K17
 CLUSTER = "sphere_cluster"  # K15, spheres
+STATIC = "sphere_static"  # K13
+MXU = "sphere_mxu"  # K14
 BOX_CLUSTER = "box_cluster"  # K15, boxes
 QUAD = "quad_hit"
 BOX = "box_hit"
@@ -238,6 +255,205 @@ def sphere_cluster_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN):
     if o[0].device.type == "cpu":
         return sphere_cluster_hit_attrs_plain(tables, o, d, tm, t_min)
     return _culled_launch(CLUSTER, tables.sph_cl_rows, tables.sph_cl_seg, 0, o, d, tm, t_min)
+
+
+def _sphere_outputs(R: int, dev):
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    return (t, *(torch.empty_like(t) for _ in range(3)),
+            torch.empty(R, dtype=torch.int32, device=dev))
+
+
+def _baked_t_min(t_min: float, name: str) -> None:
+    if t_min != T_MIN:
+        raise ValueError(f"{name} bakes t_min = {T_MIN} in, as the TPU kernel; got {t_min}")
+
+
+_STATIC_ROWS: dict = {}  # (id(cells), device) -> (cells, _static_rows' tables)
+
+
+def _static_rows(tables: SceneTables, dev):
+    """K13's cells as the twin's tables on ``dev``: (R_mm (M, 10) [c v r mat
+    r2 K], the moving rows first, then the main rows with v = 0; the number
+    of moving rows; R_tail (T, 10) with the tail's radius and material)."""
+    cells = tables.sph_static_cells
+    hit = _STATIC_ROWS.get((id(cells), str(dev)))
+    if hit is not None and hit[0] is cells:
+        return hit[1]
+    moving, main, tail = cells
+    mm = [(*r[:9], 0.0) for r in moving]
+    mm += [(cx, cy, cz, 0.0, 0.0, 0.0, r, m, r2, k) for cx, cy, cz, r, m, r2, k in main]
+    tr = [(cx, cy, cz, 0.0, 0.0, 0.0, tables.sph_tail_r, tables.sph_tail_mat, r2, k)
+          for cx, cy, cz, r2, k in tail]
+    out = (torch.tensor(mm, dtype=torch.float32, device=dev).reshape(-1, 10), len(moving),
+           torch.tensor(tr, dtype=torch.float32, device=dev).reshape(-1, 10))
+    _STATIC_ROWS[(id(cells), str(dev))] = (cells, out)
+    return out
+
+
+def _static_scan(rows, n_moving: int, o, d, tm, expand: bool):
+    """(t, cx, cy, cz, row index) of the first closest of ``rows`` [c v r mat
+    r2 K] per ray, K13's candidate: a moving row (the first ``n_moving``)
+    in the direct form with its centre at the ray's time, a zero velocity
+    component skipping the motion term; a static row in the direct form or,
+    with ``expand``, the expanded one (``csrc/sphere.cuh``)."""
+    R = o[0].shape[0]
+    if rows.shape[0] == 0:
+        big = torch.full_like(o[0], BIG)
+        zero = torch.zeros_like(big)
+        return big, zero, zero, zero, torch.zeros(R, dtype=torch.int64, device=big.device)
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
+    a = dx * dx + dy * dy + dz * dz
+    tcol = tm[:, None]
+    mov, stat = rows[:n_moving], rows[n_moving:]
+    centres = [torch.cat([torch.where(mov[None, :, 3 + k] == 0.0,
+                                      mov[None, :, k].expand(R, -1),
+                                      mov[None, :, k] + tcol * mov[None, :, 3 + k]),
+                          stat[None, :, k].expand(R, -1)], dim=1) for k in range(3)]
+    ocx, ocy, ocz = (oc - c for oc, c in zip((ox, oy, oz), centres))
+    bq = ocx * dx + ocy * dy + ocz * dz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - rows[None, :, 8]
+    if expand and stat.shape[0]:
+        sx, sy, sz = (s[:, n_moving:] for s in centres)
+        od = ox * dx + oy * dy + oz * dz
+        oo = ox * ox + oy * oy + oz * oz
+        bq_s = od - (sx * dx + sy * dy + sz * dz)
+        c_s = (oo + stat[None, :, 9]) - (sx * (2.0 * ox) + sy * (2.0 * oy) + sz * (2.0 * oz))
+        bq = torch.cat([bq[:, :n_moving], bq_s], dim=1)
+        c = torch.cat([c[:, :n_moving], c_s], dim=1)
+    disc = bq * bq - a * c
+    s = sqrt(torch.clamp_min(disc, 0.0))
+    inv_a = 1.0 / a
+    t1 = (-bq - s) * inv_a
+    t2 = (-bq + s) * inv_a
+    valid = disc > 0.0
+    t = torch.where(valid & (t1 > T_MIN), t1,
+                    torch.where(valid & (t2 > T_MIN), t2, torch.full_like(t1, BIG)))
+    t_best, idx = torch.min(t, dim=1)  # the first index among exact ties
+    pick = idx[:, None]
+    return (t_best, *(torch.gather(x, 1, pick)[:, 0] for x in centres), idx)
+
+
+def sphere_static_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN, *,
+                                  expand: bool = False):
+    """Plain PyTorch K13 over ``tables.sph_static_cells`` (module
+    docstring)."""
+    _baked_t_min(t_min, STATIC)
+    mm, n_moving, tail = _static_rows(tables, o[0].device)
+    t, cx, cy, cz, idx = _static_scan(mm, n_moving, o, d, tm, expand)
+    r = mm[:, 6][idx] if mm.shape[0] else torch.ones_like(t)
+    mat = mm[:, 7][idx] if mm.shape[0] else torch.zeros_like(t)
+    t_t, tx, ty, tz, _ = _static_scan(tail, 0, o, d, tm, expand)
+    better = t_t < t
+    t = torch.where(better, t_t, t)
+    cx, cy, cz = (torch.where(better, a, b) for a, b in ((tx, cx), (ty, cy), (tz, cz)))
+    r = torch.where(better, float(tables.sph_tail_r), r)
+    mat = torch.where(better, float(tables.sph_tail_mat), mat)
+    p = p_ray_at(o, d, t)
+    inv_r = 1.0 / r
+    normal = ((p[0] - cx) * inv_r, (p[1] - cy) * inv_r, (p[2] - cz) * inv_r)
+    normal, (mat,) = miss_defaults(t < BIG, normal, (mat.to(torch.int32),))
+    return t, normal, mat
+
+
+def sphere_static_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN, *,
+                            expand: bool = False):
+    """K13: the scene's baked kernel (built on first use, ``expand`` picking
+    the quadratic form) for CUDA tensors, the plain twin for CPU tensors."""
+    if o[0].device.type == "cpu":
+        return sphere_static_hit_attrs_plain(tables, o, d, tm, t_min, expand=expand)
+    _baked_t_min(t_min, STATIC)
+    if tables.sph_static_cells is None:
+        raise ValueError("sphere_static_hit_attrs: the scene has no static cells "
+                         "(more than 2048 spheres)")
+    dev = o[0].device
+    ins = (*o, *d, tm)
+    R = ins[0].shape[0]
+    _build.check_planes(_RAY + ("tm",), ins, R, torch.float32, dev)
+    lib = static_library(tables, expand)
+    outs = _sphere_outputs(R, dev)
+    rc = lib.art_sphere_static(R, _build.pointers(ins + outs), _build.stream_handle(dev))
+    _build.check(rc, STATIC)
+    _build.launches[STATIC] += 1
+    t, nx, ny, nz, mat = outs
+    return t, (nx, ny, nz), mat
+
+
+def static_library(tables: SceneTables, expand: bool):
+    """K13's library for the scene's cells and form (``_build.static_libraries``)."""
+    return _build.static_libraries([(tables.sph_static_cells, tables.sph_tail_r,
+                                     tables.sph_tail_mat, expand)])[0]
+
+
+def sphere_mxu_hit_attrs_plain(F, attr, o, d, tm, t_min=T_MIN):
+    """Plain PyTorch K14 over the features ``F`` (2 S_pad, 16) and ``attr``
+    (8, S_pad) (``csrc/sphere_mxu.cu``, term for term)."""
+    _baked_t_min(t_min, MXU)
+    s_pad = attr.shape[1]
+    ox, oy, oz = o
+    dx, dy, dz = d
+    rf = (dx, dy, dz, tm * dx, tm * dy, tm * dz, ox, oy, oz, tm * ox, tm * oy, tm * oz,
+          None, tm, tm * tm)
+    fb, fc = F[:s_pad], F[s_pad:]
+    B = fb[None, :, 0] * dx[:, None]
+    for k in range(1, 6):
+        B = B + fb[None, :, k] * rf[k][:, None]
+    C = fc[None, :, 6] * ox[:, None]
+    for k in range(7, 15):
+        C = C + (fc[None, :, k] if k == 12 else fc[None, :, k] * rf[k][:, None])
+    a = dx * dx + dy * dy + dz * dz
+    t_sel = 2.0 * t_min
+    neg_inv_a = (-1.0 / a)[:, None]
+    od = (ox * dx + oy * dy + oz * dz)[:, None]
+    o2 = (ox * ox + oy * oy + oz * oz)[:, None]
+    ta2 = (-t_sel * a)[:, None]
+    b = od - B
+    c = C + o2
+    disc = b * b - a[:, None] * c
+    sq = sqrt(torch.clamp_min(disc, 0.0))
+    cand = (b + torch.where(b + sq < ta2, sq, -sq)) * neg_inv_a
+    tc = torch.where((disc > 0.0) & (cand > t_sel), cand, torch.full_like(cand, BIG))
+    best, sid = torch.min(tc, dim=1)  # the first index among exact ties
+    hit = best < BIG * 0.5
+    A = attr[:, sid]  # (8, R): the winner's column
+    cx, cy, cz = (A[k] + tm * A[3 + k] for k in range(3))
+    r = A[6]
+    px, py, pz = ox + best * dx - cx, oy + best * dy - cy, oz + best * dz - cz
+    f = px * px + py * py + pz * pz - r * r
+    fp = 2.0 * (dx * px + dy * py + dz * pz)
+    step = fp.abs() > 1e-12
+    t = torch.where(step, best - f / torch.where(step, fp, torch.ones_like(fp)), best)
+    inv_r = 1.0 / r
+    normal = ((ox + t * dx - cx) * inv_r, (oy + t * dy - cy) * inv_r,
+              (oz + t * dz - cz) * inv_r)
+    normal, (mat,) = miss_defaults(hit, normal, (A[7].to(torch.int32),))
+    return torch.where(hit, t, BIG), normal, mat
+
+
+def sphere_mxu_hit_attrs(F, attr, o, d, tm, t_min=T_MIN):
+    """K14 over the features ``F`` and ``attr``: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    if o[0].device.type == "cpu":
+        return sphere_mxu_hit_attrs_plain(F, attr, o, d, tm, t_min)
+    _baked_t_min(t_min, MXU)
+    dev = o[0].device
+    ins = (*o, *d, tm)
+    R = ins[0].shape[0]
+    _build.check_planes(_RAY + ("tm",), ins, R, torch.float32, dev)
+    F = _build.check_table("F", F, 16, dev)
+    s_pad = F.shape[0] // 2
+    attr = _build.check_table("attrT", attr, s_pad, dev)
+    if attr.shape[0] != 8 or s_pad % 128 or F.shape[0] != 2 * s_pad:
+        raise ValueError(f"K14 needs F (2 S_pad, 16) and attrT (8, S_pad) with S_pad a "
+                         f"multiple of 128, got {tuple(F.shape)} and {tuple(attr.shape)}")
+    outs = _sphere_outputs(R, dev)
+    rc = _build.library().art_sphere_mxu(F.data_ptr(), attr.data_ptr(), s_pad, R,
+                                         _build.pointers(ins + outs),
+                                         _build.stream_handle(dev))
+    _build.check(rc, MXU)
+    _build.launches[MXU] += 1
+    t, nx, ny, nz, mat = outs
+    return t, (nx, ny, nz), mat
 
 
 def quad_closest_hit_plain(tables: SceneTables, o, d, t_min=T_MIN):

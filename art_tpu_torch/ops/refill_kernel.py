@@ -14,6 +14,16 @@ iteration ``it``:
 
 Uniforms come either from an injected ``(ncols, R)`` block (``block=``) or
 from Philox keyed by ``key=(seed, tile, chunk)`` (``core/rng.py``).
+
+K12 ``fused_refill_flush`` (``csrc/refill_flush.cu``), replacing
+``fused_refill_flush_rng`` (:523) and ``fused_refill_flush`` (:588), is the
+refill of the seam route (``render/integrator.seam_step``): first every
+dead slot (``act`` False) adds its radiance to ``fb[pix]`` (the (P, 3)
+framebuffer; a pix outside ``[0, P)`` counts into ``lost``, as K3's
+flush) and has it zeroed, then K1's refill runs unchanged.
+``flush_dead`` is its flush half alone, the render's last flush.  The
+TPU's framebuffer window (``fmin``, ``base``, ``n_hi_win``) and its bf16
+one-hot accumulate exist for VMEM and are left out.
 """
 
 from __future__ import annotations
@@ -26,8 +36,11 @@ import torch
 from art_tpu_torch.core.camera import Camera, pack_camera, rays_from_uniforms_p
 from art_tpu_torch.core.rng import philox_block
 from art_tpu_torch.ops import _build
+from art_tpu_torch.ops.shade_kernel import flush_plain
 
 NAME = "refill"
+FLUSH_NAME = "refill_flush"  # K12
+FLUSH_DEAD_NAME = "flush_dead"  # K12's flush-only entry, a kernel of its own
 POOL_F = ("ox", "oy", "oz", "dx", "dy", "dz", "tm",
           "t0", "t1", "t2", "r0", "r1", "r2")
 POOL_I = ("bounce", "pix")
@@ -124,15 +137,15 @@ def check_refill_args(pool, q, hist, it: int, block, ncols: int) -> None:
                          f"on {dev}")
 
 
-def fused_refill(pool, cam: Camera, q, parity: int, hist, it: int,
-                 scal: RefillScal, *, block=None, key=None, ncols: int):
-    """K1: the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+def _one_source(block, key) -> None:
     if (block is None) == (key is None):
         raise ValueError("pass exactly one of block= (injected) or key= (Philox)")
+
+
+def _launch(pool, cam: Camera, q, parity: int, hist, it: int, scal: RefillScal, block,
+            key, ncols: int, flush=None):
+    """Launch K1, or K12 with ``flush`` = (fb, lost), on a CUDA pool."""
     dev = pool["act"].device
-    if dev.type == "cpu":
-        return fused_refill_plain(pool, cam, q, parity, hist, it, scal,
-                                  block=block, key=key, ncols=ncols)
     R = pool["act"].shape[0]
     check_refill_args(pool, q, hist, it, block, ncols)
     if block is not None:
@@ -146,12 +159,79 @@ def fused_refill(pool, cam: Camera, q, parity: int, hist, it: int,
                            + [pool["act"], u, block_dead, q, hist])
     scal_c = (ctypes.c_longlong * 6)(*scal)
     cam_c = (ctypes.c_float * 21)(*pack_camera(cam).tolist())
-    rc = _build.library().art_refill(
-        ptrs, R, parity, ncols, int(block is None), scal_c, cam_c,
-        seed & 0xFFFFFFFF, tile & 0xFFFFFFFF, chunk & 0xFFFFFFFF, it,
-        _build.stream_handle(dev))
-    _build.check(rc, NAME)
-    _build.launches[NAME] += 1
+    args = (ptrs, R, parity, ncols, int(block is None), scal_c, cam_c,
+            seed & 0xFFFFFFFF, tile & 0xFFFFFFFF, chunk & 0xFFFFFFFF, it)
+    lib = _build.library()
+    if flush is None:
+        name = NAME
+        rc = lib.art_refill(*args, _build.stream_handle(dev))
+    else:
+        name = FLUSH_NAME
+        fb, lost = flush
+        _build.check_flush(fb, lost, dev)
+        rc = lib.art_refill_flush(*args, fb.data_ptr(), fb.shape[0], lost.data_ptr(),
+                                  _build.stream_handle(dev))
+    _build.check(rc, name)
+    _build.launches[name] += 1
     if block is not None:
         return _split(u, 0, U_CHOICE, U_MEDIA)
     return _split(u, 0, U_CHOICE, 4)
+
+
+def fused_refill(pool, cam: Camera, q, parity: int, hist, it: int,
+                 scal: RefillScal, *, block=None, key=None, ncols: int):
+    """K1: the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    _one_source(block, key)
+    if pool["act"].device.type == "cpu":
+        return fused_refill_plain(pool, cam, q, parity, hist, it, scal,
+                                  block=block, key=key, ncols=ncols)
+    return _launch(pool, cam, q, parity, hist, it, scal, block, key, ncols)
+
+
+def flush_dead_plain(pool, fb, lost) -> None:
+    """Plain PyTorch flush half of K12: ``fb[pix] += radiance`` for every
+    dead slot (``shade_kernel.flush_plain``), then its radiance zeroed."""
+    dead = ~pool["act"]
+    flush_plain(pool["pix"], dead, (pool["r0"], pool["r1"], pool["r2"]), fb, lost)
+    for n in ("r0", "r1", "r2"):
+        pool[n].masked_fill_(dead, 0.0)
+
+
+def flush_dead(pool, fb, lost) -> None:
+    """K12's flush half alone (``art_flush_dead``) for CUDA tensors, its
+    twin for CPU tensors: every dead slot's radiance into ``fb``, then
+    zeroed."""
+    dev = pool["act"].device
+    if dev.type == "cpu":
+        return flush_dead_plain(pool, fb, lost)
+    R = pool["act"].shape[0]
+    _build.check_planes(POOL_F, [pool[n] for n in POOL_F], R, torch.float32, dev)
+    _build.check_planes(POOL_I, [pool[n] for n in POOL_I], R, torch.int32, dev)
+    _build.check_planes(("act",), (pool["act"],), R, torch.bool, dev)
+    _build.check_flush(fb, lost, dev)
+    ptrs = _build.pointers([pool[n] for n in POOL_F + POOL_I] + [pool["act"]])
+    rc = _build.library().art_flush_dead(ptrs, R, fb.data_ptr(), fb.shape[0],
+                                         lost.data_ptr(), _build.stream_handle(dev))
+    _build.check(rc, FLUSH_DEAD_NAME)
+    _build.launches[FLUSH_DEAD_NAME] += 1
+
+
+def fused_refill_flush_plain(pool, cam: Camera, q, parity: int, hist, it: int,
+                             scal: RefillScal, fb, lost, *, block=None, key=None,
+                             ncols: int):
+    """Plain PyTorch K12: ``flush_dead_plain``, then K1's twin."""
+    flush_dead_plain(pool, fb, lost)
+    return fused_refill_plain(pool, cam, q, parity, hist, it, scal, block=block, key=key,
+                              ncols=ncols)
+
+
+def fused_refill_flush(pool, cam: Camera, q, parity: int, hist, it: int,
+                       scal: RefillScal, fb, lost, *, block=None, key=None, ncols: int):
+    """K12: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors; K1's arguments and returns, plus the (P, 3) float32
+    framebuffer ``fb`` and the (1,) int32 ``lost`` counter it flushes into."""
+    _one_source(block, key)
+    if pool["act"].device.type == "cpu":
+        return fused_refill_flush_plain(pool, cam, q, parity, hist, it, scal, fb, lost,
+                                        block=block, key=key, ncols=ncols)
+    return _launch(pool, cam, q, parity, hist, it, scal, block, key, ncols, (fb, lost))

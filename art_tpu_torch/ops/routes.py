@@ -1,11 +1,15 @@
-"""The intersection-route switches, read once from the environment.
+"""The route switches, read once from the environment.
 
 ``art_tpu`` reads its route switches once, at import
 (``art_tpu/ops/intersect.py:112-183``, ``ops/compact_sphere.py:52-60``,
-``ops/pallas_kernels.py:1084``); the port reads the same names once into
+``ops/pallas_kernels.py:1084``, ``render/integrator.py:96``,
+``scene/builder.py:800-804``); the port reads the same names once into
 one frozen record, ``ROUTES``, which ``ops/intersect.closest_surface_p``
-reads at call time (K16's bin count, ``ART_TPU_SPH_BINS``, is a table
-shape and is read by ``scene/cull.py``).  A switch is on
+and ``render/integrator`` read at call time.  Two names shape tables, not
+routes, and are read by the scene layer: K16's bin count
+``ART_TPU_SPH_BINS`` (``scene/cull.py``) and ``ART_TPU_MXU_FORCE``, which
+makes K14's tables past the builder's coordinate-scale gate
+(``scene/builder.py``).  A switch is on
 when its variable is set to a non-empty value, as in ``art_tpu``.
 
 =========================  ==================================================
@@ -29,9 +33,23 @@ when its variable is set to a non-empty value, as in ``art_tpu``.
                            tail-only call on the compacted lanes
 ``ART_TPU_SPH_CELLBIN``    K17 (cell bins) standalone; before the split
 ``ART_TPU_COMPACT_CELLBIN`` K17 as the split's dense fallback
+``ART_TPU_MXU_SPHERES``    K14: the bilinear-feature sphere kernel
+                           (``csrc/sphere_mxu.cu``) where the builder's scale
+                           gate made its tables; after the clusters, before
+                           K13 and the routes below
+``ART_TPU_SPH_STATIC``     K13: every sphere baked into a per-scene kernel
+                           (``csrc/sphere_static.cu``, ``ops/_build.py``) for
+                           scenes of at most 2048 spheres; before K17
 ``ART_TPU_SPH_FORCE_BRANCH`` ``dense``: the split runs its dense fallback
                            (measurement only); ``compact`` is the port's
                            only branch anyway
+``ART_TPU_MXU_TAIL``       in the split's dense branch: K2 over the head and
+                           K14 over the recentered tail features, before
+                           ``ART_TPU_COMPACT_CELLBIN``
+``ART_TPU_SEAM_FLUSH``     the seam route of the integrator
+                           (``render/integrator.py seam_step``): K12 flushes
+                           the dead slots and refills them, the shading is
+                           plain PyTorch, and the short path is off
 =========================  ==================================================
 
 ``using(**changes)`` swaps the record within one process (tests and
@@ -56,6 +74,10 @@ class Routes:
     sph_cellbin: bool = False
     compact_cellbin: bool = False
     force_branch: str = ""
+    sph_static: bool = False
+    mxu_spheres: bool = False
+    mxu_tail: bool = False
+    seam_flush: bool = False
 
 
 def from_environ(env=os.environ) -> Routes:
@@ -72,6 +94,10 @@ def from_environ(env=os.environ) -> Routes:
         sph_cellbin=on("SPH_CELLBIN"),
         compact_cellbin=on("COMPACT_CELLBIN"),
         force_branch=env.get("ART_TPU_SPH_FORCE_BRANCH", ""),
+        sph_static=on("SPH_STATIC"),
+        mxu_spheres=on("MXU_SPHERES"),
+        mxu_tail=on("MXU_TAIL"),
+        seam_flush=on("SEAM_FLUSH"),
     )
 
 

@@ -20,7 +20,13 @@
   The short path (``use_short_path``, ``art_tpu``'s gate at
   ``integrator.py:406-421``) runs the whole iteration as one kernel call
   (K11, ``ops/sp_kernel.py``) for the small static scenes that pass
-  ``tables.sp_consts``.
+  ``tables.sp_consts``.  The seam route (``ART_TPU_SEAM_FLUSH``,
+  ``ops/routes.py``; ``art_tpu``'s ``use_seam``, ``integrator.py:393-405``)
+  runs ``seam_step`` on every scene instead: K12 flushes the slots that
+  died in the previous iteration into the framebuffer and refills, the
+  shading is the plain PyTorch bounce (``_bounce_step``, as ``art_tpu``
+  runs it with the shade kernel off), and one flush of every dead slot
+  after the loop (``rk.flush_dead``) adds the last deaths.
 
 Loop control.  ``lax.while_loop`` keeps its condition on the device; here
 the host must read it.  K1 adds each iteration's live-slot count to
@@ -44,6 +50,7 @@ import torch
 from art_tpu_torch.core.camera import Camera
 from art_tpu_torch.core.vecmath import T_MIN
 from art_tpu_torch.ops import refill_kernel as rk
+from art_tpu_torch.ops import routes
 from art_tpu_torch.ops.intersect import apply_media_p, closest_surface_p
 from art_tpu_torch.ops.shade import bounce_p, shade_params_p
 from art_tpu_torch.ops.shade_kernel import (
@@ -73,8 +80,9 @@ def use_short_path(tables: SceneTables, short_path: bool | None = None) -> bool:
     slower fused on the TPU).  ``short_path`` mirrors ``art_tpu``'s two
     switches: False is ``ART_TPU_NO_SP`` (always staged), True is
     ``ART_TPU_SP`` (dielectric scenes too; a scene that fails the gate
-    raises)."""
-    if short_path is False:
+    raises).  The seam route (``ART_TPU_SEAM_FLUSH``) excludes it, as in
+    ``art_tpu``, even when forced."""
+    if short_path is False or routes.ROUTES.seam_flush:
         return False
     if tables.sp_consts is None:
         if short_path:
@@ -89,12 +97,13 @@ def use_short_path(tables: SceneTables, short_path: bool | None = None) -> bool:
 def _bounce_step(tables, o, d, tm, throughput, radiance, active,
                  u_ball, u_choice, u_media, background, gradient_bg, *, plain=True):
     """One shared bounce: intersect -> media -> background/emission ->
-    scatter (``art_tpu/render/integrator.py:162-186``).
+    scatter (``art_tpu/render/integrator.py:162-186``); ``plain`` takes
+    every kernel's plain twin.
 
     Returns (new_o, new_d, new_throughput, new_radiance, survived)."""
     surf = closest_surface_p(tables, o, d, tm, T_MIN, plain=plain)
     rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm)
-    params = shade_params_p(tables, rec, valid=active & rec.hit)
+    params = shade_params_p(tables, rec, valid=active & rec.hit, plain=plain)
     return bounce_p(o, d, throughput, radiance, active, rec.hit, rec.p, rec.normal,
                     params, u_ball, u_choice, background, gradient_bg)
 
@@ -153,10 +162,11 @@ def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int
     max_iters = (n_q * max_depth) // R + max_depth + 2
     min_iters = -(-n_q // R)
     scal = rk.RefillScal(spp, P, pix_offset, total_pixels, nx, ny)
+    seam = routes.ROUTES.seam_flush
     if use_short_path(tables, short_path):
         step = sp_step_plain if plain else sp_step
     else:
-        step = functools.partial(staged_step, plain=plain)
+        step = functools.partial(seam_step if seam else staged_step, plain=plain)
 
     pool = rk.new_pool(R, dev)
     fb = torch.zeros((P, 3), dtype=torch.float32, device=dev)
@@ -173,10 +183,40 @@ def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int
         if it + 1 >= min_iters and (it + 1 - min_iters) % CHECK_EVERY == 0 \
                 and int(hist[it]) == 0:
             break
+    if seam:
+        # the slots that died in the last iteration run; every other dead
+        # slot holds zero radiance, so one flush of all dead slots is exact
+        (rk.flush_dead_plain if plain else rk.flush_dead)(pool, fb, lost)
     counts = hist.cpu()
     if int(lost):
         raise RuntimeError(f"{int(lost)} dead slots had a pixel outside the tile")
     return fb, int(counts.sum()), int(torch.count_nonzero(counts))
+
+
+def seam_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillScal,
+              tables: SceneTables, bg, fb, lost, *, block=None, key=None, ncols: int,
+              max_depth: int, gradient: bool, plain: bool = False) -> None:
+    """One iteration of the seam route (``art_tpu/render/integrator.py``
+    ``use_seam``: ``:546-561``, ``:740-760``), in place: K12 flushes the
+    previous iteration's deaths and refills; the closest hit, the media,
+    the material parameters and the bounce in plain PyTorch with the
+    kernels of ``closest_surface_p`` and ``shade_params_p`` (``_bounce_step``,
+    no K3); then the depth rule, with no flush.  ``plain`` takes every
+    kernel's plain twin."""
+    refill = rk.fused_refill_flush_plain if plain else rk.fused_refill_flush
+    u_ball, u_choice, u_media = refill(pool, cam, q, parity, hist, it, scal, fb, lost,
+                                       block=block, key=key, ncols=ncols)
+    act = pool["act"]
+    planes = [tuple(pool[n] for n in names) for names in (
+        ("ox", "oy", "oz"), ("dx", "dy", "dz"), ("t0", "t1", "t2"), ("r0", "r1", "r2"))]
+    o, d, thr, rad, survived = _bounce_step(
+        tables, planes[0], planes[1], pool["tm"], planes[2], planes[3], act, u_ball,
+        u_choice, u_media, bg, gradient, plain=plain)
+    for names, new in zip(planes, (o, d, thr, rad)):
+        for plane, value in zip(names, new):
+            plane.copy_(value)
+    pool["bounce"] += act.to(torch.int32)
+    act.copy_(survived & (pool["bounce"] < max_depth))
 
 
 def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillScal,

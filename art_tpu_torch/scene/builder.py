@@ -11,10 +11,13 @@ tables and the image atlas come out identical to ``art_tpu``'s.  Two
 derived parts of ``finish`` are ported too: the box grid
 (``_detect_box_grid``, ``builder.py:103-183``) and the sphere tail
 (``pack_spheres`` / ``pack_tail_spheres``, ``pallas_kernels.py:976-1075``),
-and the culling kernels' skip bins and cell bins (``builder.py:689-737``,
-``scene/cull.py``).  The other tables of ``finish`` (``builder.py:669-848``:
-static cells, MXU features, clusters, the BVH) serve opt-in kernels that
-are not ported yet.
+the culling kernels' skip bins and cell bins (``builder.py:689-737``,
+``scene/cull.py``), the clusters and the BVH (``builder.py:812-848``), and
+the tables of the baked and bilinear-feature sphere kernels
+(``builder.py:652-680``, ``:735-811``: ``static_sphere_cells`` in
+``pack_spheres``' order with its ``sph_expand`` and ``sph_pos_r`` gates,
+``sphere_mxu_features`` behind the coordinate-scale gate, and the
+recentered tail features).
 
 ``tables_from_numpy`` carries tables compiled by ``art_tpu`` (as numpy
 arrays) into this package — the tests use it to run both packages on the
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -51,8 +55,12 @@ from art_tpu_torch.scene.tables import (
 from art_tpu_torch.utils.images import ImageAtlas, asset_path, load_image_rgb
 
 TAIL_MIN = 192  # the smallest sphere tail (art_tpu pallas_kernels.py:973 _TAIL_MIN)
+STATIC_MAX_SPHERES = 2048  # K13's gate (builder.py:674)
+MXU_TAIL_MIN = 512  # the recentered tail features' gate (builder.py:743, SKIP_MIN_TAIL)
 GRID_MIN_BOXES = 64  # the box grid's gate (art_tpu builder.py:115)
 GRID_MAX_CELLS = 1024  # K9's cell table only up to this many boxes (builder.py:158)
+# K14's tables past the coordinate-scale gate, for measurement (builder.py:800-804)
+MXU_FORCE = bool(os.environ.get("ART_TPU_MXU_FORCE"))
 
 
 def _rot_y(theta: float, p: np.ndarray) -> np.ndarray:
@@ -654,6 +662,10 @@ _ARRAY_FIELDS = tuple(k for k in _EMPTY if k != "tex_types_present") + (
 _GRID_META = ("box_grid_kx", "box_grid_kz", "box_grid_x0", "box_grid_z0", "box_grid_w",
               "box_grid_y0", "box_grid_mat", "box_grid_cells")
 _TAIL_META = ("sph_n_tail", "sph_tail_r", "sph_tail_mat", "sph_tail_box")
+# K13's and K14's tables, carried from art_tpu's by tables_from_numpy
+_SPH_KERNEL_META = ("sph_static_cells", "sph_expand", "sph_pos_r", "mxu_sphere_pad",
+                    "mxu_tail_pad", "sph_tail_centroid")
+_MXU_ARRAYS = ("sph_mxu_feat", "sph_mxu_attr", "sph_mxu_tail_feat", "sph_mxu_tail_attr")
 _MEDIA_META = ("med_kinds", "gb_sph_meds", "gb_quad_meds", "gb_box_meds")
 
 
@@ -729,6 +741,105 @@ def _sphere_tail(rows: np.ndarray) -> dict:
                 sph_tail_box=tuple(float(v) for v in np.concatenate([lo - eps, hi + eps])))
 
 
+def _kernel_order(rows: np.ndarray, n_tail: int, tail_r: float, tail_mat: float):
+    """``pack_spheres``' order of (S, 10) float32 sphere rows, unpadded:
+    the moving rows, then the static ones with the tail (the static rows of
+    radius ``tail_r`` and material ``tail_mat``) last, each in scene order;
+    column 9 is K = |c|^2 - r^2, the float64 sum rounded once.  Returns
+    (rows, number of moving rows)."""
+    moving = np.any(rows[:, 3:6] != 0.0, axis=1)
+    mov, stat = rows[moving], rows[~moving]
+    if n_tail:
+        sel = (stat[:, 6] == tail_r) & (stat[:, 7] == tail_mat)
+        stat = np.concatenate([stat[~sel], stat[sel]], axis=0)
+    out = np.concatenate([mov, stat], axis=0).astype(np.float32)
+    c = out[:, 0:3].astype(np.float64)
+    out[:, 9] = (np.sum(c * c, axis=1) - out[:, 8].astype(np.float64)).astype(np.float32)
+    return out, len(mov)
+
+
+def static_sphere_cells(packed: np.ndarray, n_moving: int, n_tail: int) -> tuple:
+    """K13's compile-time cells (``pallas_kernels.py:346``) of
+    ``_kernel_order``'s rows: (moving, main, tail), the moving rows (cx0,
+    cy0, cz0, vx, vy, vz, r, mat, r2) with r2 > 0, the static rows but the
+    tail (cx, cy, cz, r, mat, r2, K) and the tail (cx, cy, cz, r2, K), as
+    Python floats of the float32 values."""
+    mov, stat = packed[:n_moving], packed[n_moving:]
+    mov = mov[mov[:, 8] > 0.0]
+    n_main = len(stat) - n_tail
+    moving = tuple(tuple(float(x) for x in r[:9]) for r in mov)
+    main = tuple(tuple(float(r[k]) for k in (0, 1, 2, 6, 7, 8, 9)) for r in stat[:n_main])
+    tail = tuple(tuple(float(r[k]) for k in (0, 1, 2, 8, 9)) for r in stat[n_main:])
+    return moving, main, tail
+
+
+def sphere_mxu_features(rows: np.ndarray, n: int):
+    """K14's bilinear features (``pallas_kernels.py:568-615``) of the first
+    ``n`` (S, 10) sphere rows: F (2 S_pad, 16) float32, B's features
+    [c0, v] in rows 0..n and C's [-2 c0, -2 v, |c0|^2 - r^2, 2 c0.v, |v|^2]
+    in rows S_pad..S_pad + n, and attrT (8, S_pad) [c0; v; r; mat], with
+    S_pad = n rounded up to 128 (pad rows all zero, pad radius 1);
+    the float32 numpy arithmetic of ``art_tpu``, so bit for bit its values."""
+    p = np.asarray(rows)[:n]
+    c0, v, r, m = p[:, 0:3], p[:, 3:6], p[:, 6], p[:, 7]
+    s_pad = -(-n // 128) * 128
+    F = np.zeros((2 * s_pad, 16), np.float32)
+    F[:n, 0:3] = c0
+    F[:n, 3:6] = v
+    F[s_pad:s_pad + n, 6:9] = -2.0 * c0
+    F[s_pad:s_pad + n, 9:12] = -2.0 * v
+    F[s_pad:s_pad + n, 12] = np.sum(c0 * c0, axis=-1) - r * r
+    F[s_pad:s_pad + n, 13] = 2.0 * np.sum(c0 * v, axis=-1)
+    F[s_pad:s_pad + n, 14] = np.sum(v * v, axis=-1)
+    attr = np.zeros((8, s_pad), np.float32)
+    attr[0:3, :n] = c0.T
+    attr[3:6, :n] = v.T
+    attr[6, :n] = r
+    attr[6, n:] = 1.0
+    attr[7, :n] = m
+    return torch.from_numpy(F), torch.from_numpy(attr), s_pad
+
+
+def _sphere_kernel_tables(sph: np.ndarray, tail: dict, tail_rows: np.ndarray,
+                          mxu_force: bool = MXU_FORCE) -> dict:
+    """``_SPH_KERNEL_META`` and ``_MXU_ARRAYS`` of the (S, 10) sphere rows
+    ``sph``, as ``art_tpu``'s builder derives them (``builder.py:652-680``,
+    ``:735-811``): the cells for at most 2048 spheres; the expanded
+    quadratic where its rounding error stays below 1% of every static
+    r^2; the features where the second-largest reach (max |c| + max |v| +
+    |r|) is at most 64 and the largest at most 4096, or with ``mxu_force``
+    (``ART_TPU_MXU_FORCE``); the recentered tail features for a tail of at
+    least 512 rows with its box."""
+    n = len(sph)
+    n_tail = tail.get("sph_n_tail", 0)
+    packed, n_moving = _kernel_order(sph, n_tail, tail.get("sph_tail_r", 1.0),
+                                     tail.get("sph_tail_mat", 0.0))
+    stat = packed[n_moving:]
+    cc = np.sum(stat[:, 0:3].astype(np.float64) ** 2, axis=1)
+    out = dict(
+        sph_pos_r=bool(np.all(sph[:, 6] > 0.0)) if n else True,
+        sph_expand=bool(len(stat)) and bool(np.all(
+            (cc + 1.0) * 6.0 * 2.0**-23 < 0.01 * stat[:, 8].astype(np.float64))),
+        sph_static_cells=(static_sphere_cells(packed, n_moving, n_tail)
+                          if 0 < n <= STATIC_MAX_SPHERES else None),
+        mxu_sphere_pad=0, mxu_tail_pad=0, sph_tail_centroid=())
+    if n:
+        reach = np.sort(np.abs(sph[:, 0:3]).max(axis=1) + np.abs(sph[:, 3:6]).max(axis=1)
+                        + np.abs(sph[:, 6]))
+        second = float(reach[-2]) if n > 1 else float(reach[-1])
+        if (second <= 64.0 and float(reach[-1]) <= 4096.0) or mxu_force:
+            out["sph_mxu_feat"], out["sph_mxu_attr"], out["mxu_sphere_pad"] = \
+                sphere_mxu_features(sph, n)
+    if n_tail >= MXU_TAIL_MIN and tail.get("sph_tail_box"):
+        tp = tail_rows.copy()
+        g = tp[:n_tail, 0:3].mean(axis=0)
+        tp[:n_tail, 0:3] -= g
+        out["sph_mxu_tail_feat"], out["sph_mxu_tail_attr"], out["mxu_tail_pad"] = \
+            sphere_mxu_features(tp, n_tail)
+        out["sph_tail_centroid"] = tuple(float(x) for x in g)
+    return out
+
+
 def _tables(arrays: dict) -> SceneTables:
     """SceneTables from ``art_tpu``-named arrays; the box grid and the
     sphere tail are derived from them unless given."""
@@ -753,6 +864,12 @@ def _tables(arrays: dict) -> SceneTables:
                                              tail.get("sph_tail_r", 1.0),
                                              tail.get("sph_tail_mat", 0.0))
     cull = cull_tables(head_rows, tail_rows, sph, tail.get("sph_tail_box", ()))
+    if "mxu_sphere_pad" in arrays:  # carried from art_tpu; absent tables as None
+        sk = {k: a[k] for k in _SPH_KERNEL_META}
+        sk.update({k: torch.from_numpy(np.array(a[k], np.float32)) for k in _MXU_ARRAYS
+                   if a["mxu_sphere_pad" if "tail" not in k else "mxu_tail_pad"]})
+    else:
+        sk = _sphere_kernel_tables(sph.numpy(), tail, tail_rows.numpy())
     boxes = box_rows(t["box_min"], t["box_max"], t["box_cos"], t["box_sin"], t["box_off"],
                      t["box_mat"], rotated)[:n_b]
     moving = bool(a.get("has_moving", bool(np.any(a["sph_vel"] != 0.0))))
@@ -764,7 +881,7 @@ def _tables(arrays: dict) -> SceneTables:
     return SceneTables(
         **t,
         sph_rows=sph,
-        sph_head_rows=head_rows, sph_tail_rows=tail_rows, **cull,
+        sph_head_rows=head_rows, sph_tail_rows=tail_rows, **cull, **sk,
         quad_rows=quad_rows(t["quad_n"], t["quad_d"], t["quad_avec"], t["quad_ca"],
                             t["quad_bvec"], t["quad_cb"])[:n_q],
         box_rows=boxes,
@@ -790,8 +907,11 @@ def tables_from_numpy(arrays: dict, camera: dict) -> tuple[SceneTables, Camera]:
     ``has_moving``, ``has_rotated_boxes``, ``tex_types_present``,
     ``shade_consts``, ``sp_consts``, ``med_kinds``, the ``gb_*_meds`` of
     kind-2 boundaries, the box grid (``box_grid`` with ``box_grid_kx`` and
-    the other ``box_grid_*`` fields) and the sphere tail (``sph_n_tail``,
-    ``sph_tail_r``, ``sph_tail_mat``, ``sph_tail_box``); a grid or tail not
+    the other ``box_grid_*`` fields), the sphere tail (``sph_n_tail``,
+    ``sph_tail_r``, ``sph_tail_mat``, ``sph_tail_box``) and the tables of
+    K13 and K14 (``sph_static_cells``, ``sph_expand``, ``sph_pos_r``,
+    ``mxu_sphere_pad``, ``mxu_tail_pad``, ``sph_tail_centroid`` and the
+    ``sph_mxu_*`` feature arrays); a grid, tail or sphere kernel table not
     given is derived from the tables as ``art_tpu``'s builder derives it) to
     values, and ``atlas`` to a mapping of ``art_tpu``'s ``ImageAtlas``
     fields (``data``, ``heights``, ``widths``, ``hmax``, ``wmax``) when the

@@ -66,6 +66,11 @@ Beside them, the kernels' own tables (built once per scene, on the host):
   in the layout above with no head (``scene/cull.py cluster_tables``), and
   ``sph_bvh`` (M, 8), the packed sphere BVH of the per-ray descent
   (``ops/bvh.py pack_bvh``); None where the builder's gates leave them out.
+* ``sph_static_cells`` (K13, ``csrc/sphere_static.cu``): ``art_tpu``'s
+  compile-time cells, which ``ops/_build.py`` writes into a per-scene
+  header; ``sph_mxu_feat`` / ``sph_mxu_attr`` and the recentered
+  ``sph_mxu_tail_feat`` / ``sph_mxu_tail_attr`` (K14,
+  ``csrc/sphere_mxu.cu``): ``art_tpu``'s feature tables bit for bit.
 """
 
 from __future__ import annotations
@@ -219,6 +224,23 @@ class SceneTables:
     box_cl_meta: tuple | None = None
     box_cl_seg: torch.Tensor | None = None
     sph_bvh: torch.Tensor | None = None
+    # K13's compile-time cells (scene/builder.static_sphere_cells: moving,
+    # main, tail in pack_spheres' order; None past 2048 spheres), art_tpu's
+    # expanded-quadratic gate and its all-radii-positive flag
+    sph_static_cells: tuple | None = None
+    sph_expand: bool = False
+    sph_pos_r: bool = False
+    # K14's bilinear features (scene/builder.sphere_mxu_features): F (2 S_pad,
+    # 16), attrT (8, S_pad); None (pad 0) where the scale gate leaves them
+    # out; and the tail's, recentered on sph_tail_centroid, for a tail of
+    # >= 512 rows
+    sph_mxu_feat: torch.Tensor | None = None
+    sph_mxu_attr: torch.Tensor | None = None
+    mxu_sphere_pad: int = 0
+    sph_mxu_tail_feat: torch.Tensor | None = None
+    sph_mxu_tail_attr: torch.Tensor | None = None
+    mxu_tail_pad: int = 0
+    sph_tail_centroid: tuple = ()
     # baked material/texture constants (scene/builder._shade_consts):
     # (mats, specials) or None, and their kernel table
     shade_consts: tuple | None = None

@@ -57,6 +57,21 @@ Phases (each runs; any failure exits non-zero without the final result):
     equal to its plain record and, in t, to the default route's (with the
     boxes through K6 under CLUSTER), launching the route's kernels and under
     BVH no sphere kernel; the descent's steps and time a call;
+    2h. K12 (``ART_TPU_SEAM_FLUSH``'s seam flush) on a bouncing_spheres pool
+    20 seam iterations in, with injected and Philox uniforms, bit-equal to
+    its twin and (but for the zeroed dead radiance) to K1, its framebuffer
+    within 1e-6 relative; K13 (``ART_TPU_SPH_STATIC``) built per scene and
+    form, all builds started together (nvcc seconds each), on the
+    bouncing_spheres, final_scene and a cornell_box pool in both quadratic
+    forms, bit-equal to its twin, the direct form equal to the full-table
+    K2 in t on every lane, the expanded form within its rounding bound;
+    K14 (``ART_TPU_MXU_SPHERES``) on the bouncing_spheres pool and the
+    split's MXU-tail dense branch (``ART_TPU_MXU_TAIL``) on the final_scene
+    pool, each bit-equal to its twin and against K2 at the TPU tests' bars;
+    every lane where an expanded form parts from K2 explained (a self-hit
+    of a ray leaving a sphere, a grazing ray, or K2's t within K14's 2 t_min
+    margin) and their count held to a bar; K12's flush-only entry bit-equal to its
+    twin; ``closest_surface_p`` under each switch equal to its plain record;
  3. the in-kernel Philox uniforms: range, mean, variance, and that they
     change across iterations and slots;
  4. renders through ``render_scene`` on the card, each with the launch
@@ -84,7 +99,12 @@ Phases (each runs; any failure exits non-zero without the final result):
     bouncing_spheres 1200x800 @ 64 and the box field (K15's boxes in place
     of K10), each route render launching its own
     kernels; then bouncing_spheres 1200x800 @ 1 under the BVH descent (no
-    sphere kernel; the spp cut to fit the run); then, per scene and route
+    sphere kernel; the spp cut to fit the run); then this slice's routes
+    (SLICE8_RUNS) route / default: the seam route on bouncing_spheres
+    1200x800 @ 16 and cornell_box 600x600 @ 16 (K12 in place of K1 and K3,
+    its flush-only entry once a tile),
+    K13 and K14 on bouncing_spheres 1200x800 @ 64, K13 and the MXU-tail
+    split on final_scene 800x800 @ 16; then, per scene and route
     (perlin staged and the box field included), the kernel path against the
     plain path on the same injected uniforms (``n_uniform_cols`` rows) and,
     but for the box field's default path, with independent seeds,
@@ -174,6 +194,14 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                        "art_tpu/ops/pallas_kernels.py:896"),
     "box_cluster": ("art_tpu_torch/csrc/box_cluster.cu",
                     "art_tpu/ops/pallas_kernels.py:2601"),
+    "refill_flush": ("art_tpu_torch/csrc/refill_flush.cu",
+                     "art_tpu/ops/refill_kernel.py:523"),
+    # K12's flush half alone: the seam route's last flush, after the loop,
+    # which art_tpu makes with K4 (art_tpu/render/integrator.py:906-921)
+    "flush_dead": ("art_tpu_torch/csrc/refill_flush.cu", "art_tpu/ops/flush_kernel.py:196"),
+    "sphere_static": ("art_tpu_torch/csrc/sphere_static.cu",
+                      "art_tpu/ops/pallas_kernels.py:520"),
+    "sphere_mxu": ("art_tpu_torch/csrc/sphere_mxu.cu", "art_tpu/ops/pallas_kernels.py:730"),
 }
 # which renders of phase 4 must launch which kernels (the launch-count gate);
 # a render may launch no kernel of KERNELS outside its own list
@@ -225,7 +253,22 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          "bouncing_spheres cluster": ("refill", "sphere_cluster", "shade_flush"),
          "box field cluster": ("refill", "box_cluster", "shade_flush_baked"),
          # ART_TPU_BVH: the per-ray descent is plain PyTorch, no sphere kernel
-         "bouncing_spheres bvh": ("refill", "shade_flush")}
+         "bouncing_spheres bvh": ("refill", "shade_flush"),
+         # this slice's routes (SLICE8_RUNS): the seam route's K12 in place of
+         # K1 and K3 (its shading is plain PyTorch) and its flush-only entry
+         # once a tile, K13 or K14 in place of K2, and K2 with K14 in the
+         # split's MXU-tail dense branch
+         "bouncing_spheres seam": ("refill_flush", "flush_dead", "sphere_hit"),
+         "cornell_box seam": ("refill_flush", "flush_dead", "quad_hit", "box_hit",
+                              "sphere_hit"),
+         "bouncing_spheres static": ("refill", "sphere_static", "shade_flush"),
+         "bouncing_spheres mxu": ("refill", "sphere_mxu", "shade_flush"),
+         "final_scene static": ("refill", "quad_hit", "box_grid_cells", "sphere_static",
+                                "flush_accumulate", "table_gather_u24", "turb",
+                                "shade_flush_baked"),
+         "final_scene split mxu tail": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
+                                        "sphere_mxu", "flush_accumulate", "table_gather_u24",
+                                        "turb", "shade_flush_baked")}
 # the opt-in sphere routes of the culling slice (art_tpu_torch/ops/routes.py),
 # each rendered at full width route / default against the default route:
 # (label, scene, nx, ny, spp, the switches); COMPACT_SKIP acts with SPH_SKIP,
@@ -250,6 +293,30 @@ CLUSTER_RUNS = [
     ("bouncing_spheres cluster", "bouncing_spheres", 1200, 800, 64, dict(cluster=True)),
     ("box field cluster", "box field", 160, 90, 4, dict(cluster=True))]
 BVH_RUN = ("bouncing_spheres bvh", "bouncing_spheres", 1200, 800, 1, dict(bvh=True))
+# this slice's opt-in routes, each rendered at full width route / default:
+# the seam route (ART_TPU_SEAM_FLUSH, K12), K13 (ART_TPU_SPH_STATIC), K14
+# (ART_TPU_MXU_SPHERES) and the split's MXU-tail dense branch
+# (ART_TPU_MXU_TAIL)
+SLICE8_RUNS = [
+    ("bouncing_spheres seam", "bouncing_spheres", 1200, 800, 16, dict(seam_flush=True)),
+    ("cornell_box seam", "cornell_box", 600, 600, 16, dict(seam_flush=True)),
+    ("bouncing_spheres static", "bouncing_spheres", 1200, 800, 64, dict(sph_static=True)),
+    ("bouncing_spheres mxu", "bouncing_spheres", 1200, 800, 64, dict(mxu_spheres=True)),
+    ("final_scene static", "final_scene", 800, 800, 16, dict(sph_static=True)),
+    ("final_scene split mxu tail", "final_scene", 800, 800, 16,
+     dict(compact_sph=True, force_branch="dense", mxu_tail=True))]
+# K13's scenes, each built in both forms at the start of phase 2h
+STATIC_SCENES = ("bouncing_spheres", "final_scene", "cornell_box")
+# an origin within this share of |o| + |c| + |r| of a sphere lies on it: a
+# bounce's hit point rounds to a few float32 ulps of that scale (2^-16 is
+# 128 ulps); the next closest sphere of a parting lane lies ~1e-3 away
+SURFACE_REL = 2.0 ** -16
+# lanes where an expanded form parts from the full-table K2 on phase 2h's
+# pools, all explained (_parting): about twice the lanes of the card's
+# reading (PERF.md section 6: 25, 152, 79; about 38; about 15)
+PARTING_BARS = {"K13 expanded, bouncing_spheres": 50, "K13 expanded, final_scene": 300,
+                "K13 expanded, cornell_box": 160, "K14, bouncing_spheres": 80,
+                "MXU-tail dense branch, final_scene": 32}
 # The least time the card could take (NVIDIA H100
 # SXM data sheet): bytes over the HBM rate, or operations over the FP32 rate
 # outside the tensor cores, which counts an FMA as two operations; these
@@ -257,7 +324,10 @@ BVH_RUN = ("bouncing_spheres bvh", "bouncing_spheres", 1200, 800, 1, dict(bvh=Tr
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # operations per (ray, primitive) by hand count of each kernel's inner loop
-OPS_SPHERE = 25  # center at time 6, oc 3, b 5, c 6, disc 3, tests and roots
+OPS_SPHERE = 25  # center at time 6, oc 3, b 5, c 6, disc 3, tests and roots 2
+# a static sphere, no centre at time: the direct quadratic 19; the expanded
+# one with its baked K (K13) 18: b 6, c 7, disc 3, tests and roots 2
+OPS_STATIC = {False: 19, True: 18}
 OPS_QUAD = 44  # n.d 5, n.o 5, t 2, alpha 13, beta 13, tests 6
 OPS_BOX = {True: 54, False: 39}  # frame 15 (rotated), 3 guarded inverses 12,
 #                                   slabs 12, min/max 10, tests 5
@@ -1812,6 +1882,505 @@ def cluster_checks(checks: Checks, dev, results: dict):
                 f"included), {full_ms:.4f} ms by the default route")
 
 
+def _seam_pool(scene, nx, ny, spp, dev, iters):
+    """The pool of a seam-route render of ``scene`` (the R that plan_batches
+    picks on the card) after ``iters`` iterations: its dead slots still hold
+    the radiance of the deaths K12 flushes next."""
+    import torch
+
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.render.integrator import n_uniform_cols, seam_step
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    tables = scene.tables
+    tile_pixels, spp_chunk, R = plan_batches(nx * ny, spp, tables.n_spheres, RenderConfig(),
+                                             dev)
+    s = dict(R=R, ncols=n_uniform_cols(tables), pool=rk.new_pool(R, dev),
+             scal=rk.RefillScal(spp_chunk, tile_pixels, 0, nx * ny, nx, ny),
+             q=torch.zeros(2, dtype=torch.int64, device=dev),
+             hist=torch.zeros(iters + 2, dtype=torch.int64, device=dev),
+             fb=torch.zeros((tile_pixels, 3), device=dev),
+             lost=torch.zeros(1, dtype=torch.int32, device=dev))
+    for it in range(iters):
+        seam_step(s["pool"], scene.camera, s["q"], it % 2, s["hist"], it, s["scal"], tables,
+                  scene.background, s["fb"], s["lost"], key=(7, 0, 0), ncols=s["ncols"],
+                  max_depth=50, gradient=scene.gradient_bg)
+    torch.cuda.synchronize()
+    return s
+
+
+def _expanded_bound(rows, o, d, tm, t):
+    """(R,) bound on |t_expanded - t_direct| at the full-table winner of
+    ``rows`` (tests/test_torch_static_mxu.py expanded_bound): the expanded
+    quadratic rounds c to within 8 eps (|o|^2 + |c|^2) and b to within
+    4 eps |d| (|o| + |c|), which move the root by (dc / 2 + |t| db) /
+    sqrt(disc); plus 2e-5 t and 1e-5."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops.intersect import sphere_candidates_p
+
+    eps = 2.0 ** -23
+    idx = torch.cat([sphere_candidates_p(rows, tuple(x[k:k + 16384] for x in o),
+                                         tuple(x[k:k + 16384] for x in d), tm[k:k + 16384],
+                                         T_MIN)[1] for k in range(0, tm.shape[0], 16384)])
+    row = rows.double()[idx.long()]
+    O = torch.stack(o, 1).double()
+    D = torch.stack(d, 1).double()
+    c = row[:, 0:3] + tm.double()[:, None] * row[:, 3:6]
+    oc = O - c
+    b = (oc * D).sum(1)
+    disc = (b * b - (D * D).sum(1) * ((oc * oc).sum(1) - row[:, 8])).clamp_min(1e-30)
+    no2, nc2 = (O * O).sum(1), (c * c).sum(1)
+    dc = 8 * eps * (no2 + nc2)
+    db = 4 * eps * (D * D).sum(1).sqrt() * (no2.sqrt() + nc2.sqrt())
+    tt = t.double()
+    return (dc / 2 + tt.abs() * db) / disc.sqrt() + 2e-5 * tt.abs() + 1e-5
+
+
+def _two_tier(t, want_t, tight_rtol, tight_atol):
+    """tests/test_pallas_kernels.py _assert_two_tier as masks: (lanes beyond
+    2e-2 / 1e-2, the share within the tight tier, the tight mask)."""
+    import torch
+
+    loose = torch.isclose(t, want_t, rtol=2e-2, atol=1e-2)
+    tight = torch.isclose(t, want_t, rtol=tight_rtol, atol=tight_atol)
+    return ~loose, float(tight.float().mean()) if t.numel() else 1.0, tight
+
+
+def _parting(rows, o, d, tm, got, ref, part, margin: bool) -> dict:
+    """The lanes ``part`` where a sphere kernel's (t, normal, mat) ``got``
+    parts from the full-table K2's ``ref`` over the scene-order ``rows``,
+    by cause, with eps = 2^-23, at each result's winner c:
+    ``self_hit``, the ray's origin lies on the winner's surface (within
+    SURFACE_REL of |o| + |c| + |r|: the ray leaves that sphere) and the t is
+    at most the distance by which the expanded quadratic's rounding moves
+    the root at the origin, dc / (2 |(o - c).d|), dc = 8 eps (|o|^2 + |c|^2):
+    a root of the rounding past t_min that the other form does not see;
+    ``grazing``, the exact discriminant at the winner is within that
+    rounding's, |d|^2 dc + 2 |b| db, db = 4 eps |d| (|o| + |c|) (a tangent
+    ray, hit by one form only); ``margin``, with ``margin`` (K14's 2 t_min
+    acceptance), K2's t lies in (t_min, 2 t_min].  A lane may have several;
+    ``unexplained`` has none.  K2's winner is its candidate index; ``got``'s
+    is the sphere whose centre its hit point and normal give (p - r n).
+    ``reach`` is the largest share of its bound that a self-hit's t or a
+    grazing discriminant takes."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG, T_MIN
+    from art_tpu_torch.ops.intersect import sphere_candidates_p
+
+    eps = 2.0 ** -23
+    counts = dict(self_hit=0, grazing=0, margin=0, explained=0, unexplained=0, reach=0.0)
+    R = rows.double()
+    for L in part.nonzero()[:, 0].split(4096):
+        O, D = (torch.stack([c[L] for c in x], 1).double() for x in (o, d))
+        C = R[None, :, 0:3] + tm[L].double()[:, None, None] * R[None, :, 3:6]  # (L, S, 3)
+        oc = O[:, None] - C
+        b = (oc * D[:, None]).sum(2)
+        a = (D * D).sum(1)[:, None]
+        disc = b * b - a * ((oc * oc).sum(2) - R[None, :, 8])
+        dc = 8 * eps * ((O * O).sum(1)[:, None] + (C * C).sum(2))
+        db = 4 * eps * a.sqrt() * (O.norm(dim=1)[:, None] + C.norm(dim=2))
+        surf = (oc.norm(dim=2) - R[None, :, 6].abs()).abs() <= SURFACE_REL * (
+            O.norm(dim=1)[:, None] + C.norm(dim=2) + R[None, :, 6].abs())
+        self_reach = torch.where(surf, 2 * b.abs() / dc, float("inf"))  # 1 / the reach
+        graze = disc.abs() / (a * dc + 2 * b.abs() * db)
+        t_g, t_r = got[0][L].double(), ref[0][L].double()
+        n_g = torch.stack([c[L] for c in got[1]], 1).double()
+        p_g = O + torch.where(t_g < BIG * 0.5, t_g, 0.0)[:, None] * D
+        j_g = (p_g[:, None] - C - R[None, :, 6, None] * n_g[:, None]).norm(dim=2).argmin(1)
+        j_r = sphere_candidates_p(rows, tuple(c[L] for c in o), tuple(c[L] for c in d), tm[L],
+                                  T_MIN)[1].long()
+        share_s = torch.full_like(t_g, float("inf"))  # the smaller of the two sides'
+        share_g = torch.full_like(t_g, float("inf"))
+        for t, j in ((t_g, j_g), (t_r, j_r)):
+            hit = t < BIG * 0.5
+            at = j[:, None]
+            share_s = torch.where(hit, torch.minimum(share_s, t * self_reach.gather(1, at)[:, 0]),
+                                  share_s)
+            share_g = torch.where(hit, torch.minimum(share_g, graze.gather(1, at)[:, 0]), share_g)
+        on, tangent = share_s <= 1.0, share_g <= 1.0
+        near = (t_r < BIG * 0.5) & (t_r <= 2 * T_MIN) & margin
+        for share, mask in ((share_s, on), (share_g, tangent)):
+            if bool(mask.any()):
+                counts["reach"] = max(counts["reach"], float(share[mask].max()))
+        counts["self_hit"] += int(on.sum())
+        counts["grazing"] += int(tangent.sum())
+        counts["margin"] += int(near.sum())
+        counts["explained"] += int((on | tangent | near).sum())
+        counts["unexplained"] += int((~on & ~tangent & ~near).sum())
+    return counts
+
+
+def _parting_text(c: dict, bar: int) -> str:
+    return (f"{c['explained']} lanes part from it, explained (<= {bar}; {c['self_hit']} "
+            f"self-hits, {c['grazing']} grazing, {c['margin']} with K2's t within 2 t_min; "
+            f"at most {c['reach']:.3g} of the rounding's bound), {c['unexplained']} "
+            f"unexplained (0)")
+
+
+def slice8_checks(checks: Checks, dev, results: dict):
+    """K12 on a bouncing_spheres pool 20 seam iterations in (its dead slots
+    given radiance from the seed), with injected and Philox uniforms,
+    bit-equal to its twin and, but for the zeroed dead radiance, to K1, its
+    framebuffer within 1e-6 relative of the twin's, and its flush-only
+    entry likewise; K13 built per scene in both forms (one nvcc each, all
+    started together, seconds each) on the bouncing_spheres and final_scene
+    pools of 2f and a cornell_box pool, bit-equal to its twin, in the direct
+    form equal to the full-table K2 in t on every lane (exact ties between
+    the (moving, main, tail) order and scene order counted), in the
+    expanded form within the expanded quadratic's rounding bound; K14 on
+    the bouncing_spheres pool, bit-equal to its twin and against K2 at
+    tests/test_pallas_kernels.py:643-693's bars; the split's MXU-tail dense
+    branch on the final_scene pool, bit-equal to its plain run and against
+    K2 at tests/test_compact_sphere.py:204-250's bars.  Where the expanded
+    forms part from K2 (a hit flip, t beyond the bar, for K14 a normal), every
+    lane must be explained (``_parting``) and their count is held to
+    PARTING_BARS.  Then closest_surface_p under each new switch equal to its
+    plain record and launching its kernels; times and bounds."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.ops import compact_sphere as cs
+    from art_tpu_torch.ops import intersect_kernels as K
+    from art_tpu_torch.ops import refill_kernel as rk
+
+    s8 = results.setdefault("_slice8", {})
+    # ---- K13's builds: every scene and form at once ----
+    statics = {n: build_scene(n, 16, 16).tables for n in STATIC_SCENES}
+    jobs = [(n, ex) for n in statics for ex in (False, True)]
+    t0 = time.perf_counter()
+    libs = _build.static_libraries([(statics[n].sph_static_cells, statics[n].sph_tail_r,
+                                     statics[n].sph_tail_mat, ex) for n, ex in jobs])
+    wall = time.perf_counter() - t0
+    nvcc = {f"{n} {'expanded' if ex else 'direct'}": lib.build_seconds
+            for (n, ex), lib in zip(jobs, libs)}
+    s8["static_nvcc_seconds"] = dict(nvcc, wall=wall)
+    log(f"  K13 builds (3 scenes x 2 forms in parallel, {wall:.1f} s wall): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in nvcc.items()))
+    checks.expect(all(libs), "K13 built for every scene and form")
+
+    # ---- K12: seam flush + refill ----
+    scene = build_scene("bouncing_spheres", 1200, 800).to(dev)
+    sp = _seam_pool(scene, 1200, 800, 64, dev, 20)
+    base, R, cam, scal, ncols = sp["pool"], sp["R"], scene.camera, sp["scal"], sp["ncols"]
+    dead = ~base["act"]
+    log(f"  K12 pool: bouncing_spheres 1200x800 @ 64 after 20 seam iterations, R = {R}, "
+        f"{int(dead.sum())} dead, {int((dead & (base['r0'] != 0)).sum())} with radiance; "
+        f"every other dead slot given radiance from the seed")
+    rng = np.random.default_rng(SEED + 8)
+    for n in ("r0", "r1", "r2"):  # the scene's few lights leave most deaths dark
+        extra = torch.from_numpy(rng.random(R, dtype=np.float32)).to(dev)
+        base[n].copy_(torch.where(dead & (base[n] == 0), extra, base[n]))
+    block = torch.from_numpy(rng.random((ncols, R), dtype=np.float32)).to(dev)
+    next_q = int(sp["q"][20 % 2])
+    fb0 = sp["fb"].clone()
+    P = fb0.shape[0]
+
+    def run(fn, pool, fb=None, **src):
+        q = torch.tensor([next_q, 0], dtype=torch.int64, device=dev)
+        hist = torch.zeros(24, dtype=torch.int64, device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        if fb is None:
+            out = fn(pool, cam, q, 0, hist, 20, scal, ncols=ncols, **src)
+        else:
+            out = fn(pool, cam, q, 0, hist, 20, scal, fb, lost, ncols=ncols, **src)
+        torch.cuda.synchronize()
+        return q, hist, lost, out
+
+    def fb_rel(a, b):
+        return float(((a - b).abs() / (b.abs() + 1e-6)).max())
+
+    k12_err = 0.0
+    for mode, src in (("injected", dict(block=block)), ("philox", dict(key=(1984, 3, 1)))):
+        kp, pp, k1p = _clone(base), _clone(base), _clone(base)
+        kfb, pfb = fb0.clone(), fb0.clone()
+        kq, kh, kl, ku = run(rk.fused_refill_flush, kp, kfb, **src)
+        pq, ph, pl_, pu = run(rk.fused_refill_flush_plain, pp, pfb, **src)
+        q1, h1, _, u1 = run(rk.fused_refill, k1p, **src)
+        bad = sum(_bits_equal(kp[n], pp[n]) for n in rk.POOL_F) + sum(
+            int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+        u_bad = sum(_bits_equal(a, b) for a, b in zip(ku[0] + (ku[1],) + ku[2],
+                                                      pu[0] + (pu[1],) + pu[2]))
+        checks.expect(bad == 0 and u_bad == 0 and torch.equal(kq, pq) and torch.equal(kh, ph)
+                      and int(kl) == int(pl_) == 0,
+                      f"K12 {mode}: {bad} pool values and {u_bad} uniforms differ from the "
+                      f"twin; queue head {int(kq[1])}, live {int(kh[20])} equal; lost "
+                      f"{int(kl)}")
+        # against K1: every plane bit-equal but the dead slots' radiance, zeroed
+        k1_bad = sum(_bits_equal(kp[n], torch.where(dead, 0.0, k1p[n])
+                                 if n in ("r0", "r1", "r2") else k1p[n]) for n in rk.POOL_F)
+        k1_bad += sum(int((kp[n] != k1p[n]).sum()) for n in ("bounce", "pix", "act"))
+        checks.expect(k1_bad == 0 and torch.equal(kq, q1) and torch.equal(kh, h1),
+                      f"K12 {mode} against K1: {k1_bad} pool values differ (the dead "
+                      f"slots' radiance zeroed), queue head and live count equal")
+        rel = fb_rel(kfb, pfb)
+        checks.expect(rel <= 1e-6 and bool((kfb != fb0).any()),
+                      f"K12 {mode}: framebuffer max rel err {rel:.3g} against the twin "
+                      f"(<= 1e-6), {int((kfb != fb0).any(dim=1).sum())} pixels added to")
+        k12_err = max(k12_err, float((kfb - pfb).abs().max()))
+    # the flush-only entry on the same pool
+    kp, pp, kfb, pfb = _clone(base), _clone(base), fb0.clone(), fb0.clone()
+    kl, pl_ = (torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2))
+    rk.flush_dead(kp, kfb, kl)
+    rk.flush_dead_plain(pp, pfb, pl_)
+    torch.cuda.synchronize()
+    bad = sum(_bits_equal(kp[n], pp[n]) for n in rk.POOL_F) + sum(
+        int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+    rel = fb_rel(kfb, pfb)
+    checks.expect(bad == 0 and int(kl) == int(pl_) == 0 and rel <= 1e-6
+                  and bool((kp["r0"][dead] == 0).all()),
+                  f"K12's flush-only entry: {bad} pool values differ from the twin (the "
+                  f"dead slots' radiance zeroed), lost {int(kl)}, framebuffer max rel err "
+                  f"{rel:.3g} (<= 1e-6)")
+    work, fb_t = _clone(base), fb0.clone()
+    q_t = torch.tensor([next_q, 0], dtype=torch.int64, device=dev)
+    hist_t = torch.zeros(24, dtype=torch.int64, device=dev)
+    lost_t = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def reset():
+        _restore(work, base)
+        fb_t.copy_(fb0)
+        q_t[0] = next_q
+
+    r12 = results["refill_flush"]
+    for key, fn in (("ms", rk.fused_refill_flush), ("plain_ms", rk.fused_refill_flush_plain)):
+        r12[key] = _timed_ms(lambda fn=fn: fn(work, cam, q_t, 0, hist_t, 20, scal, fb_t,
+                                              lost_t, ncols=ncols, key=(1984, 3, 1)),
+                             20 if key == "ms" else 5, reset=reset)
+    r12["k1_ms"] = _timed_ms(lambda: rk.fused_refill(work, cam, q_t, 0, hist_t, 20, scal,
+                                                     ncols=ncols, key=(1984, 3, 1)),
+                             20, reset=reset)
+    r12["max_abs_err"] = k12_err
+    # K1's bound (phase 2a) plus a dead slot's pix and radiance in (16 B)
+    # and radiance out (12 B), and the framebuffer's adds (12 B in, 12 out)
+    taken = min(int(dead.sum()), max(0, scal.P * scal.spp - next_q))
+    with_rad = int((dead & ((base["r0"] != 0) | (base["r1"] != 0) | (base["r2"] != 0))).sum())
+    _set_bound(r12, R * (1 + 20) + taken * 61 + int(dead.sum()) * 28 + with_rad * 24,
+               R * 2 * OPS_PHILOX + taken * (OPS_PHILOX + OPS_CAMERA) + with_rad * 3)
+    r12.update(R=R, dead=int(dead.sum()), taken=taken, flushed=with_rad, P=P)
+    rfd = results["flush_dead"]
+    for key, fn in (("ms", rk.flush_dead), ("plain_ms", rk.flush_dead_plain)):
+        rfd[key] = _timed_ms(lambda fn=fn: fn(work, fb_t, lost_t), 20 if key == "ms" else 5,
+                             reset=reset)
+    rfd["max_abs_err"] = float((kfb - pfb).abs().max())
+    # the library call: the scatter alone, one index_put_ over every slot,
+    # the live ones to a spare row past the framebuffer
+    spare = torch.zeros((P + 1, 3), device=dev)
+    lib_idx = torch.where(dead, base["pix"].long(), P)
+    lib_rad = torch.stack([base["r0"], base["r1"], base["r2"]], 1)
+    rfd["library_ms"] = _timed_ms(
+        lambda: spare.index_put_((lib_idx,), lib_rad, accumulate=True), 20,
+        reset=lambda: spare.zero_())
+    # act of every slot in; a dead slot's pix and radiance in and radiance
+    # out; the framebuffer's adds
+    _set_bound(rfd, R + int(dead.sum()) * 28 + with_rad * 24, with_rad * 3)
+    rfd.update(R=R, dead=int(dead.sum()), flushed=with_rad, P=P)
+    log(f"  K12: kernel {r12['ms']:.4f} ms (K1 alone {r12['k1_ms']:.4f} ms), plain "
+        f"{r12['plain_ms']:.4f} ms, bound {r12['bound_ms']:.4f} ms ({r12['bound_by']}); "
+        f"flush-only entry {rfd['ms']:.4f} ms, plain {rfd['plain_ms']:.4f} ms, index_put_ "
+        f"{rfd['library_ms']:.4f} ms, bound {rfd['bound_ms']:.4f} ms ({rfd['bound_by']})")
+
+    # ---- K13: the baked spheres, both forms ----
+    pools = dict(_route_pools(dev))
+    pools["cornell_box"] = _pool_rays(build_scene("cornell_box", 600, 600).to(dev), 600, 600,
+                                      64, dev, 20)
+    r13 = results["sphere_static"]
+    for name in STATIC_SCENES:
+        tables, o, d, tm = pools[name]
+        Rn = o[0].shape[0]
+        n_moving = len(tables.sph_static_cells[0])
+        full = K.sphere_hit_attrs(tables, o, d, tm)
+        full_ms = _timed_ms(lambda: K.sphere_hit_attrs(tables, o, d, tm), 20)
+        for expand in (False, True):
+            form = "expanded" if expand else "direct"
+            k = K.sphere_static_hit_attrs(tables, o, d, tm, expand=expand)
+            p = K.sphere_static_hit_attrs_plain(tables, o, d, tm, expand=expand)
+            torch.cuda.synchronize()
+            bad = _equal(k, p)
+            hits = int((full[0] < BIG).sum())
+            label = f"K13 {form}, {name}"
+            if not expand:
+                same_t, ties = _ties(k, full)
+                checks.expect(bad == 0 and same_t,
+                              f"{label} (R = {Rn}): {bad} values differ from the twin; "
+                              f"against the full-table K2 t bit-equal {same_t}, {ties} lanes "
+                              f"with another winner at that t (exact ties), {hits} hits")
+                entry = dict(ties=ties)
+            else:
+                # the expanded form's own rounding: t within its bound, and
+                # there the same material and the normal within the bound
+                # over the smallest radius
+                kh, fh = k[0] < BIG * 0.5, full[0] < BIG * 0.5
+                both = kh & fh
+                bound = _expanded_bound(tables.sph_rows, o, d, tm, full[0])
+                within = both & ((k[0].double() - full[0].double()).abs() <= bound)
+                mats = int((k[2] != full[2])[within].sum())
+                r_min = float(tables.sph_rows[:, 6].abs().min())
+                d_len = torch.stack(d, 1).double().norm(dim=1)
+                n_beyond = int(sum((((k[1][c] - full[1][c]).abs().double()
+                                     > d_len * bound / r_min + 2e-3) & within).sum()
+                                   for c in range(3)))
+                tight = float(torch.isclose(k[0][both], full[0][both], rtol=2e-5,
+                                            atol=1e-5).float().mean())
+                flips = int((kh != fh).sum())
+                parting = _parting(tables.sph_rows, o, d, tm, k, full,
+                                   (kh != fh) | (both & ~within), margin=False)
+                bar = PARTING_BARS[label]
+                checks.expect(bad == 0 and mats == 0 and n_beyond == 0
+                              and parting["unexplained"] == 0 and parting["explained"] <= bar,
+                              f"{label} (R = {Rn}): {bad} values differ from the twin; "
+                              f"against the full-table K2 {flips} hit flips and "
+                              f"{int((both & ~within).sum())} t beyond the expanded rounding "
+                              f"bound: {_parting_text(parting, bar)}; {mats} materials and "
+                              f"{n_beyond} normal components apart within it, {tight:.4f} of "
+                              f"the hits within 2e-5 / 1e-5, {hits} hits")
+                entry = dict(flips=flips, tight_share=tight,
+                             beyond_bound=int((both & ~within).sum()), parting=parting)
+            entry.update(
+                ms=_timed_ms(lambda: K.sphere_static_hit_attrs(tables, o, d, tm,
+                                                               expand=expand), 20),
+                plain_ms=_timed_ms(lambda: K.sphere_static_hit_attrs_plain(
+                    tables, o, d, tm, expand=expand), 3),
+                full_k2_ms=full_ms, R=Rn, spheres=tables.n_spheres, moving=n_moving,
+                hits=hits, nvcc_seconds=nvcc[f"{name} {form}"],
+                max_abs_err=max(_max_diff(x, y) for x, y in zip([k[0], *k[1], k[2]],
+                                                                [p[0], *p[1], p[2]])))
+            # 7 planes in and 5 out a ray; no table; every (ray, sphere)
+            # test, a moving row's at K2's count, a static row's at its form's
+            _set_bound(entry, Rn * 48, Rn * (n_moving * OPS_SPHERE + (
+                tables.n_spheres - n_moving) * OPS_STATIC[expand]))
+            s8[label] = entry
+            log(f"  {label}: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+                f"full-table K2 {full_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+                f"({entry['bound_by']}), nvcc {entry['nvcc_seconds']:.1f} s")
+            # the row: bouncing_spheres in the builder's form (its render's)
+            key = "" if (name == "bouncing_spheres" and expand == tables.sph_expand) \
+                else f"_{name}_{form}"
+            for field in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err"):
+                r13[field + key] = entry[field]
+    r13["nvcc_seconds"] = nvcc
+
+    # ---- K14: the bilinear-feature spheres ----
+    bt, bo, bd, btm = pools["bouncing_spheres"]
+    F, A = bt.sph_mxu_feat, bt.sph_mxu_attr
+    k = K.sphere_mxu_hit_attrs(F, A, bo, bd, btm)
+    p = K.sphere_mxu_hit_attrs_plain(F, A, bo, bd, btm)
+    full = K.sphere_hit_attrs(bt, bo, bd, btm)
+    torch.cuda.synchronize()
+    bad = _equal(k, p)
+    kh, fh = k[0] < BIG * 0.5, full[0] < BIG * 0.5
+    agree = float((kh == fh).float().mean())
+    both = kh & fh
+    out_b, tight_share, tight_b = _two_tier(k[0][both], full[0][both], 2e-5, 1e-3)
+    loose_out, tight = torch.zeros_like(both), torch.zeros_like(both)
+    loose_out[both], tight[both] = out_b, tight_b
+    mats = int((k[2] != full[2])[tight].sum())
+    n_apart = torch.zeros_like(both)
+    for c in range(3):
+        n_apart |= tight & ~torch.isclose(k[1][c], full[1][c], rtol=1e-3, atol=4e-3)
+    parting = _parting(bt.sph_rows, bo, bd, btm, k, full, (kh != fh) | loose_out | n_apart,
+                       margin=True)
+    bar = PARTING_BARS["K14, bouncing_spheres"]
+    checks.expect(bad == 0 and agree > 0.999 and tight_share >= 0.98 and mats == 0
+                  and parting["unexplained"] == 0 and parting["explained"] <= bar,
+                  f"K14, bouncing_spheres (R = {bo[0].shape[0]}): {bad} values differ from "
+                  f"the twin; against the full-table K2 hits agree on {agree:.5f} (> 0.999), "
+                  f"{tight_share:.4f} within 2e-5 / 1e-3 (>= 0.98), {mats} materials apart "
+                  f"there; {int((kh != fh).sum())} hit flips, {int(loose_out.sum())} lanes "
+                  f"beyond 2e-2 / 1e-2 and {int(n_apart.sum())} normals beyond 1e-3 / 4e-3 "
+                  f"within 2e-5 / 1e-3: {_parting_text(parting, bar)}")
+    Rb, s_pad = bo[0].shape[0], bt.mxu_sphere_pad
+    r14 = results["sphere_mxu"]
+    r14.update(ms=_timed_ms(lambda: K.sphere_mxu_hit_attrs(F, A, bo, bd, btm), 20),
+               plain_ms=_timed_ms(lambda: K.sphere_mxu_hit_attrs_plain(F, A, bo, bd, btm),
+                                  3),
+               max_abs_err=max(_max_diff(x, y) for x, y in zip([k[0], *k[1], k[2]],
+                                                               [p[0], *p[1], p[2]])),
+               full_k2_ms=_timed_ms(lambda: K.sphere_hit_attrs(bt, bo, bd, btm), 20),
+               hit_agree=agree, tight_share=tight_share, loose_lanes=int(loose_out.sum()),
+               parting=parting, R=Rb, s_pad=s_pad)
+    # the feature product alone as one float32 matmul (no TF32), for scale
+    rf = torch.stack([*bd, *(btm * c for c in bd), *bo, *(btm * c for c in bo),
+                      torch.ones_like(btm), btm, btm * btm, torch.zeros_like(btm)])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r14["feature_matmul_ms"] = _timed_ms(lambda: torch.matmul(F, rf), 20)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    # the function's least work, K2's bound on this pool: 7 planes in and 5
+    # out a ray, the sphere table once, every (ray, sphere) test at K2's count
+    _set_bound(r14, Rb * 48 + bt.n_spheres * 40, Rb * bt.n_spheres * OPS_SPHERE)
+    log(f"  K14: kernel {r14['ms']:.4f} ms, plain {r14['plain_ms']:.4f} ms, full-table K2 "
+        f"{r14['full_k2_ms']:.4f} ms, the feature matmul alone {r14['feature_matmul_ms']:.4f}"
+        f" ms, bound {r14['bound_ms']:.4f} ms ({r14['bound_by']})")
+
+    # ---- the split's MXU-tail dense branch on final_scene's pool ----
+    ft, fo, fd, ftm = pools["final_scene"]
+    k = cs.sphere_hit_attrs_mxu_tail(ft, fo, fd, ftm)
+    p = cs.sphere_hit_attrs_mxu_tail(ft, fo, fd, ftm, plain=True)
+    full = K.sphere_hit_attrs(ft, fo, fd, ftm)
+    torch.cuda.synchronize()
+    bad = _equal(k, p)
+    ka, fa = k[0] < 1e9, full[0] < 1e9
+    m = ka & fa
+    rel = ((k[0] - full[0]).abs() / full[0].clamp_min(1e-6))[m]
+    p99 = float(torch.quantile(rel.double(), 0.99)) if rel.numel() else 0.0
+    n_far = float(((torch.stack(k[1], 1) - torch.stack(full[1], 1)).abs().max(1).values
+                   > 1e-2)[m].float().mean())
+    mats = m & (k[2] != full[2])
+    parting = _parting(ft.sph_rows, fo, fd, ftm, k, full, (ka != fa) | mats, margin=True)
+    bar = PARTING_BARS["MXU-tail dense branch, final_scene"]
+    checks.expect(bad == 0 and p99 < 1e-3 and n_far < 0.005
+                  and parting["unexplained"] == 0 and parting["explained"] <= bar,
+                  f"MXU-tail dense branch, final_scene (R = {fo[0].shape[0]}): {bad} values "
+                  f"differ from its plain run; against the full-table K2 t 99th-percentile "
+                  f"rel err {p99:.3g} (< 1e-3), normals beyond 1e-2 on {n_far:.5f} (< 0.005); "
+                  f"{int((ka != fa).sum())} hit flips and {int(mats.sum())} materials apart: "
+                  f"{_parting_text(parting, bar)}")
+    og = tuple(c - g for c, g in zip(fo, ft.sph_tail_centroid))
+    Ft, At = ft.sph_mxu_tail_feat, ft.sph_mxu_tail_attr
+    tail = dict(ms=_timed_ms(lambda: cs.sphere_hit_attrs_mxu_tail(ft, fo, fd, ftm), 20),
+                plain_ms=_timed_ms(lambda: cs.sphere_hit_attrs_mxu_tail(ft, fo, fd, ftm,
+                                                                        plain=True), 3),
+                k14_ms=_timed_ms(lambda: K.sphere_mxu_hit_attrs(Ft, At, og, fd, ftm), 20),
+                full_k2_ms=_timed_ms(lambda: K.sphere_hit_attrs(ft, fo, fd, ftm), 20),
+                p99=p99, normals_beyond=n_far, mats_apart=int(mats.sum()),
+                flips=int((ka != fa).sum()), parting=parting)
+    # its K14 over the tail, bounded as K2 over the tail's rows
+    _set_bound(tail, fo[0].shape[0] * 48 + ft.sph_n_tail * 40,
+               fo[0].shape[0] * ft.sph_n_tail * OPS_SPHERE)
+    s8["mxu tail dense branch, final_scene"] = tail
+    for field in ("ms", "bound_ms", "bound_by"):
+        r14[field + "_tail"] = tail["k14_ms" if field == "ms" else field]
+    log(f"  MXU-tail dense branch: {tail['ms']:.4f} ms (its K14 over the "
+        f"{ft.mxu_tail_pad}-row tail {tail['k14_ms']:.4f} ms, bound {tail['bound_ms']:.4f} "
+        f"ms), plain {tail['plain_ms']:.4f} ms, full-table K2 {tail['full_k2_ms']:.4f} ms")
+
+    # ---- closest_surface_p under each new switch ----
+    sph = ("sphere_hit", "sphere_static", "sphere_mxu", "sphere_cellbin", "sphere_skip",
+           "sphere_cluster")
+    for name, switches, want in (
+            ("bouncing_spheres", dict(sph_static=True), {"sphere_static"}),
+            ("final_scene", dict(sph_static=True), {"sphere_static"}),
+            ("cornell_box", dict(sph_static=True), {"sphere_static"}),
+            ("bouncing_spheres", dict(mxu_spheres=True), {"sphere_mxu"}),
+            ("final_scene", dict(compact_sph=True, force_branch="dense", mxu_tail=True),
+             {"sphere_hit", "sphere_mxu"})):
+        tables, o, d, tm = pools[name]
+        _build.launches.clear()
+        rec = _route_record(tables, o, d, tm, **switches)
+        counts = {k_: v for k_, v in _build.launches.items() if k_ in sph}
+        rec_p = _route_record(tables, o, d, tm, plain=True, **switches)
+        torch.cuda.synchronize()
+        bad = _equal(rec, rec_p)
+        checks.expect(bad == 0 and set(counts) == want,
+                      f"closest_surface_p under {switches}, {name}: {bad} values differ "
+                      f"from its plain record; sphere kernels launched {counts}")
+
+
 def philox_checks(checks: Checks, dev):
     import torch
 
@@ -2010,14 +2579,14 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                       f"{label}: finite, >= 0 and not black (mean {fb.mean():.4f}, max "
                       f"{fb.max():.3f})")
 
-    # the opt-in routes at full width against the default route: this
-    # slice's (CLUSTER_RUNS) off / on / on / off, the earlier slices'
-    # (ROUTE_RUNS) on / off; the first "on" render is
-    # the route's path render (its launch counts)
+    # the opt-in routes at full width against the default route: the
+    # cluster slice's (CLUSTER_RUNS) off / on / on / off, the others
+    # (ROUTE_RUNS, SLICE8_RUNS) on / off; the first "on" render is the
+    # route's path render (its launch counts)
     from art_tpu_torch.ops import routes
 
     results["_routes"] = {}
-    for label, name, nx, ny, spp, switches in ROUTE_RUNS + CLUSTER_RUNS:
+    for label, name, nx, ny, spp, switches in ROUTE_RUNS + CLUSTER_RUNS + SLICE8_RUNS:
         scene = _scene(name, nx, ny)
         turns = (("default", "route", "route", "default") if label in [
             r[0] for r in CLUSTER_RUNS] else ("route", "default"))
@@ -2052,12 +2621,14 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                   f"{label}: the full-table K2 once an iteration ({c.get('sphere_hit')} "
                   f"launches, K1 {c.get('refill')})")
     # each kernel's count is that of the newest path that runs it: this
-    # slice's K15 paths, the culling slice's K17 and K16 paths, the big-scene
+    # slice's routes (SLICE8_RUNS), the cluster slice's K15 paths, the
+    # culling slice's K17 and K16 paths, the big-scene
     # slice's main path (final_scene) and its other paths, then the image
     # slice's, the short-path slice's, then cornell_box's and
     # bouncing_spheres' (the earlier slices' main paths), then
     # three_spheres', then the other opt-in routes
-    order = ([lab for lab, *_ in CLUSTER_RUNS] + ["bouncing_spheres cellbin", "final_scene skip"]
+    order = ([lab for lab, *_ in SLICE8_RUNS] + [lab for lab, *_ in CLUSTER_RUNS]
+             + ["bouncing_spheres cellbin", "final_scene skip"]
              + [lab for lab, *_ in BIG_SCENES + IMAGE + SHORT]
              + ["cornell_box", "bouncing_spheres", "three_spheres"]
              + [lab for lab, *_ in ROUTE_RUNS] + [BVH_RUN[0]])
@@ -2069,7 +2640,7 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
             lab: c.get(k, 0) for lab, c in counts_by_render.items()}
 
     independent = {}  # default-route renders with seed 2, per scene
-    runs = ROUTE_RUNS + CLUSTER_RUNS + [BVH_RUN]
+    runs = ROUTE_RUNS + CLUSTER_RUNS + [BVH_RUN] + SLICE8_RUNS
     for label in list(SAME_UNIFORMS) + [lab for lab, *_ in runs]:
         route = next((r for r in runs if r[0] == label), None)
         name = route[1] if route else label.split()[0]
@@ -2137,11 +2708,13 @@ def main() -> int:
                  cull_checks, checks, dev, results)
     checks.phase("2g. K15, the cluster-culled spheres and boxes, and the BVH route",
                  cluster_checks, checks, dev, results)
+    checks.phase("2h. K12, K13 and K14, the seam flush, the baked and the bilinear-feature "
+                 "spheres, and the split's MXU tail", slice8_checks, checks, dev, results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     extra = {key: results.pop(f"_{key}", {}) for key in (
         "render", "renders", "compact_fetch", "noise_p", "grid", "split", "media", "cull",
-        "cluster", "routes")}
+        "cluster", "slice8", "routes")}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
         for name, (src, rep) in KERNELS.items()], **extra, "card": smi}))
