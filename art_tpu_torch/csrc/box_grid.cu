@@ -14,34 +14,71 @@
 // winner's box is rebuilt from its cell in float32 and its face normal,
 // (u, v) and material come from box_winner_attrs (box_attrs.cuh), shared
 // with K6.  Output (t, normal x3, u, v, mat), as K6; a miss writes t = BIG,
-// normal (1, 0, 0), u = v = 0, material 0.
-//
-// The two entry points differ only in the cells they walk and their order:
-// K10 (art_box_grid) every cell of the (kx, 2 kz) table [h, mat] pairs in
-// row-major order (an empty cell has h = y0, so t0 < t1 never holds), K9
-// (art_box_grid_cells) the non-empty cells as (C, 4) rows [ix iz h mat] in
-// box_grid_cells order (grouped by height and material).  On an exact tie
-// between cells they keep different, equally close winners, as the TPU
-// kernels do.  The TPU kernels' slab caches (K10's z-slab scratch, K9's
-// per-group y slab and per-column x slabs) are op-count trims: a slab
-// recomputed per cell has the same bits.  The material is carried per cell
-// (a uniform-material field carries one value).  Plain twins:
+// normal (1, 0, 0), u = v = 0, material 0.  Plain twins:
 // ops/intersect_kernels.py box_grid_hit_attrs_plain and
 // box_grid_cells_hit_attrs_plain (ops/intersect.py box_grid_candidates_p,
 // box_grid_attributes_p), the same operations in the same order.
 //
-// Bound on the H100: FP32 issue — ~20 operations a (ray, cell) with the
-// slabs hoisted, ~28 here; final_scene's 400 cells at R = 2^17 are ~1e9
-// operations against 6 planes in and 7 out per ray (7 MB).  Design: the cell
-// table is staged through shared memory in tiles of kTile cells and read as
-// broadcasts (every thread of a block walks the same cells); the running
-// best carries (t, ix, iz, h, mat), so the winner needs no second pass.
+// The two entry points differ in the cells they walk, their order and their
+// design.  On an exact tie between cells they keep different, equally close
+// winners, as the TPU kernels do.  Bound on the H100: FP32 issue — ~20
+// operations a (ray, cell) with the slabs hoisted; final_scene's 400 cells
+// at R = 2^17 are ~1e9 operations against 6 planes in and 7 out per ray
+// (7 MB).  Both are built with -fmad=false, so the time goes to the
+// instructions issued a cell.
+//
+// K10 (art_box_grid) walks every cell of the (kx, 2 kz) table of [h, mat]
+// pairs in row-major order (an empty cell has h = y0, so t0 < t1 never
+// holds), staged through shared memory in tiles of kTile cells and read as
+// broadcasts; it recomputes the slabs per cell and carries (t, ix, iz, h,
+// mat).
+//
+// K9 (art_box_grid_cells) walks the non-empty cells as (C, 4) rows
+// [ix iz h mat] in box_grid_cells order (grouped by height, then material):
+//  * each ray's x slab (xlo, xhi) of each of the kx columns and z slab of
+//    each of the kz rows are computed once, with the per-cell operations
+//    (f32(ix) is the cell's float ix), into dynamic shared memory laid out
+//    [column][ray], so a cell's two slab reads (LDS.64) are free of bank
+//    conflicts: 8 (kx + kz) bytes a ray, 40 KB for final_scene's 20 + 20 at
+//    128 rays a block.  A lattice with kx + kz > kMaxSlabCols takes the
+//    template's second form, the slabs per cell from the cell's ix and iz
+//    (art_box_grid_cells_form says which);
+//  * the y slab is recomputed only at the first cell of a run of one height
+//    (a flag staged with the cell; nvcc predicates that warp-uniform test);
+//  * a cell is one LDS.128 broadcast of its staged row (the slabs' byte
+//    offsets, the height, the run flag); the loop is software-pipelined, cell
+//    k + 2's row and cell k + 1's slabs in flight while cell k is tested; the
+//    running best carries (t, cell index) and the winner's box is rebuilt
+//    from its global row after the loop; the twin's choice of t0 or t1 folds
+//    into t = t0 > t_min ? t0 : t1 taken where t0 < t1, t > t_min and
+//    t < best (a BIG candidate never beats the best);
+//  * a warp whose every lane starts at or above the floor and the tile's
+//    highest top (oy >= max(y0, h)) and does not point down (dy >= 0, so
+//    safe_inv(dy) > 0) tests no cell of the tile when t_min >= 0: for such
+//    a lane ty0p <= 0 and every ty1 <= 0, so every cell's t1 <= 0 <= t_min
+//    and t0 < t1 <= 0, and the twin misses (ops/intersect_kernels.py
+//    box_grid_skip_p, the same predicate over all the cells);
+//  * a block is two parts of 128 threads over the same 128 rays: part 0
+//    hoists the x slabs and walks the first half of a tile's cells, part 1
+//    the z slabs and the second half; part 0 then takes part 1's winner where
+//    it is closer, or as close and earlier.  The slabs allow four blocks a
+//    SM, so the parts double the warps there (R = 2^17: 1024 blocks, about
+//    two waves).
+// The hoisted slabs trade ten FP32 operations a cell for two LDS.64 a lane,
+// four shared-memory wavefronts a warp and cell, so shared memory and issue
+// share the time (PERF.md section 6).
 
 #include "box_attrs.cuh"
 
 namespace {
 
-constexpr int kTile = 1024;  // cells a shared-memory tile holds
+constexpr int kTile = 1024;       // K10: cells a shared-memory tile holds
+constexpr int kCellThreads = 128;  // K9: rays a block (threads a part)
+constexpr int kCellTile = 1024;    // K9: cells a shared-memory tile holds
+constexpr int kMaxSlabCols = 64;   // K9: hoisted slabs where kx + kz <= this
+constexpr int kSlabStride = kCellThreads * (int)sizeof(float2);  // bytes a slab column
+constexpr int kCellSplit = 2;      // K9: parts a block, each over a part of the cells
+constexpr unsigned kAll = 0xffffffffu;
 
 struct GridPlanes {
   const float *ox, *oy, *oz, *dx, *dy, *dz;
@@ -53,13 +90,32 @@ struct Lattice {
   float x0, z0, w, y0;
 };
 
-// kGrouped: K9's (C, 4) cell rows; else K10's (kx, 2 kz) table of n = kx*kz cells
-template <bool kGrouped>
+// lane i's output: the hit at t on the cell (fix, fiz) of height h and
+// material mat, rebuilt in float32 as the TPU kernels rebuild it, or a miss
+__device__ __forceinline__ void write_cell_hit(const GridPlanes& p, int i, const Lattice& g,
+                                               float ox, float oy, float oz, float dx,
+                                               float dy, float dz, float best, float fix,
+                                               float fiz, float h, float mat) {
+  p.t[i] = best;
+  if (!(best < art::kBig)) {
+    p.nx[i] = 1.f; p.ny[i] = 0.f; p.nz[i] = 0.f;
+    p.u[i] = 0.f; p.v[i] = 0.f; p.mat[i] = 0;
+    return;
+  }
+  const float mnx = g.x0 + fix * g.w, mnz = g.z0 + fiz * g.w;
+  const art::BoxAttrs at = art::box_winner_attrs<false>(
+      ox, oy, oz, dx, dy, dz, best, mnx, g.y0, mnz, mnx + g.w, h, mnz + g.w, 1.f, 0.f,
+      0.f, 0.f, 0.f);
+  p.nx[i] = at.nx; p.ny[i] = at.ny; p.nz[i] = at.nz;
+  p.u[i] = at.u; p.v[i] = at.v;
+  p.mat[i] = (int)mat;
+}
+
+// K10: the (kx, 2 kz) table of n = kx * kz cells
 __global__ void __launch_bounds__(art::kBlock)
 box_grid_kernel(const float* __restrict__ cells, int n, int kz, Lattice g, int R,
                 float t_min, GridPlanes p) {
-  constexpr int kCell = kGrouped ? 4 : 2;  // floats a cell
-  __shared__ float sh[kTile * kCell];
+  __shared__ float sh[kTile * 2];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < R;
   const float ox = live ? p.ox[i] : 0.f, oy = live ? p.oy[i] : 0.f,
@@ -75,19 +131,14 @@ box_grid_kernel(const float* __restrict__ cells, int n, int kz, Lattice g, int R
   for (int base = 0; base < n; base += kTile) {
     const int m = min(kTile, n - base);
     __syncthreads();
-    for (int k = threadIdx.x; k < m * kCell; k += blockDim.x)
-      sh[k] = cells[(size_t)base * kCell + k];
+    for (int k = threadIdx.x; k < m * 2; k += blockDim.x)
+      sh[k] = cells[(size_t)base * 2 + k];
     __syncthreads();
-    int cx = kGrouped ? 0 : base / kz, cz = kGrouped ? 0 : base - cx * kz;
+    int cx = base / kz, cz = base - cx * kz;
     for (int k = 0; k < m; ++k) {
-      const float* c = sh + k * kCell;
-      float fix, fiz, h, mat;
-      if (kGrouped) {
-        fix = c[0]; fiz = c[1]; h = c[2]; mat = c[3];
-      } else {
-        fix = (float)cx; fiz = (float)cz; h = c[0]; mat = c[1];
-        if (++cz == kz) { cz = 0; ++cx; }
-      }
+      const float* c = sh + k * 2;
+      const float fix = (float)cx, fiz = (float)cz, h = c[0], mat = c[1];
+      if (++cz == kz) { cz = 0; ++cx; }
       float ta = ex0 + fix * sxv, tb = ta + sxv;
       const float xlo = fminf(ta, tb), xhi = fmaxf(ta, tb);
       ta = ez0 + fiz * szv; tb = ta + szv;
@@ -105,25 +156,144 @@ box_grid_kernel(const float* __restrict__ cells, int n, int kz, Lattice g, int R
     }
   }
   if (!live) return;
-  p.t[i] = best;
-  if (!(best < art::kBig)) {
-    p.nx[i] = 1.f; p.ny[i] = 0.f; p.nz[i] = 0.f;
-    p.u[i] = 0.f; p.v[i] = 0.f; p.mat[i] = 0;
-    return;
-  }
-  // the winner's box from its cell, as the TPU kernels rebuild it
-  const float mnx = g.x0 + bix * g.w, mnz = g.z0 + biz * g.w;
-  const art::BoxAttrs at = art::box_winner_attrs<false>(
-      ox, oy, oz, dx, dy, dz, best, mnx, g.y0, mnz, mnx + g.w, bh, mnz + g.w, 1.f, 0.f,
-      0.f, 0.f, 0.f);
-  p.nx[i] = at.nx; p.ny[i] = at.ny; p.nz[i] = at.nz;
-  p.u[i] = at.u; p.v[i] = at.v;
-  p.mat[i] = (int)bm;
+  write_cell_hit(p, i, g, ox, oy, oz, dx, dy, dz, best, bix, biz, bh, bm);
 }
 
-template <bool kGrouped>
-int launch(const float* cells, int n, int kz, const float* lattice, int R, float t_min,
-           void* const* planes, void* stream) {
+// a cell's x and z slabs (xlo, xhi, zlo, zhi): read as float2 (lo, hi)
+// from the thread's hoisted slabs at the staged byte offsets, or computed
+// from the staged float ix and iz
+template <bool kHoisted>
+__device__ __forceinline__ float4 cell_slabs(const char* slab, int4 c, float ex0, float sxv,
+                                             float ez0, float szv) {
+  if (kHoisted) {
+    const float2 xs = *reinterpret_cast<const float2*>(slab + c.x);
+    const float2 zs = *reinterpret_cast<const float2*>(slab + c.y);
+    return make_float4(xs.x, xs.y, zs.x, zs.y);
+  }
+  float ta = ex0 + __int_as_float(c.x) * sxv, tb = ta + sxv;
+  const float xlo = fminf(ta, tb), xhi = fmaxf(ta, tb);
+  ta = ez0 + __int_as_float(c.y) * szv;
+  tb = ta + szv;
+  return make_float4(xlo, xhi, fminf(ta, tb), fmaxf(ta, tb));
+}
+
+// K9: the (C, 4) cell rows; kHoisted: the x and z slabs hoisted per column
+// and row into shared memory (the module note)
+template <bool kHoisted>
+__global__ void __launch_bounds__(kCellThreads * kCellSplit)
+box_grid_cells_kernel(const float* __restrict__ cells, int C, int kx, int kz, Lattice g,
+                      int R, float t_min, GridPlanes p) {
+  // dynamic shared memory: the tile's cells and two pad rows (int4: the x
+  // and z slabs' byte offsets or the float ix and iz, the height's bits, 1
+  // at the first cell of a run of one height), then the hoisted slabs
+  extern __shared__ int4 dyn[];
+  const int cap = min(C, kCellTile);
+  int4* tile = dyn;
+  const int ray = threadIdx.x % kCellThreads, part = threadIdx.x / kCellThreads;
+  char* slab = reinterpret_cast<char*>(dyn + cap + 2) + ray * (int)sizeof(float2);
+  __shared__ float warp_top[kCellThreads * kCellSplit / 32];
+  __shared__ float part_best[(kCellSplit - 1) * kCellThreads];  // parts 1.. at their end
+  __shared__ int part_bk[(kCellSplit - 1) * kCellThreads];
+  const int i = blockIdx.x * kCellThreads + ray;
+  const int lane = threadIdx.x & 31;
+  const bool live = i < R;
+  const float ox = live ? p.ox[i] : 0.f, oy = live ? p.oy[i] : 0.f,
+              oz = live ? p.oz[i] : 0.f;
+  const float dx = live ? p.dx[i] : 0.f, dy = live ? p.dy[i] : 0.f,
+              dz = live ? p.dz[i] : 1.f;
+  const float ixv = art::safe_inv(dx), iyv = art::safe_inv(dy), izv = art::safe_inv(dz);
+  const float ex0 = (g.x0 - ox) * ixv, sxv = g.w * ixv;
+  const float ez0 = (g.z0 - oz) * izv, szv = g.w * izv;
+  const float ty0p = (g.y0 - oy) * iyv;  // the shared floor plane
+  if (kHoisted) {  // columns 0..kx-1 in x (part 0), then the kz rows in z (the last part)
+    for (int c = 0; part == 0 && c < kx; ++c) {
+      const float ta = ex0 + (float)c * sxv, tb = ta + sxv;
+      *reinterpret_cast<float2*>(slab + c * kSlabStride) = make_float2(fminf(ta, tb),
+                                                                       fmaxf(ta, tb));
+    }
+    for (int c = 0; part == kCellSplit - 1 && c < kz; ++c) {
+      const float ta = ez0 + (float)c * szv, tb = ta + szv;
+      *reinterpret_cast<float2*>(slab + (kx + c) * kSlabStride) = make_float2(fminf(ta, tb),
+                                                                              fmaxf(ta, tb));
+    }
+  }
+
+  float best = art::kBig;
+  int bk = -1;
+  for (int base = 0; base < C; base += kCellTile) {
+    const int m = min(kCellTile, C - base);
+    __syncthreads();
+    float top = g.y0;  // the floor and every top of the tile lie at or below it
+    for (int k = threadIdx.x; k < m; k += kCellThreads * kCellSplit) {
+      const float* c = cells + (size_t)(base + k) * 4;
+      const float fix = c[0], fiz = c[1], h = c[2];
+      top = fmaxf(top, h);
+      const bool first = k == 0 || __float_as_uint(c[-2]) != __float_as_uint(h);
+      tile[k] = kHoisted ? make_int4((int)fix * kSlabStride, (kx + (int)fiz) * kSlabStride,
+                                     __float_as_int(h), first)
+                         : make_int4(__float_as_int(fix), __float_as_int(fiz),
+                                     __float_as_int(h), first);
+    }
+    if (threadIdx.x < 2) tile[m + threadIdx.x] = make_int4(0, 0, 0, 0);  // read ahead
+#pragma unroll
+    for (int o = 16; o; o >>= 1) top = fmaxf(top, __shfl_xor_sync(kAll, top, o));
+    if (lane == 0) warp_top[threadIdx.x >> 5] = top;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kCellThreads * kCellSplit / 32; ++w) top = fmaxf(top, warp_top[w]);
+    if (__all_sync(kAll, !live || (t_min >= 0.0f && oy >= top && dy >= 0.0f))) continue;
+    // software-pipelined: cell k + 2's row and cell k + 1's slabs are in
+    // flight while cell k is tested
+    const int k0 = m * part / kCellSplit, k1 = m * (part + 1) / kCellSplit;
+    int4 c0 = tile[k0], c1 = tile[k0 + 1];
+    float4 s0 = cell_slabs<kHoisted>(slab, c0, ex0, sxv, ez0, szv);
+    float ty1 = (__int_as_float(c0.z) - oy) * iyv;  // the first cell's y slab
+    float ylo = fminf(ty0p, ty1), yhi = fmaxf(ty0p, ty1);
+#pragma unroll 2
+    for (int k = k0; k < k1; ++k) {
+      const int4 c2 = tile[k + 2];
+      const float4 s1 = cell_slabs<kHoisted>(slab, c1, ex0, sxv, ez0, szv);
+      if (c0.w) {  // a run's first cell: its height's y slab
+        ty1 = (__int_as_float(c0.z) - oy) * iyv;
+        ylo = fminf(ty0p, ty1);
+        yhi = fmaxf(ty0p, ty1);
+      }
+      const float t0 = fmaxf(fmaxf(s0.x, s0.z), ylo);
+      const float t1 = fminf(fminf(s0.y, s0.w), yhi);
+      const float t = t0 > t_min ? t0 : t1;
+      if (t0 < t1 && t > t_min && t < best) {
+        best = t;
+        bk = base + k;
+      }
+      c0 = c1;
+      c1 = c2;
+      s0 = s1;
+    }
+  }
+  // part 0 takes a later part's winner where it is closer, or as close and
+  // earlier
+  if (part > 0) {
+    part_best[(part - 1) * kCellThreads + ray] = best;
+    part_bk[(part - 1) * kCellThreads + ray] = bk;
+  }
+  __syncthreads();
+  if (part > 0) return;
+  for (int j = ray; j < (kCellSplit - 1) * kCellThreads; j += kCellThreads) {
+    const float b = part_best[j];
+    if (b < best || (b == best && b < art::kBig && part_bk[j] < bk)) {
+      best = b;
+      bk = part_bk[j];
+    }
+  }
+  if (!live) return;
+  const float* w = cells + (size_t)max(bk, 0) * 4;  // read only for a hit
+  if (best < art::kBig)
+    write_cell_hit(p, i, g, ox, oy, oz, dx, dy, dz, best, w[0], w[1], w[2], w[3]);
+  else
+    write_cell_hit(p, i, g, ox, oy, oz, dx, dy, dz, best, 0.f, 0.f, g.y0, 0.f);
+}
+
+GridPlanes grid_planes(void* const* planes) {
   GridPlanes p;
   p.ox = (const float*)planes[0]; p.oy = (const float*)planes[1];
   p.oz = (const float*)planes[2]; p.dx = (const float*)planes[3];
@@ -131,12 +301,7 @@ int launch(const float* cells, int n, int kz, const float* lattice, int R, float
   p.t = (float*)planes[6]; p.nx = (float*)planes[7]; p.ny = (float*)planes[8];
   p.nz = (float*)planes[9]; p.u = (float*)planes[10]; p.v = (float*)planes[11];
   p.mat = (int*)planes[12];
-  const Lattice g{lattice[0], lattice[1], lattice[2], lattice[3]};
-  const int grid = (R + art::kBlock - 1) / art::kBlock;
-  if (grid > 0)
-    box_grid_kernel<kGrouped><<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
-        cells, n, kz, g, R, t_min, p);
-  return (int)cudaGetLastError();
+  return p;
 }
 
 }  // namespace
@@ -145,12 +310,43 @@ int launch(const float* cells, int n, int kz, const float* lattice, int R, float
 // planes: ox oy oz dx dy dz (in), t nx ny nz u v (f32) mat (i32) (out); all (R,)
 extern "C" int art_box_grid(const float* table, int kx, int kz, const float* lattice,
                             int R, float t_min, void* const* planes, void* stream) {
-  return launch<false>(table, kx * kz, kz, lattice, R, t_min, planes, stream);
+  const Lattice g{lattice[0], lattice[1], lattice[2], lattice[3]};
+  const int grid = (R + art::kBlock - 1) / art::kBlock;
+  if (grid > 0)
+    box_grid_kernel<<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
+        table, kx * kz, kz, g, R, t_min, grid_planes(planes));
+  return (int)cudaGetLastError();
 }
 
-// K9.  cells: (C, 4) float32 [ix iz h mat]; kz unused; the rest as K10
-extern "C" int art_box_grid_cells(const float* cells, int C, int kz,
+// K9's form for a kx x kz lattice: 1 with the slabs hoisted, 0 per cell
+extern "C" int art_box_grid_cells_form(int kx, int kz) {
+  return kx + kz <= kMaxSlabCols;
+}
+
+// K9.  cells: (C, 4) float32 [ix iz h mat] (ix < kx, iz < kz); the rest as K10
+extern "C" int art_box_grid_cells(const float* cells, int C, int kx, int kz,
                                   const float* lattice, int R, float t_min,
                                   void* const* planes, void* stream) {
-  return launch<true>(cells, C, kz, lattice, R, t_min, planes, stream);
+  const Lattice g{lattice[0], lattice[1], lattice[2], lattice[3]};
+  const int grid = (R + kCellThreads - 1) / kCellThreads;
+  if (grid <= 0) return 0;
+  const bool hoisted = art_box_grid_cells_form(kx, kz);
+  const int cap = min(C, kCellTile);
+  const size_t bytes =
+      (cap + 2) * sizeof(int4) + (hoisted ? (size_t)(kx + kz) * kSlabStride : 0);
+  const auto kernel = hoisted ? box_grid_cells_kernel<true> : box_grid_cells_kernel<false>;
+  // the static arrays take ~1 KB of the default 48 KB, so the dynamic limit
+  // is raised, once a form, to the most a launch can ask for
+  static bool raised[2] = {false, false};
+  if (!raised[hoisted]) {
+    const int most =
+        (kCellTile + 2) * (int)sizeof(int4) + (hoisted ? kMaxSlabCols * kSlabStride : 0);
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (rc) return rc;
+    raised[hoisted] = true;
+  }
+  kernel<<<grid, kCellThreads * kCellSplit, bytes, (cudaStream_t)stream>>>(
+      cells, C, kx, kz, g, R, t_min, grid_planes(planes));
+  return (int)cudaGetLastError();
 }

@@ -2,8 +2,8 @@
 // strict-< merge (in the direct form, and in K13's expanded form), the
 // hit's output, the conservative slab test of a box, and the
 // head-then-segments scan of the culling kernels K16 (sphere_skip.cu) and
-// K17 (sphere_cellbin.cu).  K2 (sphere_hit.cu) and K13 (sphere_static.cu)
-// use the candidates and the output.
+// K17 (sphere_cellbin.cu).  K13 (sphere_static.cu) uses the candidates and
+// the output, K2 (sphere_hit.cu) the ray and the output.
 //
 // Rules (those of the plain twins, ops/intersect_kernels.py, not the TPU
 // kernels'):

@@ -46,7 +46,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 STATIC_SOURCE = "sphere_static.cu"  # built per scene by static_libraries, not library()
-BLOCK = 256  # threads per block of every kernel (csrc/common.cuh kBlock)
+BLOCK = 256  # threads per block (csrc/common.cuh kBlock) of all kernels but K2's and K9's
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -82,8 +82,9 @@ _SIGNATURES = {
     "art_box_grid": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I, ctypes.c_float,
                      ctypes.POINTER(_P), _P],
     "art_sphere_mxu": [_P, _P, _I, _I, ctypes.POINTER(_P), _P],
-    "art_box_grid_cells": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I,
+    "art_box_grid_cells": [_P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), _I,
                            ctypes.c_float, ctypes.POINTER(_P), _P],
+    "art_box_grid_cells_form": [_I, _I],
 }
 
 

@@ -52,7 +52,9 @@
   K10 over every cell in row-major order from the run-time table
   ``box_grid_rows``, K9 over the non-empty cells in ``box_grid_cells``
   order (``box_grid_cell_rows``); the two pick different, equally close
-  cells on an exact tie.
+  cells on an exact tie.  ``box_grid_skip_p`` is the predicate by which a
+  K9 warp tests no cell (the tests hold it to the twin's misses), and
+  ``box_grid_cells_form`` names K9's form for a lattice.
 
 Each but K13 and K14 (which bake 1e-3, as the TPU kernels do) takes
 ``t_min`` as a run-time argument.  A miss gives ``t = BIG``,
@@ -577,6 +579,24 @@ def box_grid_cells_hit_attrs_plain(tables: SceneTables, o, d, t_min=T_MIN):
     return _grid_plain(tables, o, d, t_min, grouped=True)
 
 
+def box_grid_skip_p(tables: SceneTables, o, d, t_min=T_MIN):
+    """The lanes K9 may leave untested (``csrc/box_grid.cu``): with ``t_min
+    >= 0``, a ray that starts at or above the floor and every top of
+    ``box_grid_cell_rows`` and does not point down misses every cell.  The
+    kernel skips a warp whose 32 lanes all pass it (over each tile's tops);
+    the tests hold it to ``box_grid_cells_hit_attrs_plain``."""
+    top = max(tables.box_grid_y0, float(tables.box_grid_cell_rows[:, 2].max()))
+    return (o[1] >= top) & (d[1] >= 0.0) & (float(t_min) >= 0.0)
+
+
+def box_grid_cells_form(tables: SceneTables) -> str:
+    """K9's form for the scene's lattice: "hoisted" (the x and z slabs once a
+    column and row, in shared memory) or "per-cell" (``csrc/box_grid.cu``
+    art_box_grid_cells_form; needs the built library)."""
+    hoisted = _build.library().art_box_grid_cells_form(tables.box_grid_kx, tables.box_grid_kz)
+    return "hoisted" if hoisted else "per-cell"
+
+
 def _grid_launch(tables: SceneTables, o, d, t_min, grouped: bool):
     dev = o[0].device
     ins = (*o, *d)
@@ -596,9 +616,13 @@ def _grid_launch(tables: SceneTables, o, d, t_min, grouped: bool):
     lattice = (ctypes.c_float * 4)(tables.box_grid_x0, tables.box_grid_z0,
                                    tables.box_grid_w, tables.box_grid_y0)
     lib, name = _build.library(), GRID_CELLS if grouped else GRID
-    fn = lib.art_box_grid_cells if grouped else lib.art_box_grid
-    rc = fn(cells.data_ptr(), n, tables.box_grid_kz, lattice, R, float(t_min), ptrs,
-            _build.stream_handle(dev))
+    if grouped:
+        rc = lib.art_box_grid_cells(cells.data_ptr(), n, tables.box_grid_kx,
+                                    tables.box_grid_kz, lattice, R, float(t_min), ptrs,
+                                    _build.stream_handle(dev))
+    else:
+        rc = lib.art_box_grid(cells.data_ptr(), n, tables.box_grid_kz, lattice, R,
+                              float(t_min), ptrs, _build.stream_handle(dev))
     _build.check(rc, name)
     _build.launches[name] += 1
     return t, (nx, ny, nz), u, v, mat

@@ -7,6 +7,8 @@ Phases (each runs; any failure exits non-zero without the final result):
  1. the card (``nvidia-smi`` name and power limit), ``nvcc``, and the build of
     every kernel from ``art_tpu_torch/csrc`` (one nvcc per source, in
     parallel; timed);
+ 1b. the registers, local-memory spills and hot-loop instructions of K2, K9
+    (both forms) and K10 in the built library (``scripts/sass_loops.py``);
  2. each kernel against its plain PyTorch twin on the card, with inputs and
     injected uniforms from a numpy seed, then both timed with CUDA events
     behind a device spin, beside the least time the card could take for the
@@ -28,10 +30,13 @@ Phases (each runs; any failure exits non-zero without the final result):
     and device time of felt's plain-PyTorch noise;
     2e. on a final_scene pool 20 iterations into a render (R = 2^17): K9
     (box_grid_cells) and K10 (box_grid, final_scene's table with its cell
-    list dropped) equal to their twins, K9 against K10 and against K6 over
-    the same 400 boxes; K10 equal to its twin on the 40x40 box field's pool
-    (its own path: 1600 cells, two shared-memory tiles, rays whose winners
-    lie in the second tile) and timed there; the split sphere pass equal to
+    list dropped) equal to their twins, K9's form and the share of lanes
+    and warps its skip predicate leaves untested (each a miss), K9 against
+    K10 and against K6 over the same 400 boxes; K10 equal to its twin on
+    the 40x40 box field's pool (its own path: 1600 cells, two shared-memory
+    tiles, rays whose winners lie in the second tile) and timed there; K9's
+    per-cell form on a 72x8 field's pool, equal to its twin; K2 bit-equal
+    to its twin on the final_scene pool and timed there; the split sphere pass equal to
     its twin and to the full-table K2 but on exact head/tail ties, K2 with
     n_live equal to its twin on the compacted slots; times of each, of the
     split against the full-table K2, and the launches of the split, of
@@ -111,8 +116,10 @@ Phases (each runs; any failure exits non-zero without the final result):
     statistically (a route against the default route).
 
 Standard output ends with a JSON line of per-kernel results (each kernel's
-``launches`` counted in the render of the newest path that runs it, named
-by ``launches_path``), the card's name and power limit, and then
+``launches`` counted in the first default-route render that runs it, in
+the order bouncing_spheres, final_scene, cornell_box, the image and
+short-path scenes, the others; else in its opt-in route's render; named by
+``launches_path``), the card's name and power limit, and then
 ``{"ok": true, "device": {...}}``.  Needs
 ``torch.cuda.is_available()``.
 """
@@ -343,9 +350,9 @@ OPS_SP_BOUNCE = 100  # the short path's background, material row and scatter
 OPS_FLUSH = 8  # K4 a lane: load, test, shift, window, index; an add a channel
 OPS_GATHER = 4  # K8 a lane: two range tests, a select
 # a grid cell with the x and z slabs hoisted per column and row, as the TPU
-# kernels compute them: the top plane 2, y slab 2, t0 and t1 4, the entry /
-# exit choice 4, the merge 6, the amortized x and z slabs 2 (the port's
-# simple kernel recomputes the slabs per cell: ~28)
+# kernels and K9 compute them: the top plane 2, y slab 2, t0 and t1 4, the
+# entry / exit choice 4, the merge 6, the amortized x and z slabs 2 (K10
+# recomputes the slabs per cell: ~28)
 OPS_GRID_CELL = 20
 
 
@@ -402,6 +409,13 @@ def _timed_ms(fn, reps: int, reset=None) -> float:
     return total / reps
 
 
+def _sphere_row_ops(rows) -> int:
+    """K2's least operations a ray over the (S, 10) sphere rows: OPS_SPHERE
+    for a moving row, OPS_STATIC[False] for a static one (v = 0)."""
+    moving = int((rows[:, 3:6] != 0).any(dim=1).sum())
+    return moving * OPS_SPHERE + (rows.shape[0] - moving) * OPS_STATIC[False]
+
+
 def _set_bound(entry: dict, nbytes: float, nops: float):
     """bound_ms: the larger of bytes / HBM rate and operations / FP32 rate."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -440,6 +454,30 @@ def card_info(checks: Checks, dev):
         f"{time.perf_counter() - t0:.2f} s")
     checks.expect(lib is not None, "kernels built and loaded")
     return smi.stdout.strip()
+
+
+def sass_report(checks: Checks, results: dict):
+    """Registers, spills and the hot loop's instructions of K2, K9 (both
+    forms) and K10 in the built library (``scripts/sass_loops.py``)."""
+    import importlib.util
+    from pathlib import Path
+
+    from art_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location(
+        "sass_loops", Path(__file__).resolve().parent / "scripts" / "sass_loops.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    rep = mod.report(_build.library()._name)
+    for name, r in rep.items():
+        loop = r.get("loop", {})
+        log(f"  {name}: {r.get('REG')} registers, {r.get('LOCAL')} B local (spills), "
+            f"{r.get('SHARED')} B static shared; hot loop {loop.get('instructions')} "
+            f"instructions in {loop.get('blocks')} blocks, paths by LDS count "
+            f"{loop.get('paths')}")
+    checks.expect(all("error" not in r and r["LOCAL"] == 0 for r in rep.values()),
+                  "K2, K9 and K10 found in the library, no local-memory spill")
+    results["_sass"] = rep
 
 
 def _random_pool(rng, R, dev):
@@ -549,35 +587,32 @@ def kernel_checks(checks: Checks, dev, results: dict):
     o = (refilled["ox"], refilled["oy"], refilled["oz"])
     d = (refilled["dx"], refilled["dy"], refilled["dz"])
     tm = refilled["tm"]
-    kt, kn, km = sphere_hit_attrs(tables, o, d, tm)
-    pt, pn, pm = sphere_hit_attrs_plain(tables, o, d, tm)
+    # bit-equal to the twin: t, normal and material of every lane (the
+    # kernel keeps the twin's operations and order, no FMA)
+    k2 = sphere_hit_attrs(tables, o, d, tm)
+    p2 = sphere_hit_attrs_plain(tables, o, d, tm)
     torch.cuda.synchronize()
-    khit, phit = kt < 1e30, pt < 1e30
-    same = (khit == phit) & (~khit | (km == pm))
-    flips = int((~same).sum())
-    checks.expect(flips <= budget, f"K2: {flips} hit/winner flips (<= {budget}), "
-                                   f"{int(khit.sum())} hits")
-    both = same & khit
-    t_rel = float(((kt - pt).abs() / pt.abs().clamp_min(1e-30))[both].max())
-    n_err = max(_max_diff(kn[c], pn[c], both) for c in range(3))
-    checks.expect(t_rel <= 1e-5 and n_err <= 1e-4,
-                  f"K2: t max rel err {t_rel:.3g} (<= 1e-5), normal max err {n_err:.3g}")
-    results["sphere_hit"]["max_abs_err"] = max(_max_diff(kt, pt, both), n_err)
+    bad, hits = _equal(k2, p2), int((k2[0] < 1e30).sum())
+    checks.expect(bad == 0, f"K2: {bad} values differ from the twin (t, normal, material; "
+                            f"{hits} hits of {R})")
+    results["sphere_hit"]["max_abs_err"] = max(
+        _max_diff(x, y) for x, y in zip([k2[0], *k2[1], k2[2]], [p2[0], *p2[1], p2[2]]))
     # t_min is a run-time argument of the kernel
-    kt2, _, km2 = sphere_hit_attrs(tables, o, d, tm, 0.25)
-    pt2, _, pm2 = sphere_hit_attrs_plain(tables, o, d, tm, 0.25)
+    kt2 = sphere_hit_attrs(tables, o, d, tm, 0.25)
+    pt2 = sphere_hit_attrs_plain(tables, o, d, tm, 0.25)
     torch.cuda.synchronize()
-    flips = int(((kt2 < 1e30) != (pt2 < 1e30)).sum() + ((km2 != pm2) & (pt2 < 1e30)).sum())
-    beyond = bool((kt2[kt2 < 1e30] > 0.25).all())
-    checks.expect(flips <= budget and beyond and bool((kt2 != kt).any()),
-                  f"K2 at t_min 0.25: {flips} flips (<= {budget}), every hit beyond "
-                  f"0.25: {beyond}, {int((kt2 != kt).sum())} rays changed")
-    results["sphere_hit"]["ms"] = _timed_ms(lambda: sphere_hit_attrs(tables, o, d, tm), 10)
+    bad = _equal(kt2, pt2)
+    beyond = bool((kt2[0][kt2[0] < 1e30] > 0.25).all())
+    checks.expect(bad == 0 and beyond and bool((kt2[0] != k2[0]).any()),
+                  f"K2 at t_min 0.25: {bad} values differ from the twin, every hit beyond "
+                  f"0.25: {beyond}, {int((kt2[0] != k2[0]).sum())} rays changed")
+    results["sphere_hit"]["ms"] = _timed_ms(lambda: sphere_hit_attrs(tables, o, d, tm), 20)
     results["sphere_hit"]["plain_ms"] = _timed_ms(
         lambda: sphere_hit_attrs_plain(tables, o, d, tm), 3)
-    # 7 planes in, 5 out per ray; the sphere table once
+    # 7 planes in, 5 out per ray; the sphere table once; the function's
+    # least work: OPS_SPHERE a moving row, OPS_STATIC[False] a static one
     _set_bound(results["sphere_hit"], R * 48 + tables.n_spheres * 40,
-               R * tables.n_spheres * OPS_SPHERE)
+               R * _sphere_row_ops(tables.sph_rows))
 
     # ---- K3: shade + integrate + flush ----
     rec = closest_surface_p(tables, o, d, tm, T_MIN, plain=True)
@@ -1220,21 +1255,22 @@ def compact_checks(checks: Checks, dev, results: dict):
         f"with its where)")
 
 
-def _box_field(nx: int, ny: int):
-    """A 40x40 field of boxes (1600 > 1024, so the builder sets no K9 cell
-    table and the grid goes to K10, as in art_tpu) under a gradient sky."""
+def _box_field(nx: int, ny: int, kx: int = 40, kz: int = 40):
+    """A kx x kz field of boxes under a gradient sky: at 40x40 (1600 > 1024)
+    the builder sets no K9 cell table and the grid goes to K10, as in
+    art_tpu; at 72x8 (576 boxes, kx + kz = 80) K9 takes its per-cell form."""
     from art_tpu_torch.scene import materials as M
     from art_tpu_torch.scene import objects as O
     from art_tpu_torch.scene.builder import SceneBuilder
 
     mats = [M.Lambertian((0.7, 0.6, 0.5)), M.Lambertian((0.3, 0.5, 0.7))]
-    b = SceneBuilder().set_name("box field")
-    for ix in range(40):
-        for iz in range(40):
+    b = SceneBuilder().set_name("box field" if (kx, kz) == (40, 40) else f"box field {kx}x{kz}")
+    for ix in range(kx):
+        for iz in range(kz):
             h = 1.0 + (ix * 7 + iz * 11) % 9
             b.add(O.Box((ix * 4.0, 0.0, iz * 4.0), (ix * 4.0 + 4.0, h, iz * 4.0 + 4.0),
                         mats[(ix + iz) % 2]))
-    b.set_camera(lookfrom=(80, 60, -60), lookat=(80, 0, 80), vup=(0, 1, 0),
+    b.set_camera(lookfrom=(2 * kx, 60, -60), lookat=(2 * kx, 0, 2 * kz), vup=(0, 1, 0),
                  vfov_degrees=50.0, aspect=nx / ny, time0=0.0, time1=1.0)
     b.set_background(gradient=True)
     return b.compile()
@@ -1344,6 +1380,37 @@ def box_field_checks(checks: Checks, dev, results: dict):
     r.update(cells=cells, R=R, shapes=f"{name} {nx}x{ny} @ {spp}")
 
 
+def long_field_checks(checks: Checks, dev, results: dict):
+    """K9's second form: a 72x8 box field (576 cells, kx + kz = 80 slab
+    columns, more than the hoisted form holds) on its pool one staged
+    iteration in, bit-equal to its twin; its time."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG, T_MIN
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    nx, ny = 160, 90
+    scene = _box_field(nx, ny, 72, 8).to(dev)
+    tables = scene.tables
+    s = _staged_pool(scene, nx, ny, 4, dev, 1)
+    R, pool = s["R"], s["pool"]
+    o = (pool["ox"], pool["oy"], pool["oz"])
+    d = (pool["dx"], pool["dy"], pool["dz"])
+    k, p = K.box_grid_cells_hit_attrs(tables, o, d), K.box_grid_cells_hit_attrs_plain(
+        tables, o, d)
+    torch.cuda.synchronize()
+    form, bad = K.box_grid_cells_form(tables), _equal(k, p)
+    skip = K.box_grid_skip_p(tables, o, d, T_MIN)
+    warps = float(skip[: R // 32 * 32].reshape(-1, 32).all(dim=1).float().mean())
+    checks.expect(form == "per-cell" and bad == 0 and tables.box_grid_cell_rows is not None,
+                  f"K9 on the 72x8 field's pool ({tables.box_grid_cell_rows.shape[0]} cells, "
+                  f"R = {R}): {form} form, {bad} values differ from the twin; "
+                  f"{int((k[0] < BIG).sum())} hits, {warps:.4f} of the warps test no cell")
+    r = results["box_grid_cells"]
+    r["ms_72x8_field"] = _timed_ms(lambda: K.box_grid_cells_hit_attrs(tables, o, d), 20)
+    r["form_72x8_field"] = form
+
+
 def grid_split_checks(checks: Checks, dev, results: dict):
     """K9, K10, the split sphere pass (K2 with n_live, K4) and the media
     against their twins and each other at final_scene 800x800's R (2^17),
@@ -1391,6 +1458,17 @@ def grid_split_checks(checks: Checks, dev, results: dict):
         results["box_grid_cells" if label == "K9" else "box_grid"]["max_abs_err"] = max(
             _max_diff(x, y) for x, y in zip([k[0], *k[1], k[2], k[3]],
                                             [p[0], *p[1], p[2], p[3]]))
+    # K9's form, and the lanes its warp skip may leave untested: each a miss
+    form = K.box_grid_cells_form(tables)
+    skip = K.box_grid_skip_p(tables, o, d, T_MIN)
+    lanes = float(skip.float().mean())
+    warps = float(skip[: R // 32 * 32].reshape(-1, 32).all(dim=1).float().mean())
+    missed = bool((p9[0][skip] == BIG).all())
+    checks.expect(form == "hoisted" and missed,
+                  f"K9 on the final_scene pool: {form} form ({tables.box_grid_kx} + "
+                  f"{tables.box_grid_kz} slab columns); the skip predicate holds on "
+                  f"{lanes:.4f} of the lanes, every one a miss of the twin: {missed}; "
+                  f"{warps:.4f} of the warps test no cell")
     same_t = bool(torch.equal(k9[0], k10[0]))
     attrs = torch.ones(R, dtype=torch.bool, device=dev)
     for x, y in zip([*k9[1], k9[2], k9[3], k9[4]], [*k10[1], k10[2], k10[3], k10[4]]):
@@ -1414,15 +1492,32 @@ def grid_split_checks(checks: Checks, dev, results: dict):
                   f"(<= 30), {far} of {int(both.sum())} hits beyond 2e-5 relative "
                   f"(<= 0.5%), t max rel err {float(rel.max()):.3g}")
     results["_grid"] = {"hits": hits, "k9_k6_flips": flips,
-                        "k9_k6_t_max_rel": float(rel.max()), "k9_k6_beyond_2e-5": far}
+                        "k9_k6_t_max_rel": float(rel.max()), "k9_k6_beyond_2e-5": far,
+                        "k9_form": form, "k9_skip_lanes": lanes, "k9_skip_warps": warps}
 
     # ---- the split against its twin and the full-table K2 ----
     split = cs.sphere_hit_attrs_split(tables, o, d, tm)
     split_p = cs.sphere_hit_attrs_split(tables, o, d, tm, plain=True)
     full = K.sphere_hit_attrs(tables, o, d, tm)
+    full_p = K.sphere_hit_attrs_plain(tables, o, d, tm)
     head = K.sphere_hit_attrs(tables, o, d, tm, rows=tables.sph_head_rows)
     tail = K.sphere_hit_attrs(tables, o, d, tm, rows=tables.sph_tail_rows)
     torch.cuda.synchronize()
+    bad = _equal(full, full_p)
+    checks.expect(bad == 0, f"K2 on the final_scene pool: {bad} values differ from the twin "
+                            f"({int((full[0] < BIG).sum())} hits of {R})")
+    r2 = results["sphere_hit"]
+    r2["max_abs_err"] = max(r2["max_abs_err"] or 0.0, *(
+        _max_diff(x, y) for x, y in zip([full[0], *full[1], full[2]],
+                                        [full_p[0], *full_p[1], full_p[2]])))
+    r2["ms_final_scene"] = _timed_ms(lambda: K.sphere_hit_attrs(tables, o, d, tm), 20)
+    r2["plain_ms_final_scene"] = _timed_ms(lambda: K.sphere_hit_attrs_plain(tables, o, d, tm),
+                                           3)
+    ops = R * _sphere_row_ops(tables.sph_rows)
+    r2["bound_ms_final_scene"] = max((R * 48 + tables.n_spheres * 40) / HBM_BYTES_PER_S,
+                                     ops / FP32_OPS_PER_S) * 1e3
+    log(f"  K2 on the final_scene pool: {r2['ms_final_scene']:.4f} ms, plain "
+        f"{r2['plain_ms_final_scene']:.4f} ms, bound {r2['bound_ms_final_scene']:.4f} ms")
     ties = int(((head[0] == tail[0]) & (head[0] < BIG)).sum())
     bad_p, bad_f = _equal(split, split_p), _equal(split, full)
     needy = cs.tail_box_needy(tables.sph_tail_box, o, d, T_MIN)
@@ -1444,14 +1539,14 @@ def grid_split_checks(checks: Checks, dev, results: dict):
     checks.expect(bad == 0 and bool((kt[0][n_needy:] == BIG).all()),
                   f"K2 with n_live = {n_needy} on {ray_k.shape[0]} compacted slots: {bad} "
                   f"values differ from the twin, every slot past the count misses")
-    r2 = results["sphere_hit"]
     r2["ms_tail_n_live"] = _timed_ms(lambda: K.sphere_hit_attrs(
         tables, ok_, dk_, z, rows=tables.sph_tail_rows, n_live=cnt), 20)
     r2["plain_ms_tail_n_live"] = _timed_ms(lambda: K.sphere_hit_attrs_plain(
         tables, ok_, dk_, z, rows=tables.sph_tail_rows, n_live=cnt), 3)
     r2["n_live"] = n_needy
-    # the needy lanes against the 1000 tail rows; 7 planes in, 5 out a live slot
-    by_bytes, by_ops = n_needy * 48, n_needy * tables.sph_n_tail * OPS_SPHERE
+    # the needy lanes against the 1000 static tail rows; 7 planes in, 5 out a
+    # live slot
+    by_bytes, by_ops = n_needy * 48, n_needy * _sphere_row_ops(tables.sph_tail_rows)
     r2["bound_ms_tail_n_live"] = max(by_bytes / HBM_BYTES_PER_S, by_ops / FP32_OPS_PER_S) * 1e3
     split_ms = _timed_ms(lambda: cs.sphere_hit_attrs_split(tables, o, d, tm), 20)
     full_ms = _timed_ms(lambda: K.sphere_hit_attrs(tables, o, d, tm), 20)
@@ -1483,7 +1578,10 @@ def grid_split_checks(checks: Checks, dev, results: dict):
     cells = tables.box_grid_cell_rows.shape[0]
     r["ms"] = _timed_ms(lambda: K.box_grid_cells_hit_attrs(tables, o, d), 20)
     r["plain_ms"] = _timed_ms(lambda: K.box_grid_cells_hit_attrs_plain(tables, o, d), 3)
-    _set_bound(r, R * 52 + cells * 16, R * cells * OPS_GRID_CELL + hits * OPS_BOX_WINNER)
+    # the cell tests these rays need: none for a lane the skip predicate
+    # proves a miss
+    need = R - int(skip.sum())
+    _set_bound(r, R * 52 + cells * 16, need * cells * OPS_GRID_CELL + hits * OPS_BOX_WINNER)
     r["cells"] = cells
     r = results["box_grid"]
     r["ms_final_scene_table"] = _timed_ms(lambda: K.box_grid_hit_attrs(t10, o, d), 20)
@@ -1492,6 +1590,7 @@ def grid_split_checks(checks: Checks, dev, results: dict):
     results["box_hit"]["ms_final_scene_boxes"] = _timed_ms(lambda: K.box_hit_attrs(t6, o, d),
                                                            20)
     box_field_checks(checks, dev, results)
+    long_field_checks(checks, dev, results)
     _log_kernels(results, ("box_grid_cells", "box_grid"))
     log(f"  K10 on final_scene's table: {r['ms_final_scene_table']:.4f} ms (plain "
         f"{r['plain_ms_final_scene_table']:.4f} ms)")
@@ -2620,17 +2719,17 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     checks.expect(c.get("sphere_hit") == c.get("refill"),
                   f"{label}: the full-table K2 once an iteration ({c.get('sphere_hit')} "
                   f"launches, K1 {c.get('refill')})")
-    # each kernel's count is that of the newest path that runs it: this
-    # slice's routes (SLICE8_RUNS), the cluster slice's K15 paths, the
-    # culling slice's K17 and K16 paths, the big-scene
-    # slice's main path (final_scene) and its other paths, then the image
-    # slice's, the short-path slice's, then cornell_box's and
-    # bouncing_spheres' (the earlier slices' main paths), then
-    # three_spheres', then the other opt-in routes
-    order = ([lab for lab, *_ in SLICE8_RUNS] + [lab for lab, *_ in CLUSTER_RUNS]
+    # each kernel's count is that of the first default-route render that
+    # runs it: bouncing_spheres (bench.py's headline), final_scene,
+    # cornell_box, the image scenes, the short-path scenes, then the other
+    # default renders; a kernel that only an opt-in route runs takes that
+    # route's count: this slice's routes (SLICE8_RUNS), K15's, then the
+    # culling slice's
+    order = (["bouncing_spheres", "final_scene", "cornell_box"]
+             + [lab for lab, *_ in IMAGE + SHORT]
+             + ["three_spheres"] + [lab for lab, *_ in BIG_SCENES[1:]]
+             + [lab for lab, *_ in SLICE8_RUNS] + [lab for lab, *_ in CLUSTER_RUNS]
              + ["bouncing_spheres cellbin", "final_scene skip"]
-             + [lab for lab, *_ in BIG_SCENES + IMAGE + SHORT]
-             + ["cornell_box", "bouncing_spheres", "three_spheres"]
              + [lab for lab, *_ in ROUTE_RUNS] + [BVH_RUN[0]])
     for k in KERNELS:
         path = next(lab for lab in order if k in PATHS[lab])
@@ -2694,6 +2793,8 @@ def main() -> int:
                       "library_ms": None}
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
+    checks.phase("1b. registers, spills and hot loops of K2, K9, K10", sass_report, checks,
+                 results)
     checks.phase("2a. K1, K2, K3 against their plain twins", kernel_checks, checks, dev,
                  results)
     checks.phase("2b. K5, K6, baked K3 against their plain twins", quad_box_checks,
@@ -2714,7 +2815,7 @@ def main() -> int:
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     extra = {key: results.pop(f"_{key}", {}) for key in (
         "render", "renders", "compact_fetch", "noise_p", "grid", "split", "media", "cull",
-        "cluster", "slice8", "routes")}
+        "cluster", "slice8", "routes", "sass")}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
         for name, (src, rep) in KERNELS.items()], **extra, "card": smi}))

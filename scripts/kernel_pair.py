@@ -1,0 +1,157 @@
+#!/usr/bin/env python3
+"""Time the sphere and box-grid kernels of one checkout of the port on the card.
+
+Run from the repository root, once per checkout to compare, all in one call
+on one card (turns: parent, change, change, parent):
+
+    PYTHONPATH=<checkout> python3 scripts/kernel_pair.py --label parent
+    python3 scripts/kernel_pair.py --label change
+
+The port (``art_tpu_torch``) is imported from PYTHONPATH when it is set, so
+the same script times another checkout's kernels; the pools and the timer
+are ``chip_smoke.py``'s (this checkout's).  Each kernel runs on the pools
+``chip_smoke.py`` uses: K2 on phase 2a's refilled bouncing_spheres 1200x800
+pool (also at t_min = 0.25) and on the 20-iteration bouncing_spheres and
+final_scene pools of phase 2f, with ``n_live`` on the final_scene pool's
+compacted tail slots; K9 and K10 on the final_scene pool (K10 also on the
+40x40 box field's pool); K9 on a 72x8 field's pool (kx + kz = 80); K2 on a
+cornell_box 600x600 pool one staged iteration in (two spheres); K15s,
+K16 and K17 on the 2f pools.  For each: the mean device time of 20 calls
+(CUDA events behind a device spin) and the count of output values that
+differ from its plain twin.  Prints one JSON line with the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    sys.path.append(str(ROOT))  # after PYTHONPATH: a given checkout's port comes first
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _refilled_pool(cs, dev):
+    """Phase 2a's pool: a random bouncing_spheres 1200x800 pool refilled by
+    K1 with Philox uniforms (tables, o, d, tm)."""
+    import torch
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    rng = np.random.default_rng(cs.SEED)
+    scene = build_scene("bouncing_spheres", 1200, 800)
+    tables = scene.tables.to(dev)
+    tile_pixels, spp, R = plan_batches(1200 * 800, 64, tables.n_spheres, RenderConfig(), dev)
+    scal = rk.RefillScal(spp, tile_pixels, 3 * tile_pixels, 1200 * 800, 1200, 800)
+    pool = cs._random_pool(rng, R, dev)
+    q = torch.tensor([1_234_567, 0], dtype=torch.int64, device=dev)
+    hist = torch.zeros(8, dtype=torch.int64, device=dev)
+    rk.fused_refill(pool, scene.camera, q, 0, hist, 3, scal, ncols=10, key=(1984, 3, 1))
+    return (tables, (pool["ox"], pool["oy"], pool["oz"]), (pool["dx"], pool["dy"], pool["dz"]),
+            pool["tm"])
+
+
+def _field_pool(cs, dev, kx, kz, nx, ny):
+    """(tables, o, d) of a kx x kz box field's pool one staged iteration in."""
+    scene = cs._box_field(nx, ny, kx, kz).to(dev)
+    s = cs._staged_pool(scene, nx, ny, 4, dev, 1)
+    pool = s["pool"]
+    return scene.tables, (pool["ox"], pool["oy"], pool["oz"]), (pool["dx"], pool["dy"],
+                                                                pool["dz"])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    cs = _chip_smoke()
+    import dataclasses
+
+    import torch
+
+    import art_tpu_torch
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import compact_sphere as csph
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    if not torch.cuda.is_available():
+        print("kernel_pair: needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    lib = _build.library()
+    out = {"label": args.label, "package": str(Path(art_tpu_torch.__file__).parent),
+           "build_s": lib.build_seconds, "kernels": {}}
+
+    def case(name, kern, twin):
+        k, p = kern(), twin()
+        torch.cuda.synchronize()
+        out["kernels"][name] = dict(ms=cs._timed_ms(kern, args.reps), differ=cs._equal(k, p))
+
+    bt, bo, bd, btm = _refilled_pool(cs, dev)
+    case("K2 bouncing 2a", lambda: K.sphere_hit_attrs(bt, bo, bd, btm),
+         lambda: K.sphere_hit_attrs_plain(bt, bo, bd, btm))
+    case("K2 bouncing 2a t_min 0.25", lambda: K.sphere_hit_attrs(bt, bo, bd, btm, 0.25),
+         lambda: K.sphere_hit_attrs_plain(bt, bo, bd, btm, 0.25))
+    pools = cs._route_pools(dev)
+    for scene in ("bouncing_spheres", "final_scene"):
+        t, o, d, tm = pools[scene]
+        case(f"K2 {scene}", lambda: K.sphere_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_hit_attrs_plain(t, o, d, tm))
+        case(f"K17 {scene}", lambda: K.sphere_cellbin_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_cellbin_hit_attrs_plain(t, o, d, tm))
+        case(f"K15s {scene}", lambda: K.sphere_cluster_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_cluster_hit_attrs_plain(t, o, d, tm))
+    ft, fo, fd, ftm = pools["final_scene"]
+    case("K16 final_scene", lambda: K.sphere_skip_hit_attrs(ft, fo, fd, ftm),
+         lambda: K.sphere_skip_hit_attrs_plain(ft, fo, fd, ftm))
+    needy = csph.tail_box_needy(ft.sph_tail_box, fo, fd, T_MIN)
+    cnt = needy.sum(dtype=torch.int32).reshape(1)
+    rays = torch.stack([*fo, *fd]).index_select(1, cf.compact_ray_ids(needy))
+    ko, kd, kz = tuple(rays[0:3]), tuple(rays[3:6]), torch.zeros_like(rays[0])
+    case("K2 final_scene tail n_live",
+         lambda: K.sphere_hit_attrs(ft, ko, kd, kz, rows=ft.sph_tail_rows, n_live=cnt),
+         lambda: K.sphere_hit_attrs_plain(ft, ko, kd, kz, rows=ft.sph_tail_rows, n_live=cnt))
+    case("K9 final_scene", lambda: K.box_grid_cells_hit_attrs(ft, fo, fd),
+         lambda: K.box_grid_cells_hit_attrs_plain(ft, fo, fd))
+    t10 = dataclasses.replace(ft, box_grid_cells=None, box_grid_cell_rows=None)
+    case("K10 final_scene table", lambda: K.box_grid_hit_attrs(t10, fo, fd),
+         lambda: K.box_grid_hit_attrs_plain(t10, fo, fd))
+    scene = build_scene("cornell_box", 600, 600).to(dev)
+    ct, cp = scene.tables, cs._staged_pool(scene, 600, 600, 64, dev, 1)["pool"]
+    co, cd, ctm = (cp["ox"], cp["oy"], cp["oz"]), (cp["dx"], cp["dy"], cp["dz"]), cp["tm"]
+    case("K2 cornell_box", lambda: K.sphere_hit_attrs(ct, co, cd, ctm),
+         lambda: K.sphere_hit_attrs_plain(ct, co, cd, ctm))
+    t, o, d = _field_pool(cs, dev, 40, 40, 160, 90)
+    case("K10 box field", lambda: K.box_grid_hit_attrs(t, o, d),
+         lambda: K.box_grid_hit_attrs_plain(t, o, d))
+    t, o, d = _field_pool(cs, dev, 72, 8, 160, 90)
+    case("K9 72x8 field", lambda: K.box_grid_cells_hit_attrs(t, o, d),
+         lambda: K.box_grid_cells_hit_attrs_plain(t, o, d))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    out["card"] = smi
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,240 @@
+#!/usr/bin/env python3
+"""Registers, spills and the hot loop's instruction count of the port's kernels.
+
+Run on a machine with the CUDA toolkit, from the repository root:
+
+    python3 scripts/sass_loops.py [LIBRARY.so] [NAME ...]
+
+Without a library it builds (or finds) the port's kernel library
+(``art_tpu_torch/ops/_build.py``).  NAME is a substring of a kernel's mangled
+name; the default is K2's kernels (its three forms), K9's (both forms) and K10's.
+
+For each kernel it prints ``cuobjdump -res-usage``'s registers, stack and
+local (spill) bytes, and reads ``cuobjdump -sass``: it cuts the function
+into basic blocks, finds its natural loops (a branch to a block that
+dominates it closes one), takes as the hot loop the innermost loop with the most
+shared-memory loads (LDS), and counts the instructions (NOPs left out) on
+every acyclic path from the loop's head to its back edge, keyed by the
+path's number of LDS instructions.  K2's loop is a group of eight rows for
+two rays (16 pairs): its path with the fewest LDS (eight rows and the
+flags) is a static group, the next key a moving group, and each key's
+shortest path takes no root.  K9's loop is two cells (nvcc unrolls it by
+two), three LDS a cell in the hoisted form and one in the per-cell form.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+DEFAULT = ("sphere_hit_kernelILi2ELi2E", "sphere_hit_kernelILi1ELi2E",
+           "sphere_hit_kernelILi1ELi1E", "box_grid_cells_kernelILb1E",
+           "box_grid_cells_kernelILb0E", "box_grid_kernel")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_FUNC = re.compile(r"Function\s*:\s*(\S+)")
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(found).exists():
+        raise RuntimeError("cuobjdump not found: needs the CUDA toolkit")
+    return found
+
+
+def resource_usage(lib: str) -> dict:
+    """{mangled name: {REG, STACK, SHARED, LOCAL}} from cuobjdump -res-usage."""
+    out = subprocess.run([_cuobjdump(), "-res-usage", lib], capture_output=True, text=True,
+                         check=True).stdout
+    usage, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)",
+                                                              line)}
+            name = None
+    return usage
+
+
+def sass_functions(lib: str) -> dict:
+    """{mangled name: [(address, instruction text)]} from cuobjdump -sass."""
+    out = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True, text=True,
+                         check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = _INSN.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _parse(text: str):
+    """(predicated, opcode, arguments) of one instruction."""
+    parts = text.split(None, 1)
+    pred = parts[0].startswith("@")
+    if pred:
+        parts = parts[1].split(None, 1)
+    return pred, parts[0], parts[1] if len(parts) > 1 else ""
+
+
+def _blocks(insns):
+    """Basic blocks: {start address: (instructions, successor starts)}."""
+    addrs = [a for a, _ in insns]
+    nxt = {a: b for a, b in zip(addrs, addrs[1:])}
+    leaders = {addrs[0]}
+    for a, text in insns:
+        pred, op, args = _parse(text)
+        base = op.split(".")[0]
+        if base in ("BRA", "EXIT", "RET", "BRX", "JMP", "JMX"):
+            if a in nxt:
+                leaders.add(nxt[a])
+            if base == "BRA":
+                leaders.add(int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16))
+    blocks, cur = {}, None
+    for a, text in insns:
+        if a in leaders:
+            cur = a
+            blocks[cur] = [[], []]
+        blocks[cur][0].append((a, text))
+    for start, (body, succ) in blocks.items():
+        a, text = body[-1]
+        pred, op, args = _parse(text)
+        base = op.split(".")[0]
+        # a branch whose condition is a (uniform) predicate argument
+        cond = pred or bool(re.match(r"!?U?P\d", args)) or op.startswith("BRA.DIV")
+        if base == "BRA":
+            succ.append(int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16))
+            if cond and a in nxt:
+                succ.append(nxt[a])
+        elif base in ("EXIT", "RET", "BRX", "JMP", "JMX"):
+            if pred and a in nxt:
+                succ.append(nxt[a])
+        elif a in nxt:
+            succ.append(nxt[a])
+    return blocks
+
+
+def _dominators(blocks):
+    """{block: set of the blocks that dominate it} from the first block."""
+    order = sorted(blocks)
+    preds = {b: [] for b in blocks}
+    for b, (_, succ) in blocks.items():
+        for s in succ:
+            if s in preds:
+                preds[s].append(b)
+    dom = {b: set(order) for b in order}
+    dom[order[0]] = {order[0]}
+    changed = True
+    while changed:
+        changed = False
+        for b in order[1:]:
+            ps = [dom[p] for p in preds[b]]
+            new = ({b} | set.intersection(*ps)) if ps else {b}
+            if new != dom[b]:
+                dom[b], changed = new, True
+    return dom, preds
+
+
+def _loops(blocks):
+    """Natural loops: [(head, set of block starts, back-edge sources)], a
+    back edge being a branch to a block that dominates its source (an
+    out-of-line slow path that jumps back into the loop closes none)."""
+    dom, preds = _dominators(blocks)
+    loops = {}
+    for b, (body, succ) in blocks.items():
+        for h in succ:
+            if h in blocks and h in dom[b]:
+                nodes, work = {h, b}, [b] if b != h else []
+                while work:
+                    for p in preds[work.pop()]:
+                        if p not in nodes:
+                            nodes.add(p)
+                            work.append(p)
+                head, ends = loops.setdefault(h, (set(), set()))
+                head |= nodes
+                ends.add(b)
+    return [(h, nodes, ends) for h, (nodes, ends) in loops.items()]
+
+
+def _count(body):
+    insns = [t for _, t in body if _parse(t)[1] != "NOP"]
+    return len(insns), sum(_parse(t)[1].startswith("LDS") for t in insns)
+
+
+def hot_loop(insns) -> dict:
+    """The innermost loop with the most LDS and its paths (module note)."""
+    blocks = _blocks(insns)
+    loops = _loops(blocks)
+    inner = [lp for lp in loops if not any(h != lp[0] and h in lp[1] for h, _, _ in loops)]
+    if not inner:
+        return {}
+    head, nodes, ends = max(inner, key=lambda lp: (sum(_count(blocks[b][0])[1] for b in lp[1]),
+                                                   sum(_count(blocks[b][0])[0] for b in lp[1])))
+    # paths from the head to a back-edge source over the loop's forward edges
+    memo: dict = {}
+
+    def paths(b):  # {LDS on the path: (fewest, most) instructions} from b to a back edge
+        if b in memo:
+            return memo[b]
+        n, lds = _count(blocks[b][0])
+        out: dict = {}
+        if b in ends:
+            out[lds] = (n, n)
+        for s in blocks[b][1]:
+            if s in nodes and s != head:
+                for k, (lo, hi) in paths(s).items():
+                    key = k + lds
+                    old = out.get(key, (lo + n, hi + n))
+                    out[key] = (min(old[0], lo + n), max(old[1], hi + n))
+        memo[b] = out
+        return out
+
+    by_lds = paths(head)
+    body = [t for b in sorted(nodes) for _, t in blocks[b][0]]
+    ops: dict = {}
+    for t in body:
+        op = _parse(t)[1]
+        ops[op] = ops.get(op, 0) + 1
+    return dict(head=hex(head), blocks=len(nodes), instructions=sum(
+        _count(blocks[b][0])[0] for b in nodes),
+        paths={str(k): {"fewest": lo, "most": hi} for k, (lo, hi) in sorted(by_lds.items())},
+        opcodes=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+
+
+def report(lib: str, names=DEFAULT) -> dict:
+    """{name: {mangled, REG, STACK, SHARED, LOCAL, loop}} for each NAME."""
+    usage, funcs = resource_usage(lib), sass_functions(lib)
+    out = {}
+    for name in names:
+        hits = [f for f in funcs if name in f]
+        if not hits:
+            out[name] = {"error": "no such kernel in the library"}
+            continue
+        f = hits[0]
+        out[name] = dict(mangled=f, **usage.get(f, {}), loop=hot_loop(funcs[f]))
+    return out
+
+
+def main(argv) -> int:
+    if argv and argv[0].endswith(".so"):
+        lib, names = argv[0], tuple(argv[1:]) or DEFAULT
+    else:
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+        from art_tpu_torch.ops import _build
+
+        lib, names = _build.library()._name, tuple(argv) or DEFAULT
+    print(json.dumps(report(lib, names), indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
