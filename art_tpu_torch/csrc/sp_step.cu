@@ -22,7 +22,8 @@
 //      dense mtype blend of :225-261 selects exactly that row); emission,
 //      lambertian, metal and dielectric scatter; the death rule;
 //  (c) fb[pix] += radiance for a slot that died, float32 atomicAdd, a pixel
-//      outside [0, P) counted into *lost, as K3 does.
+//      outside [0, P) counted into *lost, as K3 does; the deaths of one
+//      pixel in a warp are summed first and added once (flush_warp).
 // It writes died (u8) for every slot.  One deliberate difference from the
 // TPU kernel: the in-ball radius is a true cube root (float64 cbrt rounded
 // once), as in K3, not exp(log(u)/3).  The constants the TPU compiles in
@@ -30,14 +31,21 @@
 // memory.  The plain twin is ops/sp_kernel.py sp_step_plain; every float
 // operation here rounds as the twin's (-fmad=false, no fast-math).
 //
-// Bound on the H100: operations for a marble scene (one 7-octave turbulence,
-// ~4.5k operations, per hit on a marble surface), memory for the others
-// (~62 B of pool state in and out per live slot against ~30 operations per
-// primitive and ~100 for the shading).  Design: one thread per slot; the
-// refill is two launches (per-block dead counts, then this kernel), as K1's;
-// the slot's state stays in registers from the refill to the flush, and a
-// dead slot that takes no queue element reads its act byte and writes its
-// died byte.
+// Bound on the H100: operations for a marble scene (one 7-octave turbulence
+// per hit on a marble surface: ~174 operations of blend a lane and octave,
+// ~59 per distinct lattice gradient), memory for the others (~62 B of pool
+// state in and out per live slot against ~30 operations per primitive and
+// ~100 for the shading).  Design: one thread per slot; the refill is two
+// launches (per-block dead counts, then this kernel), as K1's; the slot's
+// state stays in registers from the refill to the flush, and a dead slot
+// that takes no queue element reads its act byte and writes its died byte.
+// The slots of one pixel's samples sit side by side, so two pieces run with
+// every lane of the warp converged, dead and missing slots as workers: the
+// marble turbulence between the hit and the shading (perlin.cuh
+// turbulence_warp: a warp whose marble lanes lie in one cell makes 8
+// gradients an octave, however few those lanes), and the flush
+// (flush_warp: one atomicAdd a channel per pixel of the warp, though up to
+// 64 slots of a pixel die together).
 
 #include "common.cuh"
 #include "perlin.cuh"
@@ -78,16 +86,16 @@ struct Slot {
   int bounce;
 };
 
-// One bounce of a live slot (_sp_bounce), in place; returns whether it
-// survived.
-__device__ bool bounce(Slot& s, const float* u, const SpArgs& a, const float* sph,
-                       const float* quads, const float* mats) {
-  const float ox = s.ox, oy = s.oy, oz = s.oz, dx = s.dx, dy = s.dy, dz = s.dz;
-  const float aa = dx * dx + dy * dy + dz * dz;
-  const float inv_dlen = 1.0f / sqrtf(aa);
+// The first half of a live slot's bounce (_sp_bounce), in place: the
+// closest hit, the background of a miss and the bounce count.
+struct Hit {
+  float t, A0, A1, A2, Sc, Tn, mat;
+};
 
-  // ---- closest hit: t, (A0, A1, A2), S, Tn, material ----
-  float bt = art::kBig, A0 = 0.f, A1 = 0.f, A2 = 0.f, Sc = 0.f, Tn = 0.f, bm = 0.f;
+__device__ Hit closest_hit(Slot& s, float aa, float inv_dlen, const SpArgs& a,
+                           const float* sph, const float* quads) {
+  const float ox = s.ox, oy = s.oy, oz = s.oz, dx = s.dx, dy = s.dy, dz = s.dz;
+  Hit h{art::kBig, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (a.S) {
     const float neg_inv_a = -1.0f / aa;
     const float ta2 = -kTMin * aa;
@@ -99,9 +107,7 @@ __device__ bool bounce(Slot& s, const float* u, const SpArgs& a, const float* sp
       const float sq = sqrtf(b * b - aa * c);  // NaN on a miss: fails every test
       const float s2 = b + sq < ta2 ? sq : -sq;
       const float t = (b + s2) * neg_inv_a;
-      if (t > kTMin && t < bt) {
-        bt = t; A0 = r[0]; A1 = r[1]; A2 = r[2]; Sc = r[4]; Tn = 0.f; bm = r[5];
-      }
+      if (t > kTMin && t < h.t) h = Hit{t, r[0], r[1], r[2], r[4], 0.f, r[5]};
     }
   }
   for (int k = 0; k < a.Q; ++k) {
@@ -116,12 +122,10 @@ __device__ bool bounce(Slot& s, const float* u, const SpArgs& a, const float* sp
     const bool valid = fabsf(nd) >= 1e-8f && t > kTMin && alpha >= 0.0f &&
                        alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f;
     t = valid ? t : art::kBig;
-    if (t > kTMin && t < bt) {
-      bt = t; A0 = q[0]; A1 = q[1]; A2 = q[2]; Sc = 0.f; Tn = nd > 0.0f ? -1.0f : 1.0f;
-      bm = q[12];
-    }
+    if (t > kTMin && t < h.t)
+      h = Hit{t, q[0], q[1], q[2], 0.f, nd > 0.0f ? -1.0f : 1.0f, q[12]};
   }
-  const bool hit = bt < art::kBig;
+  const bool hit = h.t < art::kBig;
 
   // ---- background (src/main.cu:58-67) ----
   float bg0 = a.bg0, bg1 = a.bg1, bg2 = a.bg2;
@@ -135,15 +139,20 @@ __device__ bool bounce(Slot& s, const float* u, const SpArgs& a, const float* sp
   s.r1 = s.r1 + (hit ? 0.0f : s.t1 * bg1);
   s.r2 = s.r2 + (hit ? 0.0f : s.t2 * bg2);
   s.bounce = s.bounce + 1;
-  if (!hit) return false;
+  return h;
+}
 
-  const float p0 = ox + bt * dx, p1 = oy + bt * dy, p2 = oz + bt * dz;
-  const float n0 = Sc * (p0 - A0) + Tn * A0;
-  const float n1 = Sc * (p1 - A1) + Tn * A1;
-  const float n2 = Sc * (p2 - A2) + Tn * A2;
+// The second half for a slot that hit at p, material row m, with the
+// marble turbulence `turb` (read only on a marble row); returns whether it
+// survived.
+__device__ bool shade(Slot& s, const Hit& h, float p0, float p1, float p2, const float* m,
+                      float turb, float inv_dlen, const float* u) {
+  const float dx = s.dx, dy = s.dy, dz = s.dz;
+  const float n0 = h.Sc * (p0 - h.A0) + h.Tn * h.A0;
+  const float n1 = h.Sc * (p1 - h.A1) + h.Tn * h.A1;
+  const float n2 = h.Sc * (p2 - h.A2) + h.Tn * h.A2;
 
-  // ---- the winner's material row ----
-  const float* m = mats + min(max((int)bm, 0), a.M - 1) * kMatCols;
+  // ---- the winner's texture ----
   const float mtype = m[0];
   float tx0 = m[7], tx1 = m[8], tx2 = m[9];
   if (m[6] == 1.0f) {  // checker of solids (src/texture.cuh:35-42)
@@ -152,7 +161,6 @@ __device__ bool bounce(Slot& s, const float* u, const SpArgs& a, const float* sp
     const int zi = (int)floorf(m[10] * p2);
     if (((xi + yi + zi) & 1) != 0) { tx0 = m[11]; tx1 = m[12]; tx2 = m[13]; }
   } else if (m[6] == 2.0f) {  // marble (src/texture.cuh:62-76)
-    const float turb = art::turbulence(p0, p1, p2, 7, 7);
     const float t = 0.5f * (1.0f + sinf(m[10] * p2 + 10.0f * turb));
     tx0 = t; tx1 = t; tx2 = t;
   }
@@ -216,7 +224,40 @@ __device__ bool bounce(Slot& s, const float* u, const SpArgs& a, const float* sp
   return true;
 }
 
-__global__ void __launch_bounds__(art::kBlock) sp_step_kernel(SpArgs a) {
+// fb[pix] += (r0, r1, r2) for the lanes with `flush`, one atomicAdd a channel
+// per pixel of the warp: a pixel's lanes are summed pairwise in lane order
+// (after step k each lane holds the sum of its own and the next 2^k - 1
+// lanes of its pixel, so the lowest holds the pixel's), then its lowest lane
+// adds.  Every lane of the warp calls it, converged (ops/sp_kernel.py
+// flush_warp_p models the order).
+__device__ __forceinline__ void flush_warp(bool flush, int pix, float r0, float r1, float r2,
+                                           float* fb) {
+  const unsigned fm = __ballot_sync(art::kFullWarp, flush);
+  if (!fm) return;
+  const int lane = threadIdx.x & 31;
+  const unsigned same = __match_any_sync(art::kFullWarp, pix) & fm;
+  int next = flush ? __ffs(same & (0xfffffffeu << lane)) - 1 : -1;  // -1: none above
+  const unsigned most = __reduce_max_sync(art::kFullWarp, flush ? __popc(same) : 0u);
+  for (unsigned span = 1; span < most; span <<= 1) {
+    const int src = next >= 0 ? next : lane;
+    const float a0 = __shfl_sync(art::kFullWarp, r0, src);
+    const float a1 = __shfl_sync(art::kFullWarp, r1, src);
+    const float a2 = __shfl_sync(art::kFullWarp, r2, src);
+    const int further = __shfl_sync(art::kFullWarp, next, src);
+    if (next >= 0) {
+      r0 = r0 + a0; r1 = r1 + a1; r2 = r2 + a2;
+      next = further;
+    }
+  }
+  if (flush && __ffs(same) - 1 == lane) {
+    atomicAdd(fb + 3 * (size_t)pix + 0, r0);
+    atomicAdd(fb + 3 * (size_t)pix + 1, r1);
+    atomicAdd(fb + 3 * (size_t)pix + 2, r2);
+  }
+}
+
+// at most 64 registers, so four blocks (32 warps) fit on an SM
+__global__ void __launch_bounds__(art::kBlock, 4) sp_step_kernel(SpArgs a) {
   __shared__ float sh_sph[kMaxPrims * kSphCols];
   __shared__ float sh_quad[kMaxPrims * kQuadCols];
   __shared__ float sh_mat[kMaxPrims * kMatCols];
@@ -232,12 +273,17 @@ __global__ void __launch_bounds__(art::kBlock) sp_step_kernel(SpArgs a) {
   const art::Rank r = art::refill_rank(p.act, a.R, a.block_dead, a.q, a.parity, a.sc,
                                        red, warp_cnt);
   const bool act = r.was_act || r.take;
-  bool died = false;
-  if (act) {
-    // ---- the slot's uniforms: ball 0..2, choice 3, jitter/lens/time 4..8 ----
-    float u[art::kMaxCols];
+
+  // ---- the slot's uniforms: ball 0..2, choice 3, jitter/lens/time 4..8 ----
+  float u[art::kMaxCols];
 #pragma unroll
-    for (int c = 0; c < art::kMaxCols; ++c) u[c] = 0.f;
+  for (int c = 0; c < art::kMaxCols; ++c) u[c] = 0.f;
+  Slot s{};
+  int pix = 0;
+  Hit h{art::kBig, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float inv_dlen = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f;
+  const float* m = sh_mat;
+  if (act) {
     if (a.use_philox) {
       art::philox_uniforms(i, a.seed, a.tile, a.chunk, a.it, a.ncols, u);
     } else {
@@ -246,8 +292,6 @@ __global__ void __launch_bounds__(art::kBlock) sp_step_kernel(SpArgs a) {
     }
 
     // ---- the refilled state: a fresh camera ray, or the pool's ----
-    Slot s;
-    int pix;
     if (r.take) {
       const art::Ray ray = art::camera_ray(r.qq, a.sc, a.cam, u);
       s = Slot{ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, 1.f, 1.f, 1.f,
@@ -261,7 +305,23 @@ __global__ void __launch_bounds__(art::kBlock) sp_step_kernel(SpArgs a) {
       pix = p.pix[i];
     }
 
-    const bool survived = bounce(s, u, a, sh_sph, sh_quad, sh_mat);
+    const float aa = s.dx * s.dx + s.dy * s.dy + s.dz * s.dz;
+    inv_dlen = 1.0f / sqrtf(aa);
+    h = closest_hit(s, aa, inv_dlen, a, sh_sph, sh_quad);
+    if (h.t < art::kBig) {
+      p0 = s.ox + h.t * s.dx; p1 = s.oy + h.t * s.dy; p2 = s.oz + h.t * s.dz;
+      m = sh_mat + min(max((int)h.mat, 0), a.M - 1) * kMatCols;
+    }
+  }
+  const bool hit = h.t < art::kBig;  // false for a slot that is not live
+
+  // ---- one turbulence for a marble winner, every lane of the warp taking
+  // part (a miss never gets there, so p needs no clamp) ----
+  const float turb = art::turbulence_warp<7>(p0, p1, p2, hit && m[6] == 2.0f, 7);
+
+  bool died = false;
+  if (act) {
+    const bool survived = hit && shade(s, h, p0, p1, p2, m, turb, inv_dlen, u);
     if (survived || r.take) {
       p.ox[i] = s.ox; p.oy[i] = s.oy; p.oz[i] = s.oz;
       p.dx[i] = s.dx; p.dy[i] = s.dy; p.dz[i] = s.dz;
@@ -271,16 +331,10 @@ __global__ void __launch_bounds__(art::kBlock) sp_step_kernel(SpArgs a) {
     p.bounce[i] = s.bounce;
     died = !(survived && s.bounce < a.max_depth);
     p.act[i] = !died;
-    if (died) {  // flush its radiance
-      if (pix < 0 || pix >= a.P) {
-        atomicAdd(a.lost, 1);
-      } else {
-        atomicAdd(a.fb + 3 * (size_t)pix + 0, s.r0);
-        atomicAdd(a.fb + 3 * (size_t)pix + 1, s.r1);
-        atomicAdd(a.fb + 3 * (size_t)pix + 2, s.r2);
-      }
-    }
+    if (died && (pix < 0 || pix >= a.P)) atomicAdd(a.lost, 1);
   }
+  // ---- flush the radiance of the slots that died inside the tile ----
+  flush_warp(died && pix >= 0 && pix < a.P, pix, s.r0, s.r1, s.r2, a.fb);
   if (r.live) a.died[i] = died;
 
   // ---- live slots this iteration, and the next queue head ----

@@ -9,24 +9,35 @@
 // with the short-path kernel (sp_step.cu); the plain twin is ops/perlin.py
 // turb_p, bit for bit.  The TPU's R % 8192 rule is its layout's; any R works.
 //
-// Bound on the H100: operations — 16 (20 with the mask) bytes a lane
-// against ~650 integer and float operations per octave (8 lattice corners
-// x 3 Wang hashes, a gradient normalisation and the trilinear blend).
-// Design: one thread per lane, everything in registers; a masked lane runs
-// every octave and drops the terms past its count, as the twin does.
+// Bound on the H100: operations.  16 (20 with the mask) bytes a lane
+// against a per-lane blend (~174 operations an octave: floor, fractions,
+// smoothstep, 8 weights and dots) and ~59 operations per distinct lattice
+// gradient (3 Wang hashes, u2m11, the normalisation), mostly integer work
+// that -fmad=false and the IEEE sqrt and division keep long.  Design: one thread
+// per lane, everything in registers; the warp shares its lattice gradients
+// (perlin.cuh turbulence_warp: one gradient a (cell, corner) when the warp's
+// points lie in at most 4 cells, the per-lane form otherwise), so a warp of
+// one pixel's samples makes 8 gradients an octave, not 256.  The
+// octave loop is unrolled for depth 7 (marble) and 2 (felt).  A masked lane
+// runs every octave and drops the terms past its count, as the twin does;
+// lanes past R work for the others and write nothing.
 
 #include "common.cuh"
 #include "perlin.cuh"
 
 namespace {
 
+template <int DEPTH>
 __global__ void __launch_bounds__(art::kBlock)
 turb_kernel(const float* __restrict__ px, const float* __restrict__ py,
             const float* __restrict__ pz, const int* __restrict__ mask, float* out,
             int R, int depth) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  out[i] = art::turbulence(px[i], py[i], pz[i], depth, mask ? mask[i] : depth);
+  const bool live = i < R;
+  const float t = art::turbulence_warp<DEPTH>(
+      live ? px[i] : 0.0f, live ? py[i] : 0.0f, live ? pz[i] : 0.0f, live,
+      live && mask ? mask[i] : depth, depth);
+  if (live) out[i] = t;
 }
 
 }  // namespace
@@ -35,8 +46,13 @@ turb_kernel(const float* __restrict__ px, const float* __restrict__ py,
 extern "C" int art_turb(const float* px, const float* py, const float* pz,
                         const int* mask, float* out, int R, int depth, void* stream) {
   const int grid = (R + art::kBlock - 1) / art::kBlock;
-  if (grid > 0)
-    turb_kernel<<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(px, py, pz, mask, out,
-                                                                R, depth);
+  if (grid == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (depth == 7)
+    turb_kernel<7><<<grid, art::kBlock, 0, s>>>(px, py, pz, mask, out, R, depth);
+  else if (depth == 2)
+    turb_kernel<2><<<grid, art::kBlock, 0, s>>>(px, py, pz, mask, out, R, depth);
+  else
+    turb_kernel<0><<<grid, art::kBlock, 0, s>>>(px, py, pz, mask, out, R, depth);
   return (int)cudaGetLastError();
 }

@@ -79,20 +79,36 @@ def _smooth(t: torch.Tensor) -> torch.Tensor:
     return t * t * (3.0 - 2.0 * t)
 
 
-def noise_p(px, py, pz) -> torch.Tensor:
-    """Gradient noise over component planes (src/perlin.cuh:34-70)."""
+# corner n of a cell: (di, dj, dk) = (n >> 2, (n >> 1) & 1, n & 1)
+_CORNERS = tuple((n >> 2, (n >> 1) & 1, n & 1) for n in range(8))
+
+
+def _cell(px, py, pz):
+    """One octave's cell of each point: lattice corner (i, j, k), fractions
+    (u, v, w) and their smoothsteps."""
     fx, fy, fz = torch.floor(px), torch.floor(py), torch.floor(pz)
     u, v, w = px - fx, py - fy, pz - fz
-    i, j, k = _lattice(fx), _lattice(fy), _lattice(fz)
-    uu, vv, ww = _smooth(u), _smooth(v), _smooth(w)
+    return (_lattice(fx), _lattice(fy), _lattice(fz)), (u, v, w), tuple(map(_smooth, (u, v, w)))
+
+
+def _add_corner(accum, n: int, uvw, smooth, g):
+    """accum + corner n's weighted dot with gradient g."""
+    (di, dj, dk), (u, v, w), (uu, vv, ww) = _CORNERS[n], uvw, smooth
+    s = (uu if di else (1.0 - uu)) * (vv if dj else (1.0 - vv)) * (ww if dk else (1.0 - ww))
+    return accum + s * (g[0] * (u - di) + g[1] * (v - dj) + g[2] * (w - dk))
+
+
+def _corner_grads(ijk):
+    """The eight corner gradients of each point's cell, in corner order."""
+    return [grad_p(*(c + d for c, d in zip(ijk, _CORNERS[n]))) for n in range(8)]
+
+
+def noise_p(px, py, pz) -> torch.Tensor:
+    """Gradient noise over component planes (src/perlin.cuh:34-70)."""
+    ijk, uvw, smooth = _cell(px, py, pz)
     accum = torch.zeros_like(px)
-    for di in (0, 1):
-        for dj in (0, 1):
-            for dk in (0, 1):
-                gx, gy, gz = grad_p(i + di, j + dj, k + dk)
-                s = ((uu if di else (1.0 - uu)) * (vv if dj else (1.0 - vv))
-                     * (ww if dk else (1.0 - ww)))
-                accum = accum + s * (gx * (u - di) + gy * (v - dj) + gz * (w - dk))
+    for n, g in enumerate(_corner_grads(ijk)):
+        accum = _add_corner(accum, n, uvw, smooth, g)
     return accum
 
 
@@ -111,3 +127,100 @@ def turb_p(px, py, pz, depth: int, depth_mask: torch.Tensor | None = None) -> to
         weight *= 0.5
         px, py, pz = px * 2.0, py * 2.0, pz * 2.0
     return torch.abs(accum)
+
+
+# ---- the warp-shared gradients of csrc/perlin.cuh, modelled for tests ----
+WARP = 32
+NOISE_GROUPS = 4  # csrc/perlin.cuh kNoiseGroups: cells a warp shares gradients over
+
+
+def by_warp(x: torch.Tensor, fill=0) -> torch.Tensor:
+    """(R, ...) -> (W, WARP, ...), the last warp padded with ``fill``."""
+    pad = -x.shape[0] % WARP
+    if pad:
+        x = torch.cat([x, torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype,
+                                     device=x.device)])
+    return x.reshape(-1, WARP, *x.shape[1:])
+
+
+def warp_cells(ijk, need: torch.Tensor):
+    """The kernels' grouping of one octave (perlin.cuh noise_shared: rounds
+    that each take the cell of the lowest needing lane left), per warp of 32
+    consecutive lanes: each lane's cell index in its warp, the cells
+    ordered by their lowest lane (-1 for a lane without ``need``), as
+    (W, 32); each warp's cell count (W,); and each warp's lanes with the
+    lowest lane of each cell first, in cell order (W, 32)."""
+    key = by_warp(torch.stack(ijk, dim=1))
+    nd = by_warp(need, False)
+    same = (key[:, :, None, :] == key[:, None, :, :]).all(dim=-1) & nd[:, None, :]
+    lead = same.to(torch.int32).argmax(dim=-1)  # the first lane of the cell
+    lane = torch.arange(WARP, device=need.device)
+    first = nd & (lead == lane)
+    cell = torch.where(nd, (torch.cumsum(first, dim=1) - 1).gather(1, lead), -1)
+    leaders = torch.sort(torch.where(first, lane, WARP + lane), dim=1).values % WARP
+    return cell, first.sum(dim=1), leaders
+
+
+def turb_shared_p(px, py, pz, depth: int, depth_mask: torch.Tensor | None = None,
+                  need: torch.Tensor | None = None) -> torch.Tensor:
+    """``turb_p`` computed as the kernels share gradients
+    (``csrc/perlin.cuh turbulence_warp``), for tests.  Per warp of 32 lanes
+    and octave: with at most ``NOISE_GROUPS`` cells among the lanes with
+    ``need`` (default all), worker lane L computes corner L & 7 of cell
+    L >> 3 once and each lane takes its cell's eight from the workers;
+    with more, each lane computes its own, in this octave and the rest.
+    Lanes without ``need`` get 0."""
+    R = px.shape[0]
+    need = torch.ones(R, dtype=torch.bool, device=px.device) if need is None else need
+    lane = torch.arange(WARP, device=px.device)
+    group = lane >> 3  # worker lane L: corner L & 7 of cell L >> 3
+    corner = torch.tensor(_CORNERS, device=px.device)[lane & 7]
+    accum = torch.zeros_like(px)
+    weight = 1.0
+    sharing = torch.ones(by_warp(need).shape[0], dtype=torch.bool, device=px.device)
+    for o in range(depth):
+        ijk, uvw, smooth = _cell(px, py, pz)
+        cell, n_cells, leaders = warp_cells(ijk, need)
+        sharing = sharing & (n_cells <= NOISE_GROUPS)
+        shared = sharing[:, None].expand(-1, WARP).reshape(-1)[:R]
+        src = torch.where(group < n_cells[:, None], leaders[:, group.clamp_max(NOISE_GROUPS - 1)],
+                          lane)
+        made = grad_p(*(by_warp(c).gather(1, src) + corner[:, a] for a, c in enumerate(ijk)))
+        term = torch.zeros_like(px)
+        for n, own in enumerate(_corner_grads(ijk)):
+            at = cell.clamp(0, NOISE_GROUPS - 1) * 8 + n  # read only where shared
+            taken = [g.gather(1, at).reshape(-1)[:R] for g in made]
+            term = _add_corner(term, n, uvw, smooth,
+                               [torch.where(shared, t, g) for t, g in zip(taken, own)])
+        term = weight * torch.where(need, term, 0.0)
+        if depth_mask is not None:
+            term = torch.where(o < depth_mask, term, 0.0)
+        accum = accum + term
+        weight *= 0.5
+        px, py, pz = px * 2.0, py * 2.0, pz * 2.0
+    return torch.abs(accum)
+
+
+def noise_census(px, py, pz, depth: int, need: torch.Tensor | None = None):
+    """Per octave of ``turb_p(p, depth)`` over the lanes with ``need``
+    (default all): the warps of 32 lanes with such a lane that the kernels
+    run in the shared form with those lanes in 1 cell, in the shared form
+    (in at most ``NOISE_GROUPS`` cells, 1 included, at this octave and every
+    earlier one) and in the per-lane form, as (depth, 3) int64; and the
+    distinct lattice points those lanes' cells reach (depth,), the gradients
+    the octave needs."""
+    need = torch.ones_like(px, dtype=torch.bool) if need is None else need
+    forms, points = [], []
+    corners = torch.tensor(_CORNERS, device=px.device)
+    sharing = torch.ones(by_warp(need).shape[0], dtype=torch.bool, device=px.device)
+    for _ in range(depth):
+        ijk = _cell(px, py, pz)[0]
+        _, n_cells, _ = warp_cells(ijk, need)
+        sharing = sharing & (n_cells <= NOISE_GROUPS)
+        some = n_cells > 0
+        forms.append([int((some & sharing & (n_cells == 1)).sum()), int((some & sharing).sum()),
+                      int((some & ~sharing).sum())])
+        cells = torch.unique(torch.stack(ijk, dim=1)[need], dim=0)
+        points.append(torch.unique((cells[:, None, :] + corners).reshape(-1, 3), dim=0).shape[0])
+        px, py, pz = px * 2.0, py * 2.0, pz * 2.0
+    return (torch.tensor(forms, dtype=torch.int64), torch.tensor(points, dtype=torch.int64))

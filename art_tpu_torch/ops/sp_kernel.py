@@ -15,7 +15,8 @@ the small static scenes of the short-path gate (``tables.sp_consts``,
   with the TPU kernel's sphere-root form, background, marble turbulence,
   material by the winner's id, emission and scatter, the death rule;
 * ``fb[pix] += radiance`` in float32 for every slot that died, a pixel
-  outside ``[0, P)`` counted into ``lost``.
+  outside ``[0, P)`` counted into ``lost``; the kernel sums a warp's deaths
+  of one pixel before it adds (``flush_warp_p`` models its order).
 
 The pool is updated in place; the call returns ``died`` (R,) bool.  The
 plain twin ``sp_step_plain`` is ``refill_kernel.fused_refill_plain``, then
@@ -35,7 +36,7 @@ from art_tpu_torch.core.vecmath import BIG, PARALLEL_EPS, T_MIN, p_dot, p_where,
 from art_tpu_torch.ops import _build
 from art_tpu_torch.ops import refill_kernel as rk
 from art_tpu_torch.ops.gather import take_rows
-from art_tpu_torch.ops.perlin import TURB_DEPTH, turb_p
+from art_tpu_torch.ops.perlin import TURB_DEPTH, WARP, by_warp, turb_p
 from art_tpu_torch.ops.shade import _ball_from_uniforms_p
 from art_tpu_torch.ops.shade_kernel import STATE_F, flush_plain
 from art_tpu_torch.ops.texture_eval import marble
@@ -181,6 +182,32 @@ def sp_step_plain(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Ref
     flush_plain(pool["pix"], died, rad, fb, lost)
     act.copy_(still)
     return died
+
+
+def flush_warp_p(pix, died, rad, fb, lost):
+    """``flush_plain`` in the kernel's order (``csrc/sp_step.cu
+    flush_warp``), for tests: per warp of 32 consecutive slots, the deaths of
+    one pixel inside ``[0, P)`` are summed pairwise in slot order (after
+    step k a slot holds the sum of itself and the next 2^k - 1 slots of its
+    pixel), and the pixel's lowest slot adds the sum; a pixel outside counts
+    into ``lost``."""
+    inside = died & (pix >= 0) & (pix < fb.shape[0])
+    lost += (died & ~inside).sum().to(torch.int32)
+    key, flush = by_warp(pix), by_warp(inside, False)
+    vals = by_warp(torch.stack(rad, dim=1))
+    lane = torch.arange(WARP, device=pix.device)
+    same = (key[:, :, None] == key[:, None, :]) & flush[:, :, None] & flush[:, None, :]
+    above = same & (lane[None, None, :] > lane[None, :, None])
+    nxt = torch.where(above.any(dim=-1), above.to(torch.int32).argmax(dim=-1), -1)
+    span = 1
+    while span < int(same.sum(dim=-1).max()):
+        src = torch.where(nxt >= 0, nxt, lane)
+        on = (nxt >= 0)[..., None]
+        vals = torch.where(on, vals + vals.gather(1, src[..., None].expand(-1, -1, 3)), vals)
+        nxt = torch.where(nxt >= 0, nxt.gather(1, src), nxt)
+        span *= 2
+    lowest = flush & (same.to(torch.int32).argmax(dim=-1) == lane)
+    fb.index_add_(0, key[lowest].to(torch.int64), vals[lowest])
 
 
 def sp_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillScal,

@@ -8,7 +8,8 @@ Phases (each runs; any failure exits non-zero without the final result):
     every kernel from ``art_tpu_torch/csrc`` (one nvcc per source, in
     parallel; timed);
  1b. the registers, local-memory spills and hot-loop instructions of K2, K9
-    (both forms) and K10 in the built library (``scripts/sass_loops.py``);
+    (both forms), K10, K7 (its octave in each form) and K11 in the built
+    library (``scripts/sass_loops.py``);
  2. each kernel against its plain PyTorch twin on the card, with inputs and
     injected uniforms from a numpy seed, then both timed with CUDA events
     behind a device spin, beside the least time the card could take for the
@@ -17,11 +18,16 @@ Phases (each runs; any failure exits non-zero without the final result):
     1200x800; K5 quad hit, K6 box hit (rotated: cornell_box; unrotated: a
     scene of translated boxes) and baked K3 (cornell_box, and a checker
     scene) at cornell_box 600x600's R;
-    K7 turbulence (depth 7, depth 2, with a per-lane octave mask) at the
-    hit points of perlin rays 20 iterations into a render (R = 2^17), baked
-    K3 with perlin's noise planes on those rays, and K11 (the short path)
-    on the quads and perlin tables in both uniform modes, from a random
-    pool and from a pool 20 iterations into a render; K4 (flush_accumulate)
+    K7 turbulence (depth 7, depth 2, with a per-lane octave mask) bit-equal
+    to its twin at the hit points of perlin rays 20 iterations into a
+    render (R = 2^17; camera rays) and 21 (their bounces), of a final_scene
+    staged pool (2f's) and at random points (each lane its own cell), timed
+    on each with the share of warp-octaves in each form of its shared
+    gradients and a bound from the distinct lattice points the input needs;
+    baked K3 with perlin's noise planes on those rays, and K11 (the short
+    path) on the quads and perlin tables in both uniform modes, from a
+    random pool and from pools 20 (and perlin's 21) iterations into a
+    render, timed on perlin 20 and 21 and quads 20; K4 (flush_accumulate)
     in its compaction use on an earth pool 20 iterations into a render
     (R = 2^17) and on a colliding flush into a window at a base row, K8
     (table_gather_u24) on that pool's texel slots with out-of-range indices,
@@ -342,10 +348,14 @@ OPS_BOX_WINNER = 80  # the winner's face, normal and (u, v), once per hit
 OPS_PHILOX = 80  # one Philox4x32-10 call: 10 rounds of 2 mul, 2 mulhi, 4 xor/add
 OPS_CAMERA = 45  # one camera ray
 OPS_SHADE = 60  # the dielectric scatter, the longest material path
-# one noise octave: 8 lattice corners of (mix3 5, 3 Wang hashes 28, 3 u2m11
-# 15, normalisation 11, weight and dot 18) plus ~30 for floor, fractions
-# and the smoothstep; integer operations counted at the FP32 rate
-OPS_NOISE = 650
+# one noise octave, split by what each part depends on (csrc/perlin.cuh):
+# a lane's blend (floor, fractions and smoothstep ~30; 8 corners' weight and
+# dot, 18 each) and a lattice point's gradient (mix3 5, 3 Wang hashes 28,
+# 3 u2m11 15, normalisation 11), counted once per distinct lattice point an
+# octave of the input (perlin.noise_census); integer operations at the FP32
+# rate
+OPS_NOISE_BLEND = 174
+OPS_GRADIENT = 59
 OPS_SP_BOUNCE = 100  # the short path's background, material row and scatter
 OPS_FLUSH = 8  # K4 a lane: load, test, shift, window, index; an add a channel
 OPS_GATHER = 4  # K8 a lane: two range tests, a select
@@ -458,7 +468,9 @@ def card_info(checks: Checks, dev):
 
 def sass_report(checks: Checks, results: dict):
     """Registers, spills and the hot loop's instructions of K2, K9 (both
-    forms) and K10 in the built library (``scripts/sass_loops.py``)."""
+    forms), K10, K7 and K11 in the built library (``scripts/sass_loops.py``);
+    K7's octave: the shared form from the any-depth kernel's loop (27
+    shuffles in one cell), the per-lane form from the depth-7 kernel's."""
     import importlib.util
     from pathlib import Path
 
@@ -473,10 +485,16 @@ def sass_report(checks: Checks, results: dict):
         loop = r.get("loop", {})
         log(f"  {name}: {r.get('REG')} registers, {r.get('LOCAL')} B local (spills), "
             f"{r.get('SHARED')} B static shared; hot loop {loop.get('instructions')} "
-            f"instructions in {loop.get('blocks')} blocks, paths by LDS count "
+            f"instructions in {loop.get('blocks')} blocks, paths by {r.get('key')} count "
             f"{loop.get('paths')}")
-    checks.expect(all("error" not in r and r["LOCAL"] == 0 for r in rep.values()),
-                  "K2, K9 and K10 found in the library, no local-memory spill")
+    shared = rep.get("turb_kernelILi0E", {}).get("loop", {}).get("paths", {})
+    per_lane = rep.get("turb_kernelILi7E", {}).get("loop", {}).get("paths", {}).get("0")
+    if "27" in shared and per_lane:
+        rep["turb_octave"] = {"shared_one_cell": shared["27"], "per_lane": per_lane}
+        log(f"  K7 octave: {shared['27']['fewest']}-{shared['27']['most']} instructions in "
+            f"the shared form in one cell, {per_lane['fewest']}-{per_lane['most']} per lane")
+    checks.expect(all("error" not in r and r.get("LOCAL", 0) == 0 for r in rep.values()),
+                  "K2, K9, K10, K7 and K11 found in the library, no local-memory spill")
     results["_sass"] = rep
 
 
@@ -892,16 +910,175 @@ def _sp_pool(rng, R, tile_pixels, dev):
     return pool
 
 
+_SHORT: dict = {}
+
+
+def _short_setup(dev):
+    """quads and perlin 1200x600 @ 64 on the card (R = 2^17, as
+    ``plan_batches`` gives): the scenes, the queue geometry, a queue head
+    inside the tile, and the pools of a short-path render (Philox key
+    (7, 0, 0)) 20 iterations in, and perlin's 21 in; built once for phase 2c
+    and ``scripts/kernel_pair.py``."""
+    import torch
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.ops.sp_kernel import sp_step
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    if _SHORT:
+        return _SHORT
+    _, _, nx, ny, spp, _ = SHORT[0]
+    scenes = {name: build_scene(name, nx, ny).to(dev) for name in ("quads", "perlin")}
+    tile_pixels, spp_chunk, R = plan_batches(nx * ny, spp, 2, RenderConfig(), dev)
+    scal = rk.RefillScal(spp_chunk, tile_pixels, 0, nx * ny, nx, ny)
+    rendered = {}
+    for name, scene in scenes.items():
+        pool = rk.new_pool(R, dev)
+        q = torch.zeros(2, dtype=torch.int64, device=dev)
+        hist = torch.zeros(21, dtype=torch.int64, device=dev)
+        fb = torch.zeros((tile_pixels, 3), device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        for it in range(21 if name == "perlin" else 20):
+            sp_step(pool, scene.camera, q, it % 2, hist, it, scal, scene.tables,
+                    scene.background, fb, lost, key=(7, 0, 0), ncols=10, max_depth=50,
+                    gradient=scene.gradient_bg)
+            if it + 1 >= 20:
+                rendered[(name, it + 1)] = _clone(pool)
+    _SHORT.update(scenes=scenes, tile_pixels=tile_pixels, spp_chunk=spp_chunk, R=R,
+                  scal=scal, q0=spp_chunk * 1000 + 3, rendered=rendered)
+    return _SHORT
+
+
+def _sp_refilled(s, scene, base, **src):
+    """``base`` after the plain refill of iteration 5 from queue head q0
+    (the state the bounce of a K11 step sees)."""
+    import torch
+
+    from art_tpu_torch.ops import refill_kernel as rk
+
+    pool = _clone(base)
+    dev = pool["act"].device
+    rk.fused_refill_plain(pool, scene.camera,
+                          torch.tensor([s["q0"], 0], dtype=torch.int64, device=dev), 0,
+                          torch.zeros(6, dtype=torch.int64, device=dev), 5, s["scal"],
+                          ncols=10, **src)
+    return pool
+
+
+def _sp_hits(scene, pool):
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops.intersect import closest_surface_p
+
+    return closest_surface_p(scene.tables, (pool["ox"], pool["oy"], pool["oz"]),
+                             (pool["dx"], pool["dy"], pool["dz"]), pool["tm"], T_MIN,
+                             plain=True)
+
+
+def _sp_run(s, fn, scene, base, src):
+    """One K11 step (or its twin ``fn``) of iteration 5 from ``base``:
+    (pool, q, hist, fb, lost, died)."""
+    import torch
+
+    dev = base["act"].device
+    pool = _clone(base)
+    q = torch.tensor([s["q0"], 0], dtype=torch.int64, device=dev)
+    hist = torch.zeros(6, dtype=torch.int64, device=dev)
+    fb = torch.zeros((s["tile_pixels"], 3), device=dev)
+    lost = torch.zeros(1, dtype=torch.int32, device=dev)
+    died = fn(pool, scene.camera, q, 0, hist, 5, s["scal"], scene.tables, scene.background,
+              fb, lost, ncols=10, max_depth=50, gradient=scene.gradient_bg, **src)
+    torch.cuda.synchronize()
+    return pool, q, hist, fb, lost, died
+
+
+def _sp_step_ms(s, fn, name, iters, reps):
+    """Device ms of ``fn`` (K11 or its twin) on the step timed in phase 2c:
+    iteration 5's Philox uniforms (key (1984, 2, 1)) from the pool of
+    ``name`` ``iters`` iterations in, queue head q0."""
+    import torch
+
+    scene, base = s["scenes"][name], s["rendered"][(name, iters)]
+    dev = base["act"].device
+    work = _clone(base)
+    q = torch.zeros(2, dtype=torch.int64, device=dev)
+    hist = torch.zeros(6, dtype=torch.int64, device=dev)
+    fb = torch.zeros((s["tile_pixels"], 3), device=dev)
+    lost = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def reset():
+        _restore(work, base)
+        q.fill_(s["q0"])
+
+    def step():
+        fn(work, scene.camera, q, 0, hist, 5, s["scal"], scene.tables, scene.background, fb,
+           lost, key=(1984, 2, 1), ncols=10, max_depth=50, gradient=scene.gradient_bg)
+
+    return _timed_ms(step, reps, reset=reset)
+
+
+# the short-path steps K11 is timed on: (results key suffix, scene,
+# iterations into the render); perlin 20 is this slice's main path (camera
+# rays on marble), perlin 21 their bounces (most die: the flush), quads 20
+SP_TIMED = (("", "perlin", 20), ("_bounces", "perlin", 21), ("_quads", "quads", 20))
+
+
+def _turb_pools(dev):
+    """K7's inputs at R = 2^17 (name -> (px, py, pz)): the hit points, misses
+    at o + 1e30 d as the staged path feeds them, of the K11 steps timed in
+    phase 2c (perlin 20 and 21 iterations in, each refilled as ``_sp_refilled``
+    does) and of the final_scene staged pool of phase 2f (20 iterations in);
+    and random points in [-1e4, 1e4), each lane its own cell (the per-lane
+    form)."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops.intersect import closest_surface_p
+
+    s = _short_setup(dev)
+    perl = s["scenes"]["perlin"]
+    pools = {}
+    for label, it in (("perlin", 20), ("bounces", 21)):
+        rec = _sp_hits(perl, _sp_refilled(s, perl, s["rendered"][("perlin", it)],
+                                          key=(1984, 2, 1)))
+        pools[label] = tuple(c.contiguous() for c in rec.p)
+    tables, o, d, tm = _route_pools(dev)["final_scene"]
+    pools["final_scene"] = tuple(c.contiguous() for c in closest_surface_p(
+        tables, o, d, tm, T_MIN, plain=True).p)
+    rng = np.random.default_rng(SEED + 10)
+    pools["random"] = tuple(torch.from_numpy(c).to(dev) for c in rng.uniform(
+        -1e4, 1e4, (3, s["R"])).astype(np.float32))
+    return pools
+
+
+def _noise_work(p, depth, need=None):
+    """(operations, forms, lattice points) of a depth-octave turbulence over
+    the lanes with ``need`` (default all): OPS_NOISE_BLEND a lane and octave,
+    OPS_GRADIENT a distinct lattice point an octave (``perlin.noise_census``:
+    forms (depth, 3) counts warps in 1, <= 4 and > 4 cells)."""
+    from art_tpu_torch.ops import perlin
+
+    forms, points = perlin.noise_census(*p, depth, need)
+    n = p[0].shape[0] if need is None else int(need.sum())
+    return n * depth * OPS_NOISE_BLEND + int(points.sum()) * OPS_GRADIENT, forms, points
+
+
+def _forms_text(forms, points) -> str:
+    """The share of warp-octaves in each form of perlin.cuh's noise."""
+    tot = max(int(forms[:, 1].sum() + forms[:, 2].sum()), 1)
+    return (f"warp-octaves in 1 cell {100 * int(forms[:, 0].sum()) / tot:.1f}%, in <= 4 "
+            f"cells (shared) {100 * int(forms[:, 1].sum()) / tot:.1f}%, per-lane "
+            f"{100 * int(forms[:, 2].sum()) / tot:.1f}% (of {tot}); distinct lattice points "
+            f"an octave {points.tolist()}")
+
+
 def turb_sp_checks(checks: Checks, dev, results: dict):
     """K7 and K11 against their twins at quads and perlin 1200x600's R
     (2^17), then timed."""
     import torch
 
-    from art_tpu_torch.core.vecmath import T_MIN
-    from art_tpu_torch.models import build_scene
     from art_tpu_torch.ops import perlin, perlin_kernel
     from art_tpu_torch.ops import refill_kernel as rk
-    from art_tpu_torch.ops.intersect import closest_surface_p
     from art_tpu_torch.ops.shade_kernel import (
         REC_BAKED,
         REC_SP,
@@ -911,67 +1088,46 @@ def turb_sp_checks(checks: Checks, dev, results: dict):
     )
     from art_tpu_torch.ops.sp_kernel import sp_step, sp_step_plain
     from art_tpu_torch.ops.texture_eval import eval_special_p
-    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
 
     rng = np.random.default_rng(SEED + 2)
-    _, _, nx, ny, spp, _ = SHORT[0]
-    scenes = {name: build_scene(name, nx, ny).to(dev) for name in ("quads", "perlin")}
-    tile_pixels, spp_chunk, R = plan_batches(nx * ny, spp, 2, RenderConfig(), dev)
-    log(f"  R = {R} slots, tile {tile_pixels} px, {spp_chunk} spp per chunk")
-    scal = rk.RefillScal(spp_chunk, tile_pixels, 0, nx * ny, nx, ny)
-    q0 = spp_chunk * 1000 + 3  # a queue head inside the tile
+    s = _short_setup(dev)
+    scenes, R, tile_pixels, rendered = s["scenes"], s["R"], s["tile_pixels"], s["rendered"]
+    log(f"  R = {R} slots, tile {tile_pixels} px, {s['spp_chunk']} spp per chunk")
 
-    def refilled(scene, base, it, **src):
-        """``base`` after the plain refill (the state the bounce sees)."""
-        pool = _clone(base)
-        rk.fused_refill_plain(pool, scene.camera,
-                              torch.tensor([q0, 0], dtype=torch.int64, device=dev), 0,
-                              torch.zeros(it + 1, dtype=torch.int64, device=dev), it, scal,
-                              ncols=10, **src)
-        return pool
-
-    def hits(scene, pool):
-        return closest_surface_p(scene.tables, (pool["ox"], pool["oy"], pool["oz"]),
-                                 (pool["dx"], pool["dy"], pool["dz"]), pool["tm"], T_MIN,
-                                 plain=True)
-
-    def rendered_pool(scene, iters):
-        """The pool after ``iters`` short-path iterations from an empty one."""
-        pool = rk.new_pool(R, dev)
-        q = torch.zeros(2, dtype=torch.int64, device=dev)
-        hist = torch.zeros(iters, dtype=torch.int64, device=dev)
-        fb = torch.zeros((tile_pixels, 3), device=dev)
-        lost = torch.zeros(1, dtype=torch.int32, device=dev)
-        for it in range(iters):
-            sp_step(pool, scene.camera, q, it % 2, hist, it, scal, scene.tables,
-                    scene.background, fb, lost, key=(7, 0, 0), ncols=10, max_depth=50,
-                    gradient=scene.gradient_bg)
-        return pool
-
-    rendered = {name: rendered_pool(scene, 20) for name, scene in scenes.items()}
-
-    # ---- K7: turbulence at the hit points of perlin rays 20 iterations into
-    # a render (the misses at p ~ o + 1e30 d, as the staged path feeds them) ----
-    perl = scenes["perlin"]
-    rec = hits(perl, refilled(perl, rendered["perlin"], 5, key=(1984, 2, 1)))
-    p = tuple(c.contiguous() for c in rec.p)
-    mask = torch.from_numpy(rng.integers(0, 8, R).astype(np.int32)).to(dev)
+    # ---- K7 bit-equal to its twin on every pool, at depth 7, 2 and masked;
+    # timed at depth 7 (perlin: phase 2c's pool, this slice's main input) ----
     k7_err = 0.0
-    for label, depth, m in (("depth 7", 7, None), ("depth 2", 2, None),
-                            ("depth 7 masked", 7, mask)):
-        k = perlin_kernel.turb(*p, depth, m)
-        q = perlin.turb_p(*p, depth, m)
-        torch.cuda.synchronize()
-        bad = _bits_equal(k, q)
-        checks.expect(bad == 0, f"K7 {label}: {bad} of {R} lanes differ in bits "
-                                f"({int(rec.hit.sum())} hits, "
-                                f"{int((~rec.hit).sum())} misses)")
-        k7_err = max(k7_err, _max_diff(k, q, torch.isfinite(q)))
+    for label, p in _turb_pools(dev).items():
+        n = p[0].shape[0]
+        mask = torch.from_numpy(rng.integers(0, 8, n).astype(np.int32)).to(dev)
+        for case, depth, m in (("depth 7", 7, None), ("depth 2", 2, None),
+                               ("depth 7 masked", 7, mask)):
+            k = perlin_kernel.turb(*p, depth, m)
+            q = perlin.turb_p(*p, depth, m)
+            torch.cuda.synchronize()
+            bad = _bits_equal(k, q)
+            checks.expect(bad == 0, f"K7 {label} {case}: {bad} of {n} lanes differ in bits")
+            k7_err = max(k7_err, _max_diff(k, q, torch.isfinite(q)))
+        key = "" if label == "perlin" else f"_{label}"
+        entry = results["turb"] if label == "perlin" else {}
+        entry["ms"] = _timed_ms(lambda: perlin_kernel.turb(*p, 7), 20)
+        ops, forms, points = _noise_work(p, 7)
+        # 3 planes in, 1 out
+        _set_bound(entry, n * 16, ops)
+        if label == "perlin":
+            results["turb"]["plain_ms"] = _timed_ms(lambda: perlin.turb_p(*p, 7), 3)
+        else:
+            for k in ("ms", "bound_ms", "bound_by"):
+                results["turb"][f"{k}{key}"] = entry[k]
+        log(f"  K7 {label}: {entry['ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}); {_forms_text(forms, points)}")
     results["turb"]["max_abs_err"] = k7_err
 
-    # ---- baked K3 with the noise planes, on the same rays ----
+    # ---- baked K3 with the noise planes, on phase 2c's perlin rays ----
+    perl = scenes["perlin"]
+    after = _sp_refilled(s, perl, rendered[("perlin", 20)], key=(1984, 2, 1))
+    rec = _sp_hits(perl, after)
     state = _sp_pool(rng, R, tile_pixels, dev)
-    after = refilled(perl, rendered["perlin"], 5, key=(1984, 2, 1))
     for n in ("ox", "oy", "oz", "dx", "dy", "dz"):
         state[n].copy_(after[n])
     u = torch.from_numpy(rng.random((4, R), dtype=np.float32)).to(dev)
@@ -996,96 +1152,72 @@ def turb_sp_checks(checks: Checks, dev, results: dict):
                   f"{int(kl)} (plain {int(pl)}, want {N_OUT}), flush max rel err "
                   f"{fb_rel:.3g} (<= 1e-6)")
 
-    results["turb"]["ms"] = _timed_ms(lambda: perlin_kernel.turb(*p, 7), 20)
-    results["turb"]["plain_ms"] = _timed_ms(lambda: perlin.turb_p(*p, 7), 3)
-    # 3 planes in, 1 out; 7 octaves of noise per lane
-    _set_bound(results["turb"], R * 16, R * 7 * OPS_NOISE)
-
-    # ---- K11: both uniform modes, from a random pool and a rendered one ----
-    def run(fn, scene, base, src):
-        pool = _clone(base)
-        q = torch.tensor([q0, 0], dtype=torch.int64, device=dev)
-        hist = torch.zeros(6, dtype=torch.int64, device=dev)
-        fb = torch.zeros((tile_pixels, 3), device=dev)
-        lost = torch.zeros(1, dtype=torch.int32, device=dev)
-        died = fn(pool, scene.camera, q, 0, hist, 5, scal, scene.tables, scene.background,
-                  fb, lost, ncols=10, max_depth=50, gradient=scene.gradient_bg, **src)
-        torch.cuda.synchronize()
-        return pool, q, hist, fb, lost, died
-
+    # ---- K11: both uniform modes, from a random pool and rendered ones ----
     k11_err = 0.0
     block = torch.from_numpy(rng.random((10, R), dtype=np.float32)).to(dev)
-    for sname, scene in scenes.items():
-        for pool_label, base, n_out in (
-                ("random pool", _sp_pool(rng, R, tile_pixels, dev), N_OUT),
-                ("pool after 20 iterations", rendered[sname], 0)):
-            for mode, src in (("injected", dict(block=block)),
-                              ("philox", dict(key=(1984, 2, 1)))):
-                kp, kq, kh, kfb, kl, kd = run(sp_step, scene, base, src)
-                pp, pq, ph, pfb, pl, pd = run(sp_step_plain, scene, base, src)
-                bad = sum(_bits_equal(kp[n], pp[n]) for n in rk.POOL_F)
-                bad += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
-                fb_rel = float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max())
-                ok = (bad == 0 and torch.equal(kq, pq) and torch.equal(kh, ph)
-                      and torch.equal(kd, pd) and int(kl) == int(pl) == n_out
-                      and fb_rel <= 1e-6)
-                checks.expect(ok, f"K11 {sname} {pool_label} {mode}: take "
-                                  f"{int(kq[1] - kq[0])} (plain {int(pq[1] - pq[0])}), live "
-                                  f"{int(kh[5])} ({int(ph[5])}), died {int(kd.sum())} "
-                                  f"({int((kd != pd).sum())} differ), {bad} plane "
-                                  f"mismatches, out-of-tile deaths {int(kl)} (plain "
-                                  f"{int(pl)}, want {n_out}), flush max rel err "
-                                  f"{fb_rel:.3g} (<= 1e-6)")
-                k11_err = max(k11_err, float((kfb - pfb).abs().max()),
-                              *(_max_diff(kp[n], pp[n]) for n in rk.POOL_F))
+    for sname, pool_label, base, n_out in (
+            ("quads", "random pool", _sp_pool(rng, R, tile_pixels, dev), N_OUT),
+            ("quads", "pool after 20 iterations", rendered[("quads", 20)], 0),
+            ("perlin", "random pool", _sp_pool(rng, R, tile_pixels, dev), N_OUT),
+            ("perlin", "pool after 20 iterations", rendered[("perlin", 20)], 0),
+            ("perlin", "pool after 21 iterations", rendered[("perlin", 21)], 0)):
+        scene = scenes[sname]
+        for mode, src in (("injected", dict(block=block)), ("philox", dict(key=(1984, 2, 1)))):
+            kp, kq, kh, kfb, kl, kd = _sp_run(s, sp_step, scene, base, src)
+            pp, pq, ph, pfb, pl, pd = _sp_run(s, sp_step_plain, scene, base, src)
+            bad = sum(_bits_equal(kp[n], pp[n]) for n in rk.POOL_F)
+            bad += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+            fb_rel = float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max())
+            ok = (bad == 0 and torch.equal(kq, pq) and torch.equal(kh, ph)
+                  and torch.equal(kd, pd) and int(kl) == int(pl) == n_out
+                  and fb_rel <= 1e-6)
+            checks.expect(ok, f"K11 {sname} {pool_label} {mode}: take "
+                              f"{int(kq[1] - kq[0])} (plain {int(pq[1] - pq[0])}), live "
+                              f"{int(kh[5])} ({int(ph[5])}), died {int(kd.sum())} "
+                              f"({int((kd != pd).sum())} differ), {bad} plane "
+                              f"mismatches, out-of-tile deaths {int(kl)} (plain "
+                              f"{int(pl)}, want {n_out}), flush max rel err "
+                              f"{fb_rel:.3g} (<= 1e-6)")
+            k11_err = max(k11_err, float((kfb - pfb).abs().max()),
+                          *(_max_diff(kp[n], pp[n]) for n in rk.POOL_F))
+    results["sp_step"]["max_abs_err"] = k11_err
 
-        # timed from the rendered pool, Philox uniforms
-        work = _clone(rendered[sname])
-        q_t = torch.zeros(2, dtype=torch.int64, device=dev)
-        hist_t = torch.zeros(6, dtype=torch.int64, device=dev)
-        fb_t = torch.zeros((tile_pixels, 3), device=dev)
-        lost_t = torch.zeros(1, dtype=torch.int32, device=dev)
-
-        def reset(base=rendered[sname]):
-            _restore(work, base)
-            q_t.fill_(q0)
-
-        def step(fn, scene=scene):
-            fn(work, scene.camera, q_t, 0, hist_t, 5, scal, scene.tables, scene.background,
-               fb_t, lost_t, key=(1984, 2, 1), ncols=10, max_depth=50,
-               gradient=scene.gradient_bg)
-
-        key = "" if sname == "perlin" else f"_{sname}"  # perlin: this slice's main path
-        results["sp_step"][f"ms{key}"] = _timed_ms(lambda: step(sp_step), 20, reset=reset)
-        results["sp_step"][f"plain_ms{key}"] = _timed_ms(lambda: step(sp_step_plain), 3,
-                                                         reset=reset)
+    # ---- K11 timed from the rendered pools, Philox uniforms ----
+    for key, sname, iters in SP_TIMED:
+        scene = scenes[sname]
+        ms = _sp_step_ms(s, sp_step, sname, iters, 20)
+        plain_ms = _sp_step_ms(s, sp_step_plain, sname, iters, 3)
         # what this step's data needs: the slots live after the refill, the
-        # taken ones and the hits (on perlin, every hit is on marble)
-        after = refilled(scene, rendered[sname], 5, key=(1984, 2, 1))
+        # taken ones, the hits and the turbulence of the marble hits
+        base = s["rendered"][(sname, iters)]
+        after = _sp_refilled(s, scene, base, key=(1984, 2, 1))
+        rec = _sp_hits(scene, after)
         live = after["act"]
-        n_live, was = int(live.sum()), int(rendered[sname]["act"].sum())
+        n_live, was = int(live.sum()), int(base["act"].sum())
         taken = n_live - was
-        n_hit = int((hits(scene, after).hit & live).sum())
+        hit = rec.hit & live
+        kind = scene.tables.sp_mat_rows[rec.mat.long().clamp(
+            0, scene.tables.sp_mat_rows.shape[0] - 1), 6]
+        marble = hit & (kind == 2.0)
+        died = _sp_run(s, sp_step_plain, scene, base, dict(key=(1984, 2, 1)))[5]
+        noise_ops, forms, points = _noise_work(rec.p, 7, marble)
         prims = scene.tables.n_spheres * OPS_SPHERE + scene.tables.n_quads * OPS_QUAD
-        marble = n_hit if sname == "perlin" else 0
         # act of every slot in and died out; a slot live before the refill
         # reads its state (60 B); a live slot writes radiance, bounce and act
         # (17 B) and o, d, throughput (36 B; counted for every live slot);
         # a taken slot tm and pix (8 B); the framebuffer adds are not counted
-        entry = results["sp_step"] if sname == "perlin" else {}
+        entry = results["sp_step"] if key == "" else {}
         _set_bound(entry, R * 2 + was * 60 + n_live * (17 + 36) + taken * 8,
                    n_live * (3 * OPS_PHILOX + prims + OPS_SP_BOUNCE) + taken * OPS_CAMERA
-                   + marble * 7 * OPS_NOISE)
-        if sname != "perlin":
-            results["sp_step"][f"bound_ms{key}"] = entry["bound_ms"]
-            results["sp_step"][f"bound_by{key}"] = entry["bound_by"]
-        log(f"  K11 {sname} step: {n_live} live ({taken} taken), {n_hit} hits")
-    results["sp_step"]["max_abs_err"] = k11_err
+                   + noise_ops)
+        results["sp_step"].update({f"ms{key}": ms, f"plain_ms{key}": plain_ms,
+                                   f"bound_ms{key}": entry["bound_ms"],
+                                   f"bound_by{key}": entry["bound_by"]})
+        log(f"  K11 {sname} {iters} iterations in: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+            f"{entry['bound_ms']:.4f} {entry['bound_by']}); {n_live} live ({taken} taken), "
+            f"{int(hit.sum())} hits, {int(marble.sum())} on marble, {int(died.sum())} died"
+            + (f"; {_forms_text(forms, points)}" if int(marble.sum()) else ""))
     _log_kernels(results, ("turb", "sp_step"))
-    r = results["sp_step"]
-    log(f"  sp_step on quads: kernel {r['ms_quads']:.4f} ms, plain "
-        f"{r['plain_ms_quads']:.4f} ms, bound {r['bound_ms_quads']:.4f} ms "
-        f"({r['bound_by_quads']})")
 
 
 def compact_checks(checks: Checks, dev, results: dict):
@@ -2793,8 +2925,8 @@ def main() -> int:
                       "library_ms": None}
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
-    checks.phase("1b. registers, spills and hot loops of K2, K9, K10", sass_report, checks,
-                 results)
+    checks.phase("1b. registers, spills and hot loops of K2, K9, K10, K7, K11", sass_report,
+                 checks, results)
     checks.phase("2a. K1, K2, K3 against their plain twins", kernel_checks, checks, dev,
                  results)
     checks.phase("2b. K5, K6, baked K3 against their plain twins", quad_box_checks,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the sphere and box-grid kernels of one checkout of the port on the card.
+"""Time the port's kernels of one checkout on the card.
 
 Run from the repository root, once per checkout to compare, all in one call
 on one card (turns: parent, change, change, parent):
@@ -9,16 +9,26 @@ on one card (turns: parent, change, change, parent):
 
 The port (``art_tpu_torch``) is imported from PYTHONPATH when it is set, so
 the same script times another checkout's kernels; the pools and the timer
-are ``chip_smoke.py``'s (this checkout's).  Each kernel runs on the pools
-``chip_smoke.py`` uses: K2 on phase 2a's refilled bouncing_spheres 1200x800
-pool (also at t_min = 0.25) and on the 20-iteration bouncing_spheres and
-final_scene pools of phase 2f, with ``n_live`` on the final_scene pool's
-compacted tail slots; K9 and K10 on the final_scene pool (K10 also on the
-40x40 box field's pool); K9 on a 72x8 field's pool (kx + kz = 80); K2 on a
-cornell_box 600x600 pool one staged iteration in (two spheres); K15s,
-K16 and K17 on the 2f pools.  For each: the mean device time of 20 calls
-(CUDA events behind a device spin) and the count of output values that
-differ from its plain twin.  Prints one JSON line with the card's name and
+are ``chip_smoke.py``'s (this checkout's).  ``--set noise`` times K7 and
+K11 alone, ``--set intersect`` the sphere and box kernels alone; the
+default, both.  Each kernel runs on the pools ``chip_smoke.py`` uses:
+
+* noise: K7 at depth 7 on phase 2c's inputs (the hit points of perlin
+  1200x600 @ 64 short-path pools 20 and 21 iterations in, of the final_scene
+  staged pool of phase 2f, and random points, each lane its own cell); K11
+  on the steps phase 2c times (perlin 20 and 21 iterations in, quads 20);
+* intersect: K2 on phase 2a's refilled bouncing_spheres 1200x800 pool (also
+  at t_min = 0.25) and on the 20-iteration bouncing_spheres and final_scene
+  pools of phase 2f, with ``n_live`` on the final_scene pool's compacted
+  tail slots; K9 and K10 on the final_scene pool (K10 also on the 40x40 box
+  field's pool); K9 on a 72x8 field's pool (kx + kz = 80); K2 on a
+  cornell_box 600x600 pool one staged iteration in (two spheres); K15s, K16
+  and K17 on the 2f pools.
+
+For each: the mean device time of 20 calls (CUDA events behind a device
+spin) and the count of output values that differ from its plain twin (K11:
+pool planes, queue, live count, died and lost; its framebuffer's largest
+relative difference beside).  Prints one JSON line with the card's name and
 power limit.
 """
 
@@ -79,19 +89,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--set", choices=("all", "noise", "intersect"), default="all")
     args = ap.parse_args()
     cs = _chip_smoke()
-    import dataclasses
-
     import torch
 
     import art_tpu_torch
-    from art_tpu_torch.core.vecmath import T_MIN
-    from art_tpu_torch.models import build_scene
     from art_tpu_torch.ops import _build
-    from art_tpu_torch.ops import compact_fetch as cf
-    from art_tpu_torch.ops import compact_sphere as csph
-    from art_tpu_torch.ops import intersect_kernels as K
 
     if not torch.cuda.is_available():
         print("kernel_pair: needs a CUDA device", file=sys.stderr)
@@ -101,10 +105,55 @@ def main() -> int:
     out = {"label": args.label, "package": str(Path(art_tpu_torch.__file__).parent),
            "build_s": lib.build_seconds, "kernels": {}}
 
-    def case(name, kern, twin):
+    def case(name, kern, twin, differ=cs._equal):
         k, p = kern(), twin()
         torch.cuda.synchronize()
-        out["kernels"][name] = dict(ms=cs._timed_ms(kern, args.reps), differ=cs._equal(k, p))
+        out["kernels"][name] = dict(ms=cs._timed_ms(kern, args.reps), differ=differ(k, p))
+
+    if args.set in ("all", "noise"):
+        noise_cases(cs, dev, case, out["kernels"], args.reps)
+    if args.set in ("all", "intersect"):
+        intersect_cases(cs, dev, case)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    out["card"] = smi
+    print(json.dumps(out))
+    return 0
+
+
+def noise_cases(cs, dev, case, kernels, reps):
+    """K7 and K11 on phase 2c's inputs."""
+    from art_tpu_torch.ops import perlin
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.ops.perlin_kernel import turb
+    from art_tpu_torch.ops.sp_kernel import sp_step, sp_step_plain
+
+    for label, p in cs._turb_pools(dev).items():
+        case(f"K7 {label}", lambda: turb(*p, 7), lambda: perlin.turb_p(*p, 7), cs._bits_equal)
+    s = cs._short_setup(dev)
+    for _, name, iters in cs.SP_TIMED:
+        scene, base, src = s["scenes"][name], s["rendered"][(name, iters)], dict(key=(1984, 2, 1))
+        kp, kq, kh, kfb, kl, kd = cs._sp_run(s, sp_step, scene, base, src)
+        pp, pq, ph, pfb, pl, pd = cs._sp_run(s, sp_step_plain, scene, base, src)
+        differ = sum(cs._bits_equal(kp[n], pp[n]) for n in rk.POOL_F)
+        differ += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+        differ += int((kq != pq).sum() + (kh != ph).sum() + (kd != pd).sum() + (kl != pl).sum())
+        kernels[f"K11 {name} {iters}"] = dict(
+            ms=cs._sp_step_ms(s, sp_step, name, iters, reps), differ=differ,
+            fb_rel=float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max()))
+
+
+def intersect_cases(cs, dev, case):
+    """The sphere and box kernels (K2, K9, K10, K15s, K16, K17)."""
+    import dataclasses
+
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import compact_sphere as csph
+    from art_tpu_torch.ops import intersect_kernels as K
 
     bt, bo, bd, btm = _refilled_pool(cs, dev)
     case("K2 bouncing 2a", lambda: K.sphere_hit_attrs(bt, bo, bd, btm),
@@ -146,11 +195,6 @@ def main() -> int:
     t, o, d = _field_pool(cs, dev, 72, 8, 160, 90)
     case("K9 72x8 field", lambda: K.box_grid_cells_hit_attrs(t, o, d),
          lambda: K.box_grid_cells_hit_attrs_plain(t, o, d))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    out["card"] = smi
-    print(json.dumps(out))
-    return 0
 
 
 if __name__ == "__main__":

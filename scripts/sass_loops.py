@@ -7,19 +7,27 @@ Run on a machine with the CUDA toolkit, from the repository root:
 
 Without a library it builds (or finds) the port's kernel library
 (``art_tpu_torch/ops/_build.py``).  NAME is a substring of a kernel's mangled
-name; the default is K2's kernels (its three forms), K9's (both forms) and K10's.
+name; the default is K2's kernels (its three forms), K9's (both forms),
+K10's, K7's (depth 7, 2 and any) and K11's.
 
 For each kernel it prints ``cuobjdump -res-usage``'s registers, stack and
 local (spill) bytes, and reads ``cuobjdump -sass``: it cuts the function
 into basic blocks, finds its natural loops (a branch to a block that
-dominates it closes one), takes as the hot loop the innermost loop with the most
-shared-memory loads (LDS), and counts the instructions (NOPs left out) on
-every acyclic path from the loop's head to its back edge, keyed by the
-path's number of LDS instructions.  K2's loop is a group of eight rows for
-two rays (16 pairs): its path with the fewest LDS (eight rows and the
-flags) is a static group, the next key a moving group, and each key's
-shortest path takes no root.  K9's loop is two cells (nvcc unrolls it by
-two), three LDS a cell in the hoisted form and one in the per-cell form.
+dominates it closes one), takes as the hot loop the innermost loop with the
+most key instructions (shared-memory loads, LDS, unless the name's key says
+otherwise), and counts the instructions (NOPs left out) on every acyclic
+path from the loop's head to its back edge, keyed by the path's number of
+key instructions.  A kernel with no loop has its paths counted from its
+entry to an exit instead.  K2's loop is a group of eight rows for two rays
+(16 pairs): its path with the fewest LDS (eight rows and the flags) is a
+static group, the next key a moving group, and each key's shortest path
+takes no root.  K9's loop is two cells (nvcc unrolls it by two), three LDS
+a cell in the hoisted form and one in the per-cell form.  K7's kernels are
+keyed by shuffles (SHFL): the depth-7 kernel unrolls its shared octaves, so
+its loop is the per-lane octave (no shuffle); the any-depth kernel's loop is
+the shared octave, 27 shuffles in one cell (3 for the cell's lattice point,
+24 for the eight gradients) and more for each further cell.  K11's loop is
+its primitive loop (LDS of the staged tables).
 """
 
 from __future__ import annotations
@@ -31,9 +39,12 @@ import subprocess
 import sys
 from pathlib import Path
 
-DEFAULT = ("sphere_hit_kernelILi2ELi2E", "sphere_hit_kernelILi1ELi2E",
-           "sphere_hit_kernelILi1ELi1E", "box_grid_cells_kernelILb1E",
-           "box_grid_cells_kernelILb0E", "box_grid_kernel")
+# (kernel name substring, the opcode that keys its paths)
+DEFAULT = (("sphere_hit_kernelILi2ELi2E", "LDS"), ("sphere_hit_kernelILi1ELi2E", "LDS"),
+           ("sphere_hit_kernelILi1ELi1E", "LDS"), ("box_grid_cells_kernelILb1E", "LDS"),
+           ("box_grid_cells_kernelILb0E", "LDS"), ("box_grid_kernel", "LDS"),
+           ("turb_kernelILi7E", "SHFL"), ("turb_kernelILi2E", "SHFL"),
+           ("turb_kernelILi0E", "SHFL"), ("sp_step_kernel", "LDS"))
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 
@@ -165,62 +176,80 @@ def _loops(blocks):
     return [(h, nodes, ends) for h, (nodes, ends) in loops.items()]
 
 
-def _count(body):
+def _count(body, key="LDS"):
     insns = [t for _, t in body if _parse(t)[1] != "NOP"]
-    return len(insns), sum(_parse(t)[1].startswith("LDS") for t in insns)
+    return len(insns), sum(_parse(t)[1].startswith(key) for t in insns)
 
 
-def hot_loop(insns) -> dict:
-    """The innermost loop with the most LDS and its paths (module note)."""
-    blocks = _blocks(insns)
-    loops = _loops(blocks)
-    inner = [lp for lp in loops if not any(h != lp[0] and h in lp[1] for h, _, _ in loops)]
-    if not inner:
-        return {}
-    head, nodes, ends = max(inner, key=lambda lp: (sum(_count(blocks[b][0])[1] for b in lp[1]),
-                                                   sum(_count(blocks[b][0])[0] for b in lp[1])))
-    # paths from the head to a back-edge source over the loop's forward edges
+def _paths(blocks, start, stop, inside, key):
+    """{key instructions on the path: (fewest, most) instructions} over
+    every acyclic path from ``start`` to a block in ``stop`` through the
+    blocks ``inside`` (never back to ``start``)."""
     memo: dict = {}
 
-    def paths(b):  # {LDS on the path: (fewest, most) instructions} from b to a back edge
+    def walk(b):
         if b in memo:
             return memo[b]
-        n, lds = _count(blocks[b][0])
+        n, k = _count(blocks[b][0], key)
         out: dict = {}
-        if b in ends:
-            out[lds] = (n, n)
+        if b in stop:
+            out[k] = (n, n)
         for s in blocks[b][1]:
-            if s in nodes and s != head:
-                for k, (lo, hi) in paths(s).items():
-                    key = k + lds
-                    old = out.get(key, (lo + n, hi + n))
-                    out[key] = (min(old[0], lo + n), max(old[1], hi + n))
+            if s in inside and s != start:
+                for kk, (lo, hi) in walk(s).items():
+                    old = out.get(kk + k, (lo + n, hi + n))
+                    out[kk + k] = (min(old[0], lo + n), max(old[1], hi + n))
         memo[b] = out
         return out
 
-    by_lds = paths(head)
-    body = [t for b in sorted(nodes) for _, t in blocks[b][0]]
+    return {str(k): {"fewest": lo, "most": hi} for k, (lo, hi) in sorted(walk(start).items())}
+
+
+def _opcodes(bodies) -> dict:
     ops: dict = {}
-    for t in body:
-        op = _parse(t)[1]
-        ops[op] = ops.get(op, 0) + 1
+    for body in bodies:
+        for _, t in body:
+            op = _parse(t)[1]
+            ops[op] = ops.get(op, 0) + 1
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def hot_loop(insns, key="LDS") -> dict:
+    """The innermost loop with the most key instructions and its paths
+    (module note); for a function with no loop, its paths from the entry to
+    an exit."""
+    blocks = _blocks(insns)
+    # the branch-to-self that ends a function's code is no loop
+    loops = [lp for lp in _loops(blocks)
+             if any(_parse(t)[1] not in ("BRA", "NOP") for b in lp[1] for _, t in blocks[b][0])]
+    inner = [lp for lp in loops if not any(h != lp[0] and h in lp[1] for h, _, _ in loops)]
+    if not inner:
+        exits = {b for b, (_, succ) in blocks.items() if not succ}
+        return dict(head=None, blocks=len(blocks), instructions=sum(
+            _count(body)[0] for body, _ in blocks.values()),
+            paths=_paths(blocks, min(blocks), exits, set(blocks), key),
+            opcodes=_opcodes(body for body, _ in blocks.values()))
+    head, nodes, ends = max(inner, key=lambda lp: (
+        sum(_count(blocks[b][0], key)[1] for b in lp[1]),
+        sum(_count(blocks[b][0])[0] for b in lp[1])))
     return dict(head=hex(head), blocks=len(nodes), instructions=sum(
         _count(blocks[b][0])[0] for b in nodes),
-        paths={str(k): {"fewest": lo, "most": hi} for k, (lo, hi) in sorted(by_lds.items())},
-        opcodes=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+        paths=_paths(blocks, head, ends, nodes, key),
+        opcodes=_opcodes(blocks[b][0] for b in sorted(nodes)))
 
 
 def report(lib: str, names=DEFAULT) -> dict:
-    """{name: {mangled, REG, STACK, SHARED, LOCAL, loop}} for each NAME."""
+    """{name: {mangled, REG, STACK, SHARED, LOCAL, loop}} for each NAME, or
+    (NAME, key opcode)."""
     usage, funcs = resource_usage(lib), sass_functions(lib)
     out = {}
-    for name in names:
+    for name, key in (n if isinstance(n, tuple) else (n, "LDS") for n in names):
         hits = [f for f in funcs if name in f]
         if not hits:
             out[name] = {"error": "no such kernel in the library"}
             continue
         f = hits[0]
-        out[name] = dict(mangled=f, **usage.get(f, {}), loop=hot_loop(funcs[f]))
+        out[name] = dict(mangled=f, key=key, **usage.get(f, {}), loop=hot_loop(funcs[f], key))
     return out
 
 
