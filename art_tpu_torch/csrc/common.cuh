@@ -13,6 +13,7 @@ namespace art {
 constexpr int kBlock = 256;             // threads per block, one ray per thread
 constexpr float kBig = 1e30f;           // core/vecmath.py BIG
 constexpr float kTwoPi = 6.28318548f;   // float32(2*pi), as 2.0*math.pi rounds
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Philox4x32-10 (Salmon et al., SC 2011); core/rng.py:philox4x32 is the
 // plain twin and gives the same bits.

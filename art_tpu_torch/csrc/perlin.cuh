@@ -27,12 +27,11 @@
 // sharing).
 #pragma once
 
-#include <stdint.h>
+#include "common.cuh"
 
 namespace art {
 
 constexpr float kU2m11 = (float)(1.0 / 8388607.5);  // ops/perlin.py U2M11_SCALE
-constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kNoiseGroups = 4;  // cells a warp shares gradients over: 4 x 8 corners
 
 __device__ __forceinline__ uint32_t wanghash(uint32_t x) {

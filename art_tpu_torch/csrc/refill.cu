@@ -23,54 +23,54 @@
 //
 // Design notes against the TPU kernel:
 //  (a) the TPU carries the running dead count across its sequential grid in
-//      SMEM.  Blocks here run in any order, so there are two launches:
-//      refill_count writes each block's dead count; refill_apply has every
-//      block sum the counts of the blocks before it (R/256 = 512 values at
-//      R = 2^17) and rank inside the block by warp ballot + popc.
+//      SMEM.  Blocks here run in any order, so the rank is a single-pass
+//      scan by decoupled look-back (refill.cuh): a block takes a ticket,
+//      counts its dead slots by warp ballot + popc, publishes the count at
+//      once and its inclusive prefix when it knows it, and reads its
+//      predecessors' words, 32 at a time, back to the nearest prefix.  One
+//      launch a call; the scratch lives with the pool, each call's words
+//      stamped with a fresh epoch (ops/refill_kernel.py scan_scratch).
 //  (b) the TPU splits q into f32-exact (p_base, s_base) with reciprocal
 //      corrections because Mosaic has no integer division; here q is int64
 //      and the split is plain / and %.
 //  (c) next_q is double-buffered (q[parity] in, q[1 - parity] out), written
-//      by block 0 from the total dead count, so no block reads a value
-//      another block is writing.
-// Bound on the H100: memory — the pool's 16 planes are read and, for taken
-// slots, written (~64 B in, up to ~64 B + 4 * (4 + n_media) B out per
-// slot); the block-count scan adds R/256 loads per block.  The pool is
-// updated in place.  The rank, the Philox draw, the camera ray and the
-// queue-head update are refill.cuh's, shared with the short-path kernel.
+//      by the block with the last ticket from the inclusive total, so no
+//      block reads a value another block is writing.
+//  (d) a slot that takes no queue element makes no Philox call for the
+//      camera's columns (4..7): Philox is counter-based, so the others keep
+//      their bits; the calls every live slot writes out are made before the
+//      look-back, while the predecessors publish.
+// Bound on the H100: memory — act of every slot in, the uniform planes out
+// (4 + n_media floats a slot) and a taken slot's 16 planes out (61 B); the
+// Philox calls (two or three a slot, integer operations) are a tenth of
+// it.  The pool is updated in place.  The rank, the Philox draw, the camera
+// ray and the queue-head update are refill.cuh's, shared with K11 and K12.
 
 #include "refill.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(art::kBlock)
-refill_apply(art::RefillPlanes p, int R, const int* __restrict__ block_dead, int nb,
-             long long* q, int parity, unsigned long long* hist, art::Scal sc,
-             art::Cam cam, float* u_buf, int ncols, int use_philox, uint32_t seed,
-             uint32_t tile, uint32_t chunk, uint32_t it) {
-  __shared__ int red[32];
-  __shared__ int warp_cnt[32];
-  art::refill_slot(p, R, block_dead, nb, q, parity, hist, sc, cam, u_buf, ncols, use_philox,
-                   seed, tile, chunk, it, red, warp_cnt);
+__global__ void __launch_bounds__(art::kBlock) refill_kernel(art::RefillArgs a) {
+  __shared__ art::RankShared sh;
+  art::refill_slot(art::scan_ticket(a.scan, sh), a, sh);
 }
 
 }  // namespace
 
 // ptrs: ox oy oz dx dy dz tm t0 t1 t2 r0 r1 r2 (f32), bounce pix (i32),
-//       act (u8), u (f32 (ncols|4+n_media, R)), block_dead (i32 scratch,
-//       ceil(R/256)), q (i64 x2), hist (i64, > it entries).
+//       act (u8), u (f32 (ncols|4+n_media, R)), scan (the look-back
+//       scratch: ceil(R/256) + 1 64-bit words, kept across calls), q (i64
+//       x2), hist (i64, > it entries).
 // scal: spp, P, pix_offset, total_pixels, nx, ny.  cam: pack_camera layout.
+// epoch: this call's stamp of the scan words, never 0 and never one an
+// earlier call on this scratch used.
 extern "C" int art_refill(void* const* ptrs, int R, int parity, int ncols,
                           int use_philox, const long long* scal, const float* cam,
                           unsigned seed, unsigned tile, unsigned chunk, unsigned it,
-                          void* stream) {
-  const art::RefillArgs a = art::refill_args(ptrs, scal, cam);
-  const int nb = (R + art::kBlock - 1) / art::kBlock;
-  if (nb == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  art::refill_count<<<nb, art::kBlock, 0, s>>>(a.p.act, R, a.block_dead);
-  refill_apply<<<nb, art::kBlock, 0, s>>>(a.p, R, a.block_dead, nb, a.q, parity, a.hist,
-                                          a.sc, a.cam, a.u_buf, ncols, use_philox, seed,
-                                          tile, chunk, it);
+                          unsigned epoch, void* stream) {
+  const art::RefillArgs a = art::refill_args(ptrs, R, parity, ncols, use_philox, scal, cam,
+                                             seed, tile, chunk, it, epoch);
+  if (a.scan.nb == 0) return 0;
+  refill_kernel<<<a.scan.nb, art::kBlock, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,29 @@
 // The refill of one pool iteration as device functions, shared by the
-// refill kernel (refill.cu, K1) and the short-path kernel (sp_step.cu,
-// K11), so both hand out queue elements, draw uniforms and make camera rays
-// with the same operations and agree bit for bit.  What they compute is
-// refill.cu's header note; the pieces, in the order a kernel calls them:
-//  * refill_count (a kernel of its own, the first launch): each block's
-//    dead-slot count;
-//  * refill_rank: the slot's global dead rank and whether it takes a queue
-//    element (every thread of the block calls it);
-//  * philox_uniforms: the iteration's uniform columns for the slot;
+// refill kernel (refill.cu, K1), the seam flush + refill (refill_flush.cu,
+// K12) and the short-path kernel (sp_step.cu, K11), so all three hand out
+// queue elements, draw uniforms and make camera rays with the same
+// operations and agree bit for bit.  What they compute is refill.cu's
+// header note.  Each is one launch a call: the global dead rank is a
+// single-pass scan across the blocks by decoupled look-back (Merrill and
+// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+// 2016).  The pieces, in the order a kernel calls them (every thread of the
+// block calls each but philox_uniforms and camera_ray):
+//  * scan_ticket: the block's place in the scan, from an atomic ticket in
+//    the order blocks start, so a block waits only on blocks that run; the
+//    block refills slots ticket * 256 + threadIdx.x, so ranks follow slot
+//    order;
+//  * rank_count: the block's dead count, published at once, and each
+//    slot's rank inside the block;
+//  * rank_resolve: the block's exclusive prefix from its predecessors'
+//    published words (look_back), its own inclusive prefix published, and
+//    whether the slot takes a queue element;
+//  * philox_uniforms: the Philox calls of the slot's uniform columns that
+//    the caller needs;
 //  * camera_ray: the fresh ray of a taken slot;
-//  * refill_finish: the live-slot count into hist[it] and, from block 0,
-//    the next queue head (every thread of the block calls it);
-//  * refill_slot: all of the above after refill_count, for the calling
-//    thread's slot (K1's refill_apply, and K12's after its flush).
+//  * refill_finish: the live-slot count into hist[it] and, from the block
+//    with the last ticket, the next queue head;
+//  * refill_slot: all of the above for K1 and K12, with the draws that do
+//    not depend on the rank made while the predecessors publish.
 #pragma once
 
 #include "common.cuh"
@@ -20,6 +31,7 @@
 namespace art {
 
 constexpr int kMaxCols = 16;  // ncols = 9 + max(n_media, 1) <= 16
+constexpr int kWarps = kBlock / 32;
 
 struct RefillPlanes {
   float *ox, *oy, *oz, *dx, *dy, *dz, *tm, *t0, *t1, *t2, *r0, *r1, *r2;
@@ -29,6 +41,28 @@ struct RefillPlanes {
 
 struct Scal { long long spp, P, pix_offset, total_pixels, nx, ny; };
 struct Cam { float v[21]; };
+
+// The look-back scratch, kept with the pool across calls (no memset a
+// call): one 64-bit word a block, (epoch << 32) | status | value, then the
+// ticket counter, which atomicInc returns to 0 after the last ticket.  A
+// call stamps its words with its own epoch (from the host, never 0 and never
+// a previous call's), so a word left by an earlier call reads as not yet
+// published.  Values (counts and prefixes, <= R) take 30 bits.  A word is
+// written and read whole by strong relaxed operations at GPU scope: it
+// carries all a reader needs, so no other write has to be ordered before
+// it.  (Release and acquire, as the scan's paper has them, made every block
+// wait for its own earlier stores before it published: 1.5-2.5 us a call on
+// the H100, PERF.md section 6.)
+struct Scan {
+  unsigned long long* flags;  // nb words
+  unsigned* ticket;           // the word after them
+  uint32_t epoch;
+  int nb;
+};
+constexpr unsigned long long kAggregate = 1ull << 30;  // the block's count
+constexpr unsigned long long kPrefix = 2ull << 30;     // its inclusive prefix
+constexpr unsigned long long kStatus = 3ull << 30;
+constexpr unsigned long long kValue = (1ull << 30) - 1;
 
 // ptrs[0..15]: ox oy oz dx dy dz tm t0 t1 t2 r0 r1 r2 (f32), bounce pix
 // (i32), act (u8)
@@ -42,65 +76,123 @@ inline RefillPlanes refill_planes(void* const* ptrs) {
   return p;
 }
 
-__device__ __forceinline__ int block_sum(int v, int* red) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();  // `red` may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int tot = 0;
-  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) tot += red[k];
-  return tot;
+// the scratch of nb + 1 64-bit words at `words`
+inline Scan scan_of(void* words, int R, uint32_t epoch) {
+  const int nb = (R + kBlock - 1) / kBlock;
+  unsigned long long* w = (unsigned long long*)words;
+  return Scan{w, (unsigned*)(w + nb), epoch, nb};
 }
 
-namespace {
-__global__ void __launch_bounds__(kBlock)
-refill_count(const uint8_t* __restrict__ act, int R, int* __restrict__ block_dead) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = __syncthreads_count(i < R && act[i] == 0);
-  if (threadIdx.x == 0) block_dead[blockIdx.x] = n;
-}
-}  // namespace
+// the block's shared scratch
+struct RankShared {
+  int blk;     // the block's ticket
+  int before;  // dead slots of the blocks before it
+  int total;   // dead slots up to and including it
+  int warp_cnt[kWarps];
+};
 
 struct Rank {
+  int i;         // the slot: blk * kBlock + threadIdx.x
   bool live;     // i < R
   bool was_act;  // live before the refill
   bool take;     // dead and handed queue element qq
-  long long qq, q0, n_q;
+  int in_block;  // dead slots before it in its block
+  int count;     // dead slots in its block
+  long long qq;
 };
 
-__device__ __forceinline__ Rank refill_rank(const uint8_t* act, int R,
-                                            const int* __restrict__ block_dead,
-                                            const long long* q, int parity, const Scal& sc,
-                                            int* red, int* warp_cnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int acc = 0;
-  for (int k = threadIdx.x; k < (int)blockIdx.x; k += blockDim.x) acc += block_dead[k];
-  const int before = block_sum(acc, red);
-  Rank r;
-  r.live = i < R;
-  r.was_act = r.live && act[i] != 0;
-  const bool dead = r.live && !r.was_act;
-  const unsigned m = __ballot_sync(0xffffffffu, dead);
-  if (lane == 0) warp_cnt[warp] = __popc(m);
+__device__ __forceinline__ void publish(unsigned long long* word, uint32_t epoch,
+                                        unsigned long long status, int value) {
+  const unsigned long long w = ((unsigned long long)epoch << 32) | status | (unsigned)value;
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(w) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long peek(const unsigned long long* word) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(word) : "memory");
+  return w;
+}
+
+__device__ __forceinline__ int scan_ticket(const Scan& s, RankShared& sh) {
+  if (threadIdx.x == 0) sh.blk = (int)atomicInc(s.ticket, (unsigned)(s.nb - 1));
   __syncthreads();
-  int in_block = __popc(m & ((1u << lane) - 1u));
-  for (int k = 0; k < warp; ++k) in_block += warp_cnt[k];
-  r.q0 = q[parity];
-  r.n_q = sc.P * sc.spp;
-  r.qq = r.q0 + before + in_block;
-  r.take = dead && r.qq < r.n_q;
+  return sh.blk;
+}
+
+__device__ __forceinline__ Rank rank_count(int blk, const uint8_t* act, int R, const Scan& s,
+                                           RankShared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Rank r;
+  r.i = blk * kBlock + threadIdx.x;
+  r.live = r.i < R;
+  r.was_act = r.live && act[r.i] != 0;
+  const unsigned m = __ballot_sync(kFullWarp, r.live && !r.was_act);
+  if (lane == 0) sh.warp_cnt[warp] = __popc(m);
+  __syncthreads();
+  r.in_block = __popc(m & ((1u << lane) - 1u));
+  r.count = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    const int c = sh.warp_cnt[k];
+    r.count += c;
+    if (k < warp) r.in_block += c;
+  }
+  // the first block's count is its inclusive prefix
+  if (threadIdx.x == 0) publish(s.flags + blk, s.epoch, blk ? kAggregate : kPrefix, r.count);
+  r.take = false;
+  r.qq = 0;
   return r;
 }
 
-// columns 4k..4k+3 of the slot's block from Philox call k (core/rng.py)
+// The sum of the counts of blocks 0..blk-1, by the 32 lanes of one warp:
+// lane L reads block j - L's word, nearest first; a window is summed up to
+// and including its nearest inclusive prefix (then done) or, with none, in
+// full (then the next 32 blocks).  A lane whose word is not this call's, or
+// not yet published, makes the window read again.
+__device__ __forceinline__ int look_back(const Scan& s, int blk) {
+  const int lane = threadIdx.x & 31;
+  int sum = 0;
+  for (int j = blk - 1;; j -= 32) {
+    const int k = j - lane;
+    unsigned long long w;
+    unsigned prefix, need, ready;
+    do {
+      w = k >= 0 ? peek(s.flags + k) : (((unsigned long long)s.epoch << 32) | kPrefix);
+      const bool mine = (uint32_t)(w >> 32) == s.epoch && (w & kStatus) != 0;
+      ready = __ballot_sync(kFullWarp, mine);
+      prefix = __ballot_sync(kFullWarp, mine && (w & kStatus) == kPrefix);
+      need = prefix ? ((prefix & (0u - prefix)) << 1) - 1u : 0xffffffffu;
+    } while ((ready & need) != need);
+    sum += __reduce_add_sync(kFullWarp, ((need >> lane) & 1u) ? (int)(w & kValue) : 0);
+    if (prefix) return sum;
+  }
+}
+
+__device__ __forceinline__ void rank_resolve(Rank& r, const Scan& s, const long long* q,
+                                             int parity, const Scal& sc, RankShared& sh) {
+  const int blk = sh.blk;
+  if ((threadIdx.x >> 5) == 0) {
+    const int before = blk ? look_back(s, blk) : 0;
+    if (threadIdx.x == 0) {
+      if (blk) publish(s.flags + blk, s.epoch, kPrefix, before + r.count);
+      sh.before = before;
+      sh.total = before + r.count;
+    }
+  }
+  __syncthreads();
+  r.qq = q[parity] + sh.before + r.in_block;
+  r.take = r.live && !r.was_act && r.qq < sc.P * sc.spp;
+}
+
+// Philox call k gives columns 4k..4k+3 of the slot's block (core/rng.py);
+// it is made where bit k of `calls` is set and 4k < ncols.  Being counter
+// based, a call gives the same bits whichever others are made.
 __device__ __forceinline__ void philox_uniforms(int i, uint32_t seed, uint32_t tile,
                                                 uint32_t chunk, uint32_t it, int ncols,
-                                                float* u) {
+                                                unsigned calls, float* u) {
 #pragma unroll
   for (int k = 0; k < kMaxCols / 4; ++k) {
-    if (4 * k < ncols) {
+    if (4 * k < ncols && ((calls >> k) & 1u)) {
       const U4 r = philox4x32(U4{(uint32_t)i, it, chunk, (uint32_t)k}, seed, tile);
       u[4 * k + 0] = to_unit(r.x);
       u[4 * k + 1] = to_unit(r.y);
@@ -109,6 +201,7 @@ __device__ __forceinline__ void philox_uniforms(int i, uint32_t seed, uint32_t t
     }
   }
 }
+constexpr unsigned kCameraCall = 1u << 1;  // columns 4..7: jitter and lens
 
 struct Ray { float ox, oy, oz, dx, dy, dz, tm; int p_row; };
 
@@ -136,57 +229,85 @@ __device__ __forceinline__ Ray camera_ray(long long qq, const Scal& sc, const Ca
   return ray;
 }
 
-__device__ __forceinline__ void refill_finish(bool live_after, const int* block_dead,
-                                              int nb, long long* q, int parity,
-                                              unsigned long long* hist, uint32_t it,
-                                              const Rank& r, int* red) {
+__device__ __forceinline__ void refill_finish(bool live_after, const Scan& s, long long* q,
+                                              int parity, unsigned long long* hist,
+                                              uint32_t it, const Scal& sc,
+                                              const RankShared& sh) {
   const int cnt = __syncthreads_count(live_after);
-  if (threadIdx.x == 0 && cnt) atomicAdd(&hist[it], (unsigned long long)cnt);
-  if (blockIdx.x == 0) {
-    int all = 0;
-    for (int k = threadIdx.x; k < nb; k += blockDim.x) all += block_dead[k];
-    const long long total_dead = block_sum(all, red);
-    if (threadIdx.x == 0) {
-      const long long room = r.n_q > r.q0 ? r.n_q - r.q0 : 0;
-      q[1 - parity] = r.q0 + (total_dead < room ? total_dead : room);
+  if (threadIdx.x == 0) {
+    if (cnt) atomicAdd(&hist[it], (unsigned long long)cnt);
+    if (sh.blk == s.nb - 1) {  // the last ticket: sh.total is every dead slot
+      const long long q0 = q[parity], n_q = sc.P * sc.spp;
+      const long long room = n_q > q0 ? n_q - q0 : 0;
+      q[1 - parity] = q0 + (sh.total < room ? sh.total : room);
     }
   }
 }
 
-// The refill of slot blockIdx.x * blockDim.x + threadIdx.x after
-// refill_count: rank, uniforms, camera ray, live count and queue head
-// (refill.cu's header note).  Every thread of the block calls it; `red` and
-// `warp_cnt` are the block's __shared__ int[32] scratch.
-__device__ __forceinline__ void refill_slot(const RefillPlanes& p, int R,
-                                            const int* __restrict__ block_dead, int nb,
-                                            long long* q, int parity, unsigned long long* hist,
-                                            const Scal& sc, const Cam& cam, float* u_buf,
-                                            int ncols, int use_philox, uint32_t seed,
-                                            uint32_t tile, uint32_t chunk, uint32_t it,
-                                            int* red, int* warp_cnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const Rank r = refill_rank(p.act, R, block_dead, q, parity, sc, red, warp_cnt);
+// The launch arguments of K1 and K12 (refill.cu's art_refill layout).
+struct RefillArgs {
+  RefillPlanes p;
+  float* u_buf;
+  Scan scan;
+  long long* q;
+  unsigned long long* hist;
+  Scal sc;
+  Cam cam;
+  int R, parity, ncols, use_philox;
+  uint32_t seed, tile, chunk, it;
+};
+
+inline RefillArgs refill_args(void* const* ptrs, int R, int parity, int ncols,
+                              int use_philox, const long long* scal, const float* cam,
+                              uint32_t seed, uint32_t tile, uint32_t chunk, uint32_t it,
+                              uint32_t epoch) {
+  RefillArgs a;
+  a.p = refill_planes(ptrs);
+  a.u_buf = (float*)ptrs[16];
+  a.scan = scan_of(ptrs[17], R, epoch);
+  a.q = (long long*)ptrs[18];
+  a.hist = (unsigned long long*)ptrs[19];
+  a.sc = Scal{scal[0], scal[1], scal[2], scal[3], scal[4], scal[5]};
+  for (int k = 0; k < 21; ++k) a.cam.v[k] = cam[k];
+  a.R = R; a.parity = parity; a.ncols = ncols; a.use_philox = use_philox;
+  a.seed = seed; a.tile = tile; a.chunk = chunk; a.it = it;
+  return a;
+}
+
+// The refill of slot blk * kBlock + threadIdx.x (refill.cu's header note):
+// rank, uniforms, camera ray, live count and queue head.  The count is
+// published first; the uniforms every live slot writes (Philox mode: every
+// call but the camera's) are drawn while the predecessors publish theirs.
+__device__ __forceinline__ void refill_slot(int blk, const RefillArgs& a, RankShared& sh) {
+  const RefillPlanes& p = a.p;
+  const int R = a.R;
+  Rank r = rank_count(blk, p.act, R, a.scan, sh);
+  const int i = r.i;
 
   // ---- the iteration's uniforms for this slot ----
   float u[kMaxCols];
 #pragma unroll
   for (int c = 0; c < kMaxCols; ++c) u[c] = 0.f;
-  if (r.live && use_philox) {
-    philox_uniforms(i, seed, tile, chunk, it, ncols, u);
+  if (r.live && a.use_philox) {
+    philox_uniforms(i, a.seed, a.tile, a.chunk, a.it, a.ncols, ~kCameraCall, u);
     // ball(3) + choice(1) -> rows 0..3, media columns 9.. -> rows 4..
 #pragma unroll
-    for (int c = 0; c < 4; ++c) u_buf[(size_t)c * R + i] = u[c];
+    for (int c = 0; c < 4; ++c) a.u_buf[(size_t)c * R + i] = u[c];
 #pragma unroll
     for (int c = 9; c < kMaxCols; ++c)
-      if (c < ncols) u_buf[(size_t)(c - 5) * R + i] = u[c];
-  } else if (r.take) {
-#pragma unroll
-    for (int c = 4; c < 9; ++c) u[c] = u_buf[(size_t)c * R + i];
+      if (c < a.ncols) a.u_buf[(size_t)(c - 5) * R + i] = u[c];
   }
+  rank_resolve(r, a.scan, a.q, a.parity, a.sc, sh);
 
   // ---- fresh camera ray for a taken slot ----
   if (r.take) {
-    const Ray ray = camera_ray(r.qq, sc, cam, u);
+    if (a.use_philox) {
+      philox_uniforms(i, a.seed, a.tile, a.chunk, a.it, a.ncols, kCameraCall, u);
+    } else {
+#pragma unroll
+      for (int c = 4; c < 9; ++c) u[c] = a.u_buf[(size_t)c * R + i];
+    }
+    const Ray ray = camera_ray(r.qq, a.sc, a.cam, u);
     p.ox[i] = ray.ox; p.oy[i] = ray.oy; p.oz[i] = ray.oz;
     p.dx[i] = ray.dx; p.dy[i] = ray.dy; p.dz[i] = ray.dz;
     p.tm[i] = ray.tm;
@@ -198,30 +319,7 @@ __device__ __forceinline__ void refill_slot(const RefillPlanes& p, int R,
   }
 
   // ---- live slots this iteration, and the next queue head ----
-  refill_finish(r.was_act || r.take, block_dead, nb, q, parity, hist, it, r, red);
-}
-
-// The launch arguments common to K1 and K12 (refill.cu's art_refill layout).
-struct RefillArgs {
-  RefillPlanes p;
-  float* u_buf;
-  int* block_dead;
-  long long* q;
-  unsigned long long* hist;
-  Scal sc;
-  Cam cam;
-};
-
-inline RefillArgs refill_args(void* const* ptrs, const long long* scal, const float* cam) {
-  RefillArgs a;
-  a.p = refill_planes(ptrs);
-  a.u_buf = (float*)ptrs[16];
-  a.block_dead = (int*)ptrs[17];
-  a.q = (long long*)ptrs[18];
-  a.hist = (unsigned long long*)ptrs[19];
-  a.sc = Scal{scal[0], scal[1], scal[2], scal[3], scal[4], scal[5]};
-  for (int k = 0; k < 21; ++k) a.cam.v[k] = cam[k];
-  return a;
+  refill_finish(r.was_act || r.take, a.scan, a.q, a.parity, a.hist, a.it, a.sc, sh);
 }
 
 }  // namespace art

@@ -12,7 +12,8 @@
 //  * every such slot's radiance becomes 0 (zero_dead_radiance,
 //    refill_kernel.py:178), so a dead slot the queue cannot refill adds 0
 //    at every later flush;
-//  * then K1's refill, unchanged (refill.cuh refill_slot).
+//  * then K1's refill, unchanged (refill.cuh refill_slot), in the same
+//    launch: the block's scan ticket names the slots it flushes and refills.
 // art_flush_dead is the flush half alone: the render's last flush, after
 // the loop, of the slots that died in its last iteration.
 //
@@ -51,17 +52,15 @@ __device__ __forceinline__ void flush_dead_slot(const art::RefillPlanes& p, int 
   p.r0[i] = 0.f; p.r1[i] = 0.f; p.r2[i] = 0.f;
 }
 
+// one launch, as K1: the block's ticket names its slots, flushed before
+// their refill
 __global__ void __launch_bounds__(art::kBlock)
-refill_flush_apply(art::RefillPlanes p, int R, const int* __restrict__ block_dead, int nb,
-                   long long* q, int parity, unsigned long long* hist, art::Scal sc,
-                   art::Cam cam, float* u_buf, int ncols, int use_philox, uint32_t seed,
-                   uint32_t tile, uint32_t chunk, uint32_t it, Flush fl) {
-  __shared__ int red[32];
-  __shared__ int warp_cnt[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < R && p.act[i] == 0) flush_dead_slot(p, i, fl);
-  art::refill_slot(p, R, block_dead, nb, q, parity, hist, sc, cam, u_buf, ncols, use_philox,
-                   seed, tile, chunk, it, red, warp_cnt);
+refill_flush_kernel(art::RefillArgs a, Flush fl) {
+  __shared__ art::RankShared sh;
+  const int blk = art::scan_ticket(a.scan, sh);
+  const int i = blk * art::kBlock + threadIdx.x;
+  if (i < a.R && a.p.act[i] == 0) flush_dead_slot(a.p, i, fl);
+  art::refill_slot(blk, a, sh);
 }
 
 __global__ void __launch_bounds__(art::kBlock)
@@ -76,15 +75,12 @@ flush_dead(art::RefillPlanes p, int R, Flush fl) {
 extern "C" int art_refill_flush(void* const* ptrs, int R, int parity, int ncols,
                                 int use_philox, const long long* scal, const float* cam,
                                 unsigned seed, unsigned tile, unsigned chunk, unsigned it,
-                                float* fb, int P, int* lost, void* stream) {
-  const art::RefillArgs a = art::refill_args(ptrs, scal, cam);
-  const int nb = (R + art::kBlock - 1) / art::kBlock;
-  if (nb == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  art::refill_count<<<nb, art::kBlock, 0, s>>>(a.p.act, R, a.block_dead);
-  refill_flush_apply<<<nb, art::kBlock, 0, s>>>(
-      a.p, R, a.block_dead, nb, a.q, parity, a.hist, a.sc, a.cam, a.u_buf, ncols,
-      use_philox, seed, tile, chunk, it, Flush{fb, P, lost});
+                                unsigned epoch, float* fb, int P, int* lost, void* stream) {
+  const art::RefillArgs a = art::refill_args(ptrs, R, parity, ncols, use_philox, scal, cam,
+                                             seed, tile, chunk, it, epoch);
+  if (a.scan.nb == 0) return 0;
+  refill_flush_kernel<<<a.scan.nb, art::kBlock, 0, (cudaStream_t)stream>>>(
+      a, Flush{fb, P, lost});
   return (int)cudaGetLastError();
 }
 

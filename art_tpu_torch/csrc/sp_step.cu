@@ -8,10 +8,12 @@
 // Replaces art_tpu/ops/sp_kernel.py:sp_step_flush_rng (:571), sp_step_rng
 // (:661) and sp_step (:701): for every slot,
 //  (a) the refill of K1 — refill.cuh, the same device functions refill.cu
-//      runs: the global dead rank from per-block counts, the queue element,
-//      the camera ray, next_q on the device and the live count into hist[it];
-//      uniforms from Philox as K1 draws them (use_philox) or from an
-//      injected (ncols, R) block;
+//      runs: the global dead rank by the one-pass look-back scan, the queue
+//      element, the camera ray, next_q on the device and the live count
+//      into hist[it]; uniforms from Philox as K1 draws them (use_philox) or
+//      from an injected (ncols, R) block, each column read where it is
+//      used: the camera's (4..8, Philox calls 1 and 2) by a taken slot, the
+//      ball's and the choice (0..3, call 0) by a slot that scatters;
 //  (b) the bounce of _sp_bounce (:85-402), operation for operation: the
 //      closest hit over the spheres with that kernel's root form
 //      (s2 = b + sq < -T_MIN a ? sq : -sq; t = (b + s2) (-1/a)) and over
@@ -35,8 +37,9 @@
 // per hit on a marble surface: ~174 operations of blend a lane and octave,
 // ~59 per distinct lattice gradient), memory for the others (~62 B of pool
 // state in and out per live slot against ~30 operations per primitive and
-// ~100 for the shading).  Design: one thread per slot; the refill is two
-// launches (per-block dead counts, then this kernel), as K1's; the slot's
+// ~100 for the shading).  Design: one thread per slot and one launch, the
+// refill's rank by K1's look-back scan (the slots of a block follow its
+// scan ticket); the slot's
 // state stays in registers from the refill to the flush, and a dead slot
 // that takes no queue element reads its act byte and writes its died byte.
 // The slots of one pixel's samples sit side by side, so two pieces run with
@@ -62,8 +65,7 @@ constexpr float kTMin = 1e-3f;  // core/vecmath.py T_MIN
 struct SpArgs {
   art::RefillPlanes p;
   int R;
-  int* block_dead;
-  int nb;
+  art::Scan scan;
   long long* q;
   int parity;
   unsigned long long* hist;
@@ -142,11 +144,11 @@ __device__ Hit closest_hit(Slot& s, float aa, float inv_dlen, const SpArgs& a,
   return h;
 }
 
-// The second half for a slot that hit at p, material row m, with the
+// The second half for slot i that hit at p, material row m, with the
 // marble turbulence `turb` (read only on a marble row); returns whether it
 // survived.
 __device__ bool shade(Slot& s, const Hit& h, float p0, float p1, float p2, const float* m,
-                      float turb, float inv_dlen, const float* u) {
+                      float turb, float inv_dlen, const SpArgs& a, int i) {
   const float dx = s.dx, dy = s.dy, dz = s.dz;
   const float n0 = h.Sc * (p0 - h.A0) + h.Tn * h.A0;
   const float n1 = h.Sc * (p1 - h.A1) + h.Tn * h.A1;
@@ -171,6 +173,16 @@ __device__ bool shade(Slot& s, const Hit& h, float p0, float p1, float p2, const
   s.r1 = s.r1 + (is_light ? s.t1 * tx1 : 0.0f);
   s.r2 = s.r2 + (is_light ? s.t2 * tx2 : 0.0f);
   if (is_light) return false;
+
+  // ---- the ball's and the choice's uniforms (columns 0..3: Philox call 0,
+  // or the injected block's), drawn for a slot that scatters ----
+  float u[4];
+  if (a.use_philox) {
+    art::philox_uniforms(i, a.seed, a.tile, a.chunk, a.it, 4, 1u, u);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) u[c] = a.ublk[(size_t)c * a.R + i];
+  }
 
   // ---- shared in-ball sample (ops/shade.py:_ball_from_uniforms_p) ----
   const float z = 2.0f * u[0] - 1.0f;
@@ -261,38 +273,35 @@ __global__ void __launch_bounds__(art::kBlock, 4) sp_step_kernel(SpArgs a) {
   __shared__ float sh_sph[kMaxPrims * kSphCols];
   __shared__ float sh_quad[kMaxPrims * kQuadCols];
   __shared__ float sh_mat[kMaxPrims * kMatCols];
-  __shared__ int red[32];
-  __shared__ int warp_cnt[32];
+  __shared__ art::RankShared sh;
   for (int k = threadIdx.x; k < a.S * kSphCols; k += blockDim.x) sh_sph[k] = a.sph[k];
   for (int k = threadIdx.x; k < a.Q * kQuadCols; k += blockDim.x) sh_quad[k] = a.quads[k];
   for (int k = threadIdx.x; k < a.M * kMatCols; k += blockDim.x) sh_mat[k] = a.mats[k];
-  __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const art::RefillPlanes& p = a.p;
-  const art::Rank r = art::refill_rank(p.act, a.R, a.block_dead, a.q, a.parity, a.sc,
-                                       red, warp_cnt);
+  // scan_ticket's __syncthreads also publishes the staged tables
+  art::Rank r = art::rank_count(art::scan_ticket(a.scan, sh), p.act, a.R, a.scan, sh);
+  art::rank_resolve(r, a.scan, a.q, a.parity, a.sc, sh);
+  const int i = r.i;
   const bool act = r.was_act || r.take;
 
-  // ---- the slot's uniforms: ball 0..2, choice 3, jitter/lens/time 4..8 ----
-  float u[art::kMaxCols];
-#pragma unroll
-  for (int c = 0; c < art::kMaxCols; ++c) u[c] = 0.f;
   Slot s{};
   int pix = 0;
   Hit h{art::kBig, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float inv_dlen = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f;
   const float* m = sh_mat;
   if (act) {
-    if (a.use_philox) {
-      art::philox_uniforms(i, a.seed, a.tile, a.chunk, a.it, a.ncols, u);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 9; ++c) u[c] = a.ublk[(size_t)c * a.R + i];
-    }
-
-    // ---- the refilled state: a fresh camera ray, or the pool's ----
+    // ---- the refilled state: a fresh camera ray from the jitter, lens and
+    // time columns (4..8), or the pool's ----
     if (r.take) {
+      float u[art::kMaxCols];
+      if (a.use_philox) {
+        art::philox_uniforms(i, a.seed, a.tile, a.chunk, a.it, a.ncols,
+                             art::kCameraCall | 1u << 2, u);
+      } else {
+#pragma unroll
+        for (int c = 4; c < 9; ++c) u[c] = a.ublk[(size_t)c * a.R + i];
+      }
       const art::Ray ray = art::camera_ray(r.qq, a.sc, a.cam, u);
       s = Slot{ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, 1.f, 1.f, 1.f,
                0.f, 0.f, 0.f, 0};
@@ -321,7 +330,7 @@ __global__ void __launch_bounds__(art::kBlock, 4) sp_step_kernel(SpArgs a) {
 
   bool died = false;
   if (act) {
-    const bool survived = hit && shade(s, h, p0, p1, p2, m, turb, inv_dlen, u);
+    const bool survived = hit && shade(s, h, p0, p1, p2, m, turb, inv_dlen, a, i);
     if (survived || r.take) {
       p.ox[i] = s.ox; p.oy[i] = s.oy; p.oz[i] = s.oz;
       p.dx[i] = s.dx; p.dy[i] = s.dy; p.dz[i] = s.dz;
@@ -338,37 +347,37 @@ __global__ void __launch_bounds__(art::kBlock, 4) sp_step_kernel(SpArgs a) {
   if (r.live) a.died[i] = died;
 
   // ---- live slots this iteration, and the next queue head ----
-  art::refill_finish(act, a.block_dead, a.nb, a.q, a.parity, a.hist, a.it, r, red);
+  art::refill_finish(act, a.scan, a.q, a.parity, a.hist, a.it, a.sc, sh);
 }
 
 }  // namespace
 
 // ptrs: the refill planes (refill.cuh refill_planes: 13 f32, bounce pix i32,
 //       act u8), u (f32 (ncols, R) injected block; null with use_philox),
-//       block_dead (i32 scratch, ceil(R/256)), q (i64 x2), hist (i64, > it
+//       scan (K1's look-back scratch, refill.cu), q (i64 x2), hist (i64, > it
 //       entries), died (u8 (R,)), fb (f32 (P, 3)), lost (i32 (1,)).
+// epoch: this call's stamp of the scan words (refill.cu art_refill).
 // scal: spp, P, pix_offset, total_pixels, nx, ny.  cam: pack_camera layout.
 // bg: the solid background (3 f32).  sph (S, 6), quads (Q, 13), mats (M, 14):
 // scene/tables.py sp_rows; S + Q and M at most 16.
 extern "C" int art_sp_step(void* const* ptrs, int R, int parity, int ncols, int use_philox,
                            const long long* scal, const float* cam, unsigned seed,
-                           unsigned tile, unsigned chunk, unsigned it, const float* bg,
-                           int gradient, int max_depth, int P, const float* sph, int S,
-                           const float* quads, int Q, const float* mats, int M,
-                           void* stream) {
+                           unsigned tile, unsigned chunk, unsigned it, unsigned epoch,
+                           const float* bg, int gradient, int max_depth, int P,
+                           const float* sph, int S, const float* quads, int Q,
+                           const float* mats, int M, void* stream) {
   if (S < 0 || Q < 0 || S + Q > kMaxPrims || M < 1 || M > kMaxPrims)
     return (int)cudaErrorInvalidValue;
   SpArgs a;
   a.p = art::refill_planes(ptrs);
   a.ublk = (const float*)ptrs[16];
-  a.block_dead = (int*)ptrs[17];
+  a.scan = art::scan_of(ptrs[17], R, epoch);
   a.q = (long long*)ptrs[18];
   a.hist = (unsigned long long*)ptrs[19];
   a.died = (uint8_t*)ptrs[20];
   a.fb = (float*)ptrs[21];
   a.lost = (int*)ptrs[22];
   a.R = R;
-  a.nb = (R + art::kBlock - 1) / art::kBlock;
   a.parity = parity;
   a.sc = art::Scal{scal[0], scal[1], scal[2], scal[3], scal[4], scal[5]};
   for (int k = 0; k < 21; ++k) a.cam.v[k] = cam[k];
@@ -378,9 +387,7 @@ extern "C" int art_sp_step(void* const* ptrs, int R, int parity, int ncols, int 
   a.bg0 = bg[0]; a.bg1 = bg[1]; a.bg2 = bg[2];
   a.gradient = gradient; a.max_depth = max_depth; a.P = P;
   a.sph = sph; a.S = S; a.quads = quads; a.Q = Q; a.mats = mats; a.M = M;
-  if (a.nb == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  art::refill_count<<<a.nb, art::kBlock, 0, s>>>(a.p.act, R, a.block_dead);
-  sp_step_kernel<<<a.nb, art::kBlock, 0, s>>>(a);
+  if (a.scan.nb == 0) return 0;
+  sp_step_kernel<<<a.scan.nb, art::kBlock, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

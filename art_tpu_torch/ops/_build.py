@@ -61,22 +61,22 @@ _SIGNATURES = {
     "art_box_cluster": [_P, _P, _I, _I, ctypes.c_float, _I, ctypes.POINTER(_P), _P],
     "art_refill": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
                    ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
-                   ctypes.c_uint, ctypes.c_uint, _P],
+                   ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, _P],
     "art_refill_flush": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
                          ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
-                         ctypes.c_uint, ctypes.c_uint, _P, _I, _P, _P],
+                         ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, _P, _I, _P, _P],
     "art_flush_dead": [ctypes.POINTER(_P), _I, _P, _I, _P, _P],
     "art_shade_flush": [ctypes.POINTER(_P), _I, ctypes.POINTER(ctypes.c_float),
                         _I, _I, _I, _P],
     "art_shade_flush_baked": [ctypes.POINTER(_P), _I, _P, _I,
                               ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P],
-    "art_quad_hit": [_P, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
+    "art_quad_hit": [_P, _P, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
     "art_box_hit": [_P, _I, _I, ctypes.c_float, _I, ctypes.POINTER(_P), _P],
     "art_turb": [_P, _P, _P, _P, _P, _I, _I, _P],
     "art_sp_step": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
                     ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
-                    ctypes.c_uint, ctypes.c_uint, ctypes.POINTER(ctypes.c_float), _I, _I,
-                    _I, _P, _I, _P, _I, _P, _I, _P],
+                    ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+                    ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P, _I, _P, _I, _P, _I, _P],
     "art_flush_accumulate": [_P, _P, ctypes.POINTER(_P), _I, _P, _I, _P, _I, _P],
     "art_table_gather": [_P, _I, _P, _P, _I, _P],
     "art_box_grid": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I, ctypes.c_float,

@@ -445,14 +445,7 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
     needs_uv = bool({TexType.IMAGE, TexType.UV_OFFSET} & set(tables.tex_types_present))
     best = None  # (t, normal, u, v, mat) of the closest hit so far
     if tables.n_quads:
-        t, idx = (K.quad_closest_hit_plain if plain else K.quad_closest_hit)(
-            tables, o, d, t_min)
-        normal, alpha, beta, mat = quad_attributes_p(tables, o, d, t, idx.clamp_min(0))
-        hit = t < BIG
-        zero = torch.zeros_like(t)
-        best = (t, p_where(hit, normal, (torch.ones_like(t), zero, zero)),
-                torch.where(hit, alpha, zero), torch.where(hit, beta, zero),
-                torch.where(hit, mat, torch.zeros_like(mat)))
+        best = (K.quad_hit_attrs_plain if plain else K.quad_hit_attrs)(tables, o, d, t_min)
     r = routes.ROUTES
     if tables.n_boxes:
         if r.cluster and tables.n_box_clusters:

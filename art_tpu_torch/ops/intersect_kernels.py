@@ -38,10 +38,10 @@
   features (F, attrT) of ``scene/builder.sphere_mxu_features``, with the
   TPU kernel's 2 t_min margin, first-index argmin and one Newton step; its
   twin sums the same feature terms in the same order (no matmul).
-* K5 ``quad_closest_hit`` (``csrc/quad_hit.cu``), replacing
-  ``quad_closest_hit_planar`` (``_quad_kernel``): the closest quad's t and
-  index; ``closest_surface_p`` gets its normal and (alpha, beta) from
-  ``intersect.quad_attributes_p``.
+* K5 ``quad_hit_attrs`` (``csrc/quad_hit.cu``), replacing
+  ``quad_closest_hit_planar`` (``_quad_kernel``) together with the winner
+  attributes ``art_tpu`` computes after it (``intersect.quad_attributes_p``):
+  the closest quad's t, its ray-facing normal, (alpha, beta) and material.
 * K6 ``box_hit_attrs`` (``csrc/box_hit.cu``), replacing
   ``box_hit_attrs_planar`` (``_box_kernel``): the closest oriented box's t,
   face normal, make_box (u, v) and material.
@@ -58,7 +58,7 @@
 
 Each but K13 and K14 (which bake 1e-3, as the TPU kernels do) takes
 ``t_min`` as a run-time argument.  A miss gives ``t = BIG``,
-index -1 (K5), normal ``(1, 0, 0)``, u = v = 0 and material 0 — the values
+normal ``(1, 0, 0)``, u = v = 0 (K5: alpha = beta = 0) and material 0 — the values
 ``closest_surface_p`` blends in for misses.  Each wrapper launches its
 kernel for CUDA tensors and runs the plain twin for CPU tensors.
 """
@@ -82,6 +82,7 @@ from art_tpu_torch.ops.intersect import (
     cluster_slab,
     grid_cells,
     miss_defaults,
+    quad_attributes_p,
     quad_candidates_p,
     sphere_attributes_p,
     sphere_candidates_p,
@@ -458,29 +459,38 @@ def sphere_mxu_hit_attrs(F, attr, o, d, tm, t_min=T_MIN):
     return t, (nx, ny, nz), mat
 
 
-def quad_closest_hit_plain(tables: SceneTables, o, d, t_min=T_MIN):
-    """Plain PyTorch K5: ``quad_candidates_p`` over ``quad_rows``."""
-    return quad_candidates_p(tables, o, d, t_min)
+def quad_hit_attrs_plain(tables: SceneTables, o, d, t_min=T_MIN):
+    """Plain PyTorch K5: ``quad_candidates_p`` over ``quad_rows``, then
+    ``quad_attributes_p`` of the winner (row 0 for a miss) and the miss
+    defaults; returns (t, normal 3-tuple, alpha, beta, mat int32)."""
+    t, idx = quad_candidates_p(tables, o, d, t_min)
+    normal, alpha, beta, mat = quad_attributes_p(tables, o, d, t, idx.clamp_min(0))
+    normal, (alpha, beta, mat) = miss_defaults(t < BIG, normal, (alpha, beta, mat))
+    return t, normal, alpha, beta, mat
 
 
-def quad_closest_hit(tables: SceneTables, o, d, t_min=T_MIN):
-    """K5: (t, idx int32) from the CUDA kernel for CUDA tensors, the plain
-    twin for CPU tensors."""
+def quad_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
+    """K5: the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
     if o[0].device.type == "cpu":
-        return quad_closest_hit_plain(tables, o, d, t_min)
+        return quad_hit_attrs_plain(tables, o, d, t_min)
     dev = o[0].device
     ins = (*o, *d)
     R = ins[0].shape[0]
     _build.check_planes(_RAY, ins, R, torch.float32, dev)
     rows = _build.check_table("quad_rows", tables.quad_rows, 12, dev)
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    idx = torch.empty(R, dtype=torch.int32, device=dev)
-    ptrs = _build.pointers((*ins, t, idx))
-    rc = _build.library().art_quad_hit(rows.data_ptr(), rows.shape[0], R, float(t_min),
-                                       ptrs, _build.stream_handle(dev))
+    attrs = _build.check_table("quad_attr_packed", tables.quad_attr_packed, 16, dev)
+    if attrs.shape[0] != rows.shape[0]:
+        raise ValueError(f"quad_attr_packed has {attrs.shape[0]} rows, quad_rows "
+                         f"{rows.shape[0]}")
+    outs = tuple(torch.empty(R, dtype=torch.float32, device=dev) for _ in range(6))
+    mat = torch.empty(R, dtype=torch.int32, device=dev)
+    rc = _build.library().art_quad_hit(rows.data_ptr(), attrs.data_ptr(), rows.shape[0], R,
+                                       float(t_min), _build.pointers((*ins, *outs, mat)),
+                                       _build.stream_handle(dev))
     _build.check(rc, QUAD)
     _build.launches[QUAD] += 1
-    return t, idx
+    t, nx, ny, nz, alpha, beta = outs
+    return t, (nx, ny, nz), alpha, beta, mat
 
 
 def box_hit_attrs_plain(tables: SceneTables, o, d, t_min=T_MIN):

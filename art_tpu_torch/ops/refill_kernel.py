@@ -13,7 +13,15 @@ iteration ``it``:
 * returns the iteration's ball / choice / media uniform planes.
 
 Uniforms come either from an injected ``(ncols, R)`` block (``block=``) or
-from Philox keyed by ``key=(seed, tile, chunk)`` (``core/rng.py``).
+from Philox keyed by ``key=(seed, tile, chunk)`` (``core/rng.py``).  The
+camera's columns (4..8) feed only the slots that take a queue element;
+the kernels draw or read them there alone.
+
+The rank is one launch: a single-pass scan across the blocks by decoupled
+look-back (``csrc/refill.cuh``).  Its scratch, ``scan_scratch(pool)``,
+lives as long as the pool's ``act`` plane and is never cleared: each call
+stamps its words with a fresh ``epoch``.  ``lookback_scan_p`` is a model
+of that scan, for the tests.
 
 K12 ``fused_refill_flush`` (``csrc/refill_flush.cu``), replacing
 ``fused_refill_flush_rng`` (:523) and ``fused_refill_flush`` (:588), is the
@@ -29,7 +37,10 @@ one-hot accumulate exist for VMEM and are left out.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import NamedTuple
+
+import numpy as np
 
 import torch
 
@@ -49,6 +60,10 @@ U_BALL = slice(0, 3)
 U_CHOICE = 3
 U_JITTER0, U_JITTER1, U_LENS0, U_LENS1, U_TIME = 4, 5, 6, 7, 8
 U_MEDIA = 9  # columns 9.. are per-medium
+# the look-back words (csrc/refill.cuh Scan): epoch << 32 | status | value
+AGGREGATE, PREFIX = 1 << 30, 2 << 30
+VALUE = (1 << 30) - 1
+WINDOW = 32  # predecessors a look-back round reads: one a lane of a warp
 
 
 class RefillScal(NamedTuple):
@@ -114,6 +129,74 @@ def fused_refill_plain(pool, cam: Camera, q, parity: int, hist, it: int,
     return _split(block, 0, U_CHOICE, U_MEDIA)
 
 
+_EPOCHS = itertools.count()
+
+
+def scan_scratch(pool) -> tuple[torch.Tensor, int]:
+    """The look-back scratch of the refill kernels (K1, K11, K12) for
+    ``pool`` and a fresh epoch for one call.
+
+    The scratch, ``ceil(R / 256) + 1`` int64 words (a word a block, then
+    the ticket counter), is zeroed once, when first asked for, and kept on
+    the pool's ``act`` plane (an attribute of that tensor, so a clone of the
+    pool gets its own); the kernel leaves the counter at 0.  The epoch
+    is the next of a process-wide count (1 .. 2^32 - 1, then round again),
+    so no call's words read as another's."""
+    act = pool["act"]
+    n = -(-act.shape[0] // _build.BLOCK) + 1
+    scratch = getattr(act, "scan_scratch", None)
+    if scratch is None or scratch.shape[0] != n or scratch.device != act.device:
+        scratch = torch.zeros(n, dtype=torch.int64, device=act.device)
+        act.scan_scratch = scratch
+    return scratch, next(_EPOCHS) % 0xFFFFFFFF + 1
+
+
+def lookback_scan_p(counts, schedule, flags=None, epoch: int = 1) -> tuple:
+    """A model of the look-back scan (``csrc/refill.cuh``): the exclusive
+    prefix of ``counts`` (a block's dead slots, in ticket order) as the
+    blocks find it, and the queue-head total the last ticket writes.
+
+    ``schedule`` is a sequence of tickets, the order in which blocks take
+    their steps (cycled until every block is done): a block's first step
+    publishes its count (the first block's as its prefix), each later step
+    reads one window of ``WINDOW`` predecessors, nearest first, and sums it
+    up to its nearest prefix, or whole without one, unless a word up to
+    there is not yet this ``epoch``'s (then it reads again next step).
+    ``flags`` (int64 words, e.g. left by an earlier call) is the scratch;
+    returns (exclusive prefixes, total, flags)."""
+    counts = [int(c) for c in counts]
+    nb = len(counts)
+    flags = np.zeros(nb, np.int64) if flags is None else np.array(flags, np.int64)
+    before, state, window = [None] * nb, [0] * nb, [0] * nb
+    total, sums = None, [0] * nb
+    order = [int(b) for b in schedule]
+    while any(x is None for x in before):
+        for b in order:
+            if before[b] is not None:
+                continue
+            if state[b] == 0:
+                flags[b] = (epoch << 32) | (PREFIX if b == 0 else AGGREGATE) | counts[b]
+                state[b] = 1
+                if b == 0:
+                    before[0] = 0
+                continue
+            k = [b - 1 - window[b] * WINDOW - lane for lane in range(WINDOW)]
+            w = [int(flags[j]) if j >= 0 else (epoch << 32) | PREFIX for j in k]
+            mine = [(x >> 32) == epoch and x & (3 << 30) != 0 for x in w]
+            pre = [m and x & (3 << 30) == PREFIX for m, x in zip(mine, w)]
+            last = pre.index(True) if any(pre) else WINDOW - 1
+            if not all(mine[:last + 1]):
+                continue
+            sums[b] += sum(x & VALUE for x in w[:last + 1])
+            window[b] += 1
+            if any(pre):
+                before[b] = sums[b]
+                flags[b] = (epoch << 32) | PREFIX | (sums[b] + counts[b])
+    if nb:
+        total = before[nb - 1] + counts[nb - 1]
+    return before, total, flags
+
+
 def check_refill_args(pool, q, hist, it: int, block, ncols: int) -> None:
     """Raise unless the pool, the queue head ``q``, the live-count history
     ``hist`` and an injected ``block`` are what the refill code of the
@@ -122,6 +205,8 @@ def check_refill_args(pool, q, hist, it: int, block, ncols: int) -> None:
     R = pool["act"].shape[0]
     if not 10 <= ncols <= 16:
         raise ValueError(f"ncols={ncols}: the kernels take 1..7 media")
+    if R >= 1 << 30:
+        raise ValueError(f"R={R}: the look-back scan counts in 30 bits")
     _build.check_planes(POOL_F, [pool[n] for n in POOL_F], R, torch.float32, dev)
     _build.check_planes(POOL_I, [pool[n] for n in POOL_I], R, torch.int32, dev)
     _build.check_planes(("act",), (pool["act"],), R, torch.bool, dev)
@@ -154,13 +239,13 @@ def _launch(pool, cam: Camera, q, parity: int, hist, it: int, scal: RefillScal, 
     else:
         seed, tile, chunk = key
         u = torch.empty((ncols - 5, R), dtype=torch.float32, device=dev)
-    block_dead = torch.empty(-(-R // _build.BLOCK), dtype=torch.int32, device=dev)
+    scan, epoch = scan_scratch(pool)
     ptrs = _build.pointers([pool[n] for n in POOL_F + POOL_I]
-                           + [pool["act"], u, block_dead, q, hist])
+                           + [pool["act"], u, scan, q, hist])
     scal_c = (ctypes.c_longlong * 6)(*scal)
     cam_c = (ctypes.c_float * 21)(*pack_camera(cam).tolist())
     args = (ptrs, R, parity, ncols, int(block is None), scal_c, cam_c,
-            seed & 0xFFFFFFFF, tile & 0xFFFFFFFF, chunk & 0xFFFFFFFF, it)
+            seed & 0xFFFFFFFF, tile & 0xFFFFFFFF, chunk & 0xFFFFFFFF, it, epoch)
     lib = _build.library()
     if flush is None:
         name = NAME

@@ -234,13 +234,13 @@ def sp_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillSca
                          f"1..{MAX_SP_PRIMS} materials")
     seed, tile, chunk = key if key is not None else (0, 0, 0)
     died = torch.empty(R, dtype=torch.bool, device=dev)
-    block_dead = torch.empty(-(-R // _build.BLOCK), dtype=torch.int32, device=dev)
+    scan, epoch = rk.scan_scratch(pool)
     ptrs = _build.pointers([pool[n] for n in rk.POOL_F + rk.POOL_I]
-                           + [pool["act"], block, block_dead, q, hist, died, fb, lost])
+                           + [pool["act"], block, scan, q, hist, died, fb, lost])
     rc = _build.library().art_sp_step(
         ptrs, R, parity, ncols, int(block is None), (ctypes.c_longlong * 6)(*scal),
         (ctypes.c_float * 21)(*pack_camera(cam).tolist()), seed & 0xFFFFFFFF,
-        tile & 0xFFFFFFFF, chunk & 0xFFFFFFFF, it,
+        tile & 0xFFFFFFFF, chunk & 0xFFFFFFFF, it, epoch,
         (ctypes.c_float * 3)(*[float(c) for c in bg]), int(gradient), max_depth,
         fb.shape[0], sph.data_ptr(), sph.shape[0], quads.data_ptr(), quads.shape[0],
         mats.data_ptr(), mats.shape[0], _build.stream_handle(dev))

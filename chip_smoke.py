@@ -8,16 +8,21 @@ Phases (each runs; any failure exits non-zero without the final result):
     every kernel from ``art_tpu_torch/csrc`` (one nvcc per source, in
     parallel; timed);
  1b. the registers, local-memory spills and hot-loop instructions of K2, K9
-    (both forms), K10, K7 (its octave in each form) and K11 in the built
-    library (``scripts/sass_loops.py``);
+    (both forms), K10, K7 (its octave in each form), K11 (held to 64
+    registers), K1, K12 and K5 in the built library
+    (``scripts/sass_loops.py``);
  2. each kernel against its plain PyTorch twin on the card, with inputs and
     injected uniforms from a numpy seed, then both timed with CUDA events
     behind a device spin, beside the least time the card could take for the
     same work (bound): K1 refill, K2 sphere hit and plane-fed K3 shade+flush
     at the pool size R that ``plan_batches`` picks for bouncing_spheres
-    1200x800; K5 quad hit, K6 box hit (rotated: cornell_box; unrotated: a
-    scene of translated boxes) and baked K3 (cornell_box, and a checker
-    scene) at cornell_box 600x600's R;
+    1200x800; K5 quad hit with its winner's attributes (bit-equal to its
+    twin in all seven outputs on random rays, a cornell_box 600x600 @ 64
+    pool 20 staged iterations in and 2f's final_scene pool; timed beside
+    the PyTorch glue it replaced, with that glue's launches and those of a
+    staged cornell_box iteration), K6 box hit (rotated: cornell_box;
+    unrotated: a scene of translated boxes) and baked K3 (cornell_box, and a
+    checker scene) at cornell_box 600x600's R;
     K7 turbulence (depth 7, depth 2, with a per-lane octave mask) bit-equal
     to its twin at the hit points of perlin rays 20 iterations into a
     render (R = 2^17; camera rays) and 21 (their bounces), of a final_scene
@@ -83,6 +88,13 @@ Phases (each runs; any failure exits non-zero without the final result):
     of a ray leaving a sphere, a grazing ray, or K2's t within K14's 2 t_min
     margin) and their count held to a bar; K12's flush-only entry bit-equal to its
     twin; ``closest_surface_p`` under each switch equal to its plain record;
+    2i. the refill core's one-launch look-back scan: K1, K12 and K11 (quads)
+    against their twins on pools with 0%, 30% and 100% of the slots dead at
+    R = 2^17 and on a 2^22 + 100-slot pool (16,385 blocks, more than the
+    card holds at once), each for two consecutive calls of one dispatch on
+    one persistent scratch and then a new dispatch at it = 0, the scratch's
+    ticket back at 0 and every word its block's inclusive prefix after each
+    call; K1 timed on each dead share;
  3. the in-kernel Philox uniforms: range, mean, variance, and that they
     change across iterations and slots;
  4. renders through ``render_scene`` on the card, each with the launch
@@ -342,6 +354,7 @@ OPS_SPHERE = 25  # center at time 6, oc 3, b 5, c 6, disc 3, tests and roots 2
 # one with its baked K (K13) 18: b 6, c 7, disc 3, tests and roots 2
 OPS_STATIC = {False: 19, True: 18}
 OPS_QUAD = 44  # n.d 5, n.o 5, t 2, alpha 13, beta 13, tests 6
+OPS_QUAD_WINNER = 43  # p 6, p - q 3, two cross products 18, two dots 10, the flip 6
 OPS_BOX = {True: 54, False: 39}  # frame 15 (rotated), 3 guarded inverses 12,
 #                                   slabs 12, min/max 10, tests 5
 OPS_BOX_WINNER = 80  # the winner's face, normal and (u, v), once per hit
@@ -435,6 +448,18 @@ def _set_bound(entry: dict, nbytes: float, nops: float):
                  bound_bytes=float(nbytes), bound_ops=float(nops))
 
 
+def _refill_work(R: int, ncols: int, taken: int) -> tuple:
+    """(bytes, operations) the refill must move and do (K1; K12 adds its
+    flush): act of every slot in; the uniform rows every slot writes out
+    (ball, choice and the media: ncols - 5 floats) and the Philox calls that
+    draw them (every call of the block but the camera's, call 1); a taken
+    slot's 13 f32 planes, bounce, pix and act out (61 B), the camera's call
+    and a camera ray."""
+    calls = -(-ncols // 4) - 1
+    return (R * (1 + 4 * (ncols - 5)) + taken * 61,
+            R * calls * OPS_PHILOX + taken * (OPS_PHILOX + OPS_CAMERA))
+
+
 def _shade_bytes(state, after, n_rec_bytes: int) -> float:
     """Bytes K3 must move: act of every slot; a live slot's state (12 f32,
     bounce, pix, hit: 57 B) and hit-record planes in, its radiance and
@@ -468,7 +493,8 @@ def card_info(checks: Checks, dev):
 
 def sass_report(checks: Checks, results: dict):
     """Registers, spills and the hot loop's instructions of K2, K9 (both
-    forms), K10, K7 and K11 in the built library (``scripts/sass_loops.py``);
+    forms), K10, K7, K11, K1, K12 and K5 in the built library
+    (``scripts/sass_loops.py``);
     K7's octave: the shared form from the any-depth kernel's loop (27
     shuffles in one cell), the per-lane form from the depth-7 kernel's."""
     import importlib.util
@@ -494,7 +520,10 @@ def sass_report(checks: Checks, results: dict):
         log(f"  K7 octave: {shared['27']['fewest']}-{shared['27']['most']} instructions in "
             f"the shared form in one cell, {per_lane['fewest']}-{per_lane['most']} per lane")
     checks.expect(all("error" not in r and r.get("LOCAL", 0) == 0 for r in rep.values()),
-                  "K2, K9, K10, K7 and K11 found in the library, no local-memory spill")
+                  "K2, K9, K10, K7, K11, K1, K12 and K5 found in the library, no "
+                  "local-memory spill")
+    k11 = rep.get("sp_step_kernel", {}).get("REG", 99)
+    checks.expect(k11 <= 64, f"K11 in {k11} registers (<= 64: four blocks an SM)")
     results["_sass"] = rep
 
 
@@ -594,12 +623,8 @@ def kernel_checks(checks: Checks, dev, results: dict):
                              key=(1984, 3, 1)),
             20 if name == "ms" else 5, reset=lambda: _restore(work, base))
     results["refill"]["max_abs_err"] = k1_err
-    # Philox mode as timed: act of every slot in; 5 uniform planes out for
-    # every slot (2 Philox calls); a taken (dead) slot's 13 f32 + bounce +
-    # pix + act out (61 B), one more Philox call and a camera ray
-    taken = int((~base["act"]).sum())
-    _set_bound(results["refill"], R * (1 + 20) + taken * 61,
-               R * 2 * OPS_PHILOX + taken * (OPS_PHILOX + OPS_CAMERA))
+    # Philox mode as timed: every dead slot takes a queue element
+    _set_bound(results["refill"], *_refill_work(R, ncols, int((~base["act"]).sum())))
 
     # ---- K2: closest sphere ----
     o = (refilled["ox"], refilled["oy"], refilled["oz"])
@@ -735,16 +760,21 @@ def quad_box_checks(checks: Checks, dev, results: dict):
     """K5, K6 and baked K3 against their twins at cornell_box 600x600's R."""
     import torch
 
-    from art_tpu_torch.core.vecmath import BIG, T_MIN
+    from art_tpu_torch.core.vecmath import BIG, T_MIN, p_where
     from art_tpu_torch.models import build_scene
-    from art_tpu_torch.ops.intersect import closest_surface_p
+    from art_tpu_torch.ops.intersect import (
+        closest_surface_p,
+        quad_attributes_p,
+        quad_candidates_p,
+    )
     from art_tpu_torch.ops.intersect_kernels import (
         box_hit_attrs,
         box_hit_attrs_plain,
-        quad_closest_hit,
-        quad_closest_hit_plain,
+        quad_hit_attrs,
+        quad_hit_attrs_plain,
     )
     from art_tpu_torch.ops.shade_kernel import REC_BAKED, STATE_F, shade_flush, shade_flush_plain
+    from art_tpu_torch.render.integrator import staged_step
     from art_tpu_torch.render.renderer import RenderConfig, plan_batches
 
     rng = np.random.default_rng(SEED + 1)
@@ -760,22 +790,28 @@ def quad_box_checks(checks: Checks, dev, results: dict):
     cases = {"cornell_box": (cornell, _scene_rays(rng, R, 0.0, 555.0, dev)),
              "translated boxes": (boxes, _scene_rays(rng, R, -4.0, 4.0, dev))}
 
-    # ---- K5: closest quad ----
+    # ---- K5: closest quad and its winner's attributes, bit-equal to its
+    # twin in all seven outputs: random rays, and the pools of a cornell_box
+    # render 20 staged iterations in and of final_scene (2f's) ----
+    staged = _staged_pool(cornell, nx, ny, spp, dev, 20)
+    cp = staged["pool"]
+    c_o, c_d = (cp["ox"], cp["oy"], cp["oz"]), (cp["dx"], cp["dy"], cp["dz"])
+    f_tables, f_o, f_d, _ = _route_pools(dev)["final_scene"]
+    k5_cases = [(label, scene.tables, o, d) for label, (scene, (o, d)) in cases.items()]
+    k5_cases += [("cornell_box pool", tables, c_o, c_d), ("final_scene pool", f_tables, f_o, f_d)]
     k5_err = 0.0
-    for label, (scene, (o, d)) in cases.items():
-        for t_min in (T_MIN, 50.0 if label == "cornell_box" else 0.5):
-            kt, ki = quad_closest_hit(scene.tables, o, d, t_min)
-            pt, pi = quad_closest_hit_plain(scene.tables, o, d, t_min)
+    for label, k5_tables, o, d in k5_cases:
+        for t_min in (T_MIN, 50.0 if label.startswith("cornell_box") else 0.5):
+            k = quad_hit_attrs(k5_tables, o, d, t_min)
+            p = quad_hit_attrs_plain(k5_tables, o, d, t_min)
             torch.cuda.synchronize()
-            flips = int((ki != pi).sum())
-            same = ki == pi
-            t_err = _max_diff(kt, pt, same)
-            t_rel = float(((kt - pt).abs() / pt.abs().clamp_min(1e-30))[same].max())
-            checks.expect(flips <= budget and t_rel <= 1e-6,
-                          f"K5 {label} t_min {t_min:g}: {flips} index flips (<= {budget}), "
-                          f"{int((ki >= 0).sum())} hits, t max abs err {t_err:.3g} "
-                          f"(rel {t_rel:.3g} <= 1e-6)")
-            k5_err = max(k5_err, t_err)
+            hit = p[0] < BIG
+            bad = _attrs_differ(k, p)
+            checks.expect(bad == 0, f"K5 {label} t_min {t_min:g}: {bad} of the 7 x {R} "
+                                    f"outputs differ in bits from the twin; {int(hit.sum())} "
+                                    f"hits, {int((p[1][1][hit] < 0).sum())} normals with y < 0")
+            k5_err = max(k5_err, *(_max_diff(x, y, hit) for x, y in zip(
+                [k[0], *k[1], *k[2:]], [p[0], *p[1], *p[2:]])))
     results["quad_hit"]["max_abs_err"] = k5_err
 
     # ---- K6: closest oriented box, rotated (cornell_box) and unrotated ----
@@ -802,11 +838,36 @@ def quad_box_checks(checks: Checks, dev, results: dict):
             k6_err = max(k6_err, *errs)
     results["box_hit"]["max_abs_err"] = k6_err
 
-    o, d = cases["cornell_box"][1]
-    results["quad_hit"]["ms"] = _timed_ms(lambda: quad_closest_hit(tables, o, d), 20)
-    results["quad_hit"]["plain_ms"] = _timed_ms(lambda: quad_closest_hit_plain(tables, o, d), 5)
-    _set_bound(results["quad_hit"], R * 32 + tables.n_quads * 48,
-               R * tables.n_quads * OPS_QUAD)
+    # K5 timed on the cornell_box pool, beside the glue it replaced (the
+    # winner's attributes and the miss masking of closest_surface_p, in
+    # PyTorch, on the candidates' (t, idx)); the launches of a staged
+    # cornell_box iteration now, and with that glue
+    r5 = results["quad_hit"]
+    r5["ms"] = _timed_ms(lambda: quad_hit_attrs(tables, c_o, c_d), 20)
+    r5["plain_ms"] = _timed_ms(lambda: quad_hit_attrs_plain(tables, c_o, c_d), 5)
+    r5["ms_final_scene"] = _timed_ms(lambda: quad_hit_attrs(f_tables, f_o, f_d), 20)
+    c_t, c_idx = quad_candidates_p(tables, c_o, c_d, T_MIN)
+
+    def glue():
+        normal, alpha, beta, mat = quad_attributes_p(tables, c_o, c_d, c_t, c_idx.clamp_min(0))
+        hit = c_t < BIG
+        zero = torch.zeros_like(c_t)
+        return (p_where(hit, normal, (torch.ones_like(c_t), zero, zero)),
+                torch.where(hit, alpha, zero), torch.where(hit, beta, zero),
+                torch.where(hit, mat, torch.zeros_like(mat)))
+
+    r5["glue_ms"] = _timed_ms(glue, 20)
+    r5["glue_launches"] = _profiled_launches(glue)
+    s_args = (_clone(cp), cornell.camera, staged["q"].clone(), 0, staged["hist"].clone(), 20,
+              staged["scal"], tables, cornell.background, staged["fb"].clone(),
+              staged["lost"].clone())
+    r5["staged_cornell_launches"] = _profiled_launches(lambda: staged_step(
+        *s_args, key=(7, 0, 0), ncols=staged["ncols"], max_depth=50,
+        gradient=cornell.gradient_bg))
+    c_hits = int((c_t < BIG).sum())
+    # 6 planes in and 7 out a ray (52 B), both tables once
+    _set_bound(r5, R * 52 + tables.n_quads * (48 + 64),
+               R * tables.n_quads * OPS_QUAD + c_hits * OPS_QUAD_WINNER)
     results["box_hit"]["ms"] = _timed_ms(lambda: box_hit_attrs(tables, o, d), 20)
     results["box_hit"]["plain_ms"] = _timed_ms(lambda: box_hit_attrs_plain(tables, o, d), 5)
     hits = int((box_hit_attrs_plain(tables, o, d)[0] < BIG).sum())
@@ -879,6 +940,19 @@ def quad_box_checks(checks: Checks, dev, results: dict):
                int(state["act"].sum()) * OPS_SHADE)
     _log_kernels(results, ("quad_hit", "box_hit", "shade_flush_baked"))
     log(f"  box_hit unrotated: kernel {results['box_hit']['ms_unrotated']:.4f} ms")
+    log(f"  quad_hit on final_scene's pool {r5['ms_final_scene']:.4f} ms; the glue it "
+        f"replaced {r5['glue_ms']:.4f} ms in {r5['glue_launches']} launches; a staged "
+        f"cornell_box iteration: {r5['staged_cornell_launches']} launches (with that glue "
+        f"{r5['staged_cornell_launches'] + r5['glue_launches']})")
+
+
+def _attrs_differ(k, p) -> int:
+    """Values whose bits differ between two (t, normal, ...) results: each
+    float output by its bits (so -0 against +0 counts), the last (the
+    material) as integers."""
+    fk, fp = [k[0], *k[1], *k[2:]], [p[0], *p[1], *p[2:]]
+    return (sum(_bits_equal(x, y) for x, y in zip(fk[:-1], fp[:-1]))
+            + int((fk[-1] != fp[-1]).sum()))
 
 
 def _bits_equal(a, b) -> int:
@@ -1196,6 +1270,8 @@ def turb_sp_checks(checks: Checks, dev, results: dict):
         n_live, was = int(live.sum()), int(base["act"].sum())
         taken = n_live - was
         hit = rec.hit & live
+        mats = scene.tables.sp_mat_rows
+        scatter = hit & (mats[rec.mat.long().clamp(0, mats.shape[0] - 1), 0] != 3.0)
         kind = scene.tables.sp_mat_rows[rec.mat.long().clamp(
             0, scene.tables.sp_mat_rows.shape[0] - 1), 6]
         marble = hit & (kind == 2.0)
@@ -1205,11 +1281,13 @@ def turb_sp_checks(checks: Checks, dev, results: dict):
         # act of every slot in and died out; a slot live before the refill
         # reads its state (60 B); a live slot writes radiance, bounce and act
         # (17 B) and o, d, throughput (36 B; counted for every live slot);
-        # a taken slot tm and pix (8 B); the framebuffer adds are not counted
+        # a taken slot tm and pix (8 B); the framebuffer adds are not
+        # counted.  Philox: the ball's call for a slot that scatters (a live
+        # hit on no light), the camera's two for a taken slot
         entry = results["sp_step"] if key == "" else {}
         _set_bound(entry, R * 2 + was * 60 + n_live * (17 + 36) + taken * 8,
-                   n_live * (3 * OPS_PHILOX + prims + OPS_SP_BOUNCE) + taken * OPS_CAMERA
-                   + noise_ops)
+                   n_live * (prims + OPS_SP_BOUNCE) + int(scatter.sum()) * OPS_PHILOX
+                   + taken * (2 * OPS_PHILOX + OPS_CAMERA) + noise_ops)
         results["sp_step"].update({f"ms{key}": ms, f"plain_ms{key}": plain_ms,
                                    f"bound_ms{key}": entry["bound_ms"],
                                    f"bound_by{key}": entry["bound_by"]})
@@ -2386,12 +2464,12 @@ def slice8_checks(checks: Checks, dev, results: dict):
                                                      ncols=ncols, key=(1984, 3, 1)),
                              20, reset=reset)
     r12["max_abs_err"] = k12_err
-    # K1's bound (phase 2a) plus a dead slot's pix and radiance in (16 B)
+    # K1's work (_refill_work) plus a dead slot's pix and radiance in (16 B)
     # and radiance out (12 B), and the framebuffer's adds (12 B in, 12 out)
     taken = min(int(dead.sum()), max(0, scal.P * scal.spp - next_q))
     with_rad = int((dead & ((base["r0"] != 0) | (base["r1"] != 0) | (base["r2"] != 0))).sum())
-    _set_bound(r12, R * (1 + 20) + taken * 61 + int(dead.sum()) * 28 + with_rad * 24,
-               R * 2 * OPS_PHILOX + taken * (OPS_PHILOX + OPS_CAMERA) + with_rad * 3)
+    nbytes, nops = _refill_work(R, ncols, taken)
+    _set_bound(r12, nbytes + int(dead.sum()) * 28 + with_rad * 24, nops + with_rad * 3)
     r12.update(R=R, dead=int(dead.sum()), taken=taken, flushed=with_rad, P=P)
     rfd = results["flush_dead"]
     for key, fn in (("ms", rk.flush_dead), ("plain_ms", rk.flush_dead_plain)):
@@ -2610,6 +2688,168 @@ def slice8_checks(checks: Checks, dev, results: dict):
         checks.expect(bad == 0 and set(counts) == want,
                       f"closest_surface_p under {switches}, {name}: {bad} values differ "
                       f"from its plain record; sphere kernels launched {counts}")
+
+
+# the refill core's scan (phase 2i): K1, K12 and K11 on pools of these dead
+# shares at R = 2^17, and on a pool too large for every block to be
+# resident at once (2^22 slots and a ragged last block: 16,385 blocks)
+SCAN_DEAD = (0.0, 0.3, 1.0)
+SCAN_BIG_R = (1 << 22) + 100
+
+
+def _scan_case(checks, dev, label, kind, base, ctx, src):
+    """``kind`` (refill: K1, refill_flush: K12, sp_step: K11) and its twin
+    from ``base``, each on its own pool: two consecutive calls of one
+    dispatch (it 6, then 7 from the head the first wrote on the device),
+    then a new dispatch at it = 0 with another key (Philox) and queue head,
+    all on the kernel pool's one look-back scratch; for K1 and K12 the same
+    30% of the slots die before each later call (K11 kills its own).  After
+    each call the pools, queue head, live count and the kind's outputs must
+    agree (the framebuffer within 1e-6 relative), the scratch's ticket
+    counter be back at 0 and every block's word its inclusive prefix."""
+    import torch
+
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.ops.sp_kernel import sp_step, sp_step_plain
+
+    fns = {"refill": (rk.fused_refill, rk.fused_refill_plain),
+           "refill_flush": (rk.fused_refill_flush, rk.fused_refill_flush_plain),
+           "sp_step": (sp_step, sp_step_plain)}[kind]
+    R, P = base["act"].shape[0], ctx["P"]
+    rng = np.random.default_rng(SEED + 20)
+    sides = [dict(fn=fn, pool=_clone(base), q=torch.zeros(2, dtype=torch.int64, device=dev),
+                  hist=torch.zeros(8, dtype=torch.int64, device=dev),
+                  fb=torch.zeros((P, 3), device=dev),
+                  lost=torch.zeros(1, dtype=torch.int32, device=dev)) for fn in fns]
+    ok = True
+    for step, (it, q0) in enumerate(((6, ctx["q0"]), (7, None), (0, ctx["q0_new"]))):
+        if step and kind != "sp_step":
+            dies = torch.from_numpy(rng.random(R) < 0.3).to(dev)
+            for sd in sides:
+                sd["pool"]["act"] &= ~dies
+        call_src = dict(src)
+        if "key" in call_src and step == 2:
+            call_src["key"] = (1984, 4, 2)  # another (tile, chunk)
+        dead = ~sides[0]["pool"]["act"]
+        outs = []
+        for sd in sides:
+            if q0 is not None:
+                sd["q"].copy_(torch.tensor([q0, 0], dtype=torch.int64))
+                sd["hist"].zero_()
+            args = (sd["pool"], ctx["cam"], sd["q"], it % 2, sd["hist"], it, ctx["scal"])
+            if kind == "refill":
+                outs.append(sd["fn"](*args, ncols=ctx["ncols"], **call_src))
+            elif kind == "refill_flush":
+                outs.append(sd["fn"](*args, sd["fb"], sd["lost"], ncols=ctx["ncols"],
+                                     **call_src))
+            else:
+                scene = ctx["scene"]
+                outs.append(sd["fn"](*args, scene.tables, scene.background, sd["fb"],
+                                     sd["lost"], ncols=ctx["ncols"], max_depth=50,
+                                     gradient=scene.gradient_bg, **call_src))
+        torch.cuda.synchronize()
+        (k, p), (ko, po) = sides, outs
+        bad = sum(_bits_equal(k["pool"][n], p["pool"][n]) for n in rk.POOL_F)
+        bad += sum(int((k["pool"][n] != p["pool"][n]).sum()) for n in ("bounce", "pix", "act"))
+        if kind == "sp_step":
+            bad += int((ko != po).sum())
+        else:
+            bad += sum(_bits_equal(a, b) for a, b in zip(ko[0] + (ko[1],) + ko[2],
+                                                         po[0] + (po[1],) + po[2]))
+        fb_rel = float(((k["fb"] - p["fb"]).abs() / (p["fb"].abs() + 1e-6)).max())
+        scratch = k["pool"]["act"].scan_scratch
+        words, nb = scratch[:-1], scratch.shape[0] - 1
+        counts = torch.zeros(nb * 256, dtype=torch.int64, device=dev)
+        counts[:R] = dead.to(torch.int64)
+        prefix = torch.cumsum(counts.view(nb, 256).sum(dim=1), 0)
+        scan_ok = (int(scratch[-1]) == 0 and bool(((words >> 30) & 3 == 2).all())
+                   and torch.equal(words & ((1 << 30) - 1), prefix)
+                   and (words >> 32).unique().numel() == 1)
+        same = (bad == 0 and torch.equal(k["q"], p["q"]) and torch.equal(k["hist"], p["hist"])
+                and torch.equal(k["lost"], p["lost"]) and fb_rel <= 1e-6 and scan_ok)
+        ok &= same
+        checks.expect(same, f"{label} {kind} call {step + 1} (it {it}): {bad} values differ "
+                            f"from the twin; queue head {int(k['q'][1 - it % 2])} (twin "
+                            f"{int(p['q'][1 - it % 2])}), live {int(k['hist'][it])} "
+                            f"({int(p['hist'][it])}), framebuffer max rel err {fb_rel:.3g} "
+                            f"(<= 1e-6); scratch: ticket {int(scratch[-1])}, every word a "
+                            f"prefix {scan_ok}")
+    return ok
+
+
+def refill_scan_checks(checks: Checks, dev, results: dict):
+    """Phase 2i: K1 and K12 (bouncing_spheres 1200x800's camera and queue)
+    and K11 (quads 1200x600) against their twins by ``_scan_case`` on pools
+    of 0%, 30% and 100% dead slots at R = 2^17 (the 30% pool also with
+    injected uniforms) and a 30%-dead pool of SCAN_BIG_R slots; then K1
+    timed on each dead share, every dead slot taking a queue element."""
+    import torch
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    rng = np.random.default_rng(SEED + 21)
+    scene = build_scene("bouncing_spheres", 1200, 800)
+    tile_pixels, spp, R = plan_batches(1200 * 800, 64, scene.tables.n_spheres, RenderConfig(),
+                                       dev)
+    s = _short_setup(dev)
+
+    def ctx(kind, n):
+        if kind == "sp_step":
+            scene_, (scal, P) = s["scenes"]["quads"], (
+                (s["scal"], s["tile_pixels"]) if n == s["R"] else
+                (rk.RefillScal(64, 1200 * 600, 0, 1200 * 600, 1200, 600), 1200 * 600))
+        else:
+            scene_, (scal, P) = scene, (
+                (rk.RefillScal(spp, tile_pixels, 3 * tile_pixels, 1200 * 800, 1200, 800),
+                 tile_pixels) if n == R else
+                (rk.RefillScal(64, 1200 * 800, 0, 1200 * 800, 1200, 800), 1200 * 800))
+        n_q = scal.P * scal.spp  # the queue runs out in the first call
+        return dict(cam=scene_.camera, scene=scene_, scal=scal, P=P, ncols=10,
+                    q0=max(0, n_q - n // 2), q0_new=max(0, n_q - n // 3))
+
+    ok = True
+    for label, n, dead in ([(f"{round(100 * x)}% dead", R, x) for x in SCAN_DEAD]
+                           + [(f"{SCAN_BIG_R} slots, 30% dead", SCAN_BIG_R, 0.3)]):
+        log(f"  {label}: R = {n}, {-(-n // 256)} blocks")
+        for kind in ("refill", "refill_flush", "sp_step"):
+            c = ctx(kind, n)
+            base = _random_pool(rng, n, dev)
+            base["act"] = torch.from_numpy(rng.random(n) >= dead).to(dev)
+            for name in ("r0", "r1", "r2"):
+                base[name].abs_()
+            base["pix"].remainder_(c["P"])
+            modes = [("philox", dict(key=(1984, 3, 1)))]
+            if dead == 0.3 and n == R:
+                modes.append(("injected", dict(block=torch.from_numpy(
+                    rng.random((10, n), dtype=np.float32)).to(dev))))
+            for mode, src in modes:
+                ok &= _scan_case(checks, dev, f"{label} {mode}", kind, base, c, src)
+    results["_scan"] = dict(ok=ok, R=R, big_R=SCAN_BIG_R, dead_shares=list(SCAN_DEAD))
+
+    # ---- K1 timed on each dead share (queue head 0: every dead slot taken) ----
+    r1, c = results["refill"], ctx("refill", R)
+    for dead in SCAN_DEAD:
+        base = _random_pool(rng, R, dev)
+        base["act"] = torch.from_numpy(rng.random(R) >= dead).to(dev)
+        work = _clone(base)
+        q_t = torch.zeros(2, dtype=torch.int64, device=dev)
+        hist_t = torch.zeros(8, dtype=torch.int64, device=dev)
+
+        def reset():
+            _restore(work, base)
+            q_t.zero_()
+
+        tag = f"dead_{round(100 * dead)}"
+        r1[f"ms_{tag}"] = _timed_ms(lambda: rk.fused_refill(
+            work, c["cam"], q_t, 0, hist_t, 3, c["scal"], ncols=10, key=(1984, 3, 1)), 20,
+            reset=reset)
+        entry = {}
+        _set_bound(entry, *_refill_work(R, 10, int((~base["act"]).sum())))
+        r1[f"bound_ms_{tag}"] = entry["bound_ms"]
+        log(f"  K1 on {round(100 * dead)}% dead: {r1[f'ms_{tag}']:.4f} ms, bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
 
 
 def philox_checks(checks: Checks, dev):
@@ -2925,8 +3165,8 @@ def main() -> int:
                       "library_ms": None}
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
-    checks.phase("1b. registers, spills and hot loops of K2, K9, K10, K7, K11", sass_report,
-                 checks, results)
+    checks.phase("1b. registers, spills and hot loops of K2, K9, K10, K7, K11, K1, K12, K5",
+                 sass_report, checks, results)
     checks.phase("2a. K1, K2, K3 against their plain twins", kernel_checks, checks, dev,
                  results)
     checks.phase("2b. K5, K6, baked K3 against their plain twins", quad_box_checks,
@@ -2943,11 +3183,14 @@ def main() -> int:
                  cluster_checks, checks, dev, results)
     checks.phase("2h. K12, K13 and K14, the seam flush, the baked and the bilinear-feature "
                  "spheres, and the split's MXU tail", slice8_checks, checks, dev, results)
+    checks.phase("2i. the refill core's look-back scan: K1, K12 and K11 on 0/30/100% dead "
+                 "pools and a 2^22-slot pool, consecutive calls, a new dispatch",
+                 refill_scan_checks, checks, dev, results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     extra = {key: results.pop(f"_{key}", {}) for key in (
         "render", "renders", "compact_fetch", "noise_p", "grid", "split", "media", "cull",
-        "cluster", "slice8", "routes", "sass")}
+        "cluster", "slice8", "scan", "routes", "sass")}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
         for name, (src, rep) in KERNELS.items()], **extra, "card": smi}))

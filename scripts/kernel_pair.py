@@ -10,8 +10,12 @@ on one card (turns: parent, change, change, parent):
 The port (``art_tpu_torch``) is imported from PYTHONPATH when it is set, so
 the same script times another checkout's kernels; the pools and the timer
 are ``chip_smoke.py``'s (this checkout's).  ``--set noise`` times K7 and
-K11 alone, ``--set intersect`` the sphere and box kernels alone; the
-default, both.  Each kernel runs on the pools ``chip_smoke.py`` uses:
+K11 alone, ``--set intersect`` the sphere and box kernels alone,
+``--set refill_quad`` the refill core's three kernels and K5's block,
+``--set renders`` whole renders (RENDERS, each ``--render-reps`` times: wall
+seconds, rays and iterations from ``render_scene``'s stats); the default,
+the first two.  Each kernel runs on the pools ``chip_smoke.py``
+uses:
 
 * noise: K7 at depth 7 on phase 2c's inputs (the hit points of perlin
   1200x600 @ 64 short-path pools 20 and 21 iterations in, of the final_scene
@@ -23,7 +27,15 @@ default, both.  Each kernel runs on the pools ``chip_smoke.py`` uses:
   tail slots; K9 and K10 on the final_scene pool (K10 also on the 40x40 box
   field's pool); K9 on a 72x8 field's pool (kx + kz = 80); K2 on a
   cornell_box 600x600 pool one staged iteration in (two spheres); K15s, K16
-  and K17 on the 2f pools.
+  and K17 on the 2f pools;
+* refill_quad: K1 on bouncing_spheres 1200x800 pools (phase 2i's) with 0%,
+  30% and 100% of the slots dead, every dead slot taking a queue element;
+  K11 on phase 2c's timed steps; K12 on phase 2h's seam pool; K5's block of
+  ``closest_surface_p`` (the kernel with its winner's attributes, or in a
+  checkout from before it, the kernel and the PyTorch glue after it, timed
+  as one function) on cornell_box 600x600's pool 20 staged iterations in
+  and on final_scene's (phase 2f's); and the device launches of one staged
+  cornell_box iteration.
 
 For each: the mean device time of 20 calls (CUDA events behind a device
 spin) and the count of output values that differ from its plain twin (K11:
@@ -89,7 +101,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--set", choices=("all", "noise", "intersect"), default="all")
+    ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "renders"),
+                    default="all")
+    ap.add_argument("--render-reps", type=int, default=3)
     args = ap.parse_args()
     cs = _chip_smoke()
     import torch
@@ -114,6 +128,10 @@ def main() -> int:
         noise_cases(cs, dev, case, out["kernels"], args.reps)
     if args.set in ("all", "intersect"):
         intersect_cases(cs, dev, case)
+    if args.set == "refill_quad":
+        refill_quad_cases(cs, dev, case, out["kernels"], args.reps)
+    if args.set == "renders":
+        out["renders"] = render_cases(dev, args.render_reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     out["card"] = smi
@@ -141,6 +159,176 @@ def noise_cases(cs, dev, case, kernels, reps):
         kernels[f"K11 {name} {iters}"] = dict(
             ms=cs._sp_step_ms(s, sp_step, name, iters, reps), differ=differ,
             fb_rel=float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max()))
+
+
+# (scene, nx, ny, spp) of --set renders: the short path (K11: quads, perlin),
+# a staged quad scene (K1, K5) and bench.py's headline scene (K1)
+RENDERS = (("quads", 1200, 600, 64), ("perlin", 1200, 600, 64), ("cornell_box", 600, 600, 64),
+           ("bouncing_spheres", 1200, 800, 64))
+
+
+def render_cases(dev, reps):
+    """{scene: [{seconds, rays, iterations}] * reps} of RENDERS, after one
+    small warm-up render each (the kernels built and loaded)."""
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.render.renderer import RenderConfig, render_scene
+
+    out = {}
+    for name, nx, ny, spp in RENDERS:
+        scene = build_scene(name, nx, ny)
+        render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=1), device=dev)
+        runs = []
+        for _ in range(reps):
+            _, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
+            runs.append({k: st[k] for k in ("seconds", "rays", "iterations")})
+        out[f"{name} {nx}x{ny} @ {spp}"] = runs
+    return out
+
+
+def _quad_block(tables, o, d):
+    """closest_surface_p's quad block in this checkout's port: K5 with its
+    winner's attributes, or K5's (t, idx) and the glue after it."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG, T_MIN, p_where
+    from art_tpu_torch.ops import intersect_kernels as K
+    from art_tpu_torch.ops.intersect import quad_attributes_p
+
+    if hasattr(K, "quad_hit_attrs"):
+        return K.quad_hit_attrs(tables, o, d, T_MIN)
+    t, idx = K.quad_closest_hit(tables, o, d, T_MIN)
+    normal, alpha, beta, mat = quad_attributes_p(tables, o, d, t, idx.clamp_min(0))
+    hit = t < BIG
+    zero = torch.zeros_like(t)
+    return (t, p_where(hit, normal, (torch.ones_like(t), zero, zero)),
+            torch.where(hit, alpha, zero), torch.where(hit, beta, zero),
+            torch.where(hit, mat, torch.zeros_like(mat)))
+
+
+def _quad_reference(tables, o, d):
+    """The quad block in plain PyTorch (both checkouts have these)."""
+    from art_tpu_torch.core.vecmath import BIG, T_MIN
+    from art_tpu_torch.ops.intersect import miss_defaults, quad_attributes_p, quad_candidates_p
+
+    t, idx = quad_candidates_p(tables, o, d, T_MIN)
+    normal, alpha, beta, mat = quad_attributes_p(tables, o, d, t, idx.clamp_min(0))
+    normal, (alpha, beta, mat) = miss_defaults(t < BIG, normal, (alpha, beta, mat))
+    return t, normal, alpha, beta, mat
+
+
+def refill_quad_cases(cs, dev, case, kernels, reps):
+    """K1, K11, K12 and K5's block (module note)."""
+    import torch
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.render.integrator import staged_step
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    # ---- K1 on 0%, 30% and 100% dead ----
+    scene = build_scene("bouncing_spheres", 1200, 800)
+    tile_pixels, spp, R = plan_batches(1200 * 800, 64, scene.tables.n_spheres, RenderConfig(),
+                                       dev)
+    scal = rk.RefillScal(spp, tile_pixels, 3 * tile_pixels, 1200 * 800, 1200, 800)
+    rng = np.random.default_rng(cs.SEED + 21)
+    for dead in cs.SCAN_DEAD:
+        base = cs._random_pool(rng, R, dev)
+        base["act"] = torch.from_numpy(rng.random(R) >= dead).to(dev)
+        runs = {}
+        for fn in (rk.fused_refill, rk.fused_refill_plain):
+            pool = cs._clone(base)
+            q = torch.zeros(2, dtype=torch.int64, device=dev)
+            hist = torch.zeros(8, dtype=torch.int64, device=dev)
+            u = fn(pool, scene.camera, q, 0, hist, 3, scal, ncols=10, key=(1984, 3, 1))
+            runs[fn] = (pool, q, hist, u)
+        torch.cuda.synchronize()
+        (kp, kq, kh, ku), (pp, pq, ph, pu) = runs.values()
+        differ = sum(cs._bits_equal(kp[n], pp[n]) for n in rk.POOL_F)
+        differ += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+        differ += int((kq != pq).sum() + (kh != ph).sum())
+        differ += sum(cs._bits_equal(a, b) for a, b in zip(ku[0] + (ku[1],) + ku[2],
+                                                          pu[0] + (pu[1],) + pu[2]))
+        work = cs._clone(base)
+        q_t = torch.zeros(2, dtype=torch.int64, device=dev)
+        hist_t = torch.zeros(8, dtype=torch.int64, device=dev)
+
+        def reset():
+            cs._restore(work, base)
+            q_t.zero_()
+
+        kernels[f"K1 {round(100 * dead)}% dead"] = dict(ms=cs._timed_ms(
+            lambda: rk.fused_refill(work, scene.camera, q_t, 0, hist_t, 3, scal, ncols=10,
+                                    key=(1984, 3, 1)), reps, reset=reset), differ=differ)
+
+    # ---- K11 on phase 2c's timed steps ----
+    from art_tpu_torch.ops.sp_kernel import sp_step, sp_step_plain
+
+    s = cs._short_setup(dev)
+    for _, name, iters in cs.SP_TIMED:
+        scene_, base, src = s["scenes"][name], s["rendered"][(name, iters)], dict(key=(1984, 2, 1))
+        kp, kq, kh, kfb, kl, kd = cs._sp_run(s, sp_step, scene_, base, src)
+        pp, pq, ph, pfb, pl, pd = cs._sp_run(s, sp_step_plain, scene_, base, src)
+        differ = sum(cs._bits_equal(kp[n], pp[n]) for n in rk.POOL_F)
+        differ += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+        differ += int((kq != pq).sum() + (kh != ph).sum() + (kd != pd).sum() + (kl != pl).sum())
+        kernels[f"K11 {name} {iters}"] = dict(
+            ms=cs._sp_step_ms(s, sp_step, name, iters, reps), differ=differ,
+            fb_rel=float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max()))
+
+    # ---- K12 on phase 2h's seam pool ----
+    bouncing = build_scene("bouncing_spheres", 1200, 800).to(dev)
+    sp = cs._seam_pool(bouncing, 1200, 800, 64, dev, 20)
+    base, next_q = sp["pool"], int(sp["q"][0])
+    dead = ~base["act"]
+    for n in ("r0", "r1", "r2"):
+        extra = torch.from_numpy(np.random.default_rng(cs.SEED + 8).random(
+            sp["R"], dtype=np.float32)).to(dev)
+        base[n].copy_(torch.where(dead & (base[n] == 0), extra, base[n]))
+    runs = []
+    for fn in (rk.fused_refill_flush, rk.fused_refill_flush_plain):
+        pool, fb = cs._clone(base), sp["fb"].clone()
+        q = torch.tensor([next_q, 0], dtype=torch.int64, device=dev)
+        hist = torch.zeros(24, dtype=torch.int64, device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        fn(pool, bouncing.camera, q, 0, hist, 20, sp["scal"], fb, lost, ncols=sp["ncols"],
+           key=(1984, 3, 1))
+        runs.append((pool, q, hist, fb, lost))
+    torch.cuda.synchronize()
+    (kp, kq, kh, kfb, kl), (pp, pq, ph, pfb, pl) = runs
+    differ = sum(cs._bits_equal(kp[n], pp[n]) for n in rk.POOL_F)
+    differ += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+    differ += int((kq != pq).sum() + (kh != ph).sum() + (kl != pl).sum())
+    work, fb_t = cs._clone(base), sp["fb"].clone()
+    q_t = torch.tensor([next_q, 0], dtype=torch.int64, device=dev)
+    hist_t = torch.zeros(24, dtype=torch.int64, device=dev)
+    lost_t = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def reset12():
+        cs._restore(work, base)
+        fb_t.copy_(sp["fb"])
+        q_t[0] = next_q
+
+    kernels["K12 seam pool"] = dict(ms=cs._timed_ms(lambda: rk.fused_refill_flush(
+        work, bouncing.camera, q_t, 0, hist_t, 20, sp["scal"], fb_t, lost_t, ncols=sp["ncols"],
+        key=(1984, 3, 1)), reps, reset=reset12), differ=differ,
+        fb_rel=float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max()))
+
+    # ---- K5's block on cornell_box's and final_scene's pools ----
+    cornell = build_scene("cornell_box", 600, 600).to(dev)
+    staged = cs._staged_pool(cornell, 600, 600, 64, dev, 20)
+    cp = staged["pool"]
+    pools = {"cornell_box": (cornell.tables, (cp["ox"], cp["oy"], cp["oz"]),
+                             (cp["dx"], cp["dy"], cp["dz"])),
+             "final_scene": cs._route_pools(dev)["final_scene"][:3]}
+    for name, (tables, o, d) in pools.items():
+        case(f"K5 block {name}", lambda: _quad_block(tables, o, d),
+             lambda: _quad_reference(tables, o, d), cs._attrs_differ)
+    args = (cs._clone(cp), cornell.camera, staged["q"].clone(), 0, staged["hist"].clone(), 20,
+            staged["scal"], cornell.tables, cornell.background, staged["fb"].clone(),
+            staged["lost"].clone())
+    kernels["staged cornell_box iteration"] = dict(launches=cs._profiled_launches(
+        lambda: staged_step(*args, key=(7, 0, 0), ncols=staged["ncols"], max_depth=50,
+                            gradient=cornell.gradient_bg)))
 
 
 def intersect_cases(cs, dev, case):

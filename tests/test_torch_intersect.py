@@ -18,8 +18,8 @@ kernel body as one fused program with its own float contraction, and for
 an origin next to a surface the near root -b - sqrt(b*b - a*c) cancels, so
 its error is absolute (about ulp(b*b) / a), not relative.
 
-K5 and K6 tolerances, measured: K5's t and index equal both references
-bit for bit.  K6's hit set, material and normal equal both; its t equals
+K5 and K6 tolerances, measured: K5's t and index (its twin's candidate
+pass) equal both references bit for bit.  K6's hit set, material and normal equal both; its t equals
 the jnp pass on rotated boxes and the Pallas kernel on unrotated ones bit
 for bit.  Elsewhere t gets rtol 2e-6 and atol 1e-3 (cornell_box's room
 is 555 wide, where one ulp of a coordinate is 6e-5): the Pallas kernel in
@@ -49,12 +49,12 @@ from art_tpu.scene import materials as JM
 from art_tpu.scene import objects as JO
 from art_tpu_torch.core.vecmath import BIG, T_MIN
 from art_tpu_torch.models import build_scene as port_build_scene
-from art_tpu_torch.ops.intersect import closest_surface_p
+from art_tpu_torch.ops.intersect import closest_surface_p, quad_candidates_p
 from art_tpu_torch.ops.intersect_kernels import (
     box_hit_attrs,
     box_hit_attrs_plain,
-    quad_closest_hit,
-    quad_closest_hit_plain,
+    quad_hit_attrs,
+    quad_hit_attrs_plain,
     sphere_hit_attrs,
     sphere_hit_attrs_plain,
 )
@@ -252,11 +252,13 @@ def _quad_box_case(name, seed):
 
 @pytest.mark.parametrize("name", ["cornell_box", "unrotated_boxes"])
 def test_plain_k5_matches_art_tpu(name):
-    """K5's twin: t and index bit-equal to the Pallas kernel (interpret
-    mode) and to the jnp candidate pass (index -1 on a miss, where art_tpu's
-    argmin gives 0 and closest_surface_p clamps the kernel's -1)."""
+    """K5's twin: its candidate pass's t and index bit-equal to the Pallas
+    kernel (interpret mode) and to the jnp candidate pass (index -1 on a
+    miss, where art_tpu's argmin gives 0 and closest_surface_p clamps it),
+    and the twin's t that t."""
     jt, pt, o, d = _quad_box_case(name, 21)
-    t, idx = quad_closest_hit_plain(pt, *_port(o, d, o[0])[:2])
+    t, idx = quad_candidates_p(pt, *_port(o, d, o[0])[:2], T_MIN)
+    assert torch.equal(quad_hit_attrs_plain(pt, *_port(o, d, o[0])[:2])[0], t)
     t, idx = t.numpy(), idx.numpy()
     kt, kidx = pk.quad_closest_hit_planar(jt.quad_packed, *_jax(o, d, o[0])[:2],
                                           n_quads=jt.n_quads, interpret=True)
@@ -303,7 +305,7 @@ def test_plain_k6_matches_art_tpu(name):
 def test_k5_k6_cpu_wrappers_take_the_plain_path():
     _, pscene = _scenes("cornell_box")
     o, d, _ = _port(*_rays(3, *_SPAN["cornell_box"]))
-    for kernel, plain in ((quad_closest_hit, quad_closest_hit_plain),
+    for kernel, plain in ((quad_hit_attrs, quad_hit_attrs_plain),
                           (box_hit_attrs, box_hit_attrs_plain)):
         a, b = kernel(pscene.tables, o, d), plain(pscene.tables, o, d)
         assert torch.equal(a[0], b[0]) and torch.equal(a[-1], b[-1])
