@@ -9,7 +9,8 @@
 // |t - t_entry| <= |t - t_exit|, else its exit face; the normal faces against
 // the ray and is rotated back to world in the rotated form (plain twin:
 // ops/intersect.py box_attributes_rows, the same operations in the same
-// order); and the output of K6 and K15 (write_box_hit).  Box rows are
+// order); the output of K6 and K15 (write_box_hit); and the merge into a
+// running closest hit of K6's merge form (merge_box_hit).  Box rows are
 // [min(3) max(3) cos sin off(3) mat] (scene/tables.py box_rows).
 #pragma once
 
@@ -136,27 +137,51 @@ inline BoxPlanes box_planes(void* const* planes) {
   return p;
 }
 
-// lane i's output: t and the attributes of the winning row `b` of `rows`
-// (box_winner_attrs); a miss (b < 0) writes t = BIG, normal (1, 0, 0),
-// u = v = 0 and material 0 (the values closest_surface_p blends in for misses)
+// lane i's seven planes: t and the attributes (box_winner_attrs) of the
+// winning row r, its first 12 floats (in global or in shared memory)
 template <bool kRotated>
-__device__ __forceinline__ void write_box_hit(const BoxPlanes& p, int i,
-                                              const float* __restrict__ rows, int b,
-                                              float t, float ox, float oy, float oz,
-                                              float dx, float dy, float dz) {
-  p.t[i] = t;
-  if (b < 0) {
-    p.nx[i] = 1.f; p.ny[i] = 0.f; p.nz[i] = 0.f;
-    p.u[i] = 0.f; p.v[i] = 0.f; p.mat[i] = 0;
-    return;
-  }
-  const float* r = rows + (size_t)b * kBoxRow;
+__device__ __forceinline__ void write_box_winner(const BoxPlanes& p, int i, const float* r,
+                                                 float t, float ox, float oy, float oz,
+                                                 float dx, float dy, float dz) {
   const BoxAttrs at = box_winner_attrs<kRotated>(ox, oy, oz, dx, dy, dz, t, r[0], r[1],
                                                  r[2], r[3], r[4], r[5], r[6], r[7], r[8],
                                                  r[9], r[10]);
+  p.t[i] = t;
   p.nx[i] = at.nx; p.ny[i] = at.ny; p.nz[i] = at.nz;
   p.u[i] = at.u; p.v[i] = at.v;
   p.mat[i] = (int)r[11];
+}
+
+// lane i's output: t and the attributes of the winning row r; a miss
+// (r == nullptr) writes t = BIG, normal (1, 0, 0), u = v = 0 and material 0
+// (the values closest_surface_p blends in for misses)
+template <bool kRotated>
+__device__ __forceinline__ void write_box_hit(const BoxPlanes& p, int i, const float* r,
+                                              float t, float ox, float oy, float oz,
+                                              float dx, float dy, float dz) {
+  if (r) {
+    write_box_winner<kRotated>(p, i, r, t, ox, oy, oz, dx, dy, dz);
+    return;
+  }
+  p.t[i] = t;
+  p.nx[i] = 1.f; p.ny[i] = 0.f; p.nz[i] = 0.f;
+  p.u[i] = 0.f; p.v[i] = 0.f; p.mat[i] = 0;
+}
+
+// The merge into a running closest hit (t, normal, u, v, mat in the seven
+// planes, in and out; intersect.py _closer's semantics in one pass): the
+// scan starts at the incoming t, p.t[i], instead of BIG and keeps its
+// strict `<`, so a box wins only where it is strictly closer (an exact tie
+// keeps the incoming hit: a quad on cornell_box's floor under a box) and,
+// among boxes, the first in scene order at the minimum wins, as when the
+// scan starts at BIG.  Only a lane with a winner (r != nullptr) computes
+// its attributes and writes its planes; every other lane leaves them
+// untouched, bit for bit (a quad's (alpha, beta), signed zeros included).
+template <bool kRotated>
+__device__ __forceinline__ void merge_box_hit(const BoxPlanes& p, int i, const float* r,
+                                              float t, float ox, float oy, float oz,
+                                              float dx, float dy, float dz) {
+  if (r) write_box_winner<kRotated>(p, i, r, t, ox, oy, oz, dx, dy, dz);
 }
 
 }  // namespace art

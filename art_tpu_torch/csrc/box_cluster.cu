@@ -92,7 +92,8 @@ box_cluster_kernel(const float* __restrict__ rows, const float* __restrict__ seg
     }
   }
   if (!live) return;
-  art::write_box_hit<kRotated>(p, i, rows, best_b, best, ox, oy, oz, dx, dy, dz);
+  const float* r = best_b < 0 ? nullptr : rows + (size_t)best_b * art::kBoxRow;
+  art::write_box_hit<kRotated>(p, i, r, best, ox, oy, oz, dx, dy, dz);
 }
 
 }  // namespace

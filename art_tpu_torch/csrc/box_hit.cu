@@ -1,4 +1,5 @@
-// K6 — closest oriented-box hit with winner attributes, one thread per ray.
+// K6 — closest oriented-box hit with winner attributes, one thread per ray,
+// alone or merged into the running closest hit.
 //
 // Replaces art_tpu/ops/pallas_kernels.py:box_hit_attrs_planar (:2139;
 // _box_kernel:1943, _box_write_winner_attrs:2053).  Box rows are
@@ -24,11 +25,23 @@
 // operations in the same order; the twin always applies the rotation, which
 // for an unrotated box (cos 1, sin 0) changes at most the sign of a zero.
 //
-// Bound on the H100: at B = 2 (cornell_box) memory — 6 planes in and 7 out
-// per ray, 52 B, 6.8 MB at R = 2^17 — against ~40 flops per (ray, box).
+// The merge form (kMerge) takes the running closest hit of the kinds before
+// the boxes (K5's quads: t, normal, u, v, mat) in the seven planes and
+// updates it in place (box_attrs.cuh merge_box_hit): the scan starts at the
+// incoming t, and only a lane where a box is strictly closer computes the
+// winner's attributes and writes.  It is _closer(best, K6) in one launch,
+// bit for bit (plain twin: ops/intersect_kernels.py
+// box_hit_attrs_merge_plain); art_tpu merges after its kernel in jnp
+// (art_tpu/ops/intersect.py:593-595, 726-740).
+//
+// Bound on the H100: memory.  The plain form at B = 2 (cornell_box): 6
+// planes in and 7 out per ray, 52 B, 6.8 MB at R = 2^17, against ~54
+// operations per (ray, box).  The merge form: 6 ray planes and the incoming
+// t in per ray (28 B), 28 B out per lane a box wins.
 // Design: box rows staged through shared memory in tiles of kTile rows, read
-// as broadcasts; the scan carries only (t, index) and the winner's row is
-// re-read from global memory (48 B, cached) for its attributes.
+// as broadcasts; the scan carries only (t, index), and the winner's row is
+// read from the last tile staged, still in shared memory (every row when
+// B <= kTile), else from global memory (48 B, cached).
 
 #include "box_attrs.cuh"
 
@@ -36,7 +49,7 @@ namespace {
 
 constexpr int kTile = 512;
 
-template <bool kRotated>
+template <bool kRotated, bool kMerge>
 __global__ void __launch_bounds__(art::kBlock)
 box_hit_kernel(const float* __restrict__ rows, int B, int R, float t_min,
                art::BoxPlanes p) {
@@ -48,9 +61,11 @@ box_hit_kernel(const float* __restrict__ rows, int B, int R, float t_min,
   const float dx = live ? p.dx[i] : 0.f, dy = live ? p.dy[i] : 0.f,
               dz = live ? p.dz[i] : 1.f;
 
-  float best = art::kBig;
+  float best = kMerge && live ? p.t[i] : art::kBig;
   int best_b = -1;
-  for (int base = 0; base < B; base += kTile) {
+  int base = 0;  // the first row of the tile in shared memory
+  for (int next = 0; next < B; next += kTile) {
+    base = next;
     const int n = min(kTile, B - base);
     __syncthreads();
     for (int k = threadIdx.x; k < n * art::kBoxRow; k += blockDim.x)
@@ -66,23 +81,36 @@ box_hit_kernel(const float* __restrict__ rows, int B, int R, float t_min,
     }
   }
   if (!live) return;
-  art::write_box_hit<kRotated>(p, i, rows, best_b, best, ox, oy, oz, dx, dy, dz);
+  const float* r = best_b < 0 ? nullptr
+                   : best_b >= base ? sh + (best_b - base) * art::kBoxRow
+                                    : rows + (size_t)best_b * art::kBoxRow;
+  if (kMerge)
+    art::merge_box_hit<kRotated>(p, i, r, best, ox, oy, oz, dx, dy, dz);
+  else
+    art::write_box_hit<kRotated>(p, i, r, best, ox, oy, oz, dx, dy, dz);
+}
+
+template <bool kMerge>
+void launch(const float* rows, int B, int R, float t_min, int rotated,
+            const art::BoxPlanes& p, cudaStream_t stream) {
+  const int grid = (R + art::kBlock - 1) / art::kBlock;
+  if (grid == 0) return;
+  if (rotated)
+    box_hit_kernel<true, kMerge><<<grid, art::kBlock, 0, stream>>>(rows, B, R, t_min, p);
+  else
+    box_hit_kernel<false, kMerge><<<grid, art::kBlock, 0, stream>>>(rows, B, R, t_min, p);
 }
 
 }  // namespace
 
-// planes: ox oy oz dx dy dz (in), t nx ny nz u v (f32) mat (i32) (out); all (R,)
+// planes: ox oy oz dx dy dz (in), t nx ny nz u v (f32) mat (i32) (out; with
+// merge, in and out: the running closest hit); all (R,)
 extern "C" int art_box_hit(const float* rows, int B, int R, float t_min, int rotated,
-                           void* const* planes, void* stream) {
+                           int merge, void* const* planes, void* stream) {
   const art::BoxPlanes p = art::box_planes(planes);
-  const int grid = (R + art::kBlock - 1) / art::kBlock;
-  if (grid > 0) {
-    if (rotated)
-      box_hit_kernel<true><<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
-          rows, B, R, t_min, p);
-    else
-      box_hit_kernel<false><<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
-          rows, B, R, t_min, p);
-  }
+  if (merge)
+    launch<true>(rows, B, R, t_min, rotated, p, (cudaStream_t)stream);
+  else
+    launch<false>(rows, B, R, t_min, rotated, p, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -51,6 +51,7 @@
 // 64 slots of a pixel die together).
 
 #include "common.cuh"
+#include "flush_warp.cuh"
 #include "perlin.cuh"
 #include "refill.cuh"
 
@@ -236,38 +237,6 @@ __device__ bool shade(Slot& s, const Hit& h, float p0, float p1, float p2, const
   return true;
 }
 
-// fb[pix] += (r0, r1, r2) for the lanes with `flush`, one atomicAdd a channel
-// per pixel of the warp: a pixel's lanes are summed pairwise in lane order
-// (after step k each lane holds the sum of its own and the next 2^k - 1
-// lanes of its pixel, so the lowest holds the pixel's), then its lowest lane
-// adds.  Every lane of the warp calls it, converged (ops/sp_kernel.py
-// flush_warp_p models the order).
-__device__ __forceinline__ void flush_warp(bool flush, int pix, float r0, float r1, float r2,
-                                           float* fb) {
-  const unsigned fm = __ballot_sync(art::kFullWarp, flush);
-  if (!fm) return;
-  const int lane = threadIdx.x & 31;
-  const unsigned same = __match_any_sync(art::kFullWarp, pix) & fm;
-  int next = flush ? __ffs(same & (0xfffffffeu << lane)) - 1 : -1;  // -1: none above
-  const unsigned most = __reduce_max_sync(art::kFullWarp, flush ? __popc(same) : 0u);
-  for (unsigned span = 1; span < most; span <<= 1) {
-    const int src = next >= 0 ? next : lane;
-    const float a0 = __shfl_sync(art::kFullWarp, r0, src);
-    const float a1 = __shfl_sync(art::kFullWarp, r1, src);
-    const float a2 = __shfl_sync(art::kFullWarp, r2, src);
-    const int further = __shfl_sync(art::kFullWarp, next, src);
-    if (next >= 0) {
-      r0 = r0 + a0; r1 = r1 + a1; r2 = r2 + a2;
-      next = further;
-    }
-  }
-  if (flush && __ffs(same) - 1 == lane) {
-    atomicAdd(fb + 3 * (size_t)pix + 0, r0);
-    atomicAdd(fb + 3 * (size_t)pix + 1, r1);
-    atomicAdd(fb + 3 * (size_t)pix + 2, r2);
-  }
-}
-
 // at most 64 registers, so four blocks (32 warps) fit on an SM
 __global__ void __launch_bounds__(art::kBlock, 4) sp_step_kernel(SpArgs a) {
   __shared__ float sh_sph[kMaxPrims * kSphCols];
@@ -343,7 +312,7 @@ __global__ void __launch_bounds__(art::kBlock, 4) sp_step_kernel(SpArgs a) {
     if (died && (pix < 0 || pix >= a.P)) atomicAdd(a.lost, 1);
   }
   // ---- flush the radiance of the slots that died inside the tile ----
-  flush_warp(died && pix >= 0 && pix < a.P, pix, s.r0, s.r1, s.r2, a.fb);
+  art::flush_warp(died && pix >= 0 && pix < a.P, pix, s.r0, s.r1, s.r2, a.fb);
   if (r.live) a.died[i] = died;
 
   // ---- live slots this iteration, and the next queue head ----

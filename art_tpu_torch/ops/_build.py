@@ -71,7 +71,7 @@ _SIGNATURES = {
     "art_shade_flush_baked": [ctypes.POINTER(_P), _I, _P, _I,
                               ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P],
     "art_quad_hit": [_P, _P, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
-    "art_box_hit": [_P, _I, _I, ctypes.c_float, _I, ctypes.POINTER(_P), _P],
+    "art_box_hit": [_P, _I, _I, ctypes.c_float, _I, _I, ctypes.POINTER(_P), _P],
     "art_turb": [_P, _P, _P, _P, _P, _I, _I, _P],
     "art_sp_step": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
                     ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,

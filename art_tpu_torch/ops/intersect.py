@@ -417,7 +417,9 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
     routes (``intersect.py:540-709``) under the switches of
     ``ops/routes.py``: boxes go to K15's box clusters (``ART_TPU_CLUSTER``,
     where the builder made them), else, on a detected grid, to K9 when the
-    builder set ``box_grid_cells``, else to K10, other boxes to K6.  Spheres
+    builder set ``box_grid_cells``, else to K10, other boxes to K6 — after
+    quads in its merge form, which updates the quads' hit in place (the
+    same values as ``_closer``).  Spheres
     go, in ``art_tpu``'s order of precedence (``intersect.py:654-708``): to
     the per-ray BVH descent (``ART_TPU_BVH``, plain PyTorch on every device
     as in ``art_tpu``, the winner's attributes from
@@ -450,14 +452,20 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min, *, plain=False) ->
     if tables.n_boxes:
         if r.cluster and tables.n_box_clusters:
             box = K.box_cluster_hit_attrs_plain if plain else K.box_cluster_hit_attrs
+        elif not tables.box_grid_kx and best is not None:
+            box = None  # K6's merge form: one launch updates the quads' hit in place
         elif not tables.box_grid_kx:
             box = K.box_hit_attrs_plain if plain else K.box_hit_attrs
         elif tables.box_grid_cell_rows is not None:
             box = K.box_grid_cells_hit_attrs_plain if plain else K.box_grid_cells_hit_attrs
         else:
             box = K.box_grid_hit_attrs_plain if plain else K.box_grid_hit_attrs
-        cand = box(tables, o, d, t_min)
-        best = cand if best is None else _closer(best, cand)
+        if box is None:
+            best = (K.box_hit_attrs_merge_plain if plain else K.box_hit_attrs_merge)(
+                tables, o, d, best, t_min)
+        else:
+            cand = box(tables, o, d, t_min)
+            best = cand if best is None else _closer(best, cand)
     if tables.n_spheres:
         cellbin = tables.sph_cellbin_meta is not None
         skip = r.sph_skip and tables.sph_skip_bins is not None

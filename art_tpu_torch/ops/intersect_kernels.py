@@ -44,7 +44,10 @@
   the closest quad's t, its ray-facing normal, (alpha, beta) and material.
 * K6 ``box_hit_attrs`` (``csrc/box_hit.cu``), replacing
   ``box_hit_attrs_planar`` (``_box_kernel``): the closest oriented box's t,
-  face normal, make_box (u, v) and material.
+  face normal, make_box (u, v) and material; its merge form
+  ``box_hit_attrs_merge`` updates a running closest hit (the quads') in
+  place where a box is strictly closer, the merge ``art_tpu`` makes in jnp
+  after its kernel (``intersect.py:593-595, 726-740``).
 * K10 ``box_grid_hit_attrs`` and K9 ``box_grid_cells_hit_attrs``
   (``csrc/box_grid.cu``), replacing ``box_grid_hit_attrs`` (``:2297``) and
   ``box_grid_static_hit_attrs`` (``:2435``): K6's outputs over a regular
@@ -79,6 +82,7 @@ from art_tpu_torch.ops.intersect import (
     box_attributes_rows,
     box_candidates_rows,
     box_grid_candidates_p,
+    _closer,
     cluster_slab,
     grid_cells,
     miss_defaults,
@@ -99,6 +103,7 @@ MXU = "sphere_mxu"  # K14
 BOX_CLUSTER = "box_cluster"  # K15, boxes
 QUAD = "quad_hit"
 BOX = "box_hit"
+BOX_MERGE = "box_hit_merge"  # K6's merge form
 GRID = "box_grid"  # K10
 GRID_CELLS = "box_grid_cells"  # K9
 _RAY = ("ox", "oy", "oz", "dx", "dy", "dz")
@@ -508,18 +513,49 @@ def box_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
     tensors."""
     if o[0].device.type == "cpu":
         return box_hit_attrs_plain(tables, o, d, t_min)
+    outs = _box_outputs(o[0].shape[0], o[0].device)
+    _box_launch(tables, o, d, t_min, outs, BOX)
+    t, nx, ny, nz, u, v, mat = outs
+    return t, (nx, ny, nz), u, v, mat
+
+
+def box_hit_attrs_merge_plain(tables: SceneTables, o, d, best, t_min=T_MIN):
+    """Plain PyTorch K6 merge form: ``_closer(best, box_hit_attrs_plain(...))``,
+    the boxes' hit where it is strictly closer than ``best`` (t, normal,
+    u, v, mat), which keeps exact ties; ``best`` is not changed."""
+    return _closer(best, box_hit_attrs_plain(tables, o, d, t_min))
+
+
+def box_hit_attrs_merge(tables: SceneTables, o, d, best, t_min=T_MIN):
+    """K6's merge form: for CUDA tensors the kernel updates ``best``'s
+    planes in place (the caller's own: ``closest_surface_p`` hands it K5's
+    fresh outputs) and returns ``best``; for CPU tensors the plain twin,
+    which returns new tensors."""
+    if o[0].device.type == "cpu":
+        return box_hit_attrs_merge_plain(tables, o, d, best, t_min)
+    t, (nx, ny, nz), u, v, mat = best
+    planes = (t, nx, ny, nz, u, v)
+    _build.check_planes(("t", "nx", "ny", "nz", "u", "v"), planes, o[0].shape[0],
+                        torch.float32, o[0].device)
+    _build.check_planes(("mat",), (mat,), o[0].shape[0], torch.int32, o[0].device)
+    _box_launch(tables, o, d, t_min, (*planes, mat), BOX_MERGE)
+    return best
+
+
+def _box_launch(tables: SceneTables, o, d, t_min, outs, name):
+    """``art_box_hit`` into the seven planes ``outs``; ``name`` (BOX or
+    BOX_MERGE) picks the form and the launch count."""
     dev = o[0].device
     ins = (*o, *d)
     R = ins[0].shape[0]
     _build.check_planes(_RAY, ins, R, torch.float32, dev)
     rows = _build.check_table("box_rows", tables.box_rows, 12, dev)
-    t, nx, ny, nz, u, v, mat = outs = _box_outputs(R, dev)
     rc = _build.library().art_box_hit(rows.data_ptr(), rows.shape[0], R, float(t_min),
-                                      int(tables.has_rotated_boxes), _build.pointers(ins + outs),
+                                      int(tables.has_rotated_boxes), int(name == BOX_MERGE),
+                                      _build.pointers(ins + tuple(outs)),
                                       _build.stream_handle(dev))
-    _build.check(rc, BOX)
-    _build.launches[BOX] += 1
-    return t, (nx, ny, nz), u, v, mat
+    _build.check(rc, name)
+    _build.launches[name] += 1
 
 
 def _box_outputs(R: int, dev):

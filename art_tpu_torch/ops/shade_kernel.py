@@ -19,7 +19,9 @@ call, for every slot of the pool:
   by absorption or at ``max_depth``;
 * ``fb[pix] += radiance`` in float32 for every slot that died; a dying
   slot whose ``pix`` lies outside ``[0, P)`` adds nothing and counts into
-  ``lost`` (a (1,) int32 tensor), which the caller checks.
+  ``lost`` (a (1,) int32 tensor), which the caller checks.  The kernel sums
+  a warp's deaths of one pixel before it adds (``csrc/flush_warp.cuh``,
+  shared with K11; ``sp_kernel.flush_warp_p`` models its order).
 
 The pool is updated in place and ``fb`` (P, 3) accumulates in place.  The
 plain twin is ``ops/shade.py:bounce_p`` (``art_tpu``'s ``_bounce_step``

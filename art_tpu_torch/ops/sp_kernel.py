@@ -16,7 +16,8 @@ the small static scenes of the short-path gate (``tables.sp_consts``,
   material by the winner's id, emission and scatter, the death rule;
 * ``fb[pix] += radiance`` in float32 for every slot that died, a pixel
   outside ``[0, P)`` counted into ``lost``; the kernel sums a warp's deaths
-  of one pixel before it adds (``flush_warp_p`` models its order).
+  of one pixel before it adds (``csrc/flush_warp.cuh``, shared with K3;
+  ``flush_warp_p`` models its order, ``flush_census`` counts its adds).
 
 The pool is updated in place; the call returns ``died`` (R,) bool.  The
 plain twin ``sp_step_plain`` is ``refill_kernel.fused_refill_plain``, then
@@ -184,19 +185,30 @@ def sp_step_plain(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Ref
     return died
 
 
-def flush_warp_p(pix, died, rad, fb, lost):
-    """``flush_plain`` in the kernel's order (``csrc/sp_step.cu
-    flush_warp``), for tests: per warp of 32 consecutive slots, the deaths of
-    one pixel inside ``[0, P)`` are summed pairwise in slot order (after
-    step k a slot holds the sum of itself and the next 2^k - 1 slots of its
-    pixel), and the pixel's lowest slot adds the sum; a pixel outside counts
-    into ``lost``."""
-    inside = died & (pix >= 0) & (pix < fb.shape[0])
-    lost += (died & ~inside).sum().to(torch.int32)
+def _warp_groups(pix, died, P: int):
+    """Per warp of 32 consecutive slots (W, 32): each slot's pixel, whether
+    it flushes (it died on a pixel inside ``[0, P)``), the (W, 32, 32) mask
+    of flushing slots on the same pixel, and the pixel's lowest flushing
+    slot (the one that adds in ``flush_warp``)."""
+    inside = died & (pix >= 0) & (pix < P)
     key, flush = by_warp(pix), by_warp(inside, False)
-    vals = by_warp(torch.stack(rad, dim=1))
     lane = torch.arange(WARP, device=pix.device)
     same = (key[:, :, None] == key[:, None, :]) & flush[:, :, None] & flush[:, None, :]
+    lowest = flush & (same.to(torch.int32).argmax(dim=-1) == lane)
+    return key, flush, same, lowest
+
+
+def flush_warp_p(pix, died, rad, fb, lost):
+    """``flush_plain`` in the kernels' order (``csrc/flush_warp.cuh
+    flush_warp``, the flush of K11 and K3), for tests: per warp of 32
+    consecutive slots, the deaths of one pixel inside ``[0, P)`` are summed
+    pairwise in slot order (after step k a slot holds the sum of itself and
+    the next 2^k - 1 slots of its pixel), and the pixel's lowest slot adds
+    the sum; a pixel outside counts into ``lost``."""
+    lost += (died & ~((pix >= 0) & (pix < fb.shape[0]))).sum().to(torch.int32)
+    key, flush, same, lowest = _warp_groups(pix, died, fb.shape[0])
+    vals = by_warp(torch.stack(rad, dim=1))
+    lane = torch.arange(WARP, device=pix.device)
     above = same & (lane[None, None, :] > lane[None, :, None])
     nxt = torch.where(above.any(dim=-1), above.to(torch.int32).argmax(dim=-1), -1)
     span = 1
@@ -206,8 +218,18 @@ def flush_warp_p(pix, died, rad, fb, lost):
         vals = torch.where(on, vals + vals.gather(1, src[..., None].expand(-1, -1, 3)), vals)
         nxt = torch.where(nxt >= 0, nxt.gather(1, src), nxt)
         span *= 2
-    lowest = flush & (same.to(torch.int32).argmax(dim=-1) == lane)
     fb.index_add_(0, key[lowest].to(torch.int64), vals[lowest])
+
+
+def flush_census(pix, died, P: int) -> tuple:
+    """How much ``flush_warp`` saves on a pool: (the deaths on pixels inside
+    ``[0, P)``, a float32 atomicAdd a channel each in a per-slot flush; the
+    pixels they fall on counted once a warp, an add a channel each in
+    ``flush_warp``; the deaths whose pixel another death of their warp
+    shares), summed over the warps of 32 consecutive slots."""
+    _, flush, same, lowest = _warp_groups(pix, died, P)
+    return (int(flush.sum()), int(lowest.sum()),
+            int((flush & (same.sum(dim=-1) > 1)).sum()))
 
 
 def sp_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillScal,

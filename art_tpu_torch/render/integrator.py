@@ -235,15 +235,17 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
     surf = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
     rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=pool["tm"])
     consts = tables.shade_rows  # None: plane-fed K3
-    # the lanes whose texture value K3 reads: the image fetch skips the rest
-    valid = rec.hit & pool["act"]
+    specials = consts is not None and tables.shade_consts[1]
+    # the lanes whose texture value K3 reads (the image fetch and the
+    # special leaves skip the rest): only plane-fed shading and special
+    # leaves take them
+    valid = rec.hit & pool["act"] if consts is None or specials else None
     if consts is None:
         mtype, fuzz, refidx, malb, texv = shade_params_p(tables, rec, valid, plain=plain)
         planes = dict(zip(REC_F, (
             *rec.p, *rec.normal, mtype, fuzz, refidx, *malb, *texv, *u_ball, u_choice)))
     else:
         planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u_ball, u_choice)))
-        specials = tables.shade_consts[1]
         if specials:
             planes.update(zip(REC_SP, eval_special_p(
                 tables, specials, rec.mat, rec.u, rec.v, rec.p, valid=valid, plain=plain)))

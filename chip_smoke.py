@@ -9,20 +9,27 @@ Phases (each runs; any failure exits non-zero without the final result):
     parallel; timed);
  1b. the registers, local-memory spills and hot-loop instructions of K2, K9
     (both forms), K10, K7 (its octave in each form), K11 (held to 64
-    registers), K1, K12 and K5 in the built library
-    (``scripts/sass_loops.py``);
+    registers), K1, K12, K5, K6 (both forms) and K3 (both modes) in the
+    built library (``scripts/sass_loops.py``);
  2. each kernel against its plain PyTorch twin on the card, with inputs and
     injected uniforms from a numpy seed, then both timed with CUDA events
     behind a device spin, beside the least time the card could take for the
     same work (bound): K1 refill, K2 sphere hit and plane-fed K3 shade+flush
     at the pool size R that ``plan_batches`` picks for bouncing_spheres
-    1200x800; K5 quad hit with its winner's attributes (bit-equal to its
-    twin in all seven outputs on random rays, a cornell_box 600x600 @ 64
-    pool 20 staged iterations in and 2f's final_scene pool; timed beside
-    the PyTorch glue it replaced, with that glue's launches and those of a
-    staged cornell_box iteration), K6 box hit (rotated: cornell_box;
-    unrotated: a scene of translated boxes) and baked K3 (cornell_box, and a
-    checker scene) at cornell_box 600x600's R;
+    1200x800 (K3 also with the pool's samples side by side, and on a
+    bouncing_spheres render's pool 20 staged iterations in); K5 quad hit
+    with its winner's attributes (bit-equal to its twin in all seven
+    outputs on random rays, a cornell_box 600x600 @ 64 pool 20 staged
+    iterations in and 2f's final_scene pool; timed beside the PyTorch glue
+    it replaced, with that glue's launches and those of a staged
+    cornell_box iteration), K6 box hit (rotated: cornell_box; unrotated: a
+    scene of translated boxes) in its plain form and in its merge form
+    (bit-equal to K6 plus ``_closer`` in all seven outputs, timed beside
+    them on the staged pool), and baked K3 (cornell_box's staged pool, a
+    random cornell_box pool, also with its samples side by side, and a
+    checker scene) at cornell_box 600x600's R, every K3 bit-equal to its
+    twin in its state, its framebuffer within 1e-6 of ``flush_warp_p``'s
+    order, with the share of a warp's deaths that share a pixel;
     K7 turbulence (depth 7, depth 2, with a per-lane octave mask) bit-equal
     to its twin at the hit points of perlin rays 20 iterations into a
     render (R = 2^17; camera rays) and 21 (their bounces), of a final_scene
@@ -100,8 +107,9 @@ Phases (each runs; any failure exits non-zero without the final result):
  4. renders through ``render_scene`` on the card, each with the launch
     counts set to 0 just before it and read just after:
     three_spheres 400x225 @ 16 (baked K3), bouncing_spheres 1200x800 @ 64
-    (K1, K2, plane-fed K3) and cornell_box 600x600 @ 64 (K1, K5, K6, K2,
-    baked K3); then the short path (K11 alone): quads and perlin 1200x600
+    (K1, K2, plane-fed K3), cornell_box 600x600 @ 64 (K1, K5, K6's merge
+    form, K2, baked K3) and boxes with no quad, 320x320 @ 16 (K6's plain
+    form); then the short path (K11 alone): quads and perlin 1200x600
     @ 64, checkered_spheres and simple_light_book 1200x600 @ 16, and perlin
     1200x600 @ 64 staged (K1, K2, K7, baked K3 with its noise planes), which
     must agree statistically with the short-path image; then the image
@@ -153,11 +161,14 @@ import traceback
 import numpy as np
 
 SEED = 2026
+N_OUT = 8  # live slots at their last bounce with a pixel outside the tile
 SPIN_CYCLES = 40_000_000  # ~20 ms of device spin: longer than any call's host enqueue
 # (scene, nx, ny, spp) of the renders
 CORNELL = ("cornell_box", 600, 600, 64)
 BOUNCING = ("bouncing_spheres", 1200, 800, 64)
 THREE = ("three_spheres", 400, 225, 16)
+# _box_scene without its floor: boxes and a sphere, no quad
+BOXES_ALONE = ("boxes alone", 320, 320, 16)
 # the big-scene slice's paths: (label, scene, nx, ny, spp, renders); the
 # first is its main path (rendered ten times more in ROUTE_RUNS' default
 # turns); "box field" is the 40x40 field of _box_field (1600 boxes, so no K9
@@ -202,6 +213,9 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                           "art_tpu/ops/shade_kernel.py:331"),
     "quad_hit": ("art_tpu_torch/csrc/quad_hit.cu", "art_tpu/ops/pallas_kernels.py:1890"),
     "box_hit": ("art_tpu_torch/csrc/box_hit.cu", "art_tpu/ops/pallas_kernels.py:2139"),
+    # K6's merge form, after the quads (with art_tpu's jnp merge,
+    # art_tpu/ops/intersect.py:593-595, 726-740)
+    "box_hit_merge": ("art_tpu_torch/csrc/box_hit.cu", "art_tpu/ops/pallas_kernels.py:2139"),
     "turb": ("art_tpu_torch/csrc/turb.cu", "art_tpu/ops/perlin_kernel.py:113"),
     "sp_step": ("art_tpu_torch/csrc/sp_step.cu", "art_tpu/ops/sp_kernel.py:571"),
     "flush_accumulate": ("art_tpu_torch/csrc/flush_accumulate.cu",
@@ -232,8 +246,10 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
 # a render may launch no kernel of KERNELS outside its own list
 PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          "bouncing_spheres": ("refill", "sphere_hit", "shade_flush"),
-         "cornell_box": ("refill", "quad_hit", "box_hit", "sphere_hit",
+         "cornell_box": ("refill", "quad_hit", "box_hit_merge", "sphere_hit",
                          "shade_flush_baked"),
+         # boxes with no quad before them: K6's plain form
+         "boxes alone": ("refill", "box_hit", "sphere_hit", "shade_flush_baked"),
          "perlin": ("sp_step",), "quads": ("sp_step",), "checkered_spheres": ("sp_step",),
          "simple_light_book": ("sp_step",),
          "perlin staged": ("refill", "sphere_hit", "turb", "shade_flush_baked"),
@@ -284,7 +300,7 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          # once a tile, K13 or K14 in place of K2, and K2 with K14 in the
          # split's MXU-tail dense branch
          "bouncing_spheres seam": ("refill_flush", "flush_dead", "sphere_hit"),
-         "cornell_box seam": ("refill_flush", "flush_dead", "quad_hit", "box_hit",
+         "cornell_box seam": ("refill_flush", "flush_dead", "quad_hit", "box_hit_merge",
                               "sphere_hit"),
          "bouncing_spheres static": ("refill", "sphere_static", "shade_flush"),
          "bouncing_spheres mxu": ("refill", "sphere_mxu", "shade_flush"),
@@ -493,8 +509,8 @@ def card_info(checks: Checks, dev):
 
 def sass_report(checks: Checks, results: dict):
     """Registers, spills and the hot loop's instructions of K2, K9 (both
-    forms), K10, K7, K11, K1, K12 and K5 in the built library
-    (``scripts/sass_loops.py``);
+    forms), K10, K7, K11, K1, K12, K5, K6 (rotated, both forms) and K3 (both
+    modes) in the built library (``scripts/sass_loops.py``);
     K7's octave: the shared form from the any-depth kernel's loop (27
     shuffles in one cell), the per-lane form from the depth-7 kernel's."""
     import importlib.util
@@ -520,7 +536,7 @@ def sass_report(checks: Checks, results: dict):
         log(f"  K7 octave: {shared['27']['fewest']}-{shared['27']['most']} instructions in "
             f"the shared form in one cell, {per_lane['fewest']}-{per_lane['most']} per lane")
     checks.expect(all("error" not in r and r.get("LOCAL", 0) == 0 for r in rep.values()),
-                  "K2, K9, K10, K7, K11, K1, K12 and K5 found in the library, no "
+                  "K2, K9, K10, K7, K11, K1, K12, K5, K6 and K3 found in the library, no "
                   "local-memory spill")
     k11 = rep.get("sp_step_kernel", {}).get("REG", 99)
     checks.expect(k11 <= 64, f"K11 in {k11} registers (<= 64: four blocks an SM)")
@@ -568,7 +584,7 @@ def kernel_checks(checks: Checks, dev, results: dict):
     from art_tpu_torch.ops.intersect import closest_surface_p
     from art_tpu_torch.ops.intersect_kernels import sphere_hit_attrs, sphere_hit_attrs_plain
     from art_tpu_torch.ops.shade import shade_params_p
-    from art_tpu_torch.ops.shade_kernel import REC_F, STATE_F, shade_flush, shade_flush_plain
+    from art_tpu_torch.ops.shade_kernel import REC_F, shade_flush, shade_flush_plain
     from art_tpu_torch.render.renderer import RenderConfig, plan_batches
 
     rng = np.random.default_rng(SEED)
@@ -657,60 +673,61 @@ def kernel_checks(checks: Checks, dev, results: dict):
     _set_bound(results["sphere_hit"], R * 48 + tables.n_spheres * 40,
                R * _sphere_row_ops(tables.sph_rows))
 
-    # ---- K3: shade + integrate + flush ----
+    # ---- K3: shade + integrate + flush, plane-fed: held to its twin on the
+    # refilled pool (N_OUT deaths outside the tile), on it with its samples
+    # side by side (also at R - 13 slots) and on a bouncing_spheres render's
+    # pool 20 staged iterations in; timed on each ----
     rec = closest_surface_p(tables, o, d, tm, T_MIN, plain=True)
     params = shade_params_p(tables, rec)
     u = torch.from_numpy(rng.random((4, R), dtype=np.float32)).to(dev)
     planes = dict(zip(REC_F, (*rec.p, *rec.normal, *params[:3], *params[3], *params[4],
                               u[0], u[1], u[2], u[3])))
     state = _clone(refilled)
-    n_out = 8  # live slots at their last bounce with a pixel outside the tile
-    state["pix"][:n_out] = torch.tensor([-1, tile_pixels, tile_pixels + 1, -7, 1 << 30,
-                                         tile_pixels * 2, -(1 << 30), tile_pixels + 99],
-                                        dtype=torch.int32, device=dev)
-    state["act"][:n_out] = True
-    state["bounce"][:n_out] = 49
-    kp, pp = _clone(state), _clone(state)
-    kfb = torch.zeros((tile_pixels, 3), device=dev)
-    pfb = torch.zeros_like(kfb)
-    klost = torch.zeros(1, dtype=torch.int32, device=dev)
-    plost = torch.zeros_like(klost)
-    shade_flush(kp, rec.hit, planes, scene.background, kfb, klost, max_depth=50,
-                gradient=False)
-    shade_flush_plain(pp, rec.hit, planes, scene.background, pfb, plost, max_depth=50,
-                      gradient=False)
-    torch.cuda.synchronize()
-    checks.expect(int(klost) == int(plost) == n_out,
-                  f"K3: out-of-tile deaths counted, not added: {int(klost)} "
-                  f"(plain {int(plost)}, want {n_out})")
-    agree = kp["act"] == pp["act"]
-    flips = int((~agree).sum())
-    checks.expect(flips <= budget, f"K3: {flips} live/dead flips (<= {budget}), "
-                                   f"{int((state['act'] & ~pp['act']).sum())} died")
-    checks.expect(torch.equal(kp["bounce"], pp["bounce"]), "K3: bounce planes exact")
-    err = max(_max_diff(kp[n], pp[n], agree) for n in STATE_F)
-    rel = max(float(((kp[n] - pp[n]).abs() / (pp[n].abs() + 1.0))[agree].max())
-              for n in STATE_F)
-    checks.expect(rel <= 2e-4, f"K3: float planes max abs err {err:.3g} (rel {rel:.3g})")
-    touched = torch.zeros(tile_pixels, dtype=torch.bool, device=dev)
-    flipped = state["pix"][~agree].long()
-    touched[flipped[(flipped >= 0) & (flipped < tile_pixels)]] = True
-    fb_err = (kfb - pfb).abs()[~touched]
-    fb_rel = float((fb_err / (pfb.abs()[~touched] + 1e-6)).max())
-    checks.expect(fb_rel <= 1e-5, f"K3: atomic flush vs index_add max rel err "
-                                  f"{fb_rel:.3g} (<= 1e-5)")
-    results["shade_flush"]["max_abs_err"] = max(err, float(fb_err.max()))
+    _out_of_tile(state, tile_pixels)
+    side = _side_by_side(state, tile_pixels, rng)
+    cut = R - 13
+    s_scene, s_state, s_hit, s_planes, s_tile = _plane_fed_staged(dev)
+    k3_err, k3_census = 0.0, {}
+    for label, sc, st, hit, pl, tile, n_out in (
+            ("refilled", scene, state, rec.hit, planes, tile_pixels, N_OUT),
+            ("side by side", scene, side, rec.hit, planes, tile_pixels, N_OUT),
+            ("side by side, R - 13", scene, _cut(side, cut), rec.hit[:cut], _cut(planes, cut),
+             tile_pixels, N_OUT),
+            ("bouncing_spheres staged", s_scene, s_state, s_hit, s_planes, s_tile, 0)):
+        runs = _k3_runs(st, hit, pl, sc, None, tile)
+        got = _k3_expect(checks, label, st, runs, n_out, tile)
+        k3_err = max(k3_err, got["fb_err"])
+        k3_census[label] = got["census"]
+        if label == "refilled":
+            pp = runs[1][0]
+    results["shade_flush"]["max_abs_err"] = k3_err
+    results["shade_flush"]["census"] = k3_census
     work = _clone(state)
-    fb_t = torch.zeros_like(kfb)
-    lost_t = torch.zeros_like(klost)
+    fb_t = torch.zeros((tile_pixels, 3), device=dev)
+    lost_t = torch.zeros(1, dtype=torch.int32, device=dev)
     for name, fn in (("ms", shade_flush), ("plain_ms", shade_flush_plain)):
         results["shade_flush"][name] = _timed_ms(
             lambda fn=fn: fn(work, rec.hit, planes, scene.background, fb_t, lost_t,
                              max_depth=50, gradient=False),
             20 if name == "ms" else 5, reset=lambda: _restore(work, state))
+    results["shade_flush"]["ms_side_by_side"] = _timed_ms(
+        lambda: shade_flush(work, rec.hit, planes, scene.background, fb_t, lost_t,
+                            max_depth=50, gradient=False), 20,
+        reset=lambda: _restore(work, side))
+    s_work = _clone(s_state)
+    s_fb = torch.zeros((s_tile, 3), device=dev)
+    results["shade_flush"]["ms_staged"] = _timed_ms(
+        lambda: shade_flush(s_work, s_hit, s_planes, s_scene.background, s_fb, lost_t,
+                            max_depth=50, gradient=s_scene.gradient_bg), 20,
+        reset=lambda: _restore(s_work, s_state))
     _set_bound(results["shade_flush"], _shade_bytes(state, pp, 19 * 4),
                int(state["act"].sum()) * OPS_SHADE)
     _log_kernels(results, ("refill", "sphere_hit", "shade_flush"))
+    r3 = results["shade_flush"]
+    log(f"  plane-fed K3: side by side {r3['ms_side_by_side']:.4f} ms, bouncing_spheres staged "
+        f"pool {r3['ms_staged']:.4f} ms; flush census (deaths, pixels a warp, sharing "
+        f"share): " + "; ".join(f"{lab} {c['deaths']}, {c['pixels']}, {c['shared_share']:.3f}"
+                                for lab, c in k3_census.items()))
 
 
 def _log_kernels(results, names):
@@ -721,19 +738,21 @@ def _log_kernels(results, names):
             f"{r['max_abs_err']:.3g}")
 
 
-def _box_scene(checker: bool):
+def _box_scene(checker: bool, floor: bool = True):
     """Translated, unrotated boxes (offsets folded into the kernel rows), a
-    floor quad and a glass sphere; with ``checker`` the floor is a checker
-    of solids, so baked K3 takes its parity path."""
+    floor quad (with ``floor``) and a glass sphere; with ``checker`` the
+    floor is a checker of solids, so baked K3 takes its parity path.
+    Without the floor no quad comes first, so K6 runs in its plain form."""
     from art_tpu_torch.scene import materials as M
     from art_tpu_torch.scene import objects as O
     from art_tpu_torch.scene import textures as X
     from art_tpu_torch.scene.builder import SceneBuilder
 
-    floor = (X.Checker(0.5, X.SolidColor((0.2, 0.3, 0.1)), X.SolidColor((0.9, 0.9, 0.9)))
-             if checker else X.SolidColor((0.5, 0.5, 0.5)))
+    tex = (X.Checker(0.5, X.SolidColor((0.2, 0.3, 0.1)), X.SolidColor((0.9, 0.9, 0.9)))
+           if checker else X.SolidColor((0.5, 0.5, 0.5)))
+    objects = [O.Quad((-4, 0, -4), (8, 0, 0), (0, 0, 8), M.Lambertian(tex), inward=True)]
     b = SceneBuilder().add(
-        O.Quad((-4, 0, -4), (8, 0, 0), (0, 0, 8), M.Lambertian(floor), inward=True),
+        *(objects if floor else []),
         O.Translate(O.Box((0, 0, 0), (1.25, 0.75, 1.5), M.Lambertian((0.7, 0.7, 0.7))),
                     (-2.3, 0.0, -0.7)),
         O.Translate(O.Box((0, 0, 0), (0.8, 1.9, 0.6), M.Metal((0.8, 0.7, 0.6), 0.2)),
@@ -756,44 +775,233 @@ def _scene_rays(rng, R, lo, hi, dev):
     return o, d
 
 
+def _box_cases(dev):
+    """Phase 2b's scenes and pools at cornell_box 600x600's R: cornell_box
+    and the translated-box scene (``_box_scene`` with its checker floor),
+    each with random rays over its extent; cornell_box's staged pool 20
+    iterations in (``_staged_pool``); and the tile's pixel count."""
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
+
+    rng = np.random.default_rng(SEED + 1)
+    name, nx, ny, spp = CORNELL
+    cornell = build_scene(name, nx, ny).to(dev)
+    tile_pixels, _, R = plan_batches(nx * ny, spp, cornell.tables.n_quads, RenderConfig(), dev)
+    boxes = _box_scene(checker=True).to(dev)
+    cases = {"cornell_box": (cornell, _scene_rays(rng, R, 0.0, 555.0, dev)),
+             "translated boxes": (boxes, _scene_rays(rng, R, -4.0, 4.0, dev))}
+    return dict(cases=cases, rng=rng, R=R, tile_pixels=tile_pixels,
+                staged=_staged_pool(cornell, nx, ny, spp, dev, 20))
+
+
+def _out_of_tile(state, tile_pixels):
+    """The first N_OUT slots: live, at their last bounce, each dying on a
+    pixel outside the tile."""
+    import torch
+
+    dev = state["pix"].device
+    state["pix"][:N_OUT] = torch.tensor([-1, tile_pixels, tile_pixels + 1, -7, 1 << 30,
+                                         tile_pixels * 2, -(1 << 30), tile_pixels + 99],
+                                        dtype=torch.int32, device=dev)
+    state["act"][:N_OUT] = True
+    state["bounce"][:N_OUT] = 49
+
+
+def _side_by_side(state, tile_pixels, rng):
+    """``state`` with the samples of a pixel side by side, as a render lays
+    them out when it starts: slot i on pixel (i // 64) mod P; half the
+    slots at their last bounce, so up to 32 slots of a warp die into one
+    pixel; the first N_OUT dying outside the tile (``_out_of_tile``); the
+    radiance made >= 0, as a render's, so a pixel's sums do not cancel."""
+    import torch
+
+    s = _clone(state)
+    for n in ("r0", "r1", "r2"):
+        s[n].abs_()
+    dev, R = s["pix"].device, s["pix"].shape[0]
+    slot = torch.arange(R, dtype=torch.int32, device=dev)
+    s["pix"].copy_(torch.div(slot, 64, rounding_mode="floor") % tile_pixels)
+    last = torch.from_numpy(rng.random(R) < 0.5).to(dev)
+    s["bounce"].copy_(torch.where(last, torch.full_like(s["bounce"], 49), s["bounce"]))
+    _out_of_tile(s, tile_pixels)
+    return s
+
+
+def _cut(x, n: int):
+    """The first ``n`` slots of a pool, hit record or plane (views)."""
+    if isinstance(x, dict):
+        return {k: v[:n] for k, v in x.items()}
+    return x[:n]
+
+
+def _k3_runs(state, hit, planes, scene, consts, tile_pixels):
+    """K3 and its plain twin, each on a copy of ``state``: ((pool, fb,
+    lost) of the kernel, (pool, fb, lost) of the twin)."""
+    import torch
+
+    from art_tpu_torch.ops.shade_kernel import shade_flush, shade_flush_plain
+
+    dev = hit.device
+    runs = []
+    for fn in (shade_flush, shade_flush_plain):
+        pool = _clone(state)
+        fb = torch.zeros((tile_pixels, 3), device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        fn(pool, hit, planes, scene.background, fb, lost, max_depth=50,
+           gradient=scene.gradient_bg, consts=consts)
+        runs.append((pool, fb, lost))
+    torch.cuda.synchronize()
+    return runs
+
+
+def _k3_expect(checks, label, state, runs, n_out: int, tile_pixels: int) -> dict:
+    """K3 held to its twin: lost as the twin's and ``n_out``; every state
+    plane, bounce and act bit-equal; the framebuffer within 1e-5 relative of
+    the twin's index_add_ and 1e-6 of flush_warp_p's order over the
+    kernel's own deaths.  Returns the largest errors and the flush census."""
+    import torch
+
+    from art_tpu_torch.ops.shade_kernel import STATE_F
+    from art_tpu_torch.ops.sp_kernel import flush_census, flush_warp_p
+
+    (kp, kfb, kl), (pp, pfb, pl) = runs
+    bits = (sum(_bits_equal(kp[n], pp[n]) for n in STATE_F)
+            + int((kp["bounce"] != pp["bounce"]).sum()) + int((kp["act"] != pp["act"]).sum()))
+    died = state["act"] & ~kp["act"]
+    wfb, wl = torch.zeros_like(kfb), torch.zeros_like(kl)
+    flush_warp_p(state["pix"], died, (kp["r0"], kp["r1"], kp["r2"]), wfb, wl)
+    fb_rel = float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max())
+    warp_rel = float(((kfb - wfb).abs() / (wfb.abs() + 1e-6)).max())
+    deaths, pixels, shared = flush_census(state["pix"], died, tile_pixels)
+    checks.expect(int(kl) == int(pl) == int(wl) == n_out and bits == 0 and fb_rel <= 1e-5
+                  and warp_rel <= 1e-6,
+                  f"K3 {label}: lost {int(kl)} (plain {int(pl)}, want {n_out}), {bits} state, "
+                  f"bounce and act values differ in bits from the twin; {deaths} deaths in the "
+                  f"tile on {pixels} pixels a warp ({shared / max(deaths, 1):.3f} share a "
+                  f"pixel in their warp); flush vs index_add max rel err {fb_rel:.3g} "
+                  f"(<= 1e-5), vs flush_warp_p's order {warp_rel:.3g} (<= 1e-6)")
+    return dict(fb_err=float((kfb - pfb).abs().max()), fb_rel=fb_rel, warp_rel=warp_rel,
+                census=dict(deaths=deaths, pixels=pixels, shared=shared,
+                            shared_share=shared / max(deaths, 1),
+                            adds_ratio=pixels / max(deaths, 1)))
+
+
+def _baked_k3_inputs(dev, box=None):
+    """Baked K3's inputs on phase 2b's pools: {label: (scene, state, hit,
+    planes, n_out)} — cornell_box's staged pool 20 iterations in (its
+    closest_surface_p hit record, its real pixels and the refill's
+    uniforms), random pools on cornell_box's and the translated-box scene's
+    rays (pixels a random remainder, N_OUT outside the tile), and the
+    cornell_box random pool with its samples side by side
+    (``_side_by_side``)."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops.intersect import closest_surface_p
+    from art_tpu_torch.ops.shade_kernel import REC_BAKED
+
+    box = box or _box_cases(dev)
+    rng, R, tile_pixels, staged = box["rng"], box["R"], box["tile_pixels"], box["staged"]
+    cornell = box["cases"]["cornell_box"][0]
+    out = {}
+    for label, (scene, (o, d)) in box["cases"].items():
+        st = _random_pool(rng, R, dev)
+        for n, c in zip(("ox", "oy", "oz", "dx", "dy", "dz"), (*o, *d)):
+            st[n].copy_(c)
+        for n in ("r0", "r1", "r2"):  # radiance is >= 0, so sums do not cancel
+            st[n].abs_()
+        st["pix"].remainder_(tile_pixels)
+        _out_of_tile(st, tile_pixels)
+        rec = closest_surface_p(scene.tables, o, d, st["tm"], T_MIN, plain=True)
+        u = torch.from_numpy(rng.random((4, R), dtype=np.float32)).to(dev)
+        planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u)))
+        out[f"{label} random"] = (scene, st, rec.hit, planes, N_OUT)
+    scene, st, hit, planes, _ = out["cornell_box random"]
+    out["cornell_box side by side"] = (scene, _side_by_side(st, tile_pixels, rng), hit, planes,
+                                       N_OUT)
+    cut = R - 13  # R not a multiple of 32: the last warp part-filled
+    out["cornell_box side by side, R - 13"] = (
+        scene, _cut(out["cornell_box side by side"][1], cut), hit[:cut], _cut(planes, cut),
+        N_OUT)
+    pool = _clone(staged["pool"])
+    o, d = (pool["ox"], pool["oy"], pool["oz"]), (pool["dx"], pool["dy"], pool["dz"])
+    rec = closest_surface_p(cornell.tables, o, d, pool["tm"], T_MIN)
+    planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *staged["u_ball"],
+                                  staged["u_choice"])))
+    out["cornell_box staged"] = (cornell, pool, rec.hit, planes, 0)
+    return out
+
+
+def _plane_fed_staged(dev):
+    """Plane-fed K3's inputs on the pool of a bouncing_spheres 1200x800 @ 64
+    render 20 staged iterations in (``_staged_pool``: its real pixels, the
+    refill's uniforms), with its closest_surface_p hit record and
+    shade_params_p's planes: (scene, state, hit, planes, tile pixels)."""
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops.intersect import closest_surface_p
+    from art_tpu_torch.ops.shade import shade_params_p
+    from art_tpu_torch.ops.shade_kernel import REC_F
+
+    name, nx, ny, spp = BOUNCING
+    scene = build_scene(name, nx, ny).to(dev)
+    staged = _staged_pool(scene, nx, ny, spp, dev, 20)
+    pool = staged["pool"]
+    o, d = (pool["ox"], pool["oy"], pool["oz"]), (pool["dx"], pool["dy"], pool["dz"])
+    rec = closest_surface_p(scene.tables, o, d, pool["tm"], T_MIN)
+    params = shade_params_p(scene.tables, rec)
+    planes = dict(zip(REC_F, (*rec.p, *rec.normal, *params[:3], *params[3], *params[4],
+                              *staged["u_ball"], staged["u_choice"])))
+    return scene, pool, rec.hit, planes, staged["fb"].shape[0]
+
+
+def _clone_hit(h):
+    """A copy of a (t, normal, u, v, mat) hit."""
+    return (h[0].clone(), tuple(c.clone() for c in h[1]), *(x.clone() for x in h[2:]))
+
+
+def _restore_hit(dst, src):
+    for a, b in zip((dst[0], *dst[1], *dst[2:]), (src[0], *src[1], *src[2:])):
+        a.copy_(b)
+
+
 def quad_box_checks(checks: Checks, dev, results: dict):
-    """K5, K6 and baked K3 against their twins at cornell_box 600x600's R."""
+    """K5, K6 (both forms) and baked K3 against their twins at cornell_box
+    600x600's R; K6 and baked K3 timed on the render's pool (cornell_box's
+    staged pool 20 iterations in) and on random ones."""
     import torch
 
     from art_tpu_torch.core.vecmath import BIG, T_MIN, p_where
-    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
     from art_tpu_torch.ops.intersect import (
+        _closer,
         closest_surface_p,
         quad_attributes_p,
         quad_candidates_p,
     )
     from art_tpu_torch.ops.intersect_kernels import (
         box_hit_attrs,
+        box_hit_attrs_merge,
+        box_hit_attrs_merge_plain,
         box_hit_attrs_plain,
         quad_hit_attrs,
         quad_hit_attrs_plain,
     )
-    from art_tpu_torch.ops.shade_kernel import REC_BAKED, STATE_F, shade_flush, shade_flush_plain
+    from art_tpu_torch.ops.shade_kernel import shade_flush, shade_flush_plain
     from art_tpu_torch.render.integrator import staged_step
-    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
 
-    rng = np.random.default_rng(SEED + 1)
-    name, nx, ny, spp = CORNELL
-    cornell = build_scene(name, nx, ny).to(dev)
+    box = _box_cases(dev)
+    cases, R, tile_pixels, staged = box["cases"], box["R"], box["tile_pixels"], box["staged"]
+    cornell, boxes = cases["cornell_box"][0], cases["translated boxes"][0]
     tables = cornell.tables
-    tile_pixels, _, R = plan_batches(nx * ny, spp, tables.n_quads, RenderConfig(), dev)
     log(f"  R = {R} slots, tile {tile_pixels} px; cornell_box: {tables.n_quads} quads, "
         f"{tables.n_boxes} boxes (rotated {tables.has_rotated_boxes}), "
         f"{tables.n_spheres} spheres, {tables.shade_rows.shape[0]} baked materials")
     budget = max(2, 2 * R // 8192)
-    boxes = _box_scene(checker=True).to(dev)
-    cases = {"cornell_box": (cornell, _scene_rays(rng, R, 0.0, 555.0, dev)),
-             "translated boxes": (boxes, _scene_rays(rng, R, -4.0, 4.0, dev))}
 
     # ---- K5: closest quad and its winner's attributes, bit-equal to its
     # twin in all seven outputs: random rays, and the pools of a cornell_box
     # render 20 staged iterations in and of final_scene (2f's) ----
-    staged = _staged_pool(cornell, nx, ny, spp, dev, 20)
     cp = staged["pool"]
     c_o, c_d = (cp["ox"], cp["oy"], cp["oz"]), (cp["dx"], cp["dy"], cp["dz"])
     f_tables, f_o, f_d, _ = _route_pools(dev)["final_scene"]
@@ -814,29 +1022,63 @@ def quad_box_checks(checks: Checks, dev, results: dict):
                 [k[0], *k[1], *k[2:]], [p[0], *p[1], *p[2:]])))
     results["quad_hit"]["max_abs_err"] = k5_err
 
-    # ---- K6: closest oriented box, rotated (cornell_box) and unrotated ----
-    k6_err = 0.0
-    for label, (scene, (o, d)) in cases.items():
+    # ---- K6: closest oriented box, rotated (cornell_box) and unrotated, in
+    # its plain form, against its twin; and its merge form (closest_surface_p's
+    # box block after the quads) bit-equal to K6 plus _closer in all seven
+    # outputs and held to its twin as K6 is, on the same rays and on
+    # cornell_box's staged pool ----
+    def k6_expect(what, k, p):
+        khit, phit = k[0] < BIG, p[0] < BIG
+        same = (khit == phit) & (~khit | (k[4] == p[4]))
+        flips = int((~same).sum())
+        both = same & khit
+        errs = [_max_diff(k[0], p[0], both)] + [_max_diff(k[1][c], p[1][c], both)
+                                               for c in range(3)] + [
+            _max_diff(k[2], p[2], both), _max_diff(k[3], p[3], both)]
+        t_rel = float(((k[0] - p[0]).abs() / p[0].abs().clamp_min(1e-30))[both].max())
+        checks.expect(flips <= budget and t_rel <= 1e-6 and max(errs[1:]) <= 1e-5,
+                      f"{what}: {flips} hit/material flips (<= {budget}), {int(khit.sum())} "
+                      f"hits, t max rel err {t_rel:.3g} (<= 1e-6), normal/u/v max err "
+                      f"{max(errs[1:]):.3g} (<= 1e-5), {_attrs_differ(k, p)} values differ "
+                      f"in bits")
+        return max(errs)
+
+    k6_err, merge_err = 0.0, 0.0
+    merge_cases = [(label, scene, o, d) for label, (scene, (o, d)) in cases.items()]
+    merge_cases.append(("cornell_box pool", cornell, c_o, c_d))
+    for label, scene, o, d in merge_cases:
         rot = scene.tables.has_rotated_boxes
-        for t_min in (T_MIN, 50.0 if label == "cornell_box" else 0.5):
+        for t_min in (T_MIN, 50.0 if label.startswith("cornell_box") else 0.5):
             k = box_hit_attrs(scene.tables, o, d, t_min)
             p = box_hit_attrs_plain(scene.tables, o, d, t_min)
             torch.cuda.synchronize()
-            khit, phit = k[0] < BIG, p[0] < BIG
-            same = (khit == phit) & (~khit | (k[4] == p[4]))
-            flips = int((~same).sum())
-            both = same & khit
-            errs = [_max_diff(k[0], p[0], both)] + [_max_diff(k[1][c], p[1][c], both)
-                                                   for c in range(3)] + [
-                _max_diff(k[2], p[2], both), _max_diff(k[3], p[3], both)]
-            t_rel = float(((k[0] - p[0]).abs() / p[0].abs().clamp_min(1e-30))[both].max())
-            checks.expect(flips <= budget and t_rel <= 1e-6 and max(errs[1:]) <= 1e-5,
-                          f"K6 {label} (rotated {rot}) t_min {t_min:g}: {flips} hit/"
-                          f"material flips (<= {budget}), {int(khit.sum())} hits, t max "
-                          f"rel err {t_rel:.3g} (<= 1e-6), normal/u/v max err "
-                          f"{max(errs[1:]):.3g} (<= 1e-5)")
-            k6_err = max(k6_err, *errs)
+            k6_err = max(k6_err, k6_expect(
+                f"K6 {label} (rotated {rot}) t_min {t_min:g}", k, p))
+            quad = quad_hit_attrs(scene.tables, o, d, t_min)
+            want = _closer(quad, k)
+            got = box_hit_attrs_merge(scene.tables, o, d, _clone_hit(quad), t_min)
+            twin = box_hit_attrs_merge_plain(scene.tables, o, d,
+                                             quad_hit_attrs_plain(scene.tables, o, d, t_min),
+                                             t_min)
+            torch.cuda.synchronize()
+            bad = _attrs_differ(got, want)
+            ties = int(((k[0] == quad[0]) & (quad[0] < BIG)).sum())
+            checks.expect(bad == 0, f"K6 merge {label} t_min {t_min:g}: {bad} of the 7 x {R} "
+                                    f"outputs differ in bits from K6 + _closer; "
+                                    f"{int((k[0] < quad[0]).sum())} lanes a box wins, {ties} "
+                                    f"exact quad/box ties kept by the quad")
+            merge_err = max(merge_err, k6_expect(f"K6 merge {label} t_min {t_min:g} against "
+                                                 f"its twin", got, twin))
     results["box_hit"]["max_abs_err"] = k6_err
+    results["box_hit_merge"]["max_abs_err"] = merge_err
+    # closest_surface_p takes the merge form on cornell_box: one launch for
+    # the boxes, none of the plain form
+    _build.launches.clear()
+    closest_surface_p(tables, c_o, c_d, cp["tm"], T_MIN)
+    counts = dict(_build.launches)
+    checks.expect(counts.get("box_hit_merge") == 1 and not counts.get("box_hit"),
+                  f"closest_surface_p on cornell_box: the box block is K6's merge form "
+                  f"({counts})")
 
     # K5 timed on the cornell_box pool, beside the glue it replaced (the
     # winner's attributes and the miss masking of closest_surface_p, in
@@ -868,82 +1110,87 @@ def quad_box_checks(checks: Checks, dev, results: dict):
     # 6 planes in and 7 out a ray (52 B), both tables once
     _set_bound(r5, R * 52 + tables.n_quads * (48 + 64),
                R * tables.n_quads * OPS_QUAD + c_hits * OPS_QUAD_WINNER)
-    results["box_hit"]["ms"] = _timed_ms(lambda: box_hit_attrs(tables, o, d), 20)
-    results["box_hit"]["plain_ms"] = _timed_ms(lambda: box_hit_attrs_plain(tables, o, d), 5)
-    hits = int((box_hit_attrs_plain(tables, o, d)[0] < BIG).sum())
-    _set_bound(results["box_hit"], R * 52 + tables.n_boxes * 48,
+
+    # K6 timed on the staged pool (the render's rays) and on random rays:
+    # its plain form; its merge form against the parent's block, K6 and
+    # _closer as one function; the merge's bound on this pool: 6 ray planes
+    # and the incoming t in (28 B a ray), 28 B out a lane a box wins, the
+    # table once
+    r6, rm = results["box_hit"], results["box_hit_merge"]
+    co_r, cd_r = cases["cornell_box"][1]
+    r6["ms"] = _timed_ms(lambda: box_hit_attrs(tables, c_o, c_d), 20)
+    r6["plain_ms"] = _timed_ms(lambda: box_hit_attrs_plain(tables, c_o, c_d), 5)
+    r6["ms_random"] = _timed_ms(lambda: box_hit_attrs(tables, co_r, cd_r), 20)
+    hits = int((box_hit_attrs_plain(tables, c_o, c_d)[0] < BIG).sum())
+    _set_bound(r6, R * 52 + tables.n_boxes * 48,
                R * tables.n_boxes * OPS_BOX[True] + hits * OPS_BOX_WINNER)
     bo, bd = cases["translated boxes"][1]
-    results["box_hit"]["ms_unrotated"] = _timed_ms(
-        lambda: box_hit_attrs(boxes.tables, bo, bd), 20)
+    r6["ms_unrotated"] = _timed_ms(lambda: box_hit_attrs(boxes.tables, bo, bd), 20)
+    for key, scene, o, d in (("", cornell, c_o, c_d), ("_random", cornell, co_r, cd_r),
+                             ("_translated", boxes, bo, bd)):
+        quad = quad_hit_attrs(scene.tables, o, d)
+        work = _clone_hit(quad)
+        rm[f"ms{key}"] = _timed_ms(lambda: box_hit_attrs_merge(scene.tables, o, d, work), 20,
+                                   reset=lambda: _restore_hit(work, quad))
+        rm[f"k6_closer_ms{key}"] = _timed_ms(
+            lambda: _closer(quad, box_hit_attrs(scene.tables, o, d)), 20)
+        if not key:
+            wins = int((box_hit_attrs_merge_plain(tables, o, d, quad)[0] < quad[0]).sum())
+            rm["plain_ms"] = _timed_ms(lambda: box_hit_attrs_merge_plain(tables, o, d, quad), 5)
+            rm["launches_block"] = _profiled_launches(
+                lambda: box_hit_attrs_merge(tables, o, d, work))
+            rm["k6_closer_launches"] = _profiled_launches(
+                lambda: _closer(quad, box_hit_attrs(tables, o, d)))
+            rm["wins"] = wins
+            _set_bound(rm, R * 28 + wins * 28 + tables.n_boxes * 48,
+                       R * tables.n_boxes * OPS_BOX[True] + wins * OPS_BOX_WINNER)
 
-    # ---- baked K3 (cornell_box, and the checker scene) ----
-    k3_err = 0.0
-    for label, (scene, (o, d)) in cases.items():
-        st = _random_pool(rng, R, dev)
-        for n, c in zip(("ox", "oy", "oz", "dx", "dy", "dz"), (*o, *d)):
-            st[n].copy_(c)
-        for n in ("r0", "r1", "r2"):  # radiance is >= 0, so sums do not cancel
-            st[n].abs_()
-        st["pix"].remainder_(tile_pixels)
-        n_out = 8  # live slots at their last bounce with a pixel outside the tile
-        st["pix"][:n_out] = torch.tensor([-1, tile_pixels, tile_pixels + 1, -7, 1 << 30,
-                                          tile_pixels * 2, -(1 << 30), tile_pixels + 99],
-                                         dtype=torch.int32, device=dev)
-        st["act"][:n_out] = True
-        st["bounce"][:n_out] = 49
-        rec = closest_surface_p(scene.tables, o, d, st["tm"], T_MIN, plain=True)
-        u = torch.from_numpy(rng.random((4, R), dtype=np.float32)).to(dev)
-        planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u)))
-        consts = scene.tables.shade_rows
-        kp, pp = _clone(st), _clone(st)
-        kfb = torch.zeros((tile_pixels, 3), device=dev)
-        pfb = torch.zeros_like(kfb)
-        klost = torch.zeros(1, dtype=torch.int32, device=dev)
-        plost = torch.zeros_like(klost)
-        for fn, pool, fb, lost in ((shade_flush, kp, kfb, klost),
-                                   (shade_flush_plain, pp, pfb, plost)):
-            fn(pool, rec.hit, planes, scene.background, fb, lost, max_depth=50,
-               gradient=scene.gradient_bg, consts=consts)
-        torch.cuda.synchronize()
-        agree = kp["act"] == pp["act"]
-        flips = int((~agree).sum())
-        err = max(_max_diff(kp[n], pp[n], agree) for n in STATE_F)
-        rel = max(float(((kp[n] - pp[n]).abs() / (pp[n].abs() + 1.0))[agree].max())
-                  for n in STATE_F)
-        touched = torch.zeros(tile_pixels, dtype=torch.bool, device=dev)
-        flipped = st["pix"][~agree].long()
-        touched[flipped[(flipped >= 0) & (flipped < tile_pixels)]] = True
-        fb_err = (kfb - pfb).abs()[~touched]
-        fb_rel = float((fb_err / (pfb.abs()[~touched] + 1e-6)).max())
-        checks.expect(int(klost) == int(plost) == n_out and flips <= budget
-                      and torch.equal(kp["bounce"], pp["bounce"]) and rel <= 2e-4
-                      and fb_rel <= 1e-5,
-                      f"K3 baked {label}: lost {int(klost)} (plain {int(plost)}, want "
-                      f"{n_out}), {flips} live/dead flips (<= {budget}), "
-                      f"{int((st['act'] & ~pp['act']).sum())} died, state max abs err "
-                      f"{err:.3g} (rel {rel:.3g} <= 2e-4), "
-                      f"atomic flush vs index_add max rel err {fb_rel:.3g} (<= 1e-5)")
-        k3_err = max(k3_err, err, float(fb_err.max()))
-        if label == "cornell_box":
-            state, after, c_rec, c_planes = st, pp, rec, planes
-    results["shade_flush_baked"]["max_abs_err"] = k3_err
-    work = _clone(state)
+    # ---- baked K3: held to its twin on the random pools of cornell_box and
+    # the checker scene, on the cornell_box one with its samples side by
+    # side (also at R - 13 slots) and on cornell_box's staged pool; timed on
+    # the staged pool (the render's) and the random one ----
+    k3 = _baked_k3_inputs(dev, box)
+    k3_err, k3_census = 0.0, {}
+    for label, (scene, state, hit, planes, n_out) in k3.items():
+        runs = _k3_runs(state, hit, planes, scene, scene.tables.shade_rows, tile_pixels)
+        got = _k3_expect(checks, f"baked {label}", state, runs, n_out, tile_pixels)
+        k3_err = max(k3_err, got["fb_err"])
+        k3_census[label] = got["census"]
+        if label == "cornell_box staged":
+            staged_after = runs[1][0]
+    r3 = results["shade_flush_baked"]
+    r3["max_abs_err"] = k3_err
+    r3["census"] = k3_census
     fb_t = torch.zeros((tile_pixels, 3), device=dev)
     lost_t = torch.zeros(1, dtype=torch.int32, device=dev)
-    for name, fn in (("ms", shade_flush), ("plain_ms", shade_flush_plain)):
-        results["shade_flush_baked"][name] = _timed_ms(
-            lambda fn=fn: fn(work, c_rec.hit, c_planes, cornell.background, fb_t, lost_t,
-                             max_depth=50, gradient=False, consts=tables.shade_rows),
-            20 if name == "ms" else 5, reset=lambda: _restore(work, state))
-    _set_bound(results["shade_flush_baked"], _shade_bytes(state, after, 11 * 4),
-               int(state["act"].sum()) * OPS_SHADE)
-    _log_kernels(results, ("quad_hit", "box_hit", "shade_flush_baked"))
-    log(f"  box_hit unrotated: kernel {results['box_hit']['ms_unrotated']:.4f} ms")
+    for key, label in (("", "cornell_box staged"), ("_random", "cornell_box random"),
+                       ("_side_by_side", "cornell_box side by side")):
+        scene, state, hit, planes, _ = k3[label]
+        work = _clone(state)
+        for name, fn in ((f"ms{key}", shade_flush), (f"plain_ms{key}", shade_flush_plain)):
+            if name == "plain_ms_side_by_side":
+                continue
+            r3[name] = _timed_ms(
+                lambda fn=fn: fn(work, hit, planes, scene.background, fb_t, lost_t,
+                                 max_depth=50, gradient=False, consts=tables.shade_rows),
+                20 if name.startswith("ms") else 5, reset=lambda: _restore(work, state))
+    state = k3["cornell_box staged"][1]
+    _set_bound(r3, _shade_bytes(state, staged_after, 11 * 4), int(state["act"].sum()) * OPS_SHADE)
+    _log_kernels(results, ("quad_hit", "box_hit", "box_hit_merge", "shade_flush_baked"))
+    log(f"  box_hit: random rays {r6['ms_random']:.4f} ms, unrotated {r6['ms_unrotated']:.4f} "
+        f"ms; box_hit_merge: {rm['wins']} lanes a box wins, {rm['launches_block']} launch "
+        f"against K6 + _closer's {rm['k6_closer_launches']}: staged pool {rm['ms']:.4f} ms "
+        f"(K6 + _closer {rm['k6_closer_ms']:.4f}), random rays {rm['ms_random']:.4f} "
+        f"({rm['k6_closer_ms_random']:.4f}), translated boxes {rm['ms_translated']:.4f} "
+        f"({rm['k6_closer_ms_translated']:.4f})")
+    log(f"  baked K3: staged pool {r3['ms']:.4f} ms, random pool {r3['ms_random']:.4f} ms, "
+        f"side by side {r3['ms_side_by_side']:.4f} ms; flush census (deaths, pixels a warp, "
+        f"sharing share): " + "; ".join(
+            f"{lab} {c['deaths']}, {c['pixels']}, {c['shared_share']:.3f}"
+            for lab, c in k3_census.items()))
     log(f"  quad_hit on final_scene's pool {r5['ms_final_scene']:.4f} ms; the glue it "
         f"replaced {r5['glue_ms']:.4f} ms in {r5['glue_launches']} launches; a staged "
-        f"cornell_box iteration: {r5['staged_cornell_launches']} launches (with that glue "
-        f"{r5['staged_cornell_launches'] + r5['glue_launches']})")
+        f"cornell_box iteration: {r5['staged_cornell_launches']} launches")
 
 
 def _attrs_differ(k, p) -> int:
@@ -961,9 +1208,6 @@ def _bits_equal(a, b) -> int:
 
     same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
     return int((~same).sum())
-
-
-N_OUT = 8  # live slots at their last bounce with a pixel outside the tile
 
 
 def _sp_pool(rng, R, tile_pixels, dev):
@@ -1511,7 +1755,7 @@ def _staged_pool(scene, nx, ny, spp, dev, iters):
     """The pool of a render of ``scene`` at nx x ny @ spp (the R that
     plan_batches picks on the card) after ``iters`` staged iterations, its
     dead slots refilled by the plain K1: a dict of the pool, its queue and
-    tile state, and the refill's media uniforms."""
+    tile state, and the refill's uniforms (ball, choice and media)."""
     import torch
 
     from art_tpu_torch.ops import refill_kernel as rk
@@ -1531,8 +1775,9 @@ def _staged_pool(scene, nx, ny, spp, dev, iters):
         staged_step(s["pool"], scene.camera, s["q"], it % 2, s["hist"], it, s["scal"], tables,
                     scene.background, s["fb"], s["lost"], key=(7, 0, 0), ncols=s["ncols"],
                     max_depth=50, gradient=scene.gradient_bg)
-    s["u_media"] = rk.fused_refill_plain(s["pool"], scene.camera, s["q"], 0, s["hist"], iters,
-                                         s["scal"], key=(7, 0, 0), ncols=s["ncols"])[2]
+    s["u_ball"], s["u_choice"], s["u_media"] = rk.fused_refill_plain(
+        s["pool"], scene.camera, s["q"], 0, s["hist"], iters, s["scal"], key=(7, 0, 0),
+        ncols=s["ncols"])
     torch.cuda.synchronize()
     return s
 
@@ -3003,6 +3248,9 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     checks.expect(lo <= brightest <= hi,
                   f"{name}: brightest row {brightest} (mean {lum[brightest]:.3f}) lies in "
                   f"the ceiling light's rows {lo}..{hi} (frame mean {lum.mean():.3f})")
+    label, nx, ny, spp = BOXES_ALONE
+    _render(checks, dev, label, nx, ny, spp, results, counts_by_render,
+            _box_scene(checker=False, floor=False))
 
     images = {}
     for label, name, nx, ny, spp, short in SHORT:
@@ -3099,7 +3347,7 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     # culling slice's
     order = (["bouncing_spheres", "final_scene", "cornell_box"]
              + [lab for lab, *_ in IMAGE + SHORT]
-             + ["three_spheres"] + [lab for lab, *_ in BIG_SCENES[1:]]
+             + ["three_spheres"] + [lab for lab, *_ in BIG_SCENES[1:]] + [BOXES_ALONE[0]]
              + [lab for lab, *_ in SLICE8_RUNS] + [lab for lab, *_ in CLUSTER_RUNS]
              + ["bouncing_spheres cellbin", "final_scene skip"]
              + [lab for lab, *_ in ROUTE_RUNS] + [BVH_RUN[0]])
@@ -3165,11 +3413,13 @@ def main() -> int:
                       "library_ms": None}
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
-    checks.phase("1b. registers, spills and hot loops of K2, K9, K10, K7, K11, K1, K12, K5",
+    checks.phase("1b. registers, spills and hot loops of K2, K9, K10, K7, K11, K1, K12, K5, "
+                 "K6, K3",
                  sass_report, checks, results)
     checks.phase("2a. K1, K2, K3 against their plain twins", kernel_checks, checks, dev,
                  results)
-    checks.phase("2b. K5, K6, baked K3 against their plain twins", quad_box_checks,
+    checks.phase("2b. K5, K6 (both forms), baked K3 against their plain twins",
+                 quad_box_checks,
                  checks, dev, results)
     checks.phase("2c. K7, K11 against their plain twins", turb_sp_checks, checks, dev,
                  results)

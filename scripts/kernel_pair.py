@@ -12,10 +12,11 @@ the same script times another checkout's kernels; the pools and the timer
 are ``chip_smoke.py``'s (this checkout's).  ``--set noise`` times K7 and
 K11 alone, ``--set intersect`` the sphere and box kernels alone,
 ``--set refill_quad`` the refill core's three kernels and K5's block,
-``--set renders`` whole renders (RENDERS, each ``--render-reps`` times: wall
-seconds, rays and iterations from ``render_scene``'s stats); the default,
-the first two.  Each kernel runs on the pools ``chip_smoke.py``
-uses:
+``--set box_shade`` K6's block and K3 in both modes, ``--set renders``
+whole renders (``--scenes``, each ``--render-reps`` times: wall seconds,
+rays and iterations from ``render_scene``'s stats; by default RENDERS);
+the default, the first two.  Each kernel runs on the pools
+``chip_smoke.py`` uses:
 
 * noise: K7 at depth 7 on phase 2c's inputs (the hit points of perlin
   1200x600 @ 64 short-path pools 20 and 21 iterations in, of the final_scene
@@ -35,7 +36,16 @@ uses:
   checkout from before it, the kernel and the PyTorch glue after it, timed
   as one function) on cornell_box 600x600's pool 20 staged iterations in
   and on final_scene's (phase 2f's); and the device launches of one staged
-  cornell_box iteration.
+  cornell_box iteration;
+* box_shade: K6's block of ``closest_surface_p`` after the quads (the
+  merge form, or in a checkout from before it, K6 and ``_closer`` timed as
+  one function) on cornell_box 600x600's pool 20 staged iterations in, on
+  random rays over cornell_box and on the translated-box scene's (phase
+  2b's); baked K3 on that staged pool (its real pixels), on phase 2b's
+  random cornell_box pool and on it with its samples side by side; plane-fed
+  K3 on phase 2a's refilled bouncing_spheres pool, on it side by side and on
+  a bouncing_spheres 1200x800 @ 64 pool 20 staged iterations in; and the
+  device launches of one staged cornell_box iteration, by kernel name.
 
 For each: the mean device time of 20 calls (CUDA events behind a device
 spin) and the count of output values that differ from its plain twin (K11:
@@ -66,9 +76,10 @@ def _chip_smoke():
     return mod
 
 
-def _refilled_pool(cs, dev):
+def _refilled_pool(cs, dev, full=False):
     """Phase 2a's pool: a random bouncing_spheres 1200x800 pool refilled by
-    K1 with Philox uniforms (tables, o, d, tm)."""
+    K1 with Philox uniforms (tables, o, d, tm; with ``full`` also the pool,
+    the tile's pixel count and the scene)."""
     import torch
 
     from art_tpu_torch.models import build_scene
@@ -84,8 +95,9 @@ def _refilled_pool(cs, dev):
     q = torch.tensor([1_234_567, 0], dtype=torch.int64, device=dev)
     hist = torch.zeros(8, dtype=torch.int64, device=dev)
     rk.fused_refill(pool, scene.camera, q, 0, hist, 3, scal, ncols=10, key=(1984, 3, 1))
-    return (tables, (pool["ox"], pool["oy"], pool["oz"]), (pool["dx"], pool["dy"], pool["dz"]),
+    rays = (tables, (pool["ox"], pool["oy"], pool["oz"]), (pool["dx"], pool["dy"], pool["dz"]),
             pool["tm"])
+    return (*rays, cs._clone(pool), tile_pixels, scene) if full else rays
 
 
 def _field_pool(cs, dev, kx, kz, nx, ny):
@@ -101,9 +113,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "renders"),
-                    default="all")
+    ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "box_shade",
+                                      "renders"), default="all")
     ap.add_argument("--render-reps", type=int, default=3)
+    ap.add_argument("--scenes", default=",".join(name for name, *_ in RENDERS),
+                    help="comma-separated scenes of --set renders (sizes from SIZES)")
     args = ap.parse_args()
     cs = _chip_smoke()
     import torch
@@ -130,8 +144,10 @@ def main() -> int:
         intersect_cases(cs, dev, case)
     if args.set == "refill_quad":
         refill_quad_cases(cs, dev, case, out["kernels"], args.reps)
+    if args.set == "box_shade":
+        box_shade_cases(cs, dev, out["kernels"], args.reps)
     if args.set == "renders":
-        out["renders"] = render_cases(dev, args.render_reps)
+        out["renders"] = render_cases(dev, args.render_reps, args.scenes.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     out["card"] = smi
@@ -161,20 +177,25 @@ def noise_cases(cs, dev, case, kernels, reps):
             fb_rel=float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max()))
 
 
-# (scene, nx, ny, spp) of --set renders: the short path (K11: quads, perlin),
-# a staged quad scene (K1, K5) and bench.py's headline scene (K1)
+# (scene, nx, ny, spp) of --set renders by default: the short path (K11:
+# quads, perlin), a staged quad scene (K1, K5) and bench.py's headline scene
+# (K1)
 RENDERS = (("quads", 1200, 600, 64), ("perlin", 1200, 600, 64), ("cornell_box", 600, 600, 64),
            ("bouncing_spheres", 1200, 800, 64))
+# (nx, ny, spp) of each scene --scenes may name: chip_smoke.py's renders
+SIZES = {**{name: size for name, *size in RENDERS}, "cornell_smoke": (600, 600, 64),
+         "final_scene": (800, 800, 16)}
 
 
-def render_cases(dev, reps):
-    """{scene: [{seconds, rays, iterations}] * reps} of RENDERS, after one
-    small warm-up render each (the kernels built and loaded)."""
+def render_cases(dev, reps, scenes):
+    """{scene: [{seconds, rays, iterations}] * reps} of ``scenes``, after
+    one small warm-up render each (the kernels built and loaded)."""
     from art_tpu_torch.models import build_scene
     from art_tpu_torch.render.renderer import RenderConfig, render_scene
 
     out = {}
-    for name, nx, ny, spp in RENDERS:
+    for name in scenes:
+        nx, ny, spp = SIZES[name]
         scene = build_scene(name, nx, ny)
         render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=1), device=dev)
         runs = []
@@ -329,6 +350,108 @@ def refill_quad_cases(cs, dev, case, kernels, reps):
     kernels["staged cornell_box iteration"] = dict(launches=cs._profiled_launches(
         lambda: staged_step(*args, key=(7, 0, 0), ncols=staged["ncols"], max_depth=50,
                             gradient=cornell.gradient_bg)))
+
+
+def _box_block(tables, o, d, quad):
+    """closest_surface_p's box block after the quads in this checkout's
+    port: K6's merge form on ``quad`` (in place), or K6 and ``_closer``."""
+    from art_tpu_torch.ops import intersect_kernels as K
+    from art_tpu_torch.ops.intersect import _closer
+
+    if hasattr(K, "box_hit_attrs_merge"):
+        return K.box_hit_attrs_merge(tables, o, d, quad)
+    return _closer(quad, K.box_hit_attrs(tables, o, d))
+
+
+def box_shade_cases(cs, dev, kernels, reps):
+    """K6's block and K3 in both modes (module note)."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops import intersect_kernels as K
+    from art_tpu_torch.ops.intersect import _closer, closest_surface_p
+    from art_tpu_torch.ops.shade import shade_params_p
+    from art_tpu_torch.ops.shade_kernel import REC_F, STATE_F, shade_flush
+    from art_tpu_torch.render.integrator import staged_step
+
+    box = cs._box_cases(dev)
+    staged = box["staged"]
+    cp = staged["pool"]
+    cornell = box["cases"]["cornell_box"][0]
+    pools = {"cornell_box staged": (cornell.tables, (cp["ox"], cp["oy"], cp["oz"]),
+                                    (cp["dx"], cp["dy"], cp["dz"]))}
+    for label, (scene, (o, d)) in box["cases"].items():
+        pools[f"{label} random"] = (scene.tables, o, d)
+    for label, (tables, o, d) in pools.items():
+        quad = K.quad_hit_attrs(tables, o, d)
+        work = cs._clone_hit(quad)
+        got = _box_block(tables, o, d, work)
+        want = _closer(K.quad_hit_attrs_plain(tables, o, d), K.box_hit_attrs_plain(tables, o, d))
+        torch.cuda.synchronize()
+        kernels[f"K6 block {label}"] = dict(
+            ms=cs._timed_ms(lambda: _box_block(tables, o, d, work), reps,
+                            reset=lambda: cs._restore_hit(work, quad)),
+            differ=cs._attrs_differ(got, want))
+
+    def k3_case(name, state, hit, planes, scene, consts, tile_pixels):
+        (kp, kfb, kl), (pp, pfb, pl) = cs._k3_runs(state, hit, planes, scene, consts,
+                                                   tile_pixels)
+        differ = sum(cs._bits_equal(kp[n], pp[n]) for n in STATE_F)
+        differ += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "act"))
+        differ += int((kl != pl).sum())
+        work = cs._clone(state)
+        fb = torch.zeros((tile_pixels, 3), device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        kernels[name] = dict(ms=cs._timed_ms(
+            lambda: shade_flush(work, hit, planes, scene.background, fb, lost, max_depth=50,
+                                gradient=scene.gradient_bg, consts=consts), reps,
+            reset=lambda: cs._restore(work, state)), differ=differ,
+            fb_rel=float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max()))
+
+    k3 = cs._baked_k3_inputs(dev, box)
+    for label in ("cornell_box staged", "cornell_box random", "cornell_box side by side"):
+        scene, state, hit, planes, _ = k3[label]
+        k3_case(f"K3 baked {label}", state, hit, planes, scene, scene.tables.shade_rows,
+                box["tile_pixels"])
+
+    # plane-fed K3 on phase 2a's refilled bouncing_spheres pool
+    tables, o, d, tm, state, tile_pixels, scene = _refilled_pool(cs, dev, full=True)
+    rng = np.random.default_rng(cs.SEED + 2)
+    rec = closest_surface_p(tables, o, d, tm, T_MIN, plain=True)
+    params = shade_params_p(tables, rec)
+    u = torch.from_numpy(rng.random((4, o[0].shape[0]), dtype=np.float32)).to(dev)
+    planes = dict(zip(REC_F, (*rec.p, *rec.normal, *params[:3], *params[3], *params[4], *u)))
+    cs._out_of_tile(state, tile_pixels)
+    k3_case("K3 plane-fed bouncing_spheres", state, rec.hit, planes, scene, None, tile_pixels)
+    k3_case("K3 plane-fed bouncing_spheres side by side", cs._side_by_side(state, tile_pixels, rng),
+            rec.hit, planes, scene, None, tile_pixels)
+    scene, state, hit, planes, tile_pixels = cs._plane_fed_staged(dev)
+    k3_case("K3 plane-fed bouncing_spheres staged", state, hit, planes, scene, None, tile_pixels)
+
+    args = (cs._clone(cp), cornell.camera, staged["q"].clone(), 0, staged["hist"].clone(), 20,
+            staged["scal"], cornell.tables, cornell.background, staged["fb"].clone(),
+            staged["lost"].clone())
+    names = _profiled_names(lambda: staged_step(*args, key=(7, 0, 0), ncols=staged["ncols"],
+                                                max_depth=50, gradient=cornell.gradient_bg))
+    kernels["staged cornell_box iteration"] = dict(launches=sum(names.values()), names=names)
+
+
+def _profiled_names(fn) -> dict:
+    """{device kernel name: launches} of one call of ``fn`` (after a
+    warm-up call)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return dict(collections.Counter(e.name[:80] for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA))
 
 
 def intersect_cases(cs, dev, case):

@@ -8,7 +8,8 @@ Run on a machine with the CUDA toolkit, from the repository root:
 Without a library it builds (or finds) the port's kernel library
 (``art_tpu_torch/ops/_build.py``).  NAME is a substring of a kernel's mangled
 name; the default is K2's kernels (its three forms), K9's (both forms),
-K10's, K7's (depth 7, 2 and any), K11's, K1's, K12's and K5's.
+K10's, K7's (depth 7, 2 and any), K11's, K1's, K12's, K5's, K6's rotated
+forms (merge and plain) and K3's two modes (baked and plane-fed).
 
 For each kernel it prints ``cuobjdump -res-usage``'s registers, stack and
 local (spill) bytes, and reads ``cuobjdump -sass``: it cuts the function
@@ -28,8 +29,9 @@ its loop is the per-lane octave (no shuffle); the any-depth kernel's loop is
 the shared octave, 27 shuffles in one cell (3 for the cell's lattice point,
 24 for the eight gradients) and more for each further cell.  K11's loop is
 its primitive loop (LDS of the staged tables).  K1's and K12's loop is the
-look-back's window read (keyed by its global loads, LDG), K5's its quad
-loop.
+look-back's window read (keyed by its global loads, LDG), K5's and K6's
+their primitive loops.  K3's only loop is flush_warp's summing rounds
+(keyed by SHFL: four shuffles a round).
 """
 
 from __future__ import annotations
@@ -47,7 +49,9 @@ DEFAULT = (("sphere_hit_kernelILi2ELi2E", "LDS"), ("sphere_hit_kernelILi1ELi2E",
            ("box_grid_cells_kernelILb0E", "LDS"), ("box_grid_kernel", "LDS"),
            ("turb_kernelILi7E", "SHFL"), ("turb_kernelILi2E", "SHFL"),
            ("turb_kernelILi0E", "SHFL"), ("sp_step_kernel", "LDS"), ("refill_kernel", "LDG"),
-           ("refill_flush_kernel", "LDG"), ("quad_hit_kernel", "LDS"))
+           ("refill_flush_kernel", "LDG"), ("quad_hit_kernel", "LDS"),
+           ("box_hit_kernelILb1ELb1E", "LDS"), ("box_hit_kernelILb1ELb0E", "LDS"),
+           ("shade_flush_kernelILb1E", "SHFL"), ("shade_flush_kernelILb0E", "SHFL"))
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 
