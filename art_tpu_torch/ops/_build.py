@@ -79,6 +79,7 @@ _SIGNATURES = {
                     ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P, _I, _P, _I, _P, _I, _P],
     "art_flush_accumulate": [_P, _P, ctypes.POINTER(_P), _I, _P, _I, _P, _I, _P],
     "art_table_gather": [_P, _I, _P, _P, _I, _P],
+    "art_atlas_fetch": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "art_box_grid": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I, ctypes.c_float,
                      ctypes.POINTER(_P), _P],
     "art_sphere_mxu": [_P, _P, _I, _I, ctypes.POINTER(_P), _P],

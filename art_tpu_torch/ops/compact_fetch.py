@@ -22,6 +22,17 @@ no needy count overflows it, and a ray-id payload (exact in float32 below
 
 On CUDA tensors K4 and K8 launch; on CPU tensors, or with ``plain=True``,
 their plain twins run.
+
+``art_tpu`` compacts only on the TPU: its texture evaluation
+(``art_tpu/ops/texture_eval.py:145-153``, ``:297-306``) takes
+``compact_gather`` when ``tpu_paths()`` is true (and
+``ART_TPU_NO_COMPACT_FETCH`` is unset), and the dense ``data[flat]``
+elsewhere.  On the TPU a gather is a one-hot MXU product, so fetching only
+the needy slots pays; on the H100 a masked lane loads nothing.  So no
+render of the port calls ``compact_gather``: ``ImageAtlas.sample`` takes
+K8's fetch form (``ops/flush_kernel.py atlas_fetch``), one launch.
+``compact_gather`` stays as the port of ``art_tpu``'s function, and
+``compact_ray_ids`` serves the split sphere pass (``ops/compact_sphere.py``).
 """
 
 from __future__ import annotations

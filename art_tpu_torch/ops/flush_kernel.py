@@ -12,22 +12,35 @@
   ``art_tpu/ops/flush_kernel.py:table_gather_u24`` (:147):
   ``out[i] = table[idx[i]]``, 0 where ``idx[i]`` is out of range, over an
   int32 table (the TPU's byte split for bf16 exactness is gone).
+* K8's fetch form ``atlas_fetch`` (``csrc/table_gather.cu``
+  ``art_atlas_fetch``), replacing the compacted image fetch of ``art_tpu``
+  (``art_tpu/ops/compact_fetch.py:87`` ``compact_gather`` over
+  ``flush_kernel.py:147`` and ``:196``) with ``ImageAtlas.sample``'s texel
+  index and unpack: the (3, R) float32 texel planes, 0 off the needy lanes,
+  in one launch.  ``art_tpu`` compacts only on the TPU (its gather is a
+  one-hot MXU product there); off the TPU it gathers densely, as this does.
+  Its twin's texel index and unpack (``texel_index``, ``unpack_rgb``) are
+  the ones ``utils/images.py ImageAtlas`` samples with.
 
-Both serve the compacted image fetch (``ops/compact_fetch.py``).  Each
-wrapper launches its kernel for CUDA tensors and runs its plain twin for
-CPU tensors; any R works (the TPU's ``R % 8192`` rule is its layout's).
+K4 and K8 serve the compacted fetch (``ops/compact_fetch.py``), K4 also
+the split sphere pass.  Each wrapper launches its kernel for CUDA tensors
+and runs its plain twin for CPU tensors; any R works (the TPU's
+``R % 8192`` rule is its layout's).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from art_tpu_torch.ops import _build
 
 FLUSH = "flush_accumulate"
 GATHER = "table_gather_u24"
+FETCH = "atlas_fetch"
 LANES = 128  # framebuffer row width per channel (the TPU's lane count)
 MAX_CHAN = 6
+UNPACK_SCALE = float(np.float32(1.0 / 255.0))  # texel / 255 (src/texture.cuh:56-59)
 
 
 def _check_flush(values, fb):
@@ -108,4 +121,62 @@ def table_gather_u24(table, idx) -> torch.Tensor:
                                            out.data_ptr(), R, _build.stream_handle(dev))
     _build.check(rc, GATHER)
     _build.launches[GATHER] += 1
+    return out
+
+
+def texel_index(widths, heights, hmax: int, wmax: int, img_id, u, v) -> torch.Tensor:
+    """(R,) int32 flat index of the nearest texel in an image atlas of (n,)
+    int32 ``widths`` and ``heights`` padded to ``hmax`` x ``wmax``:
+    ``img_id`` and (u, v) clamped, ``u w`` and ``(1 - v) h`` truncated
+    toward zero, the row v-flipped (src/texture.cuh:51-59)."""
+    img_id = torch.clamp(img_id, 0, heights.shape[0] - 1)
+    w = widths.index_select(0, img_id)
+    h = heights.index_select(0, img_id)
+    uu = torch.clamp(u, 0.0, 1.0)
+    vv = torch.clamp(v, 0.0, 1.0)
+    i = torch.minimum((uu * w.to(torch.float32)).to(torch.int32), w - 1)
+    j = torch.minimum(((1.0 - vv) * h.to(torch.float32)).to(torch.int32), h - 1)
+    return (img_id * hmax + j) * wmax + i
+
+
+def unpack_rgb(px: torch.Tensor) -> torch.Tensor:
+    """(3, R) float32 channels of (R,) packed ``R | G<<8 | B<<16`` texels,
+    each byte times float32(1/255)."""
+    return torch.stack([((px >> s) & 0xFF).to(torch.float32) * UNPACK_SCALE
+                        for s in (0, 8, 16)])
+
+
+def atlas_fetch_plain(data, widths, heights, hmax: int, wmax: int, img_id, u, v,
+                      needy) -> torch.Tensor:
+    """Plain PyTorch K8 fetch form: ``texel_index``, then
+    ``where(needy, data.index_select(0, clamp(flat, 0, T - 1)), 0)``, then
+    ``unpack_rgb``; (3, R) float32."""
+    flat = texel_index(widths, heights, hmax, wmax, img_id, u, v)
+    px = torch.where(needy, data.index_select(0, flat.clamp(0, data.shape[0] - 1)), 0)
+    return unpack_rgb(px)
+
+
+def atlas_fetch(data, widths, heights, hmax: int, wmax: int, img_id, u, v,
+                needy) -> torch.Tensor:
+    """K8's fetch form -> (3, R) float32 texel planes of an image atlas
+    ((T,) int32 packed texels ``data``, (n,) int32 ``widths`` and
+    ``heights``, padded to ``hmax`` x ``wmax``) at (R,) int32 ``img_id``,
+    (R,) float32 ``u`` and ``v``; 0 where the (R,) bool ``needy`` is False.
+    The CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    dev = u.device
+    if dev.type == "cpu":
+        return atlas_fetch_plain(data, widths, heights, hmax, wmax, img_id, u, v, needy)
+    R, n, T = u.shape[0], heights.shape[0], data.shape[0]
+    _build.check_planes(("img_id",), (img_id,), R, torch.int32, dev)
+    _build.check_planes(("u", "v"), (u, v), R, torch.float32, dev)
+    _build.check_planes(("needy",), (needy,), R, torch.bool, dev)
+    _build.check_planes(("widths", "heights"), (widths, heights), n, torch.int32, dev)
+    _build.check_planes(("data",), (data,), T, torch.int32, dev)
+    out = torch.empty((3, R), dtype=torch.float32, device=dev)
+    rc = _build.library().art_atlas_fetch(
+        data.data_ptr(), T, widths.data_ptr(), heights.data_ptr(), n, hmax, wmax,
+        img_id.data_ptr(), u.data_ptr(), v.data_ptr(), needy.data_ptr(), out.data_ptr(), R,
+        _build.stream_handle(dev))
+    _build.check(rc, FETCH)
+    _build.launches[FETCH] += 1
     return out

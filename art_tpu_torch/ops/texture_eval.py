@@ -10,9 +10,12 @@ leaves (image with a folded uv offset, noise, noodle, felt) by material id.
 Turbulence goes through ``_turb``: the turbulence kernel (K7,
 ``ops/perlin_kernel.py``) for CUDA tensors, its plain twin for CPU tensors
 or when asked for the plain path.  The image fetch goes through
-``ImageAtlas.sample`` with the needy mask, so on CUDA tensors through the
-compacted fetch (K4 and K8, ``ops/compact_fetch.py``), and through their
-twins on CPU tensors or with ``plain``; lanes outside the mask read 0.
+``ImageAtlas.sample`` with the needy mask, so on CUDA tensors through one
+launch of K8's fetch form (``ops/flush_kernel.py atlas_fetch``), and
+through its twin on CPU tensors or with ``plain``; lanes outside the mask
+read 0.  ``art_tpu`` takes its compacted fetch (``:145-153``, ``:297-306``)
+only when ``tpu_paths()`` is true, and gathers densely elsewhere; the port
+follows that gate: off the TPU no compaction.
 Felt's mottling ``noise_p`` is plain PyTorch on every device, as in
 ``art_tpu`` (jnp outside any Pallas kernel).
 """
@@ -136,6 +139,25 @@ def eval_texture_p(tables: SceneTables, tex_id: torch.Tensor, u, v, p, valid=Non
     return out
 
 
+def image_lanes(specials: tuple, mat: torch.Tensor, u, v, valid=None):
+    """The image fetch's inputs of ``eval_special_p``: (R,) int32 image ids,
+    u and v (each lane's folded uv offset applied) and the needy mask, the
+    lanes whose material is one of ``specials``' images (and ``valid``)."""
+    needy = torch.zeros_like(mat, dtype=torch.bool)
+    img_id = torch.zeros_like(mat)
+    uu, vv = u, v
+    for mid, _, gid, du, dv in (s for s in specials if s[1] == "image"):
+        m = mat == mid
+        needy = needy | m
+        img_id = torch.where(m, gid, img_id)
+        if du or dv:  # a folded uv_offset wrapper
+            uo, vo = _uv_offset(u, v, du, dv)
+            uu, vv = torch.where(m, uo, uu), torch.where(m, vo, vv)
+    if valid is not None:
+        needy = needy & valid
+    return img_id, uu, vv, needy
+
+
 def eval_special_p(tables: SceneTables, specials: tuple, mat: torch.Tensor, u, v, p,
                    valid=None, *, plain: bool = False):
     """Leaf colors of the baked shade mode's special materials
@@ -144,27 +166,16 @@ def eval_special_p(tables: SceneTables, specials: tuple, mat: torch.Tensor, u, v
     ``(mat_id, "felt", ...)``); 0 elsewhere.
 
     The image materials share one fetch over the lanes that hit one of them
-    (and are ``valid``); each turbulence material evaluates over the whole
-    batch, as in ``art_tpu``."""
+    (and are ``valid``), the first leaf: its planes are 0 off those lanes,
+    so they start ``out`` as they are; each turbulence material evaluates
+    over the whole batch, as in ``art_tpu``."""
     px, py, pz = p
-    zero = torch.zeros_like(px)
-    out = (zero, zero, zero)
-    imgs = [s for s in specials if s[1] == "image"]
-    if imgs:
-        needy = torch.zeros_like(mat, dtype=torch.bool)
-        img_id = torch.zeros_like(mat)
-        uu, vv = u, v
-        for mid, _, gid, du, dv in imgs:
-            m = mat == mid
-            needy = needy | m
-            img_id = torch.where(m, gid, img_id)
-            if du or dv:  # a folded uv_offset wrapper
-                uo, vo = _uv_offset(u, v, du, dv)
-                uu, vv = torch.where(m, uo, uu), torch.where(m, vo, vv)
-        if valid is not None:
-            needy = needy & valid
-        img = tables.atlas.sample(img_id, uu, vv, needy, plain=plain)
-        out = p_where(needy, img.unbind(1), out)
+    if not any(s[1] == "image" for s in specials):
+        zero = torch.zeros_like(px)
+        out = (zero, zero, zero)
+    else:
+        img_id, uu, vv, needy = image_lanes(specials, mat, u, v, valid)
+        out = tables.atlas.sample(img_id, uu, vv, needy, plain=plain).unbind(1)
     for s in specials:
         if s[1] == "noise":
             mid, _, scale = s

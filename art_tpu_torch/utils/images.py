@@ -12,8 +12,17 @@ flat table of ``R | G<<8 | B<<16`` texels — as int32, since PyTorch's
 uint32 has almost no CUDA ops; every value is below 2^24.  ``sample`` is
 nearest-texel with clamp and v-flip in ``art_tpu``'s order, in float32, and
 unpacks by multiplying with float32(1/255), so it rounds as ``art_tpu``
-does on every device.  With ``needy`` the texel fetch goes through the
-compacted fetch (``ops/compact_fetch.py``, kernels K4 and K8).
+does on every device.  With ``needy`` the whole fetch — texel index, texel
+and unpack — is one kernel, K8's fetch form (``ops/flush_kernel.py``
+``atlas_fetch``), 0 off the needy lanes.  ``art_tpu`` compacts the needy
+lanes only on the TPU (``art_tpu/ops/texture_eval.py`` gates
+``compact_gather`` on ``tpu_paths()``), where a gather is a one-hot MXU
+product; off the TPU it gathers densely, and so does the port, whose
+masked lanes load nothing.  ``ops/compact_fetch.py`` keeps the compacted
+form as a port of ``art_tpu``'s, called by no render.  The texel index and
+the unpack live beside the fetch kernel's wrapper and twin
+(``ops/flush_kernel.py``), which take the atlas's tensors and sizes; this
+module imports that one, never the other way round.
 """
 
 from __future__ import annotations
@@ -24,9 +33,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from art_tpu_torch.ops import flush_kernel as fk
+
 TEXTURE_DIR = Path(__file__).resolve().parents[1] / "assets" / "textures"
 _DECODE = "scripts/decode_textures.py"
-UNPACK_SCALE = float(np.float32(1.0 / 255.0))  # texel / 255 (src/texture.cuh:56-59)
 
 
 def asset_path(name: str) -> Path:
@@ -102,32 +112,22 @@ class ImageAtlas:
                                    widths=self.widths.to(device))
 
     def texel_index(self, img_id: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
-        """(R,) int32 flat texel index of the nearest texel: ``img_id`` and
-        (u, v) clamped, ``u w`` and ``(1 - v) h`` truncated toward zero, the
-        row v-flipped (src/texture.cuh:51-59)."""
-        img_id = torch.clamp(img_id, 0, self.heights.shape[0] - 1)
-        w = self.widths.index_select(0, img_id)
-        h = self.heights.index_select(0, img_id)
-        uu = torch.clamp(u, 0.0, 1.0)
-        vv = torch.clamp(v, 0.0, 1.0)
-        i = torch.minimum((uu * w.to(torch.float32)).to(torch.int32), w - 1)
-        j = torch.minimum(((1.0 - vv) * h.to(torch.float32)).to(torch.int32), h - 1)
-        return (img_id * self.hmax + j) * self.wmax + i
+        """(R,) int32 flat texel index of the nearest texel
+        (``ops/flush_kernel.py texel_index``, src/texture.cuh:51-59)."""
+        return fk.texel_index(self.widths, self.heights, self.hmax, self.wmax, img_id, u, v)
 
     def sample(self, img_id: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                needy: torch.Tensor | None = None, *, plain: bool = False) -> torch.Tensor:
         """(R, 3) float32 texel colors (src/texture.cuh:51-59).
 
-        With ``needy`` (a bool mask of the lanes that want a texel) the
-        fetch is the compacted one — exact on needy lanes, 0 elsewhere;
-        ``plain`` takes its kernels' twins on any device.  Without it, one
-        dense gather."""
-        flat = self.texel_index(img_id, u, v)
+        With ``needy`` (a bool mask of the lanes that want a texel) the fetch
+        is K8's fetch form — exact on needy lanes, 0 elsewhere — whose (3, R)
+        planes this returns transposed (``unbind(1)`` gives them back
+        contiguous); ``plain`` takes its twin on any device.  Without it,
+        one dense gather."""
         if needy is not None:
-            from art_tpu_torch.ops.compact_fetch import compact_gather
-
-            px = compact_gather(self.data, flat, needy, plain=plain)
-        else:
-            px = self.data.index_select(0, torch.clamp(flat, 0, self.data.shape[0] - 1))
-        return torch.stack([((px >> s) & 0xFF).to(torch.float32) * UNPACK_SCALE
-                            for s in (0, 8, 16)], dim=-1)
+            fetch = fk.atlas_fetch_plain if plain else fk.atlas_fetch
+            return fetch(self.data, self.widths, self.heights, self.hmax, self.wmax, img_id, u,
+                         v, needy).T
+        flat = torch.clamp(self.texel_index(img_id, u, v), 0, self.data.shape[0] - 1)
+        return fk.unpack_rgb(self.data.index_select(0, flat)).T

@@ -44,8 +44,17 @@ Phases (each runs; any failure exits non-zero without the final result):
     (R = 2^17) and on a colliding flush into a window at a base row, K8
     (table_gather_u24) on that pool's texel slots with out-of-range indices,
     and the compacted fetch against the dense gather at 0, about 30% and
-    100% needy lanes, timed against the one-call dense gather; the launches
-    and device time of felt's plain-PyTorch noise;
+    100% needy lanes, timed against the one-call dense gather (K8's
+    ``launches`` is 0: no render runs it; these calls are its
+    ``check_calls``); K8's fetch form (atlas_fetch, the
+    whole ``ImageAtlas.sample(..., needy)`` in one launch) bit-equal to its
+    twin on that pool at 0, 30%, the rendered and 100% needy lanes, on lanes
+    with NaN, infinite and out-of-range (u, v) and image ids, equal to the
+    compacted pipeline it replaced, and on a final_scene pool 20 iterations
+    in through ``eval_special_p``; timed on both pools beside the dense
+    ``where(needy, index_select)`` and the replaced pipeline, with the
+    launches of a staged earth and final_scene iteration by kernel name;
+    the launches and device time of felt's plain-PyTorch noise;
     2e. on a final_scene pool 20 iterations into a render (R = 2^17): K9
     (box_grid_cells) and K10 (box_grid, final_scene's table with its cell
     list dropped) equal to their twins, K9's form and the share of lanes
@@ -113,10 +122,11 @@ Phases (each runs; any failure exits non-zero without the final result):
     @ 64, checkered_spheres and simple_light_book 1200x600 @ 16, and perlin
     1200x600 @ 64 staged (K1, K2, K7, baked K3 with its noise planes), which
     must agree statistically with the short-path image; then the image
-    scenes, three renders each: earth 1200x600 @ 64 (K1, K2, K4, K8, baked
-    K3) and simple_light 1200x600 @ 16 (K1, K5, K2, K7, K4, K8, baked K3);
-    then the big scenes: final_scene 800x800 @ 16 (K1, K5, K9, the
-    full-table K2 once an iteration, K4 and K8 for the image, K7, baked K3
+    scenes, three renders each: earth 1200x600 @ 64 (K1, K2, K8's fetch
+    form, baked K3) and simple_light 1200x600 @ 16 (K1, K5, K2, K7, K8's
+    fetch form, baked K3); then the big scenes: final_scene 800x800 @ 16
+    (K1, K5, K9, the full-table K2 once an iteration, K8's fetch form for
+    the image, K7, baked K3
     and the media in PyTorch), original_scene 800x800 @ 16, cornell_smoke
     600x600 @ 64 (K1, K5, baked K3, two box media) and a 40x40 box field
     (1600 boxes: K10), each finite, >= 0 and not black; then each opt-in
@@ -125,8 +135,9 @@ Phases (each runs; any failure exits non-zero without the final result):
     SPH_CELLBIN (K17), final_scene 800x800 @ 16 under SPH_CELLBIN (K17),
     SPH_SKIP (K16), the split with OCC_GATE and K16's tail-only call, the
     split's forced dense branch with COMPACT_CELLBIN (K17), and the split
-    alone, and K15's route (CLUSTER_RUNS) default / route / route /
-    default: final_scene 800x800 @ 16 (K15's spheres and boxes),
+    alone (the splits compacting with K4), and K15's route (CLUSTER_RUNS)
+    default / route / route / default: final_scene 800x800 @ 16 (K15's
+    spheres and boxes),
     bouncing_spheres 1200x800 @ 64 and the box field (K15's boxes in place
     of K10), each route render launching its own
     kernels; then bouncing_spheres 1200x800 @ 1 under the BVH descent (no
@@ -144,8 +155,10 @@ Phases (each runs; any failure exits non-zero without the final result):
 Standard output ends with a JSON line of per-kernel results (each kernel's
 ``launches`` counted in the first default-route render that runs it, in
 the order bouncing_spheres, final_scene, cornell_box, the image and
-short-path scenes, the others; else in its opt-in route's render; named by
-``launches_path``), the card's name and power limit, and then
+short-path scenes, the others; else in its opt-in route's render, K4's in
+the plain split's; K8's 0, on no render's path; named by
+``launches_path``), the
+card's name and power limit, and then
 ``{"ok": true, "device": {...}}``.  Needs
 ``torch.cuda.is_available()``.
 """
@@ -222,6 +235,10 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                          "art_tpu/ops/flush_kernel.py:196"),
     "table_gather_u24": ("art_tpu_torch/csrc/table_gather.cu",
                          "art_tpu/ops/flush_kernel.py:147"),
+    # K8's fetch form: compact_gather's K8 (:147) and K4 (:196) as
+    # art_tpu/ops/compact_fetch.py:87 calls them, with ImageAtlas.sample's
+    # texel index and unpack (art_tpu/utils/images.py)
+    "atlas_fetch": ("art_tpu_torch/csrc/table_gather.cu", "art_tpu/ops/flush_kernel.py:147"),
     "box_grid_cells": ("art_tpu_torch/csrc/box_grid.cu",
                        "art_tpu/ops/pallas_kernels.py:2435"),
     "box_grid": ("art_tpu_torch/csrc/box_grid.cu", "art_tpu/ops/pallas_kernels.py:2297"),
@@ -253,44 +270,39 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          "perlin": ("sp_step",), "quads": ("sp_step",), "checkered_spheres": ("sp_step",),
          "simple_light_book": ("sp_step",),
          "perlin staged": ("refill", "sphere_hit", "turb", "shade_flush_baked"),
-         "earth": ("refill", "sphere_hit", "flush_accumulate", "table_gather_u24",
-                   "shade_flush_baked"),
-         "simple_light": ("refill", "quad_hit", "sphere_hit", "turb", "flush_accumulate",
-                          "table_gather_u24", "shade_flush_baked"),
-         # the full-table K2 once an iteration (the split is opt-in); K4 and
-         # K8 for the earth image
+         # an image's texels through K8's fetch form, one launch; no render
+         # compacts the fetch (K4 and K8), as art_tpu compacts only on the TPU
+         "earth": ("refill", "sphere_hit", "atlas_fetch", "shade_flush_baked"),
+         "simple_light": ("refill", "quad_hit", "sphere_hit", "turb", "atlas_fetch",
+                          "shade_flush_baked"),
+         # the full-table K2 once an iteration (the split is opt-in); K8's
+         # fetch form for the earth image
          "final_scene": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
-                         "flush_accumulate", "table_gather_u24", "turb",
-                         "shade_flush_baked"),
+                         "atlas_fetch", "turb", "shade_flush_baked"),
          "original_scene": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
-                            "flush_accumulate", "table_gather_u24", "turb",
-                            "shade_flush_baked"),
+                            "atlas_fetch", "turb", "shade_flush_baked"),
          "cornell_smoke": ("refill", "quad_hit", "shade_flush_baked"),
          "box field": ("refill", "box_grid", "shade_flush_baked"),
          # the opt-in sphere routes (ROUTE_RUNS)
          "bouncing_spheres cellbin": ("refill", "sphere_cellbin", "shade_flush"),
          "final_scene cellbin": ("refill", "quad_hit", "box_grid_cells", "sphere_cellbin",
-                                 "flush_accumulate", "table_gather_u24", "turb",
-                                 "shade_flush_baked"),
+                                 "atlas_fetch", "turb", "shade_flush_baked"),
          "final_scene skip": ("refill", "quad_hit", "box_grid_cells", "sphere_skip",
-                              "flush_accumulate", "table_gather_u24", "turb",
-                              "shade_flush_baked"),
+                              "atlas_fetch", "turb", "shade_flush_baked"),
          # K2 over the head, K4 compacting, K16's tail-only call
          "final_scene split skip": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
-                                    "sphere_skip", "flush_accumulate", "table_gather_u24",
+                                    "sphere_skip", "flush_accumulate", "atlas_fetch",
                                     "turb", "shade_flush_baked"),
-         # the dense branch is K17 alone
+         # the dense branch is K17 alone: no compaction
          "final_scene split dense": ("refill", "quad_hit", "box_grid_cells", "sphere_cellbin",
-                                     "flush_accumulate", "table_gather_u24", "turb",
-                                     "shade_flush_baked"),
+                                     "atlas_fetch", "turb", "shade_flush_baked"),
          "final_scene split": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
-                               "flush_accumulate", "table_gather_u24", "turb",
+                               "flush_accumulate", "atlas_fetch", "turb",
                                "shade_flush_baked"),
          # ART_TPU_CLUSTER (CLUSTER_RUNS): K15's spheres in place of K2, its
          # boxes in place of K9 and K10
          "final_scene cluster": ("refill", "quad_hit", "box_cluster", "sphere_cluster",
-                                 "flush_accumulate", "table_gather_u24", "turb",
-                                 "shade_flush_baked"),
+                                 "atlas_fetch", "turb", "shade_flush_baked"),
          "bouncing_spheres cluster": ("refill", "sphere_cluster", "shade_flush"),
          "box field cluster": ("refill", "box_cluster", "shade_flush_baked"),
          # ART_TPU_BVH: the per-ray descent is plain PyTorch, no sphere kernel
@@ -305,11 +317,11 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          "bouncing_spheres static": ("refill", "sphere_static", "shade_flush"),
          "bouncing_spheres mxu": ("refill", "sphere_mxu", "shade_flush"),
          "final_scene static": ("refill", "quad_hit", "box_grid_cells", "sphere_static",
-                                "flush_accumulate", "table_gather_u24", "turb",
-                                "shade_flush_baked"),
+                                "atlas_fetch", "turb", "shade_flush_baked"),
+         # the dense branch: K2 over the head, K14 over the tail, no compaction
          "final_scene split mxu tail": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
-                                        "sphere_mxu", "flush_accumulate", "table_gather_u24",
-                                        "turb", "shade_flush_baked")}
+                                        "sphere_mxu", "atlas_fetch", "turb",
+                                        "shade_flush_baked")}
 # the opt-in sphere routes of the culling slice (art_tpu_torch/ops/routes.py),
 # each rendered at full width route / default against the default route:
 # (label, scene, nx, ny, spp, the switches); COMPACT_SKIP acts with SPH_SKIP,
@@ -1542,45 +1554,111 @@ def turb_sp_checks(checks: Checks, dev, results: dict):
     _log_kernels(results, ("turb", "sp_step"))
 
 
-def compact_checks(checks: Checks, dev, results: dict):
-    """K4, K8 and the compacted fetch against their twins at earth
-    1200x600's R (2^17), on a pool 20 staged iterations into a render."""
-    import torch
+# the image fetch's pools (phase 2d, scripts/kernel_pair.py --set fetch):
+# (scene, nx, ny, spp) 20 staged iterations into a render
+FETCH_SCENES = (("earth", 1200, 600, 64), ("final_scene", 800, 800, 16))
+OPS_FETCH = 26  # K8's fetch form a needy lane: 2 clamps and NaN tests 6, index 9,
+#                 the flip 1, 3 channels of shift, mask, convert and scale 12
+_FETCH_POOLS: dict = {}
 
+
+def _fetch_pools(dev):
+    """FETCH_SCENES' pools (``_staged_pool``, refilled) with the hit record
+    a staged iteration shades there (the plain ``closest_surface_p`` and
+    ``apply_media_p``) and its image fetch's inputs (``image_lanes``):
+    name -> dict(scene, s, rec, valid, specials, img, u, v, needy); built
+    once."""
     from art_tpu_torch.core.vecmath import T_MIN
     from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops.intersect import apply_media_p, closest_surface_p
+    from art_tpu_torch.ops.texture_eval import image_lanes
+
+    for name, nx, ny, spp in FETCH_SCENES:
+        if name in _FETCH_POOLS:
+            continue
+        scene = build_scene(name, nx, ny).to(dev)
+        s = _staged_pool(scene, nx, ny, spp, dev, 20)
+        pool, tables = s["pool"], scene.tables
+        o, d = (pool["ox"], pool["oy"], pool["oz"]), (pool["dx"], pool["dy"], pool["dz"])
+        surf = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=True)
+        rec = apply_media_p(tables, o, d, T_MIN, surf, s["u_media"], time=pool["tm"])
+        valid = rec.hit & pool["act"]
+        specials = tables.shade_consts[1]
+        img, u, v, needy = image_lanes(specials, rec.mat, rec.u, rec.v, valid)
+        _FETCH_POOLS[name] = dict(scene=scene, s=s, rec=rec, valid=valid, specials=specials,
+                                  img=img, u=u, v=v, needy=needy)
+    return _FETCH_POOLS
+
+
+def _profiled_names(fn) -> dict:
+    """{device kernel name: launches} of one call of ``fn`` (after a
+    warm-up call).  A spin kernel opens the window and is not counted: late
+    in a long process the profiler can leave a window's first launch out
+    (a staged earth iteration read without its K1, ``sample`` with 0)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    return dict(collections.Counter(e.name[:80] for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA
+                                    and "spin_kernel" not in e.name))
+
+
+def _staged_names(f) -> dict:
+    """{device kernel name: launches} of one staged iteration on a
+    ``_fetch_pools`` pool (a copy of it)."""
+    from art_tpu_torch.render.integrator import staged_step
+
+    s, scene = f["s"], f["scene"]
+    args = (_clone(s["pool"]), scene.camera, s["q"].clone(), 0, s["hist"].clone(), 20,
+            s["scal"], scene.tables, scene.background, s["fb"].clone(), s["lost"].clone())
+    return _profiled_names(lambda: staged_step(*args, key=(7, 0, 0), ncols=s["ncols"],
+                                               max_depth=50, gradient=scene.gradient_bg))
+
+
+def _atlas_args(atlas) -> tuple:
+    """K8's fetch form's atlas arguments: data, widths, heights, hmax, wmax."""
+    return atlas.data, atlas.widths, atlas.heights, atlas.hmax, atlas.wmax
+
+
+def _unpacked_compact(atlas, img, u, v, needy):
+    """``ImageAtlas.sample(img, u, v, needy)`` as the port ran it before K8's
+    fetch form: the texel index, the compacted fetch (K4, K8 and their
+    glue), the unpack and a stack, (R, 3)."""
+    import torch
+
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops.flush_kernel import UNPACK_SCALE
+
+    px = cf.compact_gather(atlas.data, atlas.texel_index(img, u, v), needy)
+    return torch.stack([((px >> s) & 0xFF).to(torch.float32) * UNPACK_SCALE
+                        for s in (0, 8, 16)], dim=-1)
+
+
+def compact_checks(checks: Checks, dev, results: dict):
+    """K4, K8 (both forms) and the compacted fetch against their twins at
+    earth 1200x600's R (2^17), on a pool 20 staged iterations into a
+    render; K8's fetch form also on a final_scene pool."""
+    import torch
+
+    from art_tpu_torch.ops import _build
     from art_tpu_torch.ops import compact_fetch as cf
     from art_tpu_torch.ops import flush_kernel as fk
-    from art_tpu_torch.ops import refill_kernel as rk
-    from art_tpu_torch.ops.intersect import closest_surface_p
-    from art_tpu_torch.render.integrator import staged_step
-    from art_tpu_torch.render.renderer import RenderConfig, plan_batches
 
     rng = np.random.default_rng(SEED + 3)
-    _, name, nx, ny, spp, _ = IMAGE[0]
-    scene = build_scene(name, nx, ny).to(dev)
-    tables = scene.tables
-    tile_pixels, spp_chunk, R = plan_batches(nx * ny, spp, 1, RenderConfig(), dev)
-    scal = rk.RefillScal(spp_chunk, tile_pixels, 0, nx * ny, nx, ny)
-    pool = rk.new_pool(R, dev)
-    q = torch.zeros(2, dtype=torch.int64, device=dev)
-    hist = torch.zeros(21, dtype=torch.int64, device=dev)
-    fb = torch.zeros((tile_pixels, 3), device=dev)
-    lost = torch.zeros(1, dtype=torch.int32, device=dev)
-    for it in range(21):  # 20 iterations, then the refill of the 21st
-        if it == 20:
-            rk.fused_refill_plain(pool, scene.camera, q, it % 2, hist, it, scal,
-                                  key=(7, 0, 0), ncols=10)
-            break
-        staged_step(pool, scene.camera, q, it % 2, hist, it, scal, tables, scene.background,
-                    fb, lost, key=(7, 0, 0), ncols=10, max_depth=50,
-                    gradient=scene.gradient_bg)
-    rec = closest_surface_p(tables, (pool["ox"], pool["oy"], pool["oz"]),
-                            (pool["dx"], pool["dy"], pool["dz"]), pool["tm"], T_MIN,
-                            plain=True)
-    needy = rec.hit & pool["act"]  # earth's one material is the image
-    atlas = tables.atlas
-    flat = atlas.texel_index(torch.zeros_like(rec.mat), rec.u, rec.v)
+    pools = _fetch_pools(dev)
+    f = pools["earth"]
+    pool, rec, needy, R = f["s"]["pool"], f["rec"], f["needy"], f["s"]["R"]
+    atlas = f["scene"].tables.atlas
+    flat = atlas.texel_index(f["img"], f["u"], f["v"])
     n_needy = int(needy.sum())
     log(f"  R = {R}, earth pool after 20 iterations: {int(pool['act'].sum())} live, "
         f"{n_needy} needy ({n_needy / R:.3f}), atlas {atlas.data.shape[0]} texels")
@@ -1638,10 +1716,12 @@ def compact_checks(checks: Checks, dev, results: dict):
                   f"indices read 0")
     results["table_gather_u24"]["max_abs_err"] = float((k8 - p8).abs().max())
 
-    # ---- the compacted fetch against the dense gather ----
+    # ---- the compacted fetch against the dense gather; no render runs K8,
+    # so its launches are these calls' ----
     masks = {"0": torch.zeros_like(needy), "rendered": needy,
              "30%": torch.from_numpy(rng.random(R) < 0.3).to(dev),
              "100%": torch.ones_like(needy)}
+    _build.launches.clear()
     for label, m in masks.items():
         got = cf.compact_gather(atlas.data, flat, m)
         want = torch.where(m, atlas.data.index_select(0, flat), 0)
@@ -1649,6 +1729,7 @@ def compact_checks(checks: Checks, dev, results: dict):
         checks.expect(torch.equal(got, want),
                       f"compact_gather at {label} needy ({int(m.sum())} lanes) equals "
                       f"where(needy, data[flat], 0)")
+    results["table_gather_u24"]["check_calls"] = _build.launches[fk.GATHER]
 
     # ---- times: K4 and K8 as the fetch calls them, on this pool ----
     zeros = torch.zeros(n_hi, fk.LANES, device=dev)
@@ -1682,31 +1763,134 @@ def compact_checks(checks: Checks, dev, results: dict):
     fetch["dense_where_ms"] = _timed_ms(
         lambda: torch.where(needy, atlas.data.index_select(0, flat), 0), 20)
     results["_compact_fetch"] = fetch
+    atlas_fetch_checks(checks, dev, results, pools, masks)
 
     # felt's mottling noise stays plain PyTorch (jnp outside any Pallas
     # kernel in art_tpu): its device launches and device time on this pool's
     # hit points at simple_light's mottling scale
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from art_tpu_torch.ops.perlin import noise_p
 
     pts = tuple((c * 16.0).contiguous() for c in rec.p)
-    noise_p(*pts)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        noise_p(*pts)
-        torch.cuda.synchronize()
-    launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    launches = _profiled_launches(lambda: noise_p(*pts))
     results["_noise_p"] = {"launches": launches, "ms": _timed_ms(lambda: noise_p(*pts), 5),
                            "R": R}
-    _log_kernels(results, ("flush_accumulate", "table_gather_u24"))
+    _log_kernels(results, ("flush_accumulate", "table_gather_u24", "atlas_fetch"))
     log(f"  felt's noise_p (plain PyTorch): {launches} device launches, "
         f"{results['_noise_p']['ms']:.4f} ms at R = {R}")
     log(f"  library: index_put_ {r4['library_ms']:.4f} ms, index_select "
         f"{r8['library_ms']:.4f} ms; compact_gather {fetch['compact_ms']:.4f} ms against "
         f"the dense gather {fetch['dense_ms']:.4f} ms ({fetch['dense_where_ms']:.4f} ms "
         f"with its where)")
+    for name, c in fetch["pools"].items():
+        log(f"  sample(..., needy) on {name}'s pool ({c['needy']} of {c['R']} needy): K8's "
+            f"fetch form {c['ms']:.4f} ms in {c['sample_launches']} launch, the compacted "
+            f"pipeline it replaced "
+            f"{c['compact_sample_ms']:.4f} ms in {c['compact_sample_launches']}; a staged "
+            f"iteration {c['staged_launches']} launches "
+            f"({sum(n for k, n in c['staged_names'].items() if 'atlas_fetch' in k)} of K8's "
+            f"fetch form)")
+
+
+def atlas_fetch_checks(checks: Checks, dev, results: dict, pools: dict, masks: dict):
+    """K8's fetch form against its twin on earth's pool at each of
+    ``masks``' needy shares, on lanes with NaN, infinite and out-of-range
+    inputs, against the compacted pipeline it replaced, and on final_scene's
+    pool through ``eval_special_p``; its times on both pools, the dense
+    gather's and the replaced pipeline's, and a staged iteration's launches
+    by kernel name."""
+    import torch
+
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.ops import flush_kernel as fk
+    from art_tpu_torch.ops.texture_eval import eval_special_p
+
+    rng = np.random.default_rng(SEED + 13)
+    f = pools["earth"]
+    atlas = f["scene"].tables.atlas
+    fa = _atlas_args(atlas)
+    img, u, v, R = f["img"], f["u"], f["v"], f["s"]["R"]
+    err = 0.0
+    for label, m in masks.items():
+        k, p = fk.atlas_fetch(*fa, img, u, v, m), fk.atlas_fetch_plain(*fa, img, u, v, m)
+        c = _unpacked_compact(atlas, img, u, v, m)
+        torch.cuda.synchronize()
+        bad, off = _bits_equal(k, p), bool(k[:, ~m].view(torch.int32).any())
+        checks.expect(bad == 0 and not off and _bits_equal(k.T.contiguous(), c) == 0,
+                      f"K8's fetch form on the earth pool at {label} needy ({int(m.sum())} "
+                      f"lanes): {bad} of {3 * R} values differ from the twin in bits; +0.0 "
+                      f"off the needy lanes: {not off}; equal to the compacted pipeline")
+        err = max(err, float((k - p).abs().max()))
+    # lanes the renders do not make: NaN, infinite and out-of-range u and v,
+    # image ids out of range; every lane needy
+    uo, vo, io = u.clone(), v.clone(), img.clone()
+    lanes = torch.from_numpy(rng.choice(R, 7 * 64, replace=False)).to(dev).view(7, 64)
+    uo[lanes[0]] = float("nan")
+    vo[lanes[1]] = float("nan")
+    uo[lanes[2]], vo[lanes[2]] = float("inf"), float("-inf")
+    uo[lanes[3]], vo[lanes[3]] = float("-inf"), float("inf")
+    uo[lanes[4]] = torch.from_numpy(rng.uniform(-3, 4, 64).astype(np.float32)).to(dev)
+    vo[lanes[5]] = torch.from_numpy(rng.uniform(-3, 4, 64).astype(np.float32)).to(dev)
+    io[lanes[6]] = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, 64).astype(np.int32)
+                                    ).to(dev)
+    every = torch.ones_like(masks["rendered"])
+    k, p = fk.atlas_fetch(*fa, io, uo, vo, every), fk.atlas_fetch_plain(*fa, io, uo, vo, every)
+    torch.cuda.synchronize()
+    bad = _bits_equal(k, p)
+    checks.expect(bad == 0, f"K8's fetch form with NaN, infinite and out-of-range u, v and "
+                            f"image ids on {7 * 64} lanes, every lane needy: {bad} values "
+                            f"differ from the twin on the card")
+    err = max(err, float((k - p).abs().max()))
+
+    # final_scene's pool: the fetch, and eval_special_p (image and marble)
+    g = pools["final_scene"]
+    ga = g["scene"].tables.atlas
+    k = fk.atlas_fetch(*_atlas_args(ga), g["img"], g["u"], g["v"], g["needy"])
+    p = fk.atlas_fetch_plain(*_atlas_args(ga), g["img"], g["u"], g["v"], g["needy"])
+    rec, specials = g["rec"], g["specials"]
+    args = (g["scene"].tables, specials, rec.mat, rec.u, rec.v, rec.p)
+    ks = eval_special_p(*args, valid=g["valid"])
+    ps = eval_special_p(*args, valid=g["valid"], plain=True)
+    torch.cuda.synchronize()
+    bad, bad_s = _bits_equal(k, p), sum(_bits_equal(a, b) for a, b in zip(ks, ps))
+    checks.expect(bad == 0 and bad_s == 0 and int(g["needy"].sum()) > 0,
+                  f"K8's fetch form on the final_scene pool ({int(g['needy'].sum())} needy): "
+                  f"{bad} values differ from the twin; eval_special_p "
+                  f"({[sp[1] for sp in specials]}) {bad_s} values differ from its plain path")
+    err = max(err, float((k - p).abs().max()))
+
+    rf = results["atlas_fetch"]
+    rf["max_abs_err"] = err
+    needy = f["needy"]
+    n_needy = int(needy.sum())
+    flat = atlas.texel_index(img, u, v)
+    rf["ms"] = _timed_ms(lambda: fk.atlas_fetch(*fa, img, u, v, needy), 20)
+    rf["plain_ms"] = _timed_ms(lambda: fk.atlas_fetch_plain(*fa, img, u, v, needy), 5)
+    # the dense gather with its mask, on the texel index the fetch computes
+    rf["library_ms"] = _timed_ms(
+        lambda: torch.where(needy, atlas.data.index_select(0, flat), 0), 20)
+    # needy in and three planes out every lane; img, u, v in and the texel
+    # of a needy lane alone (the kernel loads them only there); widths and
+    # heights
+    _set_bound(rf, R * 13 + n_needy * 16 + atlas.widths.shape[0] * 8, n_needy * OPS_FETCH)
+    per_pool = {}
+    for name, q in pools.items():
+        qa, qargs = q["scene"].tables.atlas, (q["img"], q["u"], q["v"], q["needy"])
+        names = _staged_names(q)
+        _build.launches.clear()
+        launches = _profiled_launches(lambda: qa.sample(*qargs))  # two calls
+        counted = _build.launches[fk.FETCH]
+        c = per_pool[name] = dict(
+            needy=int(q["needy"].sum()), R=q["s"]["R"], sample_launches=launches,
+            ms=_timed_ms(lambda: qa.sample(*qargs), 20),
+            compact_sample_ms=_timed_ms(lambda: _unpacked_compact(qa, *qargs), 20),
+            compact_sample_launches=_profiled_launches(lambda: _unpacked_compact(qa, *qargs)),
+            staged_launches=sum(names.values()), staged_names=names)
+        fetches = sum(n for k, n in names.items() if "atlas_fetch" in k)
+        checks.expect(launches == 1 and counted == 2 and fetches == 1,
+                      f"sample(..., needy) on {name}'s pool: {launches} device launch "
+                      f"(K8's fetch form, counted {counted} in two calls); a staged "
+                      f"iteration launches it {fetches} time")
+    results["_compact_fetch"]["pools"] = per_pool
 
 
 def _box_field(nx: int, ny: int, kx: int = 40, kz: int = 40):
@@ -1739,16 +1923,7 @@ def _scene(name: str, nx: int, ny: int):
 
 def _profiled_launches(fn) -> int:
     """Device launches of one call of ``fn`` (after a warm-up call)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return sum(_profiled_names(fn).values())
 
 
 def _staged_pool(scene, nx, ny, spp, dev, iters):
@@ -2013,8 +2188,11 @@ def grid_split_checks(checks: Checks, dev, results: dict):
             tables, o, d, tm)),
         "full_k2_launches": _profiled_launches(lambda: K.sphere_hit_attrs(tables, o, d, tm))}
 
-    # ---- the media: launches of apply_media_p and of a whole staged iteration ----
+    # ---- the media: launches of apply_media_p and of a whole staged iteration
+    # (on a copy of the pool made outside the profiled window) ----
     surf = closest_surface_p(tables, o, d, tm, T_MIN)
+    staged = (_clone(pool), scene.camera, q.clone(), 0, hist.clone(), 20, scal, tables,
+              scene.background, fb.clone(), lost.clone())
     results["_media"] = {
         "n_media": tables.n_media,
         "launches": _profiled_launches(lambda: apply_media_p(tables, o, d, T_MIN, surf,
@@ -2022,9 +2200,7 @@ def grid_split_checks(checks: Checks, dev, results: dict):
         "ms": _timed_ms(lambda: apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm),
                         10),
         "staged_step_launches": _profiled_launches(lambda: staged_step(
-            _clone(pool), scene.camera, q.clone(), 0, hist.clone(), 20, scal, tables,
-            scene.background, fb.clone(), lost.clone(), key=(7, 0, 0), ncols=ncols,
-            max_depth=50, gradient=scene.gradient_bg))}
+            *staged, key=(7, 0, 0), ncols=ncols, max_depth=50, gradient=scene.gradient_bg))}
 
     # ---- times and bounds: 6 planes in and 7 out a ray, the cell list once;
     # K10 on final_scene's table beside K9 (same work), and at its own
@@ -3343,20 +3519,22 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     # runs it: bouncing_spheres (bench.py's headline), final_scene,
     # cornell_box, the image scenes, the short-path scenes, then the other
     # default renders; a kernel that only an opt-in route runs takes that
-    # route's count: this slice's routes (SLICE8_RUNS), K15's, then the
-    # culling slice's
+    # route's count: the plain split (K4), the slice-8 routes (SLICE8_RUNS),
+    # K15's, then the culling slice's
     order = (["bouncing_spheres", "final_scene", "cornell_box"]
              + [lab for lab, *_ in IMAGE + SHORT]
              + ["three_spheres"] + [lab for lab, *_ in BIG_SCENES[1:]] + [BOXES_ALONE[0]]
+             + ["final_scene split"]  # K4's count: the plain split compacts with it
              + [lab for lab, *_ in SLICE8_RUNS] + [lab for lab, *_ in CLUSTER_RUNS]
              + ["bouncing_spheres cellbin", "final_scene skip"]
              + [lab for lab, *_ in ROUTE_RUNS] + [BVH_RUN[0]])
     for k in KERNELS:
-        path = next(lab for lab in order if k in PATHS[lab])
-        results[k]["launches"] = counts_by_render[path].get(k, 0)
-        results[k]["launches_path"] = path
         results[k]["launches_by_render"] = {
             lab: c.get(k, 0) for lab, c in counts_by_render.items()}
+        path = next((lab for lab in order if k in PATHS[lab]), None)
+        # K8 alone is on no render's path (its calls are phase 2d's checks)
+        results[k]["launches"] = counts_by_render[path].get(k, 0) if path else 0
+        results[k]["launches_path"] = path or "no render's path"
 
     independent = {}  # default-route renders with seed 2, per scene
     runs = ROUTE_RUNS + CLUSTER_RUNS + [BVH_RUN] + SLICE8_RUNS
@@ -3409,7 +3587,8 @@ def main() -> int:
     results = {name: {"launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
                       "bound_ms": None, "bound_by": None,
                       # no single PyTorch call computes these functions but K4's
-                      # and K8's (index_put_, index_select: phase 2d)
+                      # and K8's (index_put_, index_select: phase 2d; K8's fetch
+                      # form beside the dense where(needy, index_select))
                       "library_ms": None}
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
@@ -3423,7 +3602,7 @@ def main() -> int:
                  checks, dev, results)
     checks.phase("2c. K7, K11 against their plain twins", turb_sp_checks, checks, dev,
                  results)
-    checks.phase("2d. K4, K8 and the compacted fetch against their plain twins",
+    checks.phase("2d. K4, K8 (both forms) and the compacted fetch against their plain twins",
                  compact_checks, checks, dev, results)
     checks.phase("2e. K9, K10, the split sphere pass and the media", grid_split_checks,
                  checks, dev, results)

@@ -12,10 +12,10 @@ the same script times another checkout's kernels; the pools and the timer
 are ``chip_smoke.py``'s (this checkout's).  ``--set noise`` times K7 and
 K11 alone, ``--set intersect`` the sphere and box kernels alone,
 ``--set refill_quad`` the refill core's three kernels and K5's block,
-``--set box_shade`` K6's block and K3 in both modes, ``--set renders``
-whole renders (``--scenes``, each ``--render-reps`` times: wall seconds,
-rays and iterations from ``render_scene``'s stats; by default RENDERS);
-the default, the first two.  Each kernel runs on the pools
+``--set box_shade`` K6's block and K3 in both modes, ``--set fetch`` the
+image fetch, ``--set renders`` whole renders (``--scenes``, each
+``--render-reps`` times: wall seconds, rays and iterations from
+``render_scene``'s stats; by default RENDERS); the default, the first two.  Each kernel runs on the pools
 ``chip_smoke.py`` uses:
 
 * noise: K7 at depth 7 on phase 2c's inputs (the hit points of perlin
@@ -45,7 +45,14 @@ the default, the first two.  Each kernel runs on the pools
   random cornell_box pool and on it with its samples side by side; plane-fed
   K3 on phase 2a's refilled bouncing_spheres pool, on it side by side and on
   a bouncing_spheres 1200x800 @ 64 pool 20 staged iterations in; and the
-  device launches of one staged cornell_box iteration, by kernel name.
+  device launches of one staged cornell_box iteration, by kernel name;
+* fetch: ``ImageAtlas.sample(..., needy)`` (K8's fetch form) and
+  ``eval_special_p``'s image leaf on phase 2d's earth 1200x600
+  @ 64 and final_scene 800x800 @ 16 pools 20 staged iterations in, each
+  with its device launches; and the device launches of one staged
+  iteration on each, by kernel name.  The pools' image lanes come from the
+  timed checkout's ``ops/texture_eval.py image_lanes``, so a checkout from
+  before the fetch form, which lacks it, cannot be timed here.
 
 For each: the mean device time of 20 calls (CUDA events behind a device
 spin) and the count of output values that differ from its plain twin (K11:
@@ -114,7 +121,7 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "box_shade",
-                                      "renders"), default="all")
+                                      "fetch", "renders"), default="all")
     ap.add_argument("--render-reps", type=int, default=3)
     ap.add_argument("--scenes", default=",".join(name for name, *_ in RENDERS),
                     help="comma-separated scenes of --set renders (sizes from SIZES)")
@@ -146,6 +153,8 @@ def main() -> int:
         refill_quad_cases(cs, dev, case, out["kernels"], args.reps)
     if args.set == "box_shade":
         box_shade_cases(cs, dev, out["kernels"], args.reps)
+    if args.set == "fetch":
+        fetch_cases(cs, dev, out["kernels"], args.reps)
     if args.set == "renders":
         out["renders"] = render_cases(dev, args.render_reps, args.scenes.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -184,7 +193,8 @@ RENDERS = (("quads", 1200, 600, 64), ("perlin", 1200, 600, 64), ("cornell_box", 
            ("bouncing_spheres", 1200, 800, 64))
 # (nx, ny, spp) of each scene --scenes may name: chip_smoke.py's renders
 SIZES = {**{name: size for name, *size in RENDERS}, "cornell_smoke": (600, 600, 64),
-         "final_scene": (800, 800, 16)}
+         "final_scene": (800, 800, 16), "original_scene": (800, 800, 16),
+         "earth": (1200, 600, 64), "simple_light": (1200, 600, 16)}
 
 
 def render_cases(dev, reps, scenes):
@@ -431,27 +441,36 @@ def box_shade_cases(cs, dev, kernels, reps):
     args = (cs._clone(cp), cornell.camera, staged["q"].clone(), 0, staged["hist"].clone(), 20,
             staged["scal"], cornell.tables, cornell.background, staged["fb"].clone(),
             staged["lost"].clone())
-    names = _profiled_names(lambda: staged_step(*args, key=(7, 0, 0), ncols=staged["ncols"],
-                                                max_depth=50, gradient=cornell.gradient_bg))
+    names = cs._profiled_names(lambda: staged_step(*args, key=(7, 0, 0),
+                                                   ncols=staged["ncols"], max_depth=50,
+                                                   gradient=cornell.gradient_bg))
     kernels["staged cornell_box iteration"] = dict(launches=sum(names.values()), names=names)
 
 
-def _profiled_names(fn) -> dict:
-    """{device kernel name: launches} of one call of ``fn`` (after a
-    warm-up call)."""
-    import collections
-
+def fetch_cases(cs, dev, kernels, reps):
+    """The image fetch on phase 2d's pools (module note)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return dict(collections.Counter(e.name[:80] for e in prof.events()
-                                    if e.device_type == DeviceType.CUDA))
+    from art_tpu_torch.ops.texture_eval import eval_special_p
+
+    for name, f in cs._fetch_pools(dev).items():
+        atlas = f["scene"].tables.atlas
+        args = (f["img"], f["u"], f["v"], f["needy"])
+        rec = f["rec"]
+        leaf = (f["scene"].tables, tuple(sp for sp in f["specials"] if sp[1] == "image"),
+                rec.mat, rec.u, rec.v, rec.p)
+        blocks = {f"sample {name}": lambda plain=False: (atlas.sample(*args, plain=plain),),
+                  f"eval_special_p image leaf {name}": lambda plain=False: eval_special_p(
+                      *leaf, valid=f["valid"], plain=plain)}
+        for label, fn in blocks.items():
+            k, p = fn(), fn(plain=True)
+            torch.cuda.synchronize()
+            kernels[label] = dict(ms=cs._timed_ms(fn, reps), launches=cs._profiled_launches(fn),
+                                  differ=sum(cs._bits_equal(a.contiguous(), b.contiguous())
+                                             for a, b in zip(k, p)),
+                                  needy=int(f["needy"].sum()))
+        names = cs._staged_names(f)
+        kernels[f"staged {name} iteration"] = dict(launches=sum(names.values()), names=names)
 
 
 def intersect_cases(cs, dev, case):
