@@ -1,16 +1,20 @@
 // The sphere kernels' shared parts: one (ray, sphere) candidate with its
 // strict-< merge (in the direct form, and in K13's expanded form), the
-// hit's output, the conservative slab test of a box, and the
-// head-then-segments scan of the culling kernels K16 (sphere_skip.cu) and
-// K17 (sphere_cellbin.cu).  K13 (sphere_static.cu) uses the candidates and
-// the output, K2 (sphere_hit.cu) the ray and the output.
+// hit's output, the conservative slab test of a box, and the two scans of
+// a head and segments: segmented_hit, one thread a ray with a warp as the
+// skip unit (K17 sphere_cellbin.cu and K15's spheres sphere_cluster.cu),
+// and spread_hit, a ray tile's segments split across the grid with each
+// block's (lane, row) pairs spread over its threads (K16 sphere_skip.cu).
+// K13 (sphere_static.cu) uses the candidates and the output, K2
+// (sphere_hit.cu) the ray and the output.
 //
 // Rules (those of the plain twins, ops/intersect_kernels.py, not the TPU
 // kernels'):
 //  * a miss is `disc > 0` strict (the TPU kernels reject by NaN and so
 //    accept disc == 0); the near root if > t_min, else the far root;
 //  * rows are scanned in table order with a strict `<`, so an exact tie goes
-//    to the earlier row, as argmin;
+//    to the earlier row, as argmin (spread_hit: the least (t, row) key, the
+//    same winner);
 //  * the normal is the generic (p - c) / r, not the TPU's rsqrt form;
 //  * t_min is an argument (the TPU kernels bake T_MIN in at compile time).
 // Rows are [c(3) v(3) r mat r2 0] (scene/tables.py sphere_rows); a row's
@@ -213,6 +217,263 @@ __device__ __forceinline__ void segmented_hit(const float* __restrict__ rows,
   if (i >= R) return;
   if (!live) b = no_hit();
   write_hit(p, i, q, b);
+}
+
+
+// ---- spread_hit: K16's scan ----
+//
+// The invariant that frees the order.  The twin (culled_plain) merges the
+// head, then each crossed segment in order, with a strict `<`, and each
+// segment's closest is its first row among equal t; rows of later segments
+// have larger indices.  So its result is the least (t, row index), in that
+// lexicographic order, over every row of every segment that the lane's slab
+// predicates admit.  Any order of (ray, segment) work that tests exactly
+// the same (ray, row) pairs and keeps the least (t, row) is bit-equal to it;
+// no appeal to the boxes being conservative is needed.  (A later occlusion
+// form, K17's or K15's, may bound a segment by a stale best t: that only
+// admits more rows than the twin, whose bound is the running best, and
+// every row the twin admits is still admitted, so the least (t, row) over
+// the admitted rows is the same.)
+//
+// The key: order_bits(t) << 32 | row, where order_bits maps a float32 to a
+// uint32 that orders like float `<` (both zeros one value: the twin's `<`
+// ties them), so unsigned 64-bit `<` is the lexicographic order; the final
+// write re-reads the winner's row and recomputes its candidate, so a zero
+// t keeps its sign.  kMissKey (t = BIG, row 0xffffffff) is above every
+// candidate the twin takes (t < BIG).
+
+constexpr int kSpreadChunk = 64;                      // rows a block stages at a time
+constexpr unsigned long long kArrive = 1ull << 32;    // the ticket sum that means "all in"
+
+__device__ __forceinline__ uint32_t order_bits(float t) {
+  const uint32_t u = t == 0.0f ? 0u : __float_as_uint(t);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned long long order_key(float t, uint32_t row) {
+  return ((unsigned long long)order_bits(t) << 32) | row;
+}
+
+__device__ __forceinline__ unsigned long long miss_key() { return order_key(kBig, 0xffffffffu); }
+
+// a ray's slab inputs: o and the three guarded inverses of slab() hoisted
+// (each the same IEEE quotient slab() computes per box)
+struct SlabRay {
+  float o[3], inv[3];
+};
+
+// slab() (t_min, inf) of the box, op for op, on the hoisted inverses
+__device__ __forceinline__ bool slab_hits(const float* box, const SlabRay& s, float t_min) {
+  float t_far = kBig, t_near = t_min;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float ta = (__ldg(box + k) - s.o[k]) * s.inv[k];
+    const float tb = (__ldg(box + 3 + k) - s.o[k]) * s.inv[k];
+    t_near = nan_max(t_near, nan_min(ta, tb));
+    t_far = nan_min(t_far, nan_max(ta, tb));
+  }
+  return t_far >= t_near;
+}
+
+// sphere_test_at's candidate t (kBig for none) of a staged row, c = (cx0,
+// cy0, cz0, r2) and v = (vx, vy, vz, 0), for a staged ray, o = (ox, oy, oz,
+// tm) and d = (dx, dy, dz, a)
+__device__ __forceinline__ float staged_t(float4 c, float4 v, float4 o, float4 d, float inv_a,
+                                          float t_min) {
+  const float cx = c.x + o.w * v.x, cy = c.y + o.w * v.y, cz = c.z + o.w * v.z;
+  const float ocx = o.x - cx, ocy = o.y - cy, ocz = o.z - cz;
+  const float bq = ocx * d.x + ocy * d.y + ocz * d.z;
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - c.w;
+  const float disc = bq * bq - d.w * cc;
+  if (!(disc > 0.0f)) return kBig;
+  const float sq = sqrtf(disc);
+  const float t1 = (-bq - sq) * inv_a;
+  const float t2 = (-bq + sq) * inv_a;
+  return t1 > t_min ? t1 : (t2 > t_min ? t2 : kBig);
+}
+
+constexpr int kIlp = 4;  // rows a thread of spread_hit tests at once
+
+// K16's scan (the head and segments of segmented_hit<false>, the same
+// predicates), one launch of (R / kBlock tiles) x G blocks, G = 1 +
+// ceil(n_seg / kBins), block b taking tile b / G and group b % G:
+//  * group 0 is the head: every live lane of the tile tests the head rows
+//    [0, n_head); group g >= 1 takes bins (g - 1) kBins + 1 .. g kBins in
+//    turn, each tested by the lanes whose slab tests of the union box and
+//    of the bin pass.  A bin with no such lane is passed over at once
+//    (uniformly, by __syncthreads_or);
+//  * for a bin, the block compacts its testing lanes (their rays into
+//    shared memory), stages the rows kSpreadChunk at a time, and gives each
+//    testing lane kBlock / lanes threads, each taking every such row of a
+//    chunk, kIlp at a time, with the lane's ray in registers and its best
+//    (t, row) kept with a strict `<` in row order; each thread's best goes
+//    to its lane's least order_key in shared memory (64-bit atomicMin);
+//  * a head block whose tile has no testing lane in any bin (W = 0 below)
+//    writes the tile's hits from those keys itself.  Otherwise each block
+//    that tested a row puts its lanes' keys into keys[i] in global memory
+//    (atomicMin), and the last of them to finish writes t, the normal and
+//    the material from the winner's row and resets the tile's keys and
+//    ticket for the next call.  It learns that it is last from a ticket
+//    taken after __threadfence(): the head block adds kArrive - W, W the
+//    groups with a testing lane (the head evaluates their predicates too),
+//    each such group's block adds 1, so the sum reaches kArrive at the last
+//    arrival and never before; a group with no testing lane takes none;
+//  * lanes at or past *n_live (when given) are misses; a tile wholly past
+//    it is written as misses by its head block, and no key of it is
+//    touched.
+// K17's and K15's occlusion forms could run it with a stale bound (see
+// above); they still run segmented_hit.
+// keys (>= R, each kMissKey) and tickets (>= R / kBlock tiles, each 0)
+// are a scratch that every call leaves as it found it (the wrapper keeps
+// it across calls on one stream).
+template <int kBins>
+__device__ __forceinline__ void spread_hit(const float* __restrict__ rows,
+                                           const float* __restrict__ seg, int n_seg,
+                                           int n_head, int R, float t_min,
+                                           const int* __restrict__ n_live,
+                                           unsigned long long* keys,
+                                           unsigned long long* tickets,
+                                           const SpherePlanes& p) {
+  __shared__ float4 s_o[kBlock], s_d[kBlock];  // (ox, oy, oz, tm), (dx, dy, dz, a)
+  __shared__ float s_inv_a[kBlock];
+  __shared__ float4 s_row[kSpreadChunk][2];  // (cx0, cy0, cz0, r2), (vx, vy, vz, 0)
+  __shared__ unsigned long long s_key[kBlock];  // a lane's least key
+  __shared__ int s_lane[kBlock];                // the testing lanes, compacted
+  __shared__ int s_warp[kBlock / 32];
+  __shared__ int s_last;
+  const int G = 1 + (n_seg + kBins - 1) / kBins;
+  const int tile = blockIdx.x / G, k = blockIdx.x - tile * G;
+  const int n = n_live ? min(*n_live, R) : R;
+  const int base = tile * kBlock;
+  const int i = base + threadIdx.x;
+  if (base >= n) {  // the tile misses whole
+    if (k == 0 && i < R) write_hit(p, i, load_ray(p, i, false), no_hit());
+    return;
+  }
+  const bool live = i < n;
+  const float dx = live ? p.dx[i] : 0.f, dy = live ? p.dy[i] : 0.f;
+  const float dz = live ? p.dz[i] : 1.f;
+  SlabRay sr;  // o and the guarded inverses of d
+  sr.o[0] = live ? p.ox[i] : 0.f;
+  sr.o[1] = live ? p.oy[i] : 0.f;
+  sr.o[2] = live ? p.oz[i] : 0.f;
+  {
+    const float d[3] = {dx, dy, dz};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sr.inv[c] = 1.0f / (d[c] == 0.0f ? 1e-20f : d[c]);
+  }
+  const bool needy = live && slab_hits(seg + 2, sr, t_min);
+  int W = 0;  // the head: the groups with a testing lane
+  if (k == 0)
+    for (int g = 1; g < G; ++g) {
+      bool any = false;
+      for (int b = (g - 1) * kBins + 1; needy && b <= min(n_seg, g * kBins); ++b)
+        any = any || slab_hits(seg + (size_t)b * kSegRow + 2, sr, t_min);
+      W += __syncthreads_or(any) ? 1 : 0;
+    }
+  s_key[threadIdx.x] = miss_key();
+  bool took = false;
+  const int b1 = k == 0 ? 1 : min(n_seg, k * kBins) + 1;
+  for (int b = k == 0 ? 0 : (k - 1) * kBins + 1; b < b1; ++b) {
+    bool cross;
+    int r0 = 0, r1 = n_head;
+    if (b == 0) {
+      cross = live && n_head > 0;
+    } else {
+      const float* m = seg + (size_t)b * kSegRow;
+      cross = needy && slab_hits(m + 2, sr, t_min);
+      r0 = (int)__ldg(m);
+      r1 = (int)__ldg(m + 1);
+    }
+    if (!__syncthreads_or(cross)) continue;  // uniform
+    took = true;
+    const unsigned ballot = __ballot_sync(kFullWarp, cross);
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    if (l == 0) s_warp[w] = __popc(ballot);
+    __syncthreads();
+    int off = 0, nc = 0;
+#pragma unroll
+    for (int x = 0; x < kBlock / 32; ++x) {
+      const int c = s_warp[x];
+      off += x < w ? c : 0;
+      nc += c;
+    }
+    if (cross) {  // sphere.cuh load_ray's tm, a and 1 / a
+      const int j = off + __popc(ballot & ((1u << l) - 1u));
+      const float a = dx * dx + dy * dy + dz * dz;
+      s_o[j] = make_float4(sr.o[0], sr.o[1], sr.o[2], p.tm[i]);
+      s_d[j] = make_float4(dx, dy, dz, a);
+      s_inv_a[j] = 1.0f / a;
+      s_lane[j] = threadIdx.x;
+    }
+    // each testing lane j gets hn = kBlock / nc threads (thread j + nc h,
+    // h < hn), thread h taking the rows h, h + hn, ... of each chunk
+    const int hn = kBlock / nc;
+    const int j = threadIdx.x % nc, h = threadIdx.x / nc;
+    float4 ro = make_float4(0.f, 0.f, 0.f, 0.f), rd = ro;
+    float rinv = 0.f, bt = kBig;
+    int brow = 0;
+    for (int c0 = r0; c0 < r1; c0 += kSpreadChunk) {
+      const int cn = min(kSpreadChunk, r1 - c0);
+      __syncthreads();  // the rays are in, the last chunk's rows read
+      if (threadIdx.x < cn) {
+        const float* row = rows + (size_t)(c0 + threadIdx.x) * kSphRow;
+        s_row[threadIdx.x][0] = make_float4(row[0], row[1], row[2], row[8]);
+        s_row[threadIdx.x][1] = make_float4(row[3], row[4], row[5], 0.0f);
+      }
+      __syncthreads();
+      if (c0 == r0) {
+        ro = s_o[j];
+        rd = s_d[j];
+        rinv = s_inv_a[j];
+      }
+      if (h < hn) {
+        for (int r = h; r < cn; r += kIlp * hn) {
+          float tt[kIlp];
+#pragma unroll
+          for (int u = 0; u < kIlp; ++u) {
+            const int ru = min(r + u * hn, cn - 1);
+            tt[u] = staged_t(s_row[ru][0], s_row[ru][1], ro, rd, rinv, t_min);
+          }
+#pragma unroll
+          for (int u = 0; u < kIlp; ++u)
+            if (r + u * hn < cn && tt[u] < bt) {
+              bt = tt[u];
+              brow = c0 + r + u * hn;
+            }
+        }
+      }
+    }
+    if (h < hn && bt < kBig) atomicMin(&s_key[s_lane[j]], order_key(bt, (uint32_t)brow));
+    __syncthreads();  // the keys in; s_o, s_lane and s_warp free for the next bin
+  }
+  if (k != 0 && !took) return;  // uniform; the head counted no ticket for it
+  __syncthreads();  // the keys in (a head with no row to test)
+  unsigned long long key = s_key[threadIdx.x];
+  const bool alone = k == 0 && W == 0;  // the head's keys are the tile's
+  if (!alone) {
+    if (key != miss_key()) atomicMin(&keys[i], key);
+    __threadfence();  // the keys before the ticket
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const unsigned long long add = k == 0 ? kArrive - (unsigned long long)W : 1ull;
+      s_last = atomicAdd(&tickets[tile], add) + add == kArrive;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();  // the ticket before the keys
+    if (i < R) {
+      key = *(volatile unsigned long long*)(keys + i);
+      keys[i] = miss_key();
+    }
+    if (threadIdx.x == 0) tickets[tile] = 0;
+  }
+  if (i < R) {
+    const SphereRay q = load_ray(p, i, live);
+    SphereBest bw = no_hit();
+    if (key != miss_key()) sphere_test(rows + (size_t)(uint32_t)key * kSphRow, q, t_min, bw);
+    write_hit(p, i, q, bw);
+  }
 }
 
 }  // namespace art

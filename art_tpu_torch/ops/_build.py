@@ -55,7 +55,8 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns cudaGetLastError() as int)
 _SIGNATURES = {
     "art_sphere_hit": [_P, _I, _I, ctypes.c_float, _P, ctypes.POINTER(_P), _P],
-    "art_sphere_skip": [_P, _P, _I, _I, _I, ctypes.c_float, _P, ctypes.POINTER(_P), _P],
+    "art_sphere_skip": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P, ctypes.POINTER(_P),
+                        _P],
     "art_sphere_cellbin": [_P, _P, _I, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
     "art_sphere_cluster": [_P, _P, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
     "art_box_cluster": [_P, _P, _I, _I, ctypes.c_float, _I, ctypes.POINTER(_P), _P],

@@ -65,14 +65,20 @@ class HitRecordP(NamedTuple):
 def sphere_candidates_p(rows, o, d, time, t_min):
     """Best sphere hit per ray over (S, 10) ``sphere_rows`` rows [c(3) v(3)
     r mat r*r 0]: (t_best (R,), idx (R,) int32), (BIG, 0) where none is
-    hit.
-
-    Half-b quadratic with the center at the ray's shutter time (reference
-    src/sphere.cuh:51-89) over (R,1)x(1,S) broadcasts; a static sphere's
-    c + time * 0 is c."""
+    hit."""
     if rows.shape[0] == 0:
         return torch.full_like(o[0], BIG), torch.zeros(o[0].shape, dtype=torch.int32,
                                                       device=o[0].device)
+    # min + argmin: the first index among exact ties, as jnp.argmin
+    t_best, idx = torch.min(sphere_row_t_p(rows, o, d, time, t_min), dim=1)
+    return t_best, idx.to(torch.int32)
+
+
+def sphere_row_t_p(rows, o, d, time, t_min):
+    """(R, S) candidate t of every ray against every row (BIG where the row
+    gives none): the half-b quadratic with the center at the ray's shutter
+    time (reference src/sphere.cuh:51-89) over (R,1)x(1,S) broadcasts; a
+    static sphere's c + time * 0 is c."""
     ox, oy, oz = (c[:, None] for c in o)
     dx, dy, dz = (c[:, None] for c in d)
     a = dx * dx + dy * dy + dz * dz
@@ -88,11 +94,8 @@ def sphere_candidates_p(rows, o, d, time, t_min):
     t2 = (-b + s) * inv_a
     valid = disc > 0.0  # strict, as in the reference (src/sphere.cuh:61)
     big = torch.full_like(t1, BIG)
-    t = torch.where(valid & (t1 > t_min), t1,
-                    torch.where(valid & (t2 > t_min), t2, big))
-    # min + argmin: the first index among exact ties, as jnp.argmin
-    t_best, idx = torch.min(t, dim=1)
-    return t_best, idx.to(torch.int32)
+    return torch.where(valid & (t1 > t_min), t1,
+                       torch.where(valid & (t2 > t_min), t2, big))
 
 
 def _closest(t: torch.Tensor):

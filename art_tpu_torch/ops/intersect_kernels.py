@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from art_tpu_torch.core.vecmath import BIG, T_MIN, p_ray_at, p_where, safe_dir, sqrt
@@ -90,6 +91,7 @@ from art_tpu_torch.ops.intersect import (
     quad_candidates_p,
     sphere_attributes_p,
     sphere_candidates_p,
+    sphere_row_t_p,
     slab_interval,
 )
 from art_tpu_torch.scene.tables import SceneTables
@@ -184,6 +186,125 @@ def culled_plain(rows, meta, o, d, tm, t_min, *, occlusion: bool, head: bool = T
     return t, normal, mat
 
 
+# K16's merge key (csrc/sphere.cuh order_key): order_bits(t) << 32 | row,
+# unsigned 64-bit `<` being the lexicographic (t, row) order
+KEY_ARRIVE = 1 << 32  # spread_hit's ticket sum at a tile's last arrival
+
+
+def order_bits(t) -> np.ndarray:
+    """float32 values -> uint32 that order as float ``<`` does (the two
+    zeros one value; NaN has no place: no candidate is NaN)."""
+    u = np.asarray(t, np.float32).copy()
+    u[u == 0.0] = 0.0  # -0 -> +0
+    u = u.view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def order_key(t, row) -> np.ndarray:
+    """The uint64 keys of candidates ``t`` (float32) at table rows ``row``."""
+    return (order_bits(t).astype(np.uint64) << np.uint64(32)) | np.asarray(
+        row, np.uint64) & np.uint64(0xFFFFFFFF)
+
+
+def key_t(key) -> np.ndarray:
+    """The float32 t of keys (a zero decodes as +0)."""
+    hi = (np.asarray(key, np.uint64) >> np.uint64(32)).astype(np.uint32)
+    u = np.where(hi & np.uint32(0x80000000), hi & np.uint32(0x7FFFFFFF), ~hi)
+    return u.astype(np.uint32).view(np.float32)
+
+
+MISS_KEY = int(order_key(np.float32(BIG), 0xFFFFFFFF))  # t = BIG, row 0xffffffff
+
+
+SKIP_BINS = 4  # bins a block of K16's on a whole pool (csrc/sphere_skip.cu kBinsPool)
+SKIP_BINS_LIVE = 1  # and on compacted lanes, with n_live (kBinsLive)
+
+
+def spread_scan_p(rows, meta, o, d, tm, t_min, *, head: bool = True, n_live=None,
+                  order=None, tile: int = _build.BLOCK, bins: int | None = None):
+    """A model of K16's scan (``csrc/sphere.cuh`` spread_hit) on CPU
+    tensors: the blocks (tile, group) of the tiles below ``n_live``, group
+    0 the head and group g >= 1 the bins (g - 1) ``bins`` + 1 .. g ``bins``
+    (by default the kernel's: ``SKIP_BINS_LIVE`` with ``n_live``, else
+    ``SKIP_BINS``), take their work in ``order`` (a permutation of the
+    block list, by default the list's order), each testing its segments'
+    rows against its tile's lanes whose slab predicates admit them and
+    keeping each lane's least ``order_key`` of a root.  A tile whose bins
+    no lane crosses (W = 0) is written by its head block; otherwise a block
+    with no testing lane takes no ticket, the head adds ``KEY_ARRIVE`` - W
+    and each other block 1.  Returns ((t, normal, mat) from each winner's
+    row, {tile: the block index that writes it: the head's, or the one
+    whose ticket sum reached ``KEY_ARRIVE``})."""
+    n_head, segs, box = meta
+    n_head = n_head if head else 0
+    bins = (SKIP_BINS if n_live is None else SKIP_BINS_LIVE) if bins is None else bins
+    R = o[0].shape[0]
+    n = R if n_live is None else min(int(n_live.reshape(-1)[0]), R)
+    live = torch.arange(R) < n
+    needy = slab_interval(box, o, d, t_min)[0] & live
+    work = [(0, n_head, live & (n_head > 0))] + [
+        (r0, r1, needy & slab_interval(b, o, d, t_min)[0]) for r0, r1, b in segs]
+    groups = [[0]] + [list(range(g, min(len(segs), g + bins - 1) + 1))
+                      for g in range(1, len(segs) + 1, bins)]
+    t_all = sphere_row_t_p(rows, o, d, tm, t_min).numpy()  # (R, N)
+    n_tiles = -(-R // tile)
+    blocks = [(b, g) for b in range(n_tiles) if b * tile < n for g in range(len(groups))]
+    spans = {b: slice(b * tile, min(R, (b + 1) * tile)) for b in range(n_tiles)}
+    W = {b: sum(any(bool(work[k][2][spans[b]].any()) for k in grp) for grp in groups[1:])
+         for b in spans}
+    keys = np.full(R, MISS_KEY, np.uint64)
+    tickets, last = dict.fromkeys(spans, 0), {}
+    for x in (range(len(blocks)) if order is None else order):
+        b, g = blocks[x]
+        took = False
+        for k in groups[g]:
+            r0, r1, cross = work[k]
+            lanes = torch.arange(R)[spans[b]][cross[spans[b]]].numpy()
+            took |= bool(len(lanes))
+            if len(lanes) and r1 > r0:
+                t = t_all[lanes, r0:r1]
+                key = np.where(t < BIG, order_key(t, np.arange(r0, r1)[None, :]), MISS_KEY)
+                keys[lanes] = np.minimum(keys[lanes], key.min(axis=1))
+        if g == 0 and W[b] == 0:
+            last[b] = x
+            continue
+        if g and not took:
+            continue
+        tickets[b] += KEY_ARRIVE - W[b] if g == 0 else 1
+        if tickets[b] == KEY_ARRIVE:
+            if b in last:
+                raise AssertionError(f"tile {b} reached its ticket sum twice")
+            last[b] = x
+    hit = torch.from_numpy(keys != MISS_KEY)
+    idx = torch.from_numpy((keys & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    idx = torch.where(hit, idx, 0)
+    t = torch.from_numpy(t_all).gather(1, idx[:, None])[:, 0]
+    t = torch.where(hit, t, BIG)
+    normal, mat = sphere_attributes_p(rows, o, d, tm, t, idx)
+    normal, (mat,) = miss_defaults(hit, normal, (mat,))
+    return (t, normal, mat), last
+
+
+_SKIP_SCRATCH: dict = {}  # str(device) -> (keys, tickets)
+
+
+def skip_scratch(R: int, dev):
+    """K16's scratch on ``dev`` for a call of ``R`` lanes: (keys int64
+    (>= R), each ``MISS_KEY``'s bits, tickets int64 (>= ceil(R / 256)),
+    each 0), grown to the largest R asked for and kept across calls (the
+    standalone and tail-only calls differ in R); every call leaves it as it
+    found it.  Calls on one stream only: two calls in flight at once on
+    different streams would share it."""
+    tiles = -(-R // _build.BLOCK)
+    have = _SKIP_SCRATCH.get(str(dev))
+    if have is None or have[1].shape[0] < tiles:
+        miss = MISS_KEY - (1 << 64) if MISS_KEY >= 1 << 63 else MISS_KEY
+        have = (torch.full((tiles * _build.BLOCK,), miss, dtype=torch.int64, device=dev),
+                torch.zeros(tiles, dtype=torch.int64, device=dev))
+        _SKIP_SCRATCH[str(dev)] = have
+    return have
+
+
 def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
     dev = o[0].device
     ins = (*o, *d, tm)
@@ -199,9 +320,11 @@ def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
     ptrs = _build.pointers((*ins, t, nx, ny, nz, mat))
     lib = _build.library()
     if name == SKIP:
+        keys, tickets = skip_scratch(R, dev)
         rc = lib.art_sphere_skip(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, n_head, R,
                                  float(t_min), None if n_live is None else n_live.data_ptr(),
-                                 ptrs, _build.stream_handle(dev))
+                                 keys.data_ptr(), tickets.data_ptr(), ptrs,
+                                 _build.stream_handle(dev))
     elif name == CLUSTER:
         rc = lib.art_sphere_cluster(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, R,
                                     float(t_min), ptrs, _build.stream_handle(dev))
@@ -397,7 +520,18 @@ def sphere_mxu_hit_attrs_plain(F, attr, o, d, tm, t_min=T_MIN):
     """Plain PyTorch K14 over the features ``F`` (2 S_pad, 16) and ``attr``
     (8, S_pad) (``csrc/sphere_mxu.cu``, term for term)."""
     _baked_t_min(t_min, MXU)
-    s_pad = attr.shape[1]
+    b, disc, ta2, neg_inv_a = mxu_discriminants(F, attr.shape[1], o, d, tm, t_min)
+    sq = sqrt(torch.clamp_min(disc, 0.0))
+    cand = (b + torch.where(b + sq < ta2, sq, -sq)) * neg_inv_a
+    tc = torch.where((disc > 0.0) & (cand > 2.0 * t_min), cand, torch.full_like(cand, BIG))
+    best, sid = torch.min(tc, dim=1)  # the first index among exact ties
+    return mxu_winner(attr, o, d, tm, best, sid)
+
+
+def mxu_discriminants(F, s_pad: int, o, d, tm, t_min=T_MIN):
+    """K14's (R, S_pad) b = o.d - B and disc = b^2 - a c (c = C + |o|^2),
+    each feature sum in ascending column order, and the per-ray (R, 1)
+    root terms -2 t_min a and -1 / a."""
     ox, oy, oz = o
     dx, dy, dz = d
     rf = (dx, dy, dz, tm * dx, tm * dy, tm * dz, ox, oy, oz, tm * ox, tm * oy, tm * oz,
@@ -417,11 +551,15 @@ def sphere_mxu_hit_attrs_plain(F, attr, o, d, tm, t_min=T_MIN):
     ta2 = (-t_sel * a)[:, None]
     b = od - B
     c = C + o2
-    disc = b * b - a[:, None] * c
-    sq = sqrt(torch.clamp_min(disc, 0.0))
-    cand = (b + torch.where(b + sq < ta2, sq, -sq)) * neg_inv_a
-    tc = torch.where((disc > 0.0) & (cand > t_sel), cand, torch.full_like(cand, BIG))
-    best, sid = torch.min(tc, dim=1)  # the first index among exact ties
+    return b, b * b - a[:, None] * c, ta2, neg_inv_a
+
+
+def mxu_winner(attr, o, d, tm, best, sid):
+    """K14's output from each ray's least candidate ``best`` at feature row
+    ``sid``: the winner's attribute column, one Newton step, the normal; a
+    miss (best >= BIG / 2) as K2's."""
+    ox, oy, oz = o
+    dx, dy, dz = d
     hit = best < BIG * 0.5
     A = attr[:, sid]  # (8, R): the winner's column
     cx, cy, cz = (A[k] + tm * A[3 + k] for k in range(3))
@@ -451,9 +589,10 @@ def sphere_mxu_hit_attrs(F, attr, o, d, tm, t_min=T_MIN):
     F = _build.check_table("F", F, 16, dev)
     s_pad = F.shape[0] // 2
     attr = _build.check_table("attrT", attr, s_pad, dev)
-    if attr.shape[0] != 8 or s_pad % 128 or F.shape[0] != 2 * s_pad:
-        raise ValueError(f"K14 needs F (2 S_pad, 16) and attrT (8, S_pad) with S_pad a "
-                         f"multiple of 128, got {tuple(F.shape)} and {tuple(attr.shape)}")
+    if attr.shape[0] != 8 or s_pad % 128 or F.shape[0] != 2 * s_pad or F.data_ptr() % 16:
+        raise ValueError(f"K14 needs F (2 S_pad, 16), 16-byte aligned, and attrT (8, S_pad) "
+                         f"with S_pad a multiple of 128, got {tuple(F.shape)} and "
+                         f"{tuple(attr.shape)}")
     outs = _sphere_outputs(R, dev)
     rc = _build.library().art_sphere_mxu(F.data_ptr(), attr.data_ptr(), s_pad, R,
                                          _build.pointers(ins + outs),

@@ -367,6 +367,8 @@ SURFACE_REL = 2.0 ** -16
 # lanes where an expanded form parts from the full-table K2 on phase 2h's
 # pools, all explained (_parting): about twice the lanes of the card's
 # reading (PERF.md section 6: 25, 152, 79; about 38; about 15)
+# (ray, sphere) pairs of one K14 group: 8 spheres x 2 rays (csrc/sphere_mxu.cu)
+K14_GROUP_PAIRS = 16
 PARTING_BARS = {"K13 expanded, bouncing_spheres": 50, "K13 expanded, final_scene": 300,
                 "K13 expanded, cornell_box": 160, "K14, bouncing_spheres": 80,
                 "MXU-tail dense branch, final_scene": 32}
@@ -521,8 +523,10 @@ def card_info(checks: Checks, dev):
 
 def sass_report(checks: Checks, results: dict):
     """Registers, spills and the hot loop's instructions of K2, K9 (both
-    forms), K10, K7, K11, K1, K12, K5, K6 (rotated, both forms) and K3 (both
-    modes) in the built library (``scripts/sass_loops.py``);
+    forms), K10, K7, K11, K1, K12, K5, K6 (rotated, both forms), K3 (both
+    modes), K14 and K16 in the built library (``scripts/sass_loops.py``);
+    K14's instructions a pair: its loop's path with no root over the
+    K14_GROUP_PAIRS pairs of a group;
     K7's octave: the shared form from the any-depth kernel's loop (27
     shuffles in one cell), the per-lane form from the depth-7 kernel's."""
     import importlib.util
@@ -547,9 +551,15 @@ def sass_report(checks: Checks, results: dict):
         rep["turb_octave"] = {"shared_one_cell": shared["27"], "per_lane": per_lane}
         log(f"  K7 octave: {shared['27']['fewest']}-{shared['27']['most']} instructions in "
             f"the shared form in one cell, {per_lane['fewest']}-{per_lane['most']} per lane")
+    k14 = rep.get("sphere_mxu_kernel", {}).get("loop", {}).get("paths", {})
+    if k14:
+        fewest = min(v["fewest"] for v in k14.values())
+        rep["sphere_mxu_pair"] = {"instructions": fewest / K14_GROUP_PAIRS}
+        log(f"  K14: {fewest} instructions a group of {K14_GROUP_PAIRS} (ray, sphere) pairs "
+            f"with no root, {fewest / K14_GROUP_PAIRS:.2f} a pair")
     checks.expect(all("error" not in r and r.get("LOCAL", 0) == 0 for r in rep.values()),
-                  "K2, K9, K10, K7, K11, K1, K12, K5, K6 and K3 found in the library, no "
-                  "local-memory spill")
+                  "K2, K9, K10, K7, K11, K1, K12, K5, K6, K3, K14 and K16 found in the "
+                  "library, no local-memory spill")
     k11 = rep.get("sp_step_kernel", {}).get("REG", 99)
     checks.expect(k11 <= 64, f"K11 in {k11} registers (<= 64: four blocks an SM)")
     results["_sass"] = rep
@@ -2255,13 +2265,59 @@ def _warp_counts(lanes, n_rows):
     return int(lanes.sum()) * n_rows, int(warps.any(dim=1).sum()) * 32 * n_rows
 
 
+def _spread_counts(lanes, n_rows):
+    """(the lanes' (ray, primitive) tests of ``n_rows`` rows, the tests
+    K16's threads make for them (``csrc/sphere.cuh`` spread_hit): for each
+    tile of 256 lanes with nc testing lanes and each chunk of cn <= 64
+    rows, each lane's hn = 256 // nc threads, thread h taking the rows h,
+    h + hn, ... four at a time (a last short step still tests four))."""
+    import torch
+
+    tiles = torch.cat([lanes, lanes.new_zeros((-lanes.shape[0]) % 256)]).view(-1, 256).sum(1)
+    made = 0
+    for nc, count in zip(*torch.unique(tiles[tiles > 0], return_counts=True)):
+        nc, hn = int(nc), 256 // int(nc)
+        for c0 in range(0, n_rows, 64):
+            cn = min(64, n_rows - c0)
+            steps = sum(-(-(cn - h) // (4 * hn)) for h in range(min(hn, cn)))
+            made += int(count) * nc * 4 * steps
+    return int(lanes.sum()) * n_rows, made
+
+
+def _tie_table():
+    """(rows, meta) of a skip table whose sphere A (radius 1.5 at the
+    origin) sits in the head (material 1) and in two bins (materials 2, 3),
+    between other spheres; the bins' boxes as ``cull.pack_skip`` makes them
+    (tests/test_torch_rule2_mxu_skip.py's tie table)."""
+    import torch
+
+    from art_tpu_torch.scene import cull
+
+    def row(c, r, mat):
+        return [*c, 0.0, 0.0, 0.0, r, mat, r * r, 0.0]
+
+    A = (0.0, 0.0, 0.0)
+    head = [row((0.0, -100.0, 0.0), 90.0, 0), row(A, 1.5, 1)]
+    bins = [[row((3.0, 0.5, 0.0), 1.0, 4), row(A, 1.5, 2), row((-3.0, 0.0, 1.0), 0.8, 5)],
+            [row(A, 1.5, 3), row((0.0, 3.0, -2.0), 1.0, 6)]]
+    rows = np.asarray(head + bins[0] + bins[1], np.float32)
+    segs, r0 = [], len(head)
+    for b in bins:
+        g = np.asarray(b, np.float32)
+        segs.append((r0, r0 + len(g), cull._box(*cull._bounds(g, swept=False))))
+        r0 += len(g)
+    union = cull._box(*cull._bounds(rows[len(head):], swept=False))
+    return torch.from_numpy(rows), (len(head), tuple(segs), union)
+
+
 def _culled_tests(rows, meta, o, d, tm, occlusion, head=True, n_live=None):
     """The (ray, sphere) tests that K16 (``occlusion`` False), K17 or K15's
     spheres (True; K15 without a head) needs on these rays, walked as its
     twin walks them: the live lanes times the head rows, then each segment's
     rows times the lanes whose slab test of its box passes (with
     ``occlusion``, at t_near <= the running best).  Returns (those tests,
-    the tests the kernel's warps make, ``_warp_counts``)."""
+    the tests the kernel's threads make: K17's and K15's whole warps,
+    ``_warp_counts``; K16's, ``_spread_counts``)."""
     import torch
 
     from art_tpu_torch.core.vecmath import T_MIN
@@ -2275,11 +2331,12 @@ def _culled_tests(rows, meta, o, d, tm, occlusion, head=True, n_live=None):
         t.shape[0], dtype=torch.int32, device=t.device) < n_live
     ok, t_near = slab_interval(box, o, d, T_MIN)
     needy = ok & live & ((t_near <= t) if occlusion else True)
-    counts = [_warp_counts(live, n_head)]
+    count = _warp_counts if occlusion else _spread_counts
+    counts = [count(live, n_head)]
     for row0, row1, seg_box in segs:
         ok, t_near = slab_interval(seg_box, o, d, T_MIN)
         cross = needy & ok & ((t_near <= t) if occlusion else True)
-        counts.append(_warp_counts(cross, row1 - row0))
+        counts.append(count(cross, row1 - row0))
         t_s = K.sphere_hit_attrs_plain(None, o, d, tm, T_MIN, rows=rows[row0:row1])[0]
         t = torch.where(cross & (t_s < t), t_s, t)
     return tuple(sum(x) for x in zip(*counts))
@@ -2413,8 +2470,11 @@ def cull_checks(checks: Checks, dev, results: dict):
         log(f"  {label}: kernel {ms:.4f} ms, plain {entry['plain_ms']:.4f} ms, full-table K2 "
             f"{entry['full_k2_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
             f"({entry['bound_by']}); (ray, sphere) tests: {lane_tests} needed, {warp_tests} "
-            f"by the warps, {entry['full_tests']} in the full table; {len(meta[1])} segments, "
+            f"by the kernel's threads ({'whole warps' if occlusion else 'spread_hit'}), "
+            f"{entry['full_tests']} in the full table; {len(meta[1])} segments, "
             f"head {meta[0]} rows")
+
+    skip_tie_checks(checks, dev)
 
     # every opt-in route through closest_surface_p: the record equal to its
     # plain record and, but for exact ties, to the default route's, with
@@ -2437,6 +2497,45 @@ def cull_checks(checks: Checks, dev, results: dict):
                       f"from its plain record; against the default route t bit-equal "
                       f"{same_t}, {ties} ties; sphere kernels launched {counts}")
         cull[f"closest_surface_p {label}"] = dict(ties=ties, launches=counts)
+
+
+def skip_tie_checks(checks: Checks, dev):
+    """K16 against its twin on ``_tie_table`` (R = 2^17 rays at its sphere
+    A, which sits in the head and in two bins under three materials), with
+    and without the head: exact ties between segments, the earlier row
+    winning (the twin's strict `<`; the kernel's least (t, row) key)."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import BIG, T_MIN
+    from art_tpu_torch.ops import intersect_kernels as K
+    from art_tpu_torch.ops.intersect import sphere_row_t_p
+    from art_tpu_torch.scene import cull
+
+    rows, meta = _tie_table()
+    seg = cull.seg_table(meta).to(dev)
+    rows = rows.to(dev)
+    rng = np.random.default_rng(SEED + 14)
+    R = 1 << 17
+    o_np = rng.uniform(-20.0, 20.0, (3, R)).astype(np.float32)
+    d_np = (rng.uniform(-0.5, 0.5, (3, R)) - o_np).astype(np.float32)
+    to = tuple(torch.from_numpy(x).to(dev) for x in o_np)
+    td = tuple(torch.from_numpy(x).to(dev) for x in d_np)
+    ttm = torch.from_numpy(rng.random(R, dtype=np.float32)).to(dev)
+    for head in (True, False):
+        k = K._culled_launch(K.SKIP, rows, seg, meta[0] if head else 0, to, td, ttm, T_MIN)
+        p = K.culled_plain(rows, meta, to, td, ttm, T_MIN, occlusion=False, head=head)
+        t_all = sphere_row_t_p(rows, to, td, ttm, T_MIN)
+        copies = [1, 3, 5] if head else [3, 5]
+        tie = (t_all[:, copies] == t_all[:, copies[:1]]).all(dim=1) & (t_all[:, copies[0]]
+                                                                      < BIG)
+        torch.cuda.synchronize()
+        bad = _equal(k, p)
+        first = int((k[2][tie & (k[0] == t_all[:, copies[0]])] == (1 if head else 2)).sum())
+        checks.expect(bad == 0 and int(tie.sum()) > R // 2
+                      and first == int((tie & (k[0] == t_all[:, copies[0]])).sum()),
+                      f"K16 on the tie table (head {head}, R = {R}): {bad} values differ from "
+                      f"the twin; {int(tie.sum())} lanes with an exact tie between segments, "
+                      f"the earliest copy winning on {first} of those it wins")
 
 
 def _rotated_field(nx: int, ny: int):
@@ -3593,7 +3692,7 @@ def main() -> int:
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
     checks.phase("1b. registers, spills and hot loops of K2, K9, K10, K7, K11, K1, K12, K5, "
-                 "K6, K3",
+                 "K6, K3, K14, K16",
                  sass_report, checks, results)
     checks.phase("2a. K1, K2, K3 against their plain twins", kernel_checks, checks, dev,
                  results)

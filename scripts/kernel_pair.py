@@ -13,9 +13,12 @@ are ``chip_smoke.py``'s (this checkout's).  ``--set noise`` times K7 and
 K11 alone, ``--set intersect`` the sphere and box kernels alone,
 ``--set refill_quad`` the refill core's three kernels and K5's block,
 ``--set box_shade`` K6's block and K3 in both modes, ``--set fetch`` the
-image fetch, ``--set renders`` whole renders (``--scenes``, each
-``--render-reps`` times: wall seconds, rays and iterations from
-``render_scene``'s stats; by default RENDERS); the default, the first two.  Each kernel runs on the pools
+image fetch, ``--set mxu_skip`` K14, K16 (both calls), K17 and K15s,
+``--set renders`` whole renders (``--scenes``, each ``--render-reps``
+times: wall seconds, rays and iterations from ``render_scene``'s stats; by
+default RENDERS; a scene may carry route switches of ``ops/routes.py``
+after a colon, ``+``-separated, e.g. ``final_scene:sph_skip+compact_sph+
+compact_skip``); the default, the first two.  Each kernel runs on the pools
 ``chip_smoke.py`` uses:
 
 * noise: K7 at depth 7 on phase 2c's inputs (the hit points of perlin
@@ -46,6 +49,12 @@ image fetch, ``--set renders`` whole renders (``--scenes``, each
   K3 on phase 2a's refilled bouncing_spheres pool, on it side by side and on
   a bouncing_spheres 1200x800 @ 64 pool 20 staged iterations in; and the
   device launches of one staged cornell_box iteration, by kernel name;
+* mxu_skip: K14 on phase 2f's bouncing_spheres 1200x800 @ 64 pool 20
+  staged iterations in (its features) and on final_scene's MXU tail (the
+  tail's recentered features over phase 2f's final_scene pool, phase 2h's
+  call); K16 standalone on that final_scene pool and its tail-only call
+  with ``n_live`` on the pool's compacted tail slots (phase 2f's); K17 and
+  K15s on both pools;
 * fetch: ``ImageAtlas.sample(..., needy)`` (K8's fetch form) and
   ``eval_special_p``'s image leaf on phase 2d's earth 1200x600
   @ 64 and final_scene 800x800 @ 16 pools 20 staged iterations in, each
@@ -121,7 +130,7 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "box_shade",
-                                      "fetch", "renders"), default="all")
+                                      "fetch", "mxu_skip", "renders"), default="all")
     ap.add_argument("--render-reps", type=int, default=3)
     ap.add_argument("--scenes", default=",".join(name for name, *_ in RENDERS),
                     help="comma-separated scenes of --set renders (sizes from SIZES)")
@@ -155,6 +164,8 @@ def main() -> int:
         box_shade_cases(cs, dev, out["kernels"], args.reps)
     if args.set == "fetch":
         fetch_cases(cs, dev, out["kernels"], args.reps)
+    if args.set == "mxu_skip":
+        mxu_skip_cases(cs, dev, case)
     if args.set == "renders":
         out["renders"] = render_cases(dev, args.render_reps, args.scenes.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -198,21 +209,26 @@ SIZES = {**{name: size for name, *size in RENDERS}, "cornell_smoke": (600, 600, 
 
 
 def render_cases(dev, reps, scenes):
-    """{scene: [{seconds, rays, iterations}] * reps} of ``scenes``, after
+    """{scene: [{seconds, rays, iterations}] * reps} of ``scenes`` (each
+    ``name`` or ``name:switch+switch``, rendered under those routes), after
     one small warm-up render each (the kernels built and loaded)."""
     from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import routes
     from art_tpu_torch.render.renderer import RenderConfig, render_scene
 
     out = {}
-    for name in scenes:
+    for entry in scenes:
+        name, _, switches = entry.partition(":")
+        on = {k: True for k in switches.split("+") if k}
         nx, ny, spp = SIZES[name]
         scene = build_scene(name, nx, ny)
-        render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=1), device=dev)
-        runs = []
-        for _ in range(reps):
-            _, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
-            runs.append({k: st[k] for k in ("seconds", "rays", "iterations")})
-        out[f"{name} {nx}x{ny} @ {spp}"] = runs
+        with routes.using(**on):
+            render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=1), device=dev)
+            runs = []
+            for _ in range(reps):
+                _, st = render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp), device=dev)
+                runs.append({k: st[k] for k in ("seconds", "rays", "iterations")})
+        out[f"{entry} {nx}x{ny} @ {spp}"] = runs
     return out
 
 
@@ -471,6 +487,42 @@ def fetch_cases(cs, dev, kernels, reps):
                                   needy=int(f["needy"].sum()))
         names = cs._staged_names(f)
         kernels[f"staged {name} iteration"] = dict(launches=sum(names.values()), names=names)
+
+
+def mxu_skip_cases(cs, dev, case):
+    """K14, K16 (standalone and tail-only), K17 and K15s (module note)."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import compact_sphere as csph
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    pools = cs._route_pools(dev)
+    bt, bo, bd, btm = pools["bouncing_spheres"]
+    ft, fo, fd, ftm = pools["final_scene"]
+    F, A = bt.sph_mxu_feat, bt.sph_mxu_attr
+    case("K14 bouncing_spheres", lambda: K.sphere_mxu_hit_attrs(F, A, bo, bd, btm),
+         lambda: K.sphere_mxu_hit_attrs_plain(F, A, bo, bd, btm))
+    og = tuple(c - g for c, g in zip(fo, ft.sph_tail_centroid))
+    Ft, At = ft.sph_mxu_tail_feat, ft.sph_mxu_tail_attr
+    case("K14 final_scene MXU tail", lambda: K.sphere_mxu_hit_attrs(Ft, At, og, fd, ftm),
+         lambda: K.sphere_mxu_hit_attrs_plain(Ft, At, og, fd, ftm))
+    case("K16 final_scene", lambda: K.sphere_skip_hit_attrs(ft, fo, fd, ftm),
+         lambda: K.sphere_skip_hit_attrs_plain(ft, fo, fd, ftm))
+    needy = csph.tail_box_needy(ft.sph_tail_box, fo, fd, T_MIN)
+    cnt = needy.sum(dtype=torch.int32).reshape(1)
+    rays = torch.stack([*fo, *fd]).index_select(1, cf.compact_ray_ids(needy))
+    ko, kd, kz = tuple(rays[0:3]), tuple(rays[3:6]), torch.zeros_like(rays[0])
+    case("K16 final_scene tail-only n_live",
+         lambda: K.sphere_skip_hit_attrs(ft, ko, kd, kz, tail_only=True, n_live=cnt),
+         lambda: K.sphere_skip_hit_attrs_plain(ft, ko, kd, kz, tail_only=True, n_live=cnt))
+    for scene in ("bouncing_spheres", "final_scene"):
+        t, o, d, tm = pools[scene]
+        case(f"K17 {scene}", lambda: K.sphere_cellbin_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_cellbin_hit_attrs_plain(t, o, d, tm))
+        case(f"K15s {scene}", lambda: K.sphere_cluster_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_cluster_hit_attrs_plain(t, o, d, tm))
 
 
 def intersect_cases(cs, dev, case):

@@ -9,7 +9,8 @@ Without a library it builds (or finds) the port's kernel library
 (``art_tpu_torch/ops/_build.py``).  NAME is a substring of a kernel's mangled
 name; the default is K2's kernels (its three forms), K9's (both forms),
 K10's, K7's (depth 7, 2 and any), K11's, K1's, K12's, K5's, K6's rotated
-forms (merge and plain) and K3's two modes (baked and plane-fed).
+forms (merge and plain), K3's two modes (baked and plane-fed), K14's and
+K16's.
 
 For each kernel it prints ``cuobjdump -res-usage``'s registers, stack and
 local (spill) bytes, and reads ``cuobjdump -sass``: it cuts the function
@@ -31,7 +32,10 @@ the shared octave, 27 shuffles in one cell (3 for the cell's lattice point,
 its primitive loop (LDS of the staged tables).  K1's and K12's loop is the
 look-back's window read (keyed by its global loads, LDG), K5's and K6's
 their primitive loops.  K3's only loop is flush_warp's summing rounds
-(keyed by SHFL: four shuffles a round).
+(keyed by SHFL: four shuffles a round).  K14's loop is a group of eight
+feature rows for two rays (16 pairs, four LDS.128 a row): its shortest path
+takes no root.  K16's loop is spread_hit's row loop: four staged rows
+(two LDS.128 each) against one lane's ray held in registers.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ DEFAULT = (("sphere_hit_kernelILi2ELi2E", "LDS"), ("sphere_hit_kernelILi1ELi2E",
            ("turb_kernelILi0E", "SHFL"), ("sp_step_kernel", "LDS"), ("refill_kernel", "LDG"),
            ("refill_flush_kernel", "LDG"), ("quad_hit_kernel", "LDS"),
            ("box_hit_kernelILb1ELb1E", "LDS"), ("box_hit_kernelILb1ELb0E", "LDS"),
-           ("shade_flush_kernelILb1E", "SHFL"), ("shade_flush_kernelILb0E", "SHFL"))
+           ("shade_flush_kernelILb1E", "SHFL"), ("shade_flush_kernelILb0E", "SHFL"),
+           ("sphere_mxu_kernel", "LDS"), ("sphere_skip_kernel", "LDS"))
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 
