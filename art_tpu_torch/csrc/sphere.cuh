@@ -1,12 +1,13 @@
 // The sphere kernels' shared parts: one (ray, sphere) candidate with its
-// strict-< merge (in the direct form, and in K13's expanded form), the
+// strict-< merge, a ray's terms of the expanded quadratic, the
 // hit's output, the conservative slab test of a box, and the two scans of
 // a head and segments: segmented_hit, one thread a ray with a warp as the
-// skip unit (K17 sphere_cellbin.cu and K15's spheres sphere_cluster.cu),
-// and spread_hit, a ray tile's segments split across the grid with each
+// skip unit, whose only user now is K15's spheres (sphere_cluster.cu), and
+// spread_hit, a ray tile's segments split across the grid with each
 // block's (lane, row) pairs spread over its threads (K16 sphere_skip.cu).
-// K13 (sphere_static.cu) uses the candidates and the output, K2
-// (sphere_hit.cu) the ray and the output.
+// K2 (sphere_hit.cu) uses the ray and the output; K13 (sphere_static.cu)
+// and K17 (sphere_cellbin.cu) the ray and the output through their staged
+// group scans (sphere_group.cuh).
 //
 // Rules (those of the plain twins, ops/intersect_kernels.py, not the TPU
 // kernels'):
@@ -98,7 +99,8 @@ __device__ __forceinline__ void sphere_test(const float* row, const SphereRay& q
 }
 
 // A ray's terms of the expanded quadratic (K13's expand form,
-// art_tpu/ops/pallas_kernels.py:433-443): |o|^2, o.d and 2 o.
+// art_tpu/ops/pallas_kernels.py:433-443): |o|^2, o.d and 2 o
+// (sphere_group.cuh row_disc).
 struct ExpandedRay {
   float oo, od, ox2, oy2, oz2;
 };
@@ -107,24 +109,6 @@ __device__ __forceinline__ ExpandedRay expanded_ray(const SphereRay& q) {
   return ExpandedRay{q.ox * q.ox + q.oy * q.oy + q.oz * q.oz,
                      q.ox * q.dx + q.oy * q.dy + q.oz * q.dz,
                      2.0f * q.ox, 2.0f * q.oy, 2.0f * q.oz};
-}
-
-// sphere_test_at in the expanded form of a static sphere with
-// K = |c|^2 - r^2: bq = o.d - c.d, c = (|o|^2 + K) - c.(2 o)
-__device__ __forceinline__ void sphere_test_expanded(float cx, float cy, float cz, float r,
-                                                     float mat, float K, const SphereRay& q,
-                                                     const ExpandedRay& e, float t_min,
-                                                     SphereBest& b) {
-  const float bq = e.od - (cx * q.dx + cy * q.dy + cz * q.dz);
-  const float c = (e.oo + K) - (cx * e.ox2 + cy * e.oy2 + cz * e.oz2);
-  const float disc = bq * bq - q.a * c;
-  if (disc > 0.0f) {
-    const float sq = sqrtf(disc);
-    const float t1 = (-bq - sq) * q.inv_a;
-    const float t2 = (-bq + sq) * q.inv_a;
-    const float t = t1 > t_min ? t1 : (t2 > t_min ? t2 : kBig);
-    if (t < b.t) b = SphereBest{t, cx, cy, cz, r, mat};
-  }
 }
 
 // t, the normal (p - c) / r and the material of lane i; a miss writes
@@ -229,11 +213,12 @@ __device__ __forceinline__ void segmented_hit(const float* __restrict__ rows,
 // lexicographic order, over every row of every segment that the lane's slab
 // predicates admit.  Any order of (ray, segment) work that tests exactly
 // the same (ray, row) pairs and keeps the least (t, row) is bit-equal to it;
-// no appeal to the boxes being conservative is needed.  (A later occlusion
-// form, K17's or K15's, may bound a segment by a stale best t: that only
-// admits more rows than the twin, whose bound is the running best, and
-// every row the twin admits is still admitted, so the least (t, row) over
-// the admitted rows is the same.)
+// no appeal to the boxes being conservative is needed.  (An occlusion form,
+// K17's or K15's, that bounds a segment by a stale best t admits more rows
+// than its twin, whose bound is the running best.  The least (t, row) over
+// them is the same only because the boxes are conservative: a row the twin
+// passes over lies in a box entered past a t the lane already holds, so its
+// own t is larger.  K17 keeps the twin's running bound instead.)
 //
 // The key: order_bits(t) << 32 | row, where order_bits maps a float32 to a
 // uint32 that orders like float `<` (both zeros one value: the twin's `<`
@@ -321,8 +306,8 @@ constexpr int kIlp = 4;  // rows a thread of spread_hit tests at once
 //  * lanes at or past *n_live (when given) are misses; a tile wholly past
 //    it is written as misses by its head block, and no key of it is
 //    touched.
-// K17's and K15's occlusion forms could run it with a stale bound (see
-// above); they still run segmented_hit.
+// K15's occlusion form could run it with a stale bound (see above); it
+// still runs segmented_hit.
 // keys (>= R, each kMissKey) and tickets (>= R / kBlock tiles, each 0)
 // are a scratch that every call leaves as it found it (the wrapper keeps
 // it across calls on one stream).

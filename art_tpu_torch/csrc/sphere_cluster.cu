@@ -11,7 +11,7 @@
 // crosses the union box, each cluster whose box it crosses at
 // t_near <= its running best t (the shrinking-tmax bound of art_tpu's
 // `max(t0, t_min) <= min(t1, best_t)`, :857), the cluster's closest merged
-// with a strict `<`.  This is K17's scan with no head: segmented_hit<true>
+// with a strict `<`.  This is segmented_hit<true> with no head
 // (sphere.cuh), so K15, K16, K17 and K2 run one candidate's arithmetic.
 // The union box is a pre-test that art_tpu's kernel does not have: a ray
 // that crosses a cluster's box crosses the union (the slab arithmetic is

@@ -36,8 +36,8 @@
 // lanes; on a whole pool most blocks find no lane, and 4 bins a block (5
 // blocks a tile) spends fewer.  The skip boxes are conservative (inflated
 // by 1e-3 + 1e-6 max|coord|), so the skip changes no result against the
-// full table either.  K17 (sphere_cellbin.cu) and K15's spheres
-// (sphere_cluster.cu) still run segmented_hit.
+// full table either.  K15's spheres (sphere_cluster.cu) still run
+// segmented_hit; K17 (sphere_cellbin.cu) its staged group scan.
 
 #include "sphere.cuh"
 

@@ -16,7 +16,8 @@ to 1.1% from the twin's (PERF.md, "FMA contraction").
 K13 (``csrc/sphere_static.cu``) is the one kernel built apart:
 ``static_libraries`` compiles it once per scene and quadratic form, with the
 scene's spheres in a generated header (``static_header``: the cells of
-``tables.sph_static_cells`` as exact float32 hex literals), into a shared
+``tables.sph_static_cells`` as ``__device__`` tables of exact float32 hex
+literals, ``static_table``), into a shared
 library named by a hash of the header, the sources and the flags, and
 records the ``nvcc`` seconds.  A build error raises.
 
@@ -37,6 +38,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -163,20 +165,53 @@ def _hex(x: float) -> str:
     return f"{mant.rstrip('0').rstrip('.')}p{exp}f"
 
 
+def _f32(rows, width: int) -> np.ndarray:
+    return np.asarray(rows, np.float32).reshape(-1, width)
+
+
+def static_table(cells: tuple, tail_r: float, tail_mat: float) -> dict:
+    """K13's compiled-in table of one scene's cells (``scene/builder.
+    static_sphere_cells``: moving, main, tail), the rows in that order as
+    float32 arrays: ``c`` (N, 4) (cx0, cy0, cz0, r2), ``k`` (N,) K = |c|^2 -
+    r^2 (0 on a moving row), ``v`` (M, 4) (vx, vy, vz, 0) of the M moving
+    rows, ``rm`` (N, 2) (r, mat), the tail's radius and material on a tail
+    row; ``n_moving`` and ``vel_mask`` (bit k: some moving row has a nonzero
+    velocity component k)."""
+    moving, main, tail = cells
+    v = _f32([(r[3], r[4], r[5], 0.0) for r in moving], 4)
+    return dict(
+        c=_f32([(r[0], r[1], r[2], r[8]) for r in moving]
+               + [(r[0], r[1], r[2], r[5]) for r in main]
+               + [(r[0], r[1], r[2], r[3]) for r in tail], 4),
+        k=_f32([0.0] * len(moving) + [r[6] for r in main] + [r[4] for r in tail], 1)[:, 0],
+        v=v,
+        rm=_f32([(r[6], r[7]) for r in moving] + [(r[3], r[4]) for r in main]
+                + [(tail_r, tail_mat)] * len(tail), 2),
+        n_moving=len(moving),
+        vel_mask=sum(1 << k for k in range(3) if bool((v[:, k] != 0.0).any())))
+
+
 def static_header(cells: tuple, tail_r: float, tail_mat: float) -> str:
-    """The per-scene header of ``csrc/sphere_static.cu``: the (moving, main,
-    tail) cells of ``scene/builder.static_sphere_cells`` as the X-macro lists
-    ``ART_STATIC_MOVING``, ``ART_STATIC_MAIN`` and ``ART_STATIC_TAIL``, and
-    the tail's radius and material."""
+    """The per-scene header of ``csrc/sphere_static.cu``: ``static_table``'s
+    arrays as ``__device__`` tables of exact float32 literals
+    (``art_static_c``, ``art_static_k``, ``art_static_v``,
+    ``art_static_rm``; an empty one holds a single zero row) and its counts
+    (``ART_STATIC_N_MOVING``, ``ART_STATIC_N_ROWS``,
+    ``ART_STATIC_VEL_MASK``)."""
+    tab = static_table(cells, tail_r, tail_mat)
     lines = ["// K13's cells for one scene, written by art_tpu_torch/ops/_build.py",
-             "#pragma once"]
-    for name, rows in zip(("MOVING", "MAIN", "TAIL"), cells):
-        lines.append(f"#define ART_STATIC_{name}(X) \\")
-        lines += ["  X(" + ", ".join(_hex(v) for v in row) + ") \\" for row in rows]
-        lines.append("")
-    lines += [f"#define ART_STATIC_TAIL_R {_hex(float(tail_r))}",
-              f"#define ART_STATIC_TAIL_MAT {_hex(float(tail_mat))}", ""]
-    return "\n".join(lines)
+             "#pragma once",
+             f"#define ART_STATIC_N_MOVING {tab['n_moving']}",
+             f"#define ART_STATIC_N_ROWS {len(tab['c'])}",
+             f"#define ART_STATIC_VEL_MASK {tab['vel_mask']}u"]
+    for name, ctype, rows in (("c", "float4", tab["c"]), ("k", "float", tab["k"][:, None]),
+                              ("v", "float4", tab["v"]), ("rm", "float2", tab["rm"])):
+        rows = rows if len(rows) else np.zeros((1, rows.shape[1]), np.float32)
+        lines.append(f"__device__ const {ctype} art_static_{name}[{len(rows)}] = {{")
+        lines += ["  " + ("{" + ", ".join(_hex(float(x)) for x in row) + "}" if ctype != "float"
+                         else _hex(float(row[0]))) + "," for row in rows]
+        lines.append("};")
+    return "\n".join(lines) + "\n"
 
 
 _STATIC_LIBS: dict = {}  # (id(cells), expand) -> (cells, library)

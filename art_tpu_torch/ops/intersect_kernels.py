@@ -163,7 +163,8 @@ def culled_plain(rows, meta, o, d, tm, t_min, *, occlusion: bool, head: bool = T
     unless ``head``), then over each segment's rows, taken where the ray's
     slab test of the segment's box passes (with ``occlusion``, at t_near <=
     the running best t) and the segment's t is strictly closer; lanes at or
-    past ``n_live`` miss (``csrc/sphere.cuh`` segmented_hit)."""
+    past ``n_live`` miss (``csrc/sphere.cuh`` segmented_hit; K17's
+    ``csrc/sphere_cellbin.cu`` in the same order, lane by lane)."""
     n_head, segs, box = meta
     n_head = n_head if head else 0
     t, normal, mat = sphere_hit_attrs_plain(None, o, d, tm, t_min, rows=rows[:n_head],
@@ -305,6 +306,9 @@ def skip_scratch(R: int, dev):
     return have
 
 
+CELLBIN_MAX_CELLS = 64  # cells K17 stages in shared memory (csrc/sphere_cellbin.cu kMaxCells)
+
+
 def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
     dev = o[0].device
     ins = (*o, *d, tm)
@@ -329,6 +333,9 @@ def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
         rc = lib.art_sphere_cluster(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, R,
                                     float(t_min), ptrs, _build.stream_handle(dev))
     else:
+        if seg.shape[0] - 1 > CELLBIN_MAX_CELLS:
+            raise ValueError(f"{name}: {seg.shape[0] - 1} cells, the kernel stages at most "
+                             f"{CELLBIN_MAX_CELLS}")
         rc = lib.art_sphere_cellbin(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, n_head,
                                     R, float(t_min), ptrs, _build.stream_handle(dev))
     _build.check(rc, name)

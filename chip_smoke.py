@@ -9,8 +9,13 @@ Phases (each runs; any failure exits non-zero without the final result):
     parallel; timed);
  1b. the registers, local-memory spills and hot-loop instructions of K2, K9
     (both forms), K10, K7 (its octave in each form), K11 (held to 64
-    registers), K1, K12, K5, K6 (both forms) and K3 (both modes) in the
-    built library (``scripts/sass_loops.py``);
+    registers), K1, K12, K5, K6 (both forms), K3 (both modes), K14, K16 and
+    K17 (the fewest instructions a row of its group scans) in the built
+    library (``scripts/sass_loops.py``); K13 built per scene and form for
+    bouncing_spheres, final_scene and cornell_box, all six nvcc started
+    together (seconds each), with the code size, registers, spills and the
+    fewest instructions a row of its group loops of bouncing_spheres' and
+    final_scene's libraries in the scene's form (``sph_expand``);
  2. each kernel against its plain PyTorch twin on the card, with inputs and
     injected uniforms from a numpy seed, then both timed with CUDA events
     behind a device spin, beside the least time the card could take for the
@@ -75,7 +80,8 @@ Phases (each runs; any failure exits non-zero without the final result):
     staged iterations in (R = 2^17), and equal in t to the full-table K2
     with their exact ties between segments counted; K2 bit-equal to its
     twin there; their times, the full-table K2's, and bounds from the
-    (ray, sphere) tests those rays need; then ``closest_surface_p`` under
+    (ray, sphere) tests those rays need, beside the tests their threads
+    make; then ``closest_surface_p`` under
     every opt-in sphere route (ROUTE_RUNS) equal to its plain record and to
     the default route's, launching the route's sphere kernels;
     2g. K15 (``ART_TPU_CLUSTER``): its spheres on 2f's bouncing_spheres
@@ -92,10 +98,9 @@ Phases (each runs; any failure exits non-zero without the final result):
     2h. K12 (``ART_TPU_SEAM_FLUSH``'s seam flush) on a bouncing_spheres pool
     20 seam iterations in, with injected and Philox uniforms, bit-equal to
     its twin and (but for the zeroed dead radiance) to K1, its framebuffer
-    within 1e-6 relative; K13 (``ART_TPU_SPH_STATIC``) built per scene and
-    form, all builds started together (nvcc seconds each), on the
-    bouncing_spheres, final_scene and a cornell_box pool in both quadratic
-    forms, bit-equal to its twin, the direct form equal to the full-table
+    within 1e-6 relative; K13 (``ART_TPU_SPH_STATIC``, phase 1b's builds)
+    on the bouncing_spheres, final_scene and a cornell_box pool in both
+    quadratic forms, bit-equal to its twin, the direct form equal to the full-table
     K2 in t on every lane, the expanded form within its rounding bound;
     K14 (``ART_TPU_MXU_SPHERES``) on the bouncing_spheres pool and the
     split's MXU-tail dense branch (``ART_TPU_MXU_TAIL``) on the final_scene
@@ -423,6 +428,9 @@ class Checks:
         log(f"  [{'ok' if ok else 'FAIL'}] {what}")
         if not ok:
             self.failed.append(what)
+            # also on stderr, whose end is what a caller that keeps only
+            # the tail of a long run sees
+            print(f"[FAIL] {what}", file=sys.stderr, flush=True)
 
     def phase(self, name, fn, *args):
         log(f"== {name}")
@@ -524,7 +532,11 @@ def card_info(checks: Checks, dev):
 def sass_report(checks: Checks, results: dict):
     """Registers, spills and the hot loop's instructions of K2, K9 (both
     forms), K10, K7, K11, K1, K12, K5, K6 (rotated, both forms), K3 (both
-    modes), K14 and K16 in the built library (``scripts/sass_loops.py``);
+    modes), K14, K16 and K17 in the built library (``scripts/sass_loops.py``),
+    and of K13 in its per-scene libraries (built here for phase 2h: every
+    scene of STATIC_SCENES in both forms, nvcc seconds each), with K13's
+    code size and the fewest instructions a row of K13's and K17's group
+    loops;
     K14's instructions a pair: its loop's path with no root over the
     K14_GROUP_PAIRS pairs of a group;
     K7's octave: the shared form from the any-depth kernel's loop (27
@@ -558,11 +570,73 @@ def sass_report(checks: Checks, results: dict):
         log(f"  K14: {fewest} instructions a group of {K14_GROUP_PAIRS} (ray, sphere) pairs "
             f"with no root, {fewest / K14_GROUP_PAIRS:.2f} a pair")
     checks.expect(all("error" not in r and r.get("LOCAL", 0) == 0 for r in rep.values()),
-                  "K2, K9, K10, K7, K11, K1, K12, K5, K6, K3, K14 and K16 found in the "
+                  "K2, K9, K10, K7, K11, K1, K12, K5, K6, K3, K14, K16 and K17 found in the "
                   "library, no local-memory spill")
+    k17 = _row_paths(rep.get("sphere_cellbin_kernel", {}))
+    if k17:
+        rep["sphere_cellbin_row"] = k17
+        log(f"  K17: its group scans' fewest instructions a row (one ray, no root): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in k17.items()))
     k11 = rep.get("sp_step_kernel", {}).get("REG", 99)
     checks.expect(k11 <= 64, f"K11 in {k11} registers (<= 64: four blocks an SM)")
+    # K13, per scene: built here (every scene and form at once), its code
+    # size, registers and instructions a row in the scene's form (sph_expand)
+    libs, nvcc, wall = _static_builds()
+    statics = _STATIC_BUILDS["tables"]
+    log(f"  K13 builds (3 scenes x 2 forms in parallel, {wall:.1f} s wall): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in nvcc.items()))
+    checks.expect(all(libs.values()), "K13 built for every scene and form")
+    for name in ("bouncing_spheres", "final_scene"):
+        form = "expanded" if statics[name].sph_expand else "direct"
+        r = mod.report(libs[f"{name} {form}"]._name, mod.STATIC)["sphere_static_kernel"]
+        rows = _row_paths(r)
+        rep[f"sphere_static {name} {form}"] = dict(
+            {k: r.get(k) for k in ("REG", "LOCAL", "SHARED", "code_bytes")}, rows=rows)
+        log(f"  K13 {name} {form}: {r.get('REG')} registers, {r.get('LOCAL')} B local "
+            f"(spills), {r.get('code_bytes')} B of SASS for {statics[name].n_spheres} spheres; "
+            f"its group loops' fewest instructions a row (two rays, no root): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in rows.items()))
+        checks.expect("error" not in r and r.get("LOCAL", 0) == 0,
+                      f"K13 {name} {form} found in its library, no local-memory spill")
     results["_sass"] = rep
+
+
+# K13's builds (phase 1b, used by 2h): {"tables": {scene: tables}, "libs":
+# {"scene form": library}, "nvcc": {"scene form": seconds}, "wall": s}
+_STATIC_BUILDS: dict = {}
+
+
+def _static_builds():
+    """K13 built for every scene of STATIC_SCENES in both forms, one nvcc
+    each, all started together (once a run): (libraries, nvcc seconds
+    each, wall seconds), keyed "scene form"."""
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+
+    if not _STATIC_BUILDS:
+        statics = {n: build_scene(n, 16, 16).tables for n in STATIC_SCENES}
+        jobs = [(n, ex) for n in statics for ex in (False, True)]
+        t0 = time.perf_counter()
+        built = _build.static_libraries([(statics[n].sph_static_cells, statics[n].sph_tail_r,
+                                          statics[n].sph_tail_mat, ex) for n, ex in jobs])
+        keys = [f"{n} {'expanded' if ex else 'direct'}" for n, ex in jobs]
+        _STATIC_BUILDS.update(tables=statics, libs=dict(zip(keys, built)),
+                              nvcc={k: lib.build_seconds for k, lib in zip(keys, built)},
+                              wall=time.perf_counter() - t0)
+    return _STATIC_BUILDS["libs"], _STATIC_BUILDS["nvcc"], _STATIC_BUILDS["wall"]
+
+
+def _row_paths(r: dict) -> dict:
+    """{"LDS n at head": the fewest instructions a row} of a sass_loops
+    report's group scans: each innermost loop with eight LDS or more (a
+    group of eight staged rows, a moving one with their velocities too),
+    its path with the fewest LDS and no root, over the group's eight rows."""
+    out = {}
+    for lp in r.get("loop", {}).get("inner", []):
+        key = min(lp["paths"], key=int)
+        if int(key) >= 8:
+            out[f"LDS {key} at {lp['head']}"] = lp["paths"][key]["fewest"] / 8
+    return out
 
 
 def _random_pool(rng, R, dev):
@@ -1121,11 +1195,11 @@ def quad_box_checks(checks: Checks, dev, results: dict):
                 torch.where(hit, mat, torch.zeros_like(mat)))
 
     r5["glue_ms"] = _timed_ms(glue, 20)
-    r5["glue_launches"] = _profiled_launches(glue)
+    r5["glue_launches"] = _captured_launches(glue)
     s_args = (_clone(cp), cornell.camera, staged["q"].clone(), 0, staged["hist"].clone(), 20,
               staged["scal"], tables, cornell.background, staged["fb"].clone(),
               staged["lost"].clone())
-    r5["staged_cornell_launches"] = _profiled_launches(lambda: staged_step(
+    r5["staged_cornell_launches"] = _captured_launches(lambda: staged_step(
         *s_args, key=(7, 0, 0), ncols=staged["ncols"], max_depth=50,
         gradient=cornell.gradient_bg))
     c_hits = int((c_t < BIG).sum())
@@ -1159,9 +1233,9 @@ def quad_box_checks(checks: Checks, dev, results: dict):
         if not key:
             wins = int((box_hit_attrs_merge_plain(tables, o, d, quad)[0] < quad[0]).sum())
             rm["plain_ms"] = _timed_ms(lambda: box_hit_attrs_merge_plain(tables, o, d, quad), 5)
-            rm["launches_block"] = _profiled_launches(
+            rm["launches_block"] = _captured_launches(
                 lambda: box_hit_attrs_merge(tables, o, d, work))
-            rm["k6_closer_launches"] = _profiled_launches(
+            rm["k6_closer_launches"] = _captured_launches(
                 lambda: _closer(quad, box_hit_attrs(tables, o, d)))
             rm["wins"] = wins
             _set_bound(rm, R * 28 + wins * 28 + tables.n_boxes * 48,
@@ -1600,26 +1674,54 @@ def _fetch_pools(dev):
     return _FETCH_POOLS
 
 
-def _profiled_names(fn) -> dict:
+# CUgraphNodeType: the nodes that are device work, as a launch each
+GRAPH_WORK_NODES = {0: None, 1: "memcpy", 2: "memset"}
+
+
+def _captured_names(fn) -> dict:
     """{device kernel name: launches} of one call of ``fn`` (after a
-    warm-up call).  A spin kernel opens the window and is not counted: late
-    in a long process the profiler can leave a window's first launch out
-    (a staged earth iteration read without its K1, ``sample`` with 0)."""
+    warm-up call), read from a CUDA graph capture of the call: its kernel,
+    memcpy and memset nodes, a kernel named by the driver (``cuFuncGetName``,
+    the mangled name).  The capture records every launch on the current
+    stream, the port's kernels' included, and runs none of them.  (A
+    profiler window is no count: late in a long process it lost launches,
+    ``sample`` reading 0 device launches in up to 19 of 20 windows.)"""
     import collections
+    import ctypes
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    return dict(collections.Counter(e.name[:80] for e in prof.events()
-                                    if e.device_type == DeviceType.CUDA
-                                    and "spin_kernel" not in e.name))
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    names = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value not in GRAPH_WORK_NODES:
+            continue  # empty, host, event and wait nodes: no device work
+        label = GRAPH_WORK_NODES[kind.value]
+        if label is None:
+            params = (ctypes.c_byte * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2: func first
+            name = ctypes.c_char_p()
+            if (cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) != 0
+                    or cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p.from_buffer(
+                        params).value) != 0):
+                raise RuntimeError("a kernel node's function name was not readable")
+            label = name.value.decode()[:80]
+        names[label] += 1
+    graph.reset()
+    return dict(names)
 
 
 def _staged_names(f) -> dict:
@@ -1630,7 +1732,7 @@ def _staged_names(f) -> dict:
     s, scene = f["s"], f["scene"]
     args = (_clone(s["pool"]), scene.camera, s["q"].clone(), 0, s["hist"].clone(), 20,
             s["scal"], scene.tables, scene.background, s["fb"].clone(), s["lost"].clone())
-    return _profiled_names(lambda: staged_step(*args, key=(7, 0, 0), ncols=s["ncols"],
+    return _captured_names(lambda: staged_step(*args, key=(7, 0, 0), ncols=s["ncols"],
                                                max_depth=50, gradient=scene.gradient_bg))
 
 
@@ -1781,7 +1883,7 @@ def compact_checks(checks: Checks, dev, results: dict):
     from art_tpu_torch.ops.perlin import noise_p
 
     pts = tuple((c * 16.0).contiguous() for c in rec.p)
-    launches = _profiled_launches(lambda: noise_p(*pts))
+    launches = _captured_launches(lambda: noise_p(*pts))
     results["_noise_p"] = {"launches": launches, "ms": _timed_ms(lambda: noise_p(*pts), 5),
                            "R": R}
     _log_kernels(results, ("flush_accumulate", "table_gather_u24", "atlas_fetch"))
@@ -1887,13 +1989,13 @@ def atlas_fetch_checks(checks: Checks, dev, results: dict, pools: dict, masks: d
         qa, qargs = q["scene"].tables.atlas, (q["img"], q["u"], q["v"], q["needy"])
         names = _staged_names(q)
         _build.launches.clear()
-        launches = _profiled_launches(lambda: qa.sample(*qargs))  # two calls
+        launches = _captured_launches(lambda: qa.sample(*qargs))  # two calls
         counted = _build.launches[fk.FETCH]
         c = per_pool[name] = dict(
             needy=int(q["needy"].sum()), R=q["s"]["R"], sample_launches=launches,
             ms=_timed_ms(lambda: qa.sample(*qargs), 20),
             compact_sample_ms=_timed_ms(lambda: _unpacked_compact(qa, *qargs), 20),
-            compact_sample_launches=_profiled_launches(lambda: _unpacked_compact(qa, *qargs)),
+            compact_sample_launches=_captured_launches(lambda: _unpacked_compact(qa, *qargs)),
             staged_launches=sum(names.values()), staged_names=names)
         fetches = sum(n for k, n in names.items() if "atlas_fetch" in k)
         checks.expect(launches == 1 and counted == 2 and fetches == 1,
@@ -1931,9 +2033,9 @@ def _scene(name: str, nx: int, ny: int):
     return _box_field(nx, ny) if name == "box field" else build_scene(name, nx, ny)
 
 
-def _profiled_launches(fn) -> int:
+def _captured_launches(fn) -> int:
     """Device launches of one call of ``fn`` (after a warm-up call)."""
-    return sum(_profiled_names(fn).values())
+    return sum(_captured_names(fn).values())
 
 
 def _staged_pool(scene, nx, ny, spp, dev, iters):
@@ -2194,22 +2296,22 @@ def grid_split_checks(checks: Checks, dev, results: dict):
         "R": R, "needy": n_needy, "ties": ties, "split_ms": split_ms, "full_k2_ms": full_ms,
         "split_plain_ms": _timed_ms(
             lambda: cs.sphere_hit_attrs_split(tables, o, d, tm, plain=True), 3),
-        "split_launches": _profiled_launches(lambda: cs.sphere_hit_attrs_split(
+        "split_launches": _captured_launches(lambda: cs.sphere_hit_attrs_split(
             tables, o, d, tm)),
-        "full_k2_launches": _profiled_launches(lambda: K.sphere_hit_attrs(tables, o, d, tm))}
+        "full_k2_launches": _captured_launches(lambda: K.sphere_hit_attrs(tables, o, d, tm))}
 
     # ---- the media: launches of apply_media_p and of a whole staged iteration
-    # (on a copy of the pool made outside the profiled window) ----
+    # (on a copy of the pool made outside the captured call) ----
     surf = closest_surface_p(tables, o, d, tm, T_MIN)
     staged = (_clone(pool), scene.camera, q.clone(), 0, hist.clone(), 20, scal, tables,
               scene.background, fb.clone(), lost.clone())
     results["_media"] = {
         "n_media": tables.n_media,
-        "launches": _profiled_launches(lambda: apply_media_p(tables, o, d, T_MIN, surf,
+        "launches": _captured_launches(lambda: apply_media_p(tables, o, d, T_MIN, surf,
                                                              u_media, time=tm)),
         "ms": _timed_ms(lambda: apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm),
                         10),
-        "staged_step_launches": _profiled_launches(lambda: staged_step(
+        "staged_step_launches": _captured_launches(lambda: staged_step(
             *staged, key=(7, 0, 0), ncols=ncols, max_depth=50, gradient=scene.gradient_bg))}
 
     # ---- times and bounds: 6 planes in and 7 out a ray, the cell list once;
@@ -2317,7 +2419,8 @@ def _culled_tests(rows, meta, o, d, tm, occlusion, head=True, n_live=None):
     rows times the lanes whose slab test of its box passes (with
     ``occlusion``, at t_near <= the running best).  Returns (those tests,
     the tests the kernel's threads make: K17's and K15's whole warps,
-    ``_warp_counts``; K16's, ``_spread_counts``)."""
+    ``_warp_counts`` (K17's parts share a warp's rows between them, so
+    they make the same tests); K16's, ``_spread_counts``)."""
     import torch
 
     from art_tpu_torch.core.vecmath import T_MIN
@@ -2854,9 +2957,9 @@ def slice8_checks(checks: Checks, dev, results: dict):
     given radiance from the seed), with injected and Philox uniforms,
     bit-equal to its twin and, but for the zeroed dead radiance, to K1, its
     framebuffer within 1e-6 relative of the twin's, and its flush-only
-    entry likewise; K13 built per scene in both forms (one nvcc each, all
-    started together, seconds each) on the bouncing_spheres and final_scene
-    pools of 2f and a cornell_box pool, bit-equal to its twin, in the direct
+    entry likewise; K13 in both forms (phase 1b's builds, ``_static_builds``)
+    on the bouncing_spheres and final_scene pools of 2f and a cornell_box
+    pool, bit-equal to its twin, in the direct
     form equal to the full-table K2 in t on every lane (exact ties between
     the (moving, main, tail) order and scene order counted), in the
     expanded form within the expanded quadratic's rounding bound; K14 on
@@ -2878,19 +2981,9 @@ def slice8_checks(checks: Checks, dev, results: dict):
     from art_tpu_torch.ops import refill_kernel as rk
 
     s8 = results.setdefault("_slice8", {})
-    # ---- K13's builds: every scene and form at once ----
-    statics = {n: build_scene(n, 16, 16).tables for n in STATIC_SCENES}
-    jobs = [(n, ex) for n in statics for ex in (False, True)]
-    t0 = time.perf_counter()
-    libs = _build.static_libraries([(statics[n].sph_static_cells, statics[n].sph_tail_r,
-                                     statics[n].sph_tail_mat, ex) for n, ex in jobs])
-    wall = time.perf_counter() - t0
-    nvcc = {f"{n} {'expanded' if ex else 'direct'}": lib.build_seconds
-            for (n, ex), lib in zip(jobs, libs)}
+    # ---- K13's builds: every scene and form at once (phase 1b's) ----
+    libs, nvcc, wall = _static_builds()
     s8["static_nvcc_seconds"] = dict(nvcc, wall=wall)
-    log(f"  K13 builds (3 scenes x 2 forms in parallel, {wall:.1f} s wall): "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in nvcc.items()))
-    checks.expect(all(libs), "K13 built for every scene and form")
 
     # ---- K12: seam flush + refill ----
     scene = build_scene("bouncing_spheres", 1200, 800).to(dev)
@@ -3692,7 +3785,7 @@ def main() -> int:
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
     checks.phase("1b. registers, spills and hot loops of K2, K9, K10, K7, K11, K1, K12, K5, "
-                 "K6, K3, K14, K16",
+                 "K6, K3, K14, K16, K17; K13's per-scene builds, code size and loops",
                  sass_report, checks, results)
     checks.phase("2a. K1, K2, K3 against their plain twins", kernel_checks, checks, dev,
                  results)
@@ -3724,6 +3817,8 @@ def main() -> int:
         for name, (src, rep) in KERNELS.items()], **extra, "card": smi}))
     if checks.failed:
         log(f"FAILED: {checks.failed}")
+        print(f"chip_smoke: {len(checks.failed)} check(s) failed: {checks.failed}",
+              file=sys.stderr, flush=True)
         return 1
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ K11 alone, ``--set intersect`` the sphere and box kernels alone,
 ``--set refill_quad`` the refill core's three kernels and K5's block,
 ``--set box_shade`` K6's block and K3 in both modes, ``--set fetch`` the
 image fetch, ``--set mxu_skip`` K14, K16 (both calls), K17 and K15s,
+``--set static_cellbin`` K13 and K17 with K2, K16 and K15s as controls,
 ``--set renders`` whole renders (``--scenes``, each ``--render-reps``
 times: wall seconds, rays and iterations from ``render_scene``'s stats; by
 default RENDERS; a scene may carry route switches of ``ops/routes.py``
@@ -55,6 +56,13 @@ compact_skip``); the default, the first two.  Each kernel runs on the pools
   call); K16 standalone on that final_scene pool and its tail-only call
   with ``n_live`` on the pool's compacted tail slots (phase 2f's); K17 and
   K15s on both pools;
+* static_cellbin: K13 in both forms on phase 2f's bouncing_spheres and
+  final_scene pools and phase 2h's cornell_box 600x600 @ 64 pool (20 staged
+  iterations in), its six libraries built together first (``nvcc_s`` each,
+  ``K13 builds`` the wall seconds), K2 on each pool; K17 on the
+  bouncing_spheres and final_scene pools with the (ray, sphere) tests its
+  rays need and its warps make (``chip_smoke._culled_tests``), K15s on
+  both, K16 standalone on final_scene's;
 * fetch: ``ImageAtlas.sample(..., needy)`` (K8's fetch form) and
   ``eval_special_p``'s image leaf on phase 2d's earth 1200x600
   @ 64 and final_scene 800x800 @ 16 pools 20 staged iterations in, each
@@ -130,7 +138,8 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "box_shade",
-                                      "fetch", "mxu_skip", "renders"), default="all")
+                                      "fetch", "mxu_skip", "static_cellbin", "renders"),
+                    default="all")
     ap.add_argument("--render-reps", type=int, default=3)
     ap.add_argument("--scenes", default=",".join(name for name, *_ in RENDERS),
                     help="comma-separated scenes of --set renders (sizes from SIZES)")
@@ -166,6 +175,8 @@ def main() -> int:
         fetch_cases(cs, dev, out["kernels"], args.reps)
     if args.set == "mxu_skip":
         mxu_skip_cases(cs, dev, case)
+    if args.set == "static_cellbin":
+        static_cellbin_cases(cs, dev, case, out["kernels"])
     if args.set == "renders":
         out["renders"] = render_cases(dev, args.render_reps, args.scenes.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -373,7 +384,7 @@ def refill_quad_cases(cs, dev, case, kernels, reps):
     args = (cs._clone(cp), cornell.camera, staged["q"].clone(), 0, staged["hist"].clone(), 20,
             staged["scal"], cornell.tables, cornell.background, staged["fb"].clone(),
             staged["lost"].clone())
-    kernels["staged cornell_box iteration"] = dict(launches=cs._profiled_launches(
+    kernels["staged cornell_box iteration"] = dict(launches=cs._captured_launches(
         lambda: staged_step(*args, key=(7, 0, 0), ncols=staged["ncols"], max_depth=50,
                             gradient=cornell.gradient_bg)))
 
@@ -457,7 +468,7 @@ def box_shade_cases(cs, dev, kernels, reps):
     args = (cs._clone(cp), cornell.camera, staged["q"].clone(), 0, staged["hist"].clone(), 20,
             staged["scal"], cornell.tables, cornell.background, staged["fb"].clone(),
             staged["lost"].clone())
-    names = cs._profiled_names(lambda: staged_step(*args, key=(7, 0, 0),
+    names = cs._captured_names(lambda: staged_step(*args, key=(7, 0, 0),
                                                    ncols=staged["ncols"], max_depth=50,
                                                    gradient=cornell.gradient_bg))
     kernels["staged cornell_box iteration"] = dict(launches=sum(names.values()), names=names)
@@ -481,7 +492,7 @@ def fetch_cases(cs, dev, kernels, reps):
         for label, fn in blocks.items():
             k, p = fn(), fn(plain=True)
             torch.cuda.synchronize()
-            kernels[label] = dict(ms=cs._timed_ms(fn, reps), launches=cs._profiled_launches(fn),
+            kernels[label] = dict(ms=cs._timed_ms(fn, reps), launches=cs._captured_launches(fn),
                                   differ=sum(cs._bits_equal(a.contiguous(), b.contiguous())
                                              for a, b in zip(k, p)),
                                   needy=int(f["needy"].sum()))
@@ -523,6 +534,40 @@ def mxu_skip_cases(cs, dev, case):
              lambda: K.sphere_cellbin_hit_attrs_plain(t, o, d, tm))
         case(f"K15s {scene}", lambda: K.sphere_cluster_hit_attrs(t, o, d, tm),
              lambda: K.sphere_cluster_hit_attrs_plain(t, o, d, tm))
+
+
+def static_cellbin_cases(cs, dev, case, kernels):
+    """K13 (both forms, three pools), K17 (two pools) and K2, K16, K15s
+    as controls (module note)."""
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    _, nvcc, wall = cs._static_builds()  # the six K13 libraries, built together
+    pools = dict(cs._route_pools(dev))
+    pools["cornell_box"] = cs._pool_rays(build_scene("cornell_box", 600, 600).to(dev), 600, 600,
+                                         64, dev, 20)
+    for name in cs.STATIC_SCENES:
+        t, o, d, tm = pools[name]
+        for expand in (False, True):
+            form = "expanded" if expand else "direct"
+            case(f"K13 {form} {name}",
+                 lambda: K.sphere_static_hit_attrs(t, o, d, tm, expand=expand),
+                 lambda: K.sphere_static_hit_attrs_plain(t, o, d, tm, expand=expand))
+            kernels[f"K13 {form} {name}"]["nvcc_s"] = nvcc[f"{name} {form}"]
+        case(f"K2 {name}", lambda: K.sphere_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_hit_attrs_plain(t, o, d, tm))
+    kernels["K13 builds"] = dict(wall_s=wall)
+    for name in ("bouncing_spheres", "final_scene"):
+        t, o, d, tm = pools[name]
+        case(f"K17 {name}", lambda: K.sphere_cellbin_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_cellbin_hit_attrs_plain(t, o, d, tm))
+        need, made = cs._culled_tests(t.sph_cellbin_rows, t.sph_cellbin_meta, o, d, tm, True)
+        kernels[f"K17 {name}"].update(tests_needed=need, tests_made=made)
+        case(f"K15s {name}", lambda: K.sphere_cluster_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_cluster_hit_attrs_plain(t, o, d, tm))
+    ft, fo, fd, ftm = pools["final_scene"]
+    case("K16 final_scene", lambda: K.sphere_skip_hit_attrs(ft, fo, fd, ftm),
+         lambda: K.sphere_skip_hit_attrs_plain(ft, fo, fd, ftm))
 
 
 def intersect_cases(cs, dev, case):

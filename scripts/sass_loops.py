@@ -35,7 +35,16 @@ their primitive loops.  K3's only loop is flush_warp's summing rounds
 (keyed by SHFL: four shuffles a round).  K14's loop is a group of eight
 feature rows for two rays (16 pairs, four LDS.128 a row): its shortest path
 takes no root.  K16's loop is spread_hit's row loop: four staged rows
-(two LDS.128 each) against one lane's ray held in registers.
+(two LDS.128 each) against one lane's ray held in registers.  K17's loops
+are its group scans (sphere_group.cuh scan_group, one ray): a static group
+of eight rows (eight LDS.128 and a byte of flags: nine LDS) and a moving
+one (seventeen); ``inner`` lists
+every innermost loop with its paths.  ``code_bytes`` is a function's SASS
+size (16 bytes an instruction).  K13 lives in per-scene libraries
+(``STATIC``; ``python3 scripts/sass_loops.py --static SCENE [expanded]``
+builds one): its loops are its group scans of two rays, a moving section's
+and a static one's; a K13 built as straight-line code has no loop, and its
+``code_bytes`` and instruction count over its spheres are the measure.
 """
 
 from __future__ import annotations
@@ -56,7 +65,10 @@ DEFAULT = (("sphere_hit_kernelILi2ELi2E", "LDS"), ("sphere_hit_kernelILi1ELi2E",
            ("refill_flush_kernel", "LDG"), ("quad_hit_kernel", "LDS"),
            ("box_hit_kernelILb1ELb1E", "LDS"), ("box_hit_kernelILb1ELb0E", "LDS"),
            ("shade_flush_kernelILb1E", "SHFL"), ("shade_flush_kernelILb0E", "SHFL"),
-           ("sphere_mxu_kernel", "LDS"), ("sphere_skip_kernel", "LDS"))
+           ("sphere_mxu_kernel", "LDS"), ("sphere_skip_kernel", "LDS"),
+           ("sphere_cellbin_kernel", "LDS"))
+# K13's kernel, in a per-scene library (ops/_build.py static_libraries)
+STATIC = (("sphere_static_kernel", "LDS"),)
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 
@@ -231,6 +243,7 @@ def hot_loop(insns, key="LDS") -> dict:
     (module note); for a function with no loop, its paths from the entry to
     an exit."""
     blocks = _blocks(insns)
+    sys.setrecursionlimit(max(sys.getrecursionlimit(), 4 * len(blocks) + 1000))  # _paths' walk
     # the branch-to-self that ends a function's code is no loop
     loops = [lp for lp in _loops(blocks)
              if any(_parse(t)[1] not in ("BRA", "NOP") for b in lp[1] for _, t in blocks[b][0])]
@@ -241,13 +254,20 @@ def hot_loop(insns, key="LDS") -> dict:
             _count(body)[0] for body, _ in blocks.values()),
             paths=_paths(blocks, min(blocks), exits, set(blocks), key),
             opcodes=_opcodes(body for body, _ in blocks.values()))
-    head, nodes, ends = max(inner, key=lambda lp: (
-        sum(_count(blocks[b][0], key)[1] for b in lp[1]),
-        sum(_count(blocks[b][0])[0] for b in lp[1])))
-    return dict(head=hex(head), blocks=len(nodes), instructions=sum(
-        _count(blocks[b][0])[0] for b in nodes),
-        paths=_paths(blocks, head, ends, nodes, key),
-        opcodes=_opcodes(blocks[b][0] for b in sorted(nodes)))
+    def summary(head, nodes, ends):
+        return dict(head=hex(head), blocks=len(nodes), instructions=sum(
+            _count(blocks[b][0])[0] for b in nodes),
+            paths=_paths(blocks, head, ends, nodes, key),
+            opcodes=_opcodes(blocks[b][0] for b in sorted(nodes)))
+
+    hot = max(inner, key=lambda lp: (sum(_count(blocks[b][0], key)[1] for b in lp[1]),
+                                     sum(_count(blocks[b][0])[0] for b in lp[1])))
+    out = summary(*hot)
+    # every innermost loop with a key instruction, by address: a kernel of
+    # several scans (K13's sections, K17's moving and static groups)
+    out["inner"] = [{k: v for k, v in summary(*lp).items() if k != "opcodes"}
+                    for lp in sorted(inner) if sum(_count(blocks[b][0], key)[1] for b in lp[1])]
+    return out
 
 
 def report(lib: str, names=DEFAULT) -> dict:
@@ -261,11 +281,27 @@ def report(lib: str, names=DEFAULT) -> dict:
             out[name] = {"error": "no such kernel in the library"}
             continue
         f = hits[0]
-        out[name] = dict(mangled=f, key=key, **usage.get(f, {}), loop=hot_loop(funcs[f], key))
+        out[name] = dict(mangled=f, key=key, **usage.get(f, {}),
+                         code_bytes=16 * len(funcs[f]), loop=hot_loop(funcs[f], key))
     return out
 
 
+def static_library(scene: str, expand: bool):
+    """K13's library for ``scene`` (16x16) in one form, built if need be."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+
+    t = build_scene(scene, 16, 16).tables
+    return _build.static_libraries([(t.sph_static_cells, t.sph_tail_r, t.sph_tail_mat,
+                                     expand)])[0]
+
+
 def main(argv) -> int:
+    if argv and argv[0] == "--static":
+        lib = static_library(argv[1], len(argv) > 2 and argv[2] == "expanded")
+        print(json.dumps(report(lib._name, STATIC), indent=1))
+        return 0
     if argv and argv[0].endswith(".so"):
         lib, names = argv[0], tuple(argv[1:]) or DEFAULT
     else:
