@@ -3,7 +3,8 @@
 //
 // The slab division guard (art_tpu/ops/pallas_kernels.py:_safe_div_dir:1937);
 // K6's per-box candidate (box_test, _box_kernel:1943; plain twin:
-// ops/intersect.py box_candidates_rows); the winner's face normal and
+// ops/intersect.py box_candidates_rows), its slab part (slab_candidate)
+// shared with K15's staged scan, which hoists the guarded inverses; the winner's face normal and
 // make_box (u, v) (_box_write_winner_attrs:2053; src/quad.cuh:145-162): the
 // slab is run once more for the winner, its entry face taken if
 // |t - t_entry| <= |t - t_exit|, else its exit face; the normal faces against
@@ -43,23 +44,32 @@ __device__ __forceinline__ void to_box_frame(float ct, float st, float offx, flo
 
 constexpr int kBoxRow = 12;  // floats a box row
 
+// The slab candidate of the box [mn, mx] for the ray lo + t ld in the box's
+// frame, ix, iy, iz the guarded inverses of ld: t_entry if through and
+// > t_min, else t_exit if through and > t_min, else BIG.
+__device__ __forceinline__ float slab_candidate(float mnx, float mny, float mnz, float mxx,
+                                                float mxy, float mxz, float lox, float loy,
+                                                float loz, float ix, float iy, float iz,
+                                                float t_min) {
+  const float tax = (mnx - lox) * ix, tbx = (mxx - lox) * ix;
+  const float tay = (mny - loy) * iy, tby = (mxy - loy) * iy;
+  const float taz = (mnz - loz) * iz, tbz = (mxz - loz) * iz;
+  const float t0 = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)), fminf(taz, tbz));
+  const float t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fmaxf(taz, tbz));
+  const bool through = t0 < t1;
+  return (through && t0 > t_min) ? t0 : ((through && t1 > t_min) ? t1 : kBig);
+}
+
 // One (ray, box) candidate: the ray in the box frame, the slab with the
-// guarded inverses, t_entry if through and > t_min, else t_exit if through
-// and > t_min, else BIG.  r: the row's first 11 floats.
+// guarded inverses (slab_candidate).  r: the row's first 11 floats.
 template <bool kRotated>
 __device__ __forceinline__ float box_test(const float* r, float ox, float oy, float oz,
                                           float dx, float dy, float dz, float t_min) {
   float lox, loy, loz, ldx, ldy, ldz;
   to_box_frame<kRotated>(r[6], r[7], r[8], r[9], r[10], ox, oy, oz, dx, dy, dz, lox, loy,
                          loz, ldx, ldy, ldz);
-  const float ix = safe_inv(ldx), iy = safe_inv(ldy), iz = safe_inv(ldz);
-  const float tax = (r[0] - lox) * ix, tbx = (r[3] - lox) * ix;
-  const float tay = (r[1] - loy) * iy, tby = (r[4] - loy) * iy;
-  const float taz = (r[2] - loz) * iz, tbz = (r[5] - loz) * iz;
-  const float t0 = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)), fminf(taz, tbz));
-  const float t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fmaxf(taz, tbz));
-  const bool through = t0 < t1;
-  return (through && t0 > t_min) ? t0 : ((through && t1 > t_min) ? t1 : kBig);
+  return slab_candidate(r[0], r[1], r[2], r[3], r[4], r[5], lox, loy, loz, safe_inv(ldx),
+                        safe_inv(ldy), safe_inv(ldz), t_min);
 }
 
 struct BoxAttrs {

@@ -38,6 +38,20 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return a != a ? a : (b != b ? b : fminf(a, b));
 }
 
+// torch.minimum / torch.maximum as far as a comparison can tell: a NaN
+// operand gives a NaN (canonical, where nan_min returns the operand), in one
+// instruction
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // 32 random bits -> float32 U[0,1) with 24 bits (core/rng.py:to_unit)
 __device__ __forceinline__ float to_unit(uint32_t x) {
   return (float)(x >> 8) * (1.0f / 16777216.0f);

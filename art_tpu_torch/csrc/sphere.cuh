@@ -1,12 +1,10 @@
 // The sphere kernels' shared parts: one (ray, sphere) candidate with its
-// strict-< merge, a ray's terms of the expanded quadratic, the
-// hit's output, the conservative slab test of a box, and the two scans of
-// a head and segments: segmented_hit, one thread a ray with a warp as the
-// skip unit, whose only user now is K15's spheres (sphere_cluster.cu), and
-// spread_hit, a ray tile's segments split across the grid with each
-// block's (lane, row) pairs spread over its threads (K16 sphere_skip.cu).
-// K2 (sphere_hit.cu) uses the ray and the output; K13 (sphere_static.cu)
-// and K17 (sphere_cellbin.cu) the ray and the output through their staged
+// strict-< merge, a ray's terms of the expanded quadratic, the hit's
+// output, and spread_hit, K16's scan of a head and segments (sphere_skip.cu),
+// a ray tile's segments split across the grid with each block's (lane, row)
+// pairs spread over its threads.  K2 (sphere_hit.cu) uses the ray and the
+// output; K13 (sphere_static.cu) and K17 (sphere_cellbin.cu, which also runs
+// K15's spheres with no head) the ray and the output through their staged
 // group scans (sphere_group.cuh).
 //
 // Rules (those of the plain twins, ops/intersect_kernels.py, not the TPU
@@ -127,83 +125,6 @@ __device__ __forceinline__ void write_hit(const SpherePlanes& p, int i, const Sp
   }
 }
 
-// Could the ray's (t_min, inf) segment meet the box (x0 y0 z0 x1 y1 z1)?
-// Sets t_near, the entry t (ops/compact_sphere.py tail_box_interval, op for
-// op): a zero direction component becomes 1e-20, which errs toward "meets".
-__device__ __forceinline__ bool slab(const float* box, const SphereRay& q, float t_min,
-                                     float& t_near) {
-  const float o[3] = {q.ox, q.oy, q.oz}, d[3] = {q.dx, q.dy, q.dz};
-  float t_far = kBig;
-  t_near = t_min;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float inv = 1.0f / (d[k] == 0.0f ? 1e-20f : d[k]);
-    const float ta = (__ldg(box + k) - o[k]) * inv;
-    const float tb = (__ldg(box + 3 + k) - o[k]) * inv;
-    t_near = nan_max(t_near, nan_min(ta, tb));
-    t_far = nan_min(t_far, nan_max(ta, tb));
-  }
-  return t_far >= t_near;
-}
-
-// A warp's scan of rows [r0, r1), each row read once by the whole warp
-// (one address a load: an L1 broadcast); unrolled so that the loads of
-// several rows are in flight at once.
-__device__ __forceinline__ void scan_rows(const float* __restrict__ rows, int r0, int r1,
-                                          const SphereRay& q, float t_min, SphereBest& b) {
-#pragma unroll 4
-  for (int s = r0; s < r1; ++s) {
-    float row[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) row[k] = __ldg(rows + (size_t)s * kSphRow + k);
-    sphere_test(row, q, t_min, b);
-  }
-}
-
-// K16 (kOcclusion false) and K17 (true), one thread a ray.  The head rows
-// [0, n_head) for every live lane; then, for lanes whose segment can meet
-// seg's row-0 box (and, with kOcclusion, enter it at t_near <= the best t
-// so far), each segment k whose box the lane crosses (kOcclusion: at
-// t_near <= the running best t), its closest merged with a strict `<`.
-// The skip unit is the warp: a warp scans a segment's rows when one of its
-// lanes crosses the segment's box (__any_sync), and a lane that does not
-// keeps its best (the twin's per-lane mask).  Lanes at or past *n_live
-// (when given) are misses; a warp wholly past it tests no sphere.
-template <bool kOcclusion>
-__device__ __forceinline__ void segmented_hit(const float* __restrict__ rows,
-                                              const float* __restrict__ seg, int n_seg,
-                                              int n_head, int R, float t_min,
-                                              const int* __restrict__ n_live,
-                                              const SpherePlanes& p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = n_live ? min(*n_live, R) : R;
-  const bool live = i < n;
-  const SphereRay q = load_ray(p, i, live);
-  SphereBest b = no_hit();
-  if (__any_sync(0xffffffffu, live)) {
-    scan_rows(rows, 0, n_head, q, t_min, b);
-    float t_near;
-    bool needy = live && slab(seg + 2, q, t_min, t_near);
-    if (kOcclusion) needy = needy && t_near <= b.t;
-    if (__any_sync(0xffffffffu, needy)) {
-      for (int k = 1; k <= n_seg; ++k) {
-        const float* m = seg + (size_t)k * kSegRow;
-        bool cross = needy && slab(m + 2, q, t_min, t_near);
-        if (kOcclusion) cross = cross && t_near <= b.t;
-        if (__any_sync(0xffffffffu, cross)) {
-          SphereBest c = no_hit();
-          scan_rows(rows, (int)__ldg(m), (int)__ldg(m + 1), q, t_min, c);
-          if (cross && c.t < b.t) b = c;
-        }
-      }
-    }
-  }
-  if (i >= R) return;
-  if (!live) b = no_hit();
-  write_hit(p, i, q, b);
-}
-
-
 // ---- spread_hit: K16's scan ----
 //
 // The invariant that frees the order.  The twin (culled_plain) merges the
@@ -218,7 +139,8 @@ __device__ __forceinline__ void segmented_hit(const float* __restrict__ rows,
 // than its twin, whose bound is the running best.  The least (t, row) over
 // them is the same only because the boxes are conservative: a row the twin
 // passes over lies in a box entered past a t the lane already holds, so its
-// own t is larger.  K17 keeps the twin's running bound instead.)
+// own t is larger.  K17, and K15's spheres through it, keep the twin's
+// running bound instead.)
 //
 // The key: order_bits(t) << 32 | row, where order_bits maps a float32 to a
 // uint32 that orders like float `<` (both zeros one value: the twin's `<`
@@ -241,13 +163,15 @@ __device__ __forceinline__ unsigned long long order_key(float t, uint32_t row) {
 
 __device__ __forceinline__ unsigned long long miss_key() { return order_key(kBig, 0xffffffffu); }
 
-// a ray's slab inputs: o and the three guarded inverses of slab() hoisted
-// (each the same IEEE quotient slab() computes per box)
+// a ray's slab inputs: o and its three guarded inverses, hoisted (a zero
+// direction component becomes 1e-20, which errs toward "meets"; each the same
+// IEEE quotient that ops/intersect.py slab_interval computes per box)
 struct SlabRay {
   float o[3], inv[3];
 };
 
-// slab() (t_min, inf) of the box, op for op, on the hoisted inverses
+// slab_interval's test (t_min, inf) of the box, op for op, on the hoisted
+// inverses
 __device__ __forceinline__ bool slab_hits(const float* box, const SlabRay& s, float t_min) {
   float t_far = kBig, t_near = t_min;
 #pragma unroll
@@ -279,8 +203,8 @@ __device__ __forceinline__ float staged_t(float4 c, float4 v, float4 o, float4 d
 
 constexpr int kIlp = 4;  // rows a thread of spread_hit tests at once
 
-// K16's scan (the head and segments of segmented_hit<false>, the same
-// predicates), one launch of (R / kBlock tiles) x G blocks, G = 1 +
+// K16's scan (the head and segments of culled_plain without the occlusion
+// bound, the same predicates), one launch of (R / kBlock tiles) x G blocks, G = 1 +
 // ceil(n_seg / kBins), block b taking tile b / G and group b % G:
 //  * group 0 is the head: every live lane of the tile tests the head rows
 //    [0, n_head); group g >= 1 takes bins (g - 1) kBins + 1 .. g kBins in
@@ -306,8 +230,6 @@ constexpr int kIlp = 4;  // rows a thread of spread_hit tests at once
 //  * lanes at or past *n_live (when given) are misses; a tile wholly past
 //    it is written as misses by its head block, and no key of it is
 //    touched.
-// K15's occlusion form could run it with a stale bound (see above); it
-// still runs segmented_hit.
 // keys (>= R, each kMissKey) and tickets (>= R / kBlock tiles, each 0)
 // are a scratch that every call leaves as it found it (the wrapper keeps
 // it across calls on one stream).

@@ -1,4 +1,5 @@
-// The staged row scans of K13 (sphere_static.cu) and K17 (sphere_cellbin.cu):
+// The staged row scans of K13 (sphere_static.cu) and K17 (sphere_cellbin.cu,
+// also K15's spheres with no head):
 // K2's group structure (sphere_hit.cu) over rows staged in shared memory as
 // float4s, c = (cx, cy, cz, w) and v = (vx, vy, vz, 0), w being r2 (the
 // direct quadratic) or K = |c|^2 - r^2 (K13's expanded one):
@@ -12,6 +13,7 @@
 //    the plain twin's operations, so the normal keeps its bits;
 //  * a lane's `on` flag masks its roots (K17's lanes that do not cross a
 //    cell keep their best).
+// slab_staged is K17's test of a cell's box.
 // The candidates are sphere.cuh sphere_test_at's direct quadratic, op for
 // op, and the expanded one of art_tpu's K13 on sphere.cuh ExpandedRay:
 // bq = o.d - c.d, c = (|o|^2 + K) - c.(2 o), as the plain twin computes it.  A moving row's centre is
@@ -122,23 +124,11 @@ __device__ __forceinline__ void scan_one(float4 c, float4 v, const SphereRay (&q
   take_row(q, on, d, bq, t_min, row, best, idx);
 }
 
-// torch.minimum / torch.maximum as far as a comparison can tell: a NaN
-// operand gives a NaN (canonical, where common.cuh's nan_min returns the
-// operand), in one instruction
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// sphere.cuh slab() of the box (lo.xyz, hi.xyz) on the ray's hoisted
-// guarded inverses, op for op: the same t_near and the same answer (both
-// only ever compared, so a NaN's payload is moot)
+// The conservative slab test of the box (lo.xyz, hi.xyz) on the ray's
+// hoisted guarded inverses (a zero direction component becomes 1e-20, which
+// errs toward "meets"; ops/intersect.py slab_interval, op for op): the same
+// t_near and the same answer (both only ever compared, so a NaN's payload is
+// moot; common.cuh min_nan / max_nan)
 __device__ __forceinline__ bool slab_staged(float4 lo, float4 hi, const SlabRay& s,
                                             float t_min, float& t_near) {
   const float l[3] = {lo.x, lo.y, lo.z}, h[3] = {hi.x, hi.y, hi.z};

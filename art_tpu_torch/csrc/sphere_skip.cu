@@ -18,8 +18,8 @@
 // head rows, plus each bin's rows x the rays whose slab test passes; on
 // final_scene's pools that is ~1% of the full table, so the bytes (7 planes
 // in and 5 out a ray) bound it.
-// Design (sphere.cuh spread_hit): one thread a ray that skips per warp
-// (segmented_hit) leaves the few warps that face the 1000-sphere cluster
+// Design (sphere.cuh spread_hit): one thread a ray that skips per warp (K16's
+// first form) leaves the few warps that face the 1000-sphere cluster
 // scanning most bins, up to ~1000 rows one after another, a chain ~80x the
 // bound on an H100.  Here one launch has a block for each (ray
 // tile of 256 lanes, group of bins) pair, the head its own group: a block
@@ -36,8 +36,8 @@
 // lanes; on a whole pool most blocks find no lane, and 4 bins a block (5
 // blocks a tile) spends fewer.  The skip boxes are conservative (inflated
 // by 1e-3 + 1e-6 max|coord|), so the skip changes no result against the
-// full table either.  K15's spheres (sphere_cluster.cu) still run
-// segmented_hit; K17 (sphere_cellbin.cu) its staged group scan.
+// full table either.  K17 (sphere_cellbin.cu), and K15's spheres through
+// it, run the staged group scan of sphere_group.cuh.
 
 #include "sphere.cuh"
 

@@ -60,7 +60,6 @@ _SIGNATURES = {
     "art_sphere_skip": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P, ctypes.POINTER(_P),
                         _P],
     "art_sphere_cellbin": [_P, _P, _I, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
-    "art_sphere_cluster": [_P, _P, _I, _I, ctypes.c_float, ctypes.POINTER(_P), _P],
     "art_box_cluster": [_P, _P, _I, _I, ctypes.c_float, _I, ctypes.POINTER(_P), _P],
     "art_refill": [ctypes.POINTER(_P), _I, _I, _I, _I, ctypes.POINTER(_L),
                    ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,

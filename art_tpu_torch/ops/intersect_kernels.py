@@ -13,17 +13,19 @@
   over a sphere tail, K17's lattice cells with an occlusion bound.  Their
   twins are K2's twin over the head and over each segment, masked per ray by
   the kernels' slab tests and merged with a strict ``<``.
-* K15's sphere half ``sphere_cluster_hit_attrs`` (``csrc/sphere_cluster.cu``),
-  replacing ``sphere_hit_attrs_clustered`` (``:896``): K17's scan with no
-  head over the spheres in BVH-leaf clusters of 64 (``scene/cull.py``), a
-  cluster scanned where its box can be met before the running best t; its
-  twin is K17's (``culled_plain`` with the occlusion bound) over that table.
+* K15's sphere half ``sphere_cluster_hit_attrs``, replacing
+  ``sphere_hit_attrs_clustered`` (``:896``): K17's kernel
+  (``csrc/sphere_cellbin.cu``) with no head over the spheres in BVH-leaf
+  clusters of 64 (``scene/cull.py``), a cluster scanned where its box can be
+  met before the running best t, counted as its own launch
+  (``sphere_cluster``); its twin is K17's (``culled_plain`` with the
+  occlusion bound) over that table with no head.
 * K15's box half ``box_cluster_hit_attrs`` (``csrc/box_cluster.cu``),
   replacing ``box_hit_attrs_clustered`` (``:2601``): K6's outputs over the
   boxes in BVH-leaf clusters of 64, a cluster scanned where ``art_tpu``'s
-  bounded test of its box (``intersect.cluster_slab``) passes; its twin is
-  K6's twin over each cluster, masked by that test and merged with a strict
-  ``<``, then the winner's attributes.
+  bounded test of its box (``intersect.cluster_slab``) passes against the
+  running best t; its twin is K6's twin over each cluster, masked by that
+  test and merged with a strict ``<``, then the winner's attributes.
 * K13 ``sphere_static_hit_attrs`` (``csrc/sphere_static.cu``, built per
   scene by ``_build.static_libraries``), replacing ``sphere_static_hit_attrs``
   (``:520``): K2's outputs over ``tables.sph_static_cells`` baked into the
@@ -163,8 +165,9 @@ def culled_plain(rows, meta, o, d, tm, t_min, *, occlusion: bool, head: bool = T
     unless ``head``), then over each segment's rows, taken where the ray's
     slab test of the segment's box passes (with ``occlusion``, at t_near <=
     the running best t) and the segment's t is strictly closer; lanes at or
-    past ``n_live`` miss (``csrc/sphere.cuh`` segmented_hit; K17's
-    ``csrc/sphere_cellbin.cu`` in the same order, lane by lane)."""
+    past ``n_live`` miss (K16's ``csrc/sphere.cuh`` spread_hit by the least
+    (t, row), K17's ``csrc/sphere_cellbin.cu``, also K15's spheres with no
+    head, in the same order, lane by lane)."""
     n_head, segs, box = meta
     n_head = n_head if head else 0
     t, normal, mat = sphere_hit_attrs_plain(None, o, d, tm, t_min, rows=rows[:n_head],
@@ -306,9 +309,6 @@ def skip_scratch(R: int, dev):
     return have
 
 
-CELLBIN_MAX_CELLS = 64  # cells K17 stages in shared memory (csrc/sphere_cellbin.cu kMaxCells)
-
-
 def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
     dev = o[0].device
     ins = (*o, *d, tm)
@@ -329,13 +329,7 @@ def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
                                  float(t_min), None if n_live is None else n_live.data_ptr(),
                                  keys.data_ptr(), tickets.data_ptr(), ptrs,
                                  _build.stream_handle(dev))
-    elif name == CLUSTER:
-        rc = lib.art_sphere_cluster(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, R,
-                                    float(t_min), ptrs, _build.stream_handle(dev))
-    else:
-        if seg.shape[0] - 1 > CELLBIN_MAX_CELLS:
-            raise ValueError(f"{name}: {seg.shape[0] - 1} cells, the kernel stages at most "
-                             f"{CELLBIN_MAX_CELLS}")
+    else:  # K17, or K15's spheres (CLUSTER) through it with no head
         rc = lib.art_sphere_cellbin(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, n_head,
                                     R, float(t_min), ptrs, _build.stream_handle(dev))
     _build.check(rc, name)
@@ -388,8 +382,9 @@ def sphere_cluster_hit_attrs_plain(tables: SceneTables, o, d, tm, t_min=T_MIN):
 
 
 def sphere_cluster_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN):
-    """K15 (spheres): K2's (t, normal, mat) over the BVH-leaf clusters; the
-    CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    """K15 (spheres): K2's (t, normal, mat) over the BVH-leaf clusters; for
+    CUDA tensors K17's kernel with no head (any number of clusters), counted
+    as ``sphere_cluster``, for CPU tensors the plain twin."""
     if o[0].device.type == "cpu":
         return sphere_cluster_hit_attrs_plain(tables, o, d, tm, t_min)
     return _culled_launch(CLUSTER, tables.sph_cl_rows, tables.sph_cl_seg, 0, o, d, tm, t_min)

@@ -14,8 +14,9 @@ when its variable is set to a non-empty value, as in ``art_tpu``.
 
 =========================  ==================================================
 ``ART_TPU_CLUSTER``        K15: spheres and boxes in BVH-leaf clusters of 64
-                           (``csrc/sphere_cluster.cu``, ``csrc/box_cluster.cu``)
-                           where the builder made them; the box clusters
+                           (spheres through K17's ``csrc/sphere_cellbin.cu``
+                           with no head, ``csrc/box_cluster.cu``) where the
+                           builder made them; the box clusters
                            before the grid kernels K9 / K10, the sphere
                            clusters before every sphere route below
 ``ART_TPU_BVH``            the per-ray BVH descent over the spheres

@@ -59,8 +59,8 @@ Beside them, the kernels' own tables (built once per scene, on the host):
   contiguous segments (skip bins along one axis of the tail; cells of a
   lattice), the static ``(n_head, segments, box)`` and its device table
   (``scene/cull.py``); None where the builder's gates leave them out.
-* ``sph_cl_rows`` / ``sph_cl_meta`` / ``sph_cl_seg`` (K15's spheres,
-  ``csrc/sphere_cluster.cu``) and ``box_cl_rows`` / ``box_cl_meta`` /
+* ``sph_cl_rows`` / ``sph_cl_meta`` / ``sph_cl_seg`` (K15's spheres, run by
+  K17's ``csrc/sphere_cellbin.cu`` with no head) and ``box_cl_rows`` / ``box_cl_meta`` /
   ``box_cl_seg`` (K15's boxes, ``csrc/box_cluster.cu``): ``sphere_rows`` and
   ``box_rows`` in BVH-leaf order, in clusters of 64 rows with their boxes,
   in the layout above with no head (``scene/cull.py cluster_tables``), and

@@ -15,6 +15,7 @@ K11 alone, ``--set intersect`` the sphere and box kernels alone,
 ``--set box_shade`` K6's block and K3 in both modes, ``--set fetch`` the
 image fetch, ``--set mxu_skip`` K14, K16 (both calls), K17 and K15s,
 ``--set static_cellbin`` K13 and K17 with K2, K16 and K15s as controls,
+``--set cluster`` K15's spheres and boxes and K17,
 ``--set renders`` whole renders (``--scenes``, each ``--render-reps``
 times: wall seconds, rays and iterations from ``render_scene``'s stats; by
 default RENDERS; a scene may carry route switches of ``ops/routes.py``
@@ -63,6 +64,13 @@ compact_skip``); the default, the first two.  Each kernel runs on the pools
   bouncing_spheres and final_scene pools with the (ray, sphere) tests its
   rays need and its warps make (``chip_smoke._culled_tests``), K15s on
   both, K16 standalone on final_scene's;
+* cluster: K15s (``sphere_cluster_hit_attrs``) on phase 2g's
+  bouncing_spheres and final_scene pools and on its table of more than 64
+  clusters (``chip_smoke._many_cluster_rays``), K15b
+  (``box_cluster_hit_attrs``) on 2g's final_scene, box field and rotated
+  field pools, and K17 on both lattices (bouncing_spheres and final_scene),
+  each with the (ray, primitive) tests its rays need and its warps make
+  (``chip_smoke._culled_tests``, ``_box_cluster_tests``);
 * fetch: ``ImageAtlas.sample(..., needy)`` (K8's fetch form) and
   ``eval_special_p``'s image leaf on phase 2d's earth 1200x600
   @ 64 and final_scene 800x800 @ 16 pools 20 staged iterations in, each
@@ -138,7 +146,8 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "box_shade",
-                                      "fetch", "mxu_skip", "static_cellbin", "renders"),
+                                      "fetch", "mxu_skip", "static_cellbin", "cluster",
+                                      "renders"),
                     default="all")
     ap.add_argument("--render-reps", type=int, default=3)
     ap.add_argument("--scenes", default=",".join(name for name, *_ in RENDERS),
@@ -177,6 +186,8 @@ def main() -> int:
         mxu_skip_cases(cs, dev, case)
     if args.set == "static_cellbin":
         static_cellbin_cases(cs, dev, case, out["kernels"])
+    if args.set == "cluster":
+        cluster_cases(cs, dev, case, out["kernels"])
     if args.set == "renders":
         out["renders"] = render_cases(dev, args.render_reps, args.scenes.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -568,6 +579,36 @@ def static_cellbin_cases(cs, dev, case, kernels):
     ft, fo, fd, ftm = pools["final_scene"]
     case("K16 final_scene", lambda: K.sphere_skip_hit_attrs(ft, fo, fd, ftm),
          lambda: K.sphere_skip_hit_attrs_plain(ft, fo, fd, ftm))
+
+
+def cluster_cases(cs, dev, case, kernels):
+    """K15s, K15b and K17 on their pools (module note)."""
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    pools = cs._cluster_pools(dev)
+    for name in ("bouncing_spheres", "final_scene"):
+        t, o, d, tm = pools[name]
+        case(f"K15s {name}", lambda: K.sphere_cluster_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_cluster_hit_attrs_plain(t, o, d, tm))
+        need, made = cs._culled_tests(t.sph_cl_rows, t.sph_cl_meta, o, d, tm, True, head=False)
+        kernels[f"K15s {name}"].update(tests_needed=need, tests_made=made)
+        case(f"K17 {name}", lambda: K.sphere_cellbin_hit_attrs(t, o, d, tm),
+             lambda: K.sphere_cellbin_hit_attrs_plain(t, o, d, tm))
+        need, made = cs._culled_tests(t.sph_cellbin_rows, t.sph_cellbin_meta, o, d, tm, True)
+        kernels[f"K17 {name}"].update(tests_needed=need, tests_made=made)
+    rows, seg, meta, mo, md, mtm = cs._many_cluster_rays(dev)
+    label = f"K15s {len(meta[1])} clusters"
+    case(label, lambda: K._culled_launch(K.CLUSTER, rows, seg, 0, mo, md, mtm, T_MIN),
+         lambda: K.culled_plain(rows, meta, mo, md, mtm, T_MIN, occlusion=True, head=False))
+    need, made = cs._culled_tests(rows, meta, mo, md, mtm, True, head=False)
+    kernels[label].update(tests_needed=need, tests_made=made)
+    for name in ("final_scene", "box field", "rotated field"):
+        t, o, d, _ = pools[name]
+        case(f"K15b {name}", lambda: K.box_cluster_hit_attrs(t, o, d),
+             lambda: K.box_cluster_hit_attrs_plain(t, o, d))
+        need, made = cs._box_cluster_tests(t, o, d)
+        kernels[f"K15b {name}"].update(tests_needed=need, tests_made=made)
 
 
 def intersect_cases(cs, dev, case):

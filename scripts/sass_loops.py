@@ -3,14 +3,16 @@
 
 Run on a machine with the CUDA toolkit, from the repository root:
 
-    python3 scripts/sass_loops.py [LIBRARY.so] [NAME ...]
+    python3 scripts/sass_loops.py [LIBRARY.so] [NAME[:KEY] ...]
 
 Without a library it builds (or finds) the port's kernel library
 (``art_tpu_torch/ops/_build.py``).  NAME is a substring of a kernel's mangled
-name; the default is K2's kernels (its three forms), K9's (both forms),
-K10's, K7's (depth 7, 2 and any), K11's, K1's, K12's, K5's, K6's rotated
-forms (merge and plain), K3's two modes (baked and plane-fed), K14's and
-K16's.
+name, KEY the opcode that keys its paths (LDS by default); the default is
+K2's kernels (its three forms), K9's (both forms), K10's, K7's (depth 7, 2
+and any), K11's, K1's, K12's, K5's, K6's rotated forms (merge and plain),
+K3's two modes (baked and plane-fed), K14's, K16's, K17's (also K15's
+spheres; its instance for more than 64 cells, ``ILb1E``, too) and K15's
+boxes (folded and rotated).
 
 For each kernel it prints ``cuobjdump -res-usage``'s registers, stack and
 local (spill) bytes, and reads ``cuobjdump -sass``: it cuts the function
@@ -38,7 +40,11 @@ takes no root.  K16's loop is spread_hit's row loop: four staged rows
 (two LDS.128 each) against one lane's ray held in registers.  K17's loops
 are its group scans (sphere_group.cuh scan_group, one ray): a static group
 of eight rows (eight LDS.128 and a byte of flags: nine LDS) and a moving
-one (seventeen); ``inner`` lists
+one (seventeen).  K15's boxes' loop is its row scan, unrolled by four:
+two LDS.128 a staged row in the folded form (``box_cluster_kernelILb0E``),
+three in the rotated one (``ILb1E``); its shortest path takes no row.  An
+earlier K15 read its rows from global memory: key it by LDG
+(``box_cluster_kernelILb1E:LDG``).  ``inner`` lists
 every innermost loop with its paths.  ``code_bytes`` is a function's SASS
 size (16 bytes an instruction).  K13 lives in per-scene libraries
 (``STATIC``; ``python3 scripts/sass_loops.py --static SCENE [expanded]``
@@ -66,7 +72,9 @@ DEFAULT = (("sphere_hit_kernelILi2ELi2E", "LDS"), ("sphere_hit_kernelILi1ELi2E",
            ("box_hit_kernelILb1ELb1E", "LDS"), ("box_hit_kernelILb1ELb0E", "LDS"),
            ("shade_flush_kernelILb1E", "SHFL"), ("shade_flush_kernelILb0E", "SHFL"),
            ("sphere_mxu_kernel", "LDS"), ("sphere_skip_kernel", "LDS"),
-           ("sphere_cellbin_kernel", "LDS"))
+           ("sphere_cellbin_kernelILb0E", "LDS"), ("sphere_cellbin_kernelILb1E", "LDS"),
+           ("box_cluster_kernelILb0E", "LDS"),
+           ("box_cluster_kernelILb1E", "LDS"))
 # K13's kernel, in a per-scene library (ops/_build.py static_libraries)
 STATIC = (("sphere_static_kernel", "LDS"),)
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -275,7 +283,8 @@ def report(lib: str, names=DEFAULT) -> dict:
     (NAME, key opcode)."""
     usage, funcs = resource_usage(lib), sass_functions(lib)
     out = {}
-    for name, key in (n if isinstance(n, tuple) else (n, "LDS") for n in names):
+    for name, key in (n if isinstance(n, tuple) else (n.split(":") + ["LDS"])[:2]
+                      for n in names):
         hits = [f for f in funcs if name in f]
         if not hits:
             out[name] = {"error": "no such kernel in the library"}
