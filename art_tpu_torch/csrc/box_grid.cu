@@ -22,16 +22,36 @@
 // The two entry points differ in the cells they walk, their order and their
 // design.  On an exact tie between cells they keep different, equally close
 // winners, as the TPU kernels do.  Bound on the H100: FP32 issue — ~20
-// operations a (ray, cell) with the slabs hoisted; final_scene's 400 cells
-// at R = 2^17 are ~1e9 operations against 6 planes in and 7 out per ray
-// (7 MB).  Both are built with -fmad=false, so the time goes to the
-// instructions issued a cell.
+// operations a (ray, cell) a ray must test; K9 tests final_scene's 400 cells
+// (~1e9 operations at R = 2^17), K10 a few cells a ray, so its bound is the
+// 6 planes in and 7 out a ray.  Both are built with -fmad=false, so the time
+// goes to the instructions issued a cell.
 //
-// K10 (art_box_grid) walks every cell of the (kx, 2 kz) table of [h, mat]
-// pairs in row-major order (an empty cell has h = y0, so t0 < t1 never
-// holds), staged through shared memory in tiles of kTile cells and read as
-// broadcasts; it recomputes the slabs per cell and carries (t, ix, iz, h,
-// mat).
+// K10 (art_box_grid) reads the (kx, 2 kz) table of [h, mat] pairs (an empty
+// cell has h = y0) and walks, per ray, only the cells whose slabs can meet:
+//  * the y window: ty1 = (h - oy) iy is monotone in h, so every cell's y
+//    slab lies in [y_lo, y_hi], the span of ty0p and ty1 at the table's
+//    lowest and highest tops (a min and max every block reduces from the
+//    table, no host read); a ray with y_hi <= t_min tests nothing;
+//  * a cell gives t0 < t1 with t1 > t_min only where xhi > max(t_min, y_lo,
+//    zlo) and xlo < min(y_hi, zhi), and zhi > max(t_min, y_lo, xlo) and
+//    zlo < min(y_hi, xhi), each a bound on the twin's own floats.  Along x
+//    both ends of ex0 + f32(ix) sxv (and + sxv) move with ix in sxv's
+//    direction (float multiplication and addition round monotonically), so
+//    the columns that meet the first pair (with the z window of the first
+//    and last rows) are one interval of ix, and in each column the rows
+//    that meet the second pair one interval of iz (SlabWalk: the first
+//    index from a float estimate, then exact steps of the per-cell
+//    expressions; the walk stops where the far condition first fails);
+//  * those cells are tested with the twin's operations in row-major order
+//    (columns ascending, rows ascending in a column) into a strict-`<`
+//    carry of (t, ix, iz, h, mat): every skipped cell misses in the twin, so
+//    the winner, ties included, is the twin's.  The x slab is formed once a
+//    column; a cell is one float2 load of (h, mat) through the read-only
+//    cache (the table, 8 B a cell, stays in L1 and L2), the next cell's in
+//    flight while one is tested.
+// On the 40x40 box field's pool that is 3.6 cells a ray where the table has
+// 1600 (PERF.md section 6; chip_smoke._grid_tests counts them).
 //
 // K9 (art_box_grid_cells) walks the non-empty cells as (C, 4) rows
 // [ix iz h mat] in box_grid_cells order (grouped by height, then material):
@@ -72,7 +92,6 @@
 
 namespace {
 
-constexpr int kTile = 1024;       // K10: cells a shared-memory tile holds
 constexpr int kCellThreads = 128;  // K9: rays a block (threads a part)
 constexpr int kCellTile = 1024;    // K9: cells a shared-memory tile holds
 constexpr int kMaxSlabCols = 64;   // K9: hoisted slabs where kx + kz <= this
@@ -111,51 +130,120 @@ __device__ __forceinline__ void write_cell_hit(const GridPlanes& p, int i, const
   p.mat[i] = (int)mat;
 }
 
-// K10: the (kx, 2 kz) table of n = kx * kz cells
+// the slab (lo, hi) of index k along one axis, as the twin forms it:
+// ta = e0 + f32(k) s, tb = ta + s
+__device__ __forceinline__ float2 slab_at(float e0, float s, int k) {
+  const float ta = e0 + (float)k * s, tb = ta + s;
+  return make_float2(fminf(ta, tb), fmaxf(ta, tb));
+}
+
+// K10's walk along one axis: the indices k in [0, n) whose slab has hi > a
+// and lo < b.  Both ends of the slab move with k in the direction of s,
+// since float multiplication and addition round monotonically, so with
+// s >= 0 hi > a (`rises`) holds from some index on and lo < b (`falls`) up to
+// some index, with s < 0 lo < b from some index on and hi > a up to some
+// index: the indices form one interval.  Its first index comes from a float
+// estimate with rs ~ 1 / s, then exact steps until `rises` holds there and
+// fails one index before (by monotonicity it then fails at every index
+// before); the walk from it stops at the first index where `falls` fails.
+struct SlabWalk {
+  float e0, s, a, b;
+  bool up;
+  __device__ __forceinline__ SlabWalk(float e0_, float s_, float a_, float b_)
+      : e0(e0_), s(s_), a(a_), b(b_), up(s_ >= 0.f) {}
+  __device__ __forceinline__ bool rises(float2 t) const { return up ? t.y > a : t.x < b; }
+  __device__ __forceinline__ bool falls(float2 t) const { return up ? t.x < b : t.y > a; }
+  __device__ __forceinline__ int first(float rs, int n) const {
+    // fmaxf takes -1 for a NaN estimate
+    const float e = ((up ? a : b) - e0) * rs;
+    int k = min(max((int)floorf(fminf(fmaxf(e, -1.f), (float)n + 1.f)), 0), n);
+    while (k < n && !rises(slab_at(e0, s, k))) ++k;
+    while (k > 0 && rises(slab_at(e0, s, k - 1))) --k;
+    return k;
+  }
+};
+
+// K10: the (kx, 2 kz) table of kx * kz cells, each ray walking the cells it
+// can hit (the module note)
 __global__ void __launch_bounds__(art::kBlock)
-box_grid_kernel(const float* __restrict__ cells, int n, int kz, Lattice g, int R,
+box_grid_kernel(const float* __restrict__ cells, int kx, int kz, Lattice g, int R,
                 float t_min, GridPlanes p) {
-  __shared__ float sh[kTile * 2];
+  // the table's lowest and highest top, reduced by every block
+  __shared__ float warp_lo[art::kBlock / 32], warp_hi[art::kBlock / 32];
+  const int n = kx * kz;
+  const float2* hm_table = reinterpret_cast<const float2*>(cells);  // (h, mat) a cell
+  float h_lo = INFINITY, h_hi = -INFINITY;
+#pragma unroll 8
+  for (int k = threadIdx.x; k < n; k += art::kBlock) {
+    const float h = __ldg(hm_table + k).x;
+    h_lo = fminf(h_lo, h);
+    h_hi = fmaxf(h_hi, h);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    h_lo = fminf(h_lo, __shfl_xor_sync(kAll, h_lo, o));
+    h_hi = fmaxf(h_hi, __shfl_xor_sync(kAll, h_hi, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    warp_lo[threadIdx.x >> 5] = h_lo;
+    warp_hi[threadIdx.x >> 5] = h_hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < art::kBlock / 32; ++w) {
+    h_lo = fminf(h_lo, warp_lo[w]);
+    h_hi = fmaxf(h_hi, warp_hi[w]);
+  }
+
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < R;
-  const float ox = live ? p.ox[i] : 0.f, oy = live ? p.oy[i] : 0.f,
-              oz = live ? p.oz[i] : 0.f;
-  const float dx = live ? p.dx[i] : 0.f, dy = live ? p.dy[i] : 0.f,
-              dz = live ? p.dz[i] : 1.f;
+  if (i >= R) return;
+  const float ox = p.ox[i], oy = p.oy[i], oz = p.oz[i];
+  const float dx = p.dx[i], dy = p.dy[i], dz = p.dz[i];
   const float ixv = art::safe_inv(dx), iyv = art::safe_inv(dy), izv = art::safe_inv(dz);
   const float ex0 = (g.x0 - ox) * ixv, sxv = g.w * ixv;
   const float ez0 = (g.z0 - oz) * izv, szv = g.w * izv;
   const float ty0p = (g.y0 - oy) * iyv;  // the shared floor plane
+  // every cell's y slab lies in [y_lo, y_hi]: ty1 = (h - oy) iy is monotone
+  // in h, and every h lies in [h_lo, h_hi]
+  const float ta = (h_lo - oy) * iyv, tb = (h_hi - oy) * iyv;
+  const float y_lo = fminf(ty0p, fminf(ta, tb)), y_hi = fmaxf(ty0p, fmaxf(ta, tb));
 
   float best = art::kBig, bix = 0.f, biz = 0.f, bh = g.y0, bm = 0.f;
-  for (int base = 0; base < n; base += kTile) {
-    const int m = min(kTile, n - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < m * 2; k += blockDim.x)
-      sh[k] = cells[(size_t)base * 2 + k];
-    __syncthreads();
-    int cx = base / kz, cz = base - cx * kz;
-    for (int k = 0; k < m; ++k) {
-      const float* c = sh + k * 2;
-      const float fix = (float)cx, fiz = (float)cz, h = c[0], mat = c[1];
-      if (++cz == kz) { cz = 0; ++cx; }
-      float ta = ex0 + fix * sxv, tb = ta + sxv;
-      const float xlo = fminf(ta, tb), xhi = fmaxf(ta, tb);
-      ta = ez0 + fiz * szv; tb = ta + szv;
-      const float zlo = fminf(ta, tb), zhi = fmaxf(ta, tb);
-      const float ty1 = (h - oy) * iyv;
-      const float ylo = fminf(ty0p, ty1), yhi = fmaxf(ty0p, ty1);
-      const float t0 = fmaxf(fmaxf(xlo, zlo), ylo);
-      const float t1 = fminf(fminf(xhi, zhi), yhi);
-      const bool through = t0 < t1;
-      const float t = (through && t0 > t_min) ? t0
-                      : ((through && t1 > t_min) ? t1 : art::kBig);
-      if (t < best) {
-        best = t; bix = fix; biz = fiz; bh = h; bm = mat;
+  if (y_hi > t_min) {  // else every cell's t1 <= y_hi <= t_min: a miss
+    // every row's z slab lies in the first's and the last's
+    const float2 z_first = slab_at(ez0, szv, 0), z_last = slab_at(ez0, szv, kz - 1);
+    const float low = fmaxf(t_min, y_lo);
+    const float rsz = __frcp_rn(szv);  // for the estimates only
+    // a cell with t0 < t1 and t1 > t_min has xhi >= t1 > t0 >= max(ylo, zlo),
+    // xlo <= t0 < t1 <= min(yhi, zhi), and the same of its z slab
+    const SlabWalk xw(ex0, sxv, fmaxf(low, fminf(z_first.x, z_last.x)),
+                      fminf(y_hi, fmaxf(z_first.y, z_last.y)));
+    for (int ix = xw.first(__frcp_rn(sxv), kx); ix < kx; ++ix) {
+      const float2 xs = slab_at(ex0, sxv, ix);
+      if (!xw.falls(xs)) break;
+      const SlabWalk zw(ez0, szv, fmaxf(low, xs.x), fminf(y_hi, xs.y));
+      const float2* col = hm_table + (size_t)ix * kz;
+      const float fix = (float)ix;
+      int iz = zw.first(rsz, kz);
+      float2 hm = __ldg(col + min(iz, kz - 1));
+      for (; iz < kz; ++iz) {
+        const float2 zs = slab_at(ez0, szv, iz);
+        if (!zw.falls(zs)) break;
+        const float2 next = __ldg(col + min(iz + 1, kz - 1));  // the next cell's, in flight
+        const float ty1 = (hm.x - oy) * iyv;
+        const float ylo = fminf(ty0p, ty1), yhi = fmaxf(ty0p, ty1);
+        const float t0 = fmaxf(fmaxf(xs.x, zs.x), ylo);
+        const float t1 = fminf(fminf(xs.y, zs.y), yhi);
+        const bool through = t0 < t1;
+        const float t = (through && t0 > t_min) ? t0
+                        : ((through && t1 > t_min) ? t1 : art::kBig);
+        if (t < best) {
+          best = t; bix = fix; biz = (float)iz; bh = hm.x; bm = hm.y;
+        }
+        hm = next;
       }
     }
   }
-  if (!live) return;
   write_cell_hit(p, i, g, ox, oy, oz, dx, dy, dz, best, bix, biz, bh, bm);
 }
 
@@ -314,7 +402,7 @@ extern "C" int art_box_grid(const float* table, int kx, int kz, const float* lat
   const int grid = (R + art::kBlock - 1) / art::kBlock;
   if (grid > 0)
     box_grid_kernel<<<grid, art::kBlock, 0, (cudaStream_t)stream>>>(
-        table, kx * kz, kz, g, R, t_min, grid_planes(planes));
+        table, kx, kz, g, R, t_min, grid_planes(planes));
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,8 @@
 //  * refill_finish: the live-slot count into hist[it] and, from the block
 //    with the last ticket, the next queue head;
 //  * refill_slot: all of the above for K1 and K12, with the draws that do
-//    not depend on the rank made while the predecessors publish.
+//    not depend on the rank made while the predecessors publish; K12 passes
+//    a hook that flushes there too.
 #pragma once
 
 #include "common.cuh"
@@ -274,15 +275,32 @@ inline RefillArgs refill_args(void* const* ptrs, int R, int parity, int ncols,
   return a;
 }
 
+// K1's refill_slot hook: nothing between its steps.  Every thread of the
+// block calls a hook's steps: `counted` once the block's count is
+// published (before the rank-free uniform draws), `drawn` after those
+// draws and before the look-back, `resolved` after the look-back, once
+// `take` is known, before a taken slot's ray is written.
+struct NoHook {
+  __device__ __forceinline__ void counted(const Rank&, const RefillPlanes&) {}
+  __device__ __forceinline__ void drawn() {}
+  __device__ __forceinline__ void resolved(const Rank&, const RefillPlanes&) {}
+};
+
 // The refill of slot blk * kBlock + threadIdx.x (refill.cu's header note):
 // rank, uniforms, camera ray, live count and queue head.  The count is
 // published first; the uniforms every live slot writes (Philox mode: every
-// call but the camera's) are drawn while the predecessors publish theirs.
-__device__ __forceinline__ void refill_slot(int blk, const RefillArgs& a, RankShared& sh) {
+// call but the camera's) are drawn while the predecessors publish theirs,
+// and so is the hook's work (K12's flush: its loads issued before the
+// draws, its sums and atomics after them).
+template <class Hook = NoHook>
+__device__ __forceinline__ void refill_slot(int blk, const RefillArgs& a, RankShared& sh,
+                                            Hook hook = Hook()) {
   const RefillPlanes& p = a.p;
   const int R = a.R;
   Rank r = rank_count(blk, p.act, R, a.scan, sh);
   const int i = r.i;
+
+  hook.counted(r, p);
 
   // ---- the iteration's uniforms for this slot ----
   float u[kMaxCols];
@@ -297,7 +315,9 @@ __device__ __forceinline__ void refill_slot(int blk, const RefillArgs& a, RankSh
     for (int c = 9; c < kMaxCols; ++c)
       if (c < a.ncols) a.u_buf[(size_t)(c - 5) * R + i] = u[c];
   }
+  hook.drawn();
   rank_resolve(r, a.scan, a.q, a.parity, a.sc, sh);
+  hook.resolved(r, p);
 
   // ---- fresh camera ray for a taken slot ----
   if (r.take) {

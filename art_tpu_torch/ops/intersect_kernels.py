@@ -54,8 +54,10 @@
   (``csrc/box_grid.cu``), replacing ``box_grid_hit_attrs`` (``:2297``) and
   ``box_grid_static_hit_attrs`` (``:2435``): K6's outputs over a regular
   lattice of unrotated boxes on one floor (``scene/builder._detect_box_grid``),
-  K10 over every cell in row-major order from the run-time table
-  ``box_grid_rows``, K9 over the non-empty cells in ``box_grid_cells``
+  K10 in row-major order from the run-time table ``box_grid_rows``, over
+  the cells each ray's slabs can meet (per ray an interval of columns and
+  in each an interval of rows, exact on the twin's floats, so its result
+  is the twin's over every cell), K9 over the non-empty cells in ``box_grid_cells``
   order (``box_grid_cell_rows``); the two pick different, equally close
   cells on an exact tie.  ``box_grid_skip_p`` is the predicate by which a
   K9 warp tests no cell (the tests hold it to the twin's misses), and

@@ -31,7 +31,12 @@ framebuffer; a pix outside ``[0, P)`` counts into ``lost``, as K3's
 flush) and has it zeroed, then K1's refill runs unchanged.
 ``flush_dead`` is its flush half alone, the render's last flush.  The
 TPU's framebuffer window (``fmin``, ``base``, ``n_hi_win``) and its bf16
-one-hot accumulate exist for VMEM and are left out.
+one-hot accumulate exist for VMEM and are left out.  Both kernels add a
+warp's deaths of one pixel pairwise before one atomic add a channel
+(``csrc/flush_warp.cuh``, modelled by ``sp_kernel.flush_warp_p``), so on the
+card the framebuffer is within 1e-6 relative of the twins' per-slot adds;
+every pool plane, the queue, ``hist``, ``lost`` and the uniforms are
+bit-equal to them.
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@
   gate, ``integrator.py:139,655-676``): the parameters come from the
   material id, and a special material's value from ``eval_special_p``
   (noise, noodle and felt through the turbulence kernel K7, images through
-  the compacted fetch, K4 and K8).  Otherwise the material/texture planes are fetched
-  first (PyTorch glue, ``shade_params_p``) and K3 runs plane-fed.
+  one launch of K8's fetch form, ``ops/texture_eval.py``).  Otherwise the
+  material/texture planes are fetched first (PyTorch glue,
+  ``shade_params_p``) and K3 runs plane-fed.
   The short path (``use_short_path``, ``art_tpu``'s gate at
   ``integrator.py:406-421``) runs the whole iteration as one kernel call
   (K11, ``ops/sp_kernel.py``) for the small static scenes that pass
@@ -225,8 +226,8 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
     """One staged iteration, in place (the short path's ``sp_step`` in
     several calls): refill (K1), the closest hit (K5, K6 or K9/K10, K2 or
     an opt-in sphere route), the media, the special leaves of baked materials
-    (turbulence through K7, image texels through the compacted fetch, K4 and
-    K8), shade + flush (K3).  ``plain`` takes every kernel's plain twin."""
+    (turbulence through K7, image texels through K8's fetch form), shade +
+    flush (K3).  ``plain`` takes every kernel's plain twin."""
     refill = rk.fused_refill_plain if plain else rk.fused_refill
     u_ball, u_choice, u_media = refill(pool, cam, q, parity, hist, it, scal, block=block,
                                        key=key, ncols=ncols)

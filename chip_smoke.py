@@ -66,8 +66,9 @@ Phases (each runs; any failure exits non-zero without the final result):
     list dropped) equal to their twins, K9's form and the share of lanes
     and warps its skip predicate leaves untested (each a miss), K9 against
     K10 and against K6 over the same 400 boxes; K10 equal to its twin on
-    the 40x40 box field's pool (its own path: 1600 cells, two shared-memory
-    tiles, rays whose winners lie in the second tile) and timed there; K9's
+    the 40x40 box field's pool (its own path: 1600 cells, rays whose
+    winners lie past the 1024th) and timed there, with the (ray, cell)
+    tests its culled walk makes there and on final_scene's table; K9's
     per-cell form on a 72x8 field's pool, equal to its twin; K2 bit-equal
     to its twin on the final_scene pool and timed there; the split sphere pass equal to
     its twin and to the full-table K2 but on exact head/tail ties, K2 with
@@ -102,7 +103,8 @@ Phases (each runs; any failure exits non-zero without the final result):
     2h. K12 (``ART_TPU_SEAM_FLUSH``'s seam flush) on a bouncing_spheres pool
     20 seam iterations in, with injected and Philox uniforms, bit-equal to
     its twin and (but for the zeroed dead radiance) to K1, its framebuffer
-    within 1e-6 relative; K13 (``ART_TPU_SPH_STATIC``, phase 1b's builds)
+    within 1e-6 relative (flush_warp's per-pixel sums; their census on the
+    pool); K13 (``ART_TPU_SPH_STATIC``, phase 1b's builds)
     on the bouncing_spheres, final_scene and a cornell_box pool in both
     quadratic forms, bit-equal to its twin, the direct form equal to the full-table
     K2 in t on every lane, the expanded form within its rounding bound;
@@ -1893,13 +1895,17 @@ def compact_checks(checks: Checks, dev, results: dict):
     for key, fn in (("ms", fk.flush_accumulate), ("plain_ms", fk.flush_accumulate_plain)):
         r4[key] = _timed_ms(lambda fn=fn: fn(rank, needy, (ray_id,), work),
                             20 if key == "ms" else 5, reset=lambda: work.copy_(zeros))
-    # the library call: one index_put_ over every lane, the others to a spare
-    # element past the slots
-    spare = torch.zeros(n_hi * fk.LANES + 1, device=dev)
-    lib_idx = torch.where(needy, rank.long(), n_hi * fk.LANES)
-    r4["library_ms"] = _timed_ms(
-        lambda: spare.index_put_((lib_idx,), ray_id, accumulate=True), 20,
-        reset=lambda: spare.zero_())
+    # the library call: one index_put_ over every lane, each of the others
+    # to a spare element of its own past the slots (sent to one spare
+    # element, they made one index of ~10^5 duplicates, which index_put_
+    # walks one by one: kept beside as library_one_spare_ms)
+    n_slots = n_hi * fk.LANES
+    for key, size, other in (("library_ms", n_slots + R, n_slots + torch.arange(R, device=dev)),
+                             ("library_one_spare_ms", n_slots + 1, n_slots)):
+        spare = torch.zeros(size, device=dev)
+        lib_idx = torch.where(needy, rank.long(), other)
+        r4[key] = _timed_ms(lambda: spare.index_put_((lib_idx,), ray_id, accumulate=True), 20,
+                            reset=lambda: spare.zero_())
     # pix and died of every lane in; a needy lane's value in, its slot read
     # and written
     _set_bound(r4, R * 5 + n_needy * 12, R * OPS_FLUSH)
@@ -1932,7 +1938,8 @@ def compact_checks(checks: Checks, dev, results: dict):
     _log_kernels(results, ("flush_accumulate", "table_gather_u24", "atlas_fetch"))
     log(f"  felt's noise_p (plain PyTorch): {launches} device launches, "
         f"{results['_noise_p']['ms']:.4f} ms at R = {R}")
-    log(f"  library: index_put_ {r4['library_ms']:.4f} ms, index_select "
+    log(f"  library: index_put_ {r4['library_ms']:.4f} ms (every other lane to one spare "
+        f"element: {r4['library_one_spare_ms']:.4f} ms), index_select "
         f"{r8['library_ms']:.4f} ms; compact_gather {fetch['compact_ms']:.4f} ms against "
         f"the dense gather {fetch['dense_ms']:.4f} ms ({fetch['dense_where_ms']:.4f} ms "
         f"with its where)")
@@ -2119,11 +2126,77 @@ def _equal(a, b) -> int:
     return sum(int((x != y).sum()) for x, y in zip(fa, fb))
 
 
+def _grid_conditions(tables, o, d, t_min=None):
+    """Where K10's culled walk (``csrc/box_grid.cu``) tests: (cols (R, kx),
+    rows (R, kx, kz)) bool.  With the y window [Ylo, Yhi] of the floor and
+    the table's lowest and highest tops and the z window of the first and
+    last rows, a column is walked where its x slab has xhi > max(t_min, Ylo,
+    Zlo) and xlo < min(Yhi, Zhi), and in it a row where its z slab has zhi
+    > max(t_min, Ylo, xlo) and zlo < min(Yhi, xhi); nothing where Yhi <=
+    t_min.  The kernel settles each of these sets as an interval by exact
+    steps; here every column and row is held to the conditions."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN, safe_dir
+
+    t_min = T_MIN if t_min is None else t_min
+    kx, kz, w = tables.box_grid_kx, tables.box_grid_kz, tables.box_grid_w
+    heights = tables.box_grid_rows[:, 0::2]
+    inv = tuple(1.0 / safe_dir(c) for c in d)
+    ex0, sxv = (tables.box_grid_x0 - o[0]) * inv[0], w * inv[0]
+    ez0, szv = (tables.box_grid_z0 - o[2]) * inv[2], w * inv[2]
+    ty0p = (tables.box_grid_y0 - o[1]) * inv[1]
+    ta, tb = (heights.min() - o[1]) * inv[1], (heights.max() - o[1]) * inv[1]
+    y_lo = torch.minimum(ty0p, torch.minimum(ta, tb))
+    y_hi = torch.maximum(ty0p, torch.maximum(ta, tb))
+    ix = torch.arange(kx, dtype=torch.float32, device=o[0].device)
+    iz = torch.arange(kz, dtype=torch.float32, device=o[0].device)
+    ta = ex0[:, None] + ix[None] * sxv[:, None]
+    tb = ta + sxv[:, None]
+    xlo, xhi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+    ta = ez0[:, None] + iz[None] * szv[:, None]
+    tb = ta + szv[:, None]
+    zlo, zhi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+    z_lo = torch.minimum(zlo[:, 0], zlo[:, -1])
+    z_hi = torch.maximum(zhi[:, 0], zhi[:, -1])
+    low = y_lo.clamp_min(t_min)
+    cols = ((xhi > torch.maximum(low, z_lo)[:, None])
+            & (xlo < torch.minimum(y_hi, z_hi)[:, None]) & (y_hi > t_min)[:, None])
+    b = torch.maximum(low[:, None], xlo)
+    top = torch.minimum(y_hi[:, None], xhi)
+    rows = (zhi[:, None, :] > b[:, :, None]) & (zlo[:, None, :] < top[:, :, None])
+    return cols, rows
+
+
+def _grid_tests(tables, o, d, t_min=None, chunk: int = 4096, columns: bool = False):
+    """(R,) int64: the (ray, cell) tests K10's culled walk makes on these
+    rays (``_grid_conditions``); with ``columns``, the columns it walks."""
+    import torch
+
+    out = []
+    for a in range(0, o[0].shape[0], chunk):
+        cols, rows = _grid_conditions(tables, tuple(c[a:a + chunk] for c in o),
+                                      tuple(c[a:a + chunk] for c in d), t_min)
+        out.append(cols.sum(dim=1) if columns else (rows & cols[:, :, None]).sum(dim=(1, 2)))
+    return torch.cat(out)
+
+
+def _grid_test_stats(tests) -> dict:
+    """K10's tests a ray: the total, the mean, the mean over warps (32
+    consecutive rays) of the warp's most and the most."""
+    n = tests.shape[0] // 32 * 32
+    warp_max = tests[:n].reshape(-1, 32).max(dim=1).values
+    return dict(tests=int(tests.sum()), mean=float(tests.double().mean()),
+                warp_max_mean=float(warp_max.double().mean()), most=int(tests.max()))
+
+
 def box_field_checks(checks: Checks, dev, results: dict):
-    """K10 on its own path: the 40x40 box field's pool (1600 cells, so the
-    kernel walks two shared-memory tiles and restarts its (ix, iz) walk at
-    the second), bit-equal to its twin, with winners in the second tile;
-    K10's time and bound at that path's shapes."""
+    """K10 on its own path: the 40x40 box field's pool (1600 cells, more
+    than K9's gate takes), bit-equal to its twin, with winners in cells past
+    the 1024th; the (ray, cell) tests its culled walk makes
+    (``_grid_tests``) against the table's cells a ray; K10's time and bound
+    at that path's shapes (the bound of the tests these rays need, and of
+    every cell a ray beside it)."""
     import torch
 
     from art_tpu_torch.core.vecmath import BIG
@@ -2152,17 +2225,28 @@ def box_field_checks(checks: Checks, dev, results: dict):
                   and second > 0,
                   f"K10 on the {name} pool ({cells} cells, no K9 cell list, R = {R}, "
                   f"{int(pool['act'].sum())} live after 1 iteration): {bad} values differ "
-                  f"from the twin; {int(hit.sum())} hits, {second} in cells past the first "
-                  f"1024-cell tile")
+                  f"from the twin; {int(hit.sum())} hits, {second} in cells past the "
+                  f"1024th")
     r = results["box_grid"]
     r["max_abs_err"] = max(r["max_abs_err"] or 0.0, *(
         _max_diff(x, y) for x, y in zip([k[0], *k[1], k[2], k[3]], [p[0], *p[1], p[2], p[3]])))
     r["ms"] = _timed_ms(lambda: K.box_grid_hit_attrs(tables, o, d), 20)
     r["plain_ms"] = _timed_ms(lambda: K.box_grid_hit_attrs_plain(tables, o, d), 3)
-    # 6 planes in and 7 out a ray, the (kx, 2 kz) table once
-    _set_bound(r, R * 52 + cells * 8, R * cells * OPS_GRID_CELL + int(hit.sum()) *
-               OPS_BOX_WINNER)
-    r.update(cells=cells, R=R, shapes=f"{name} {nx}x{ny} @ {spp}")
+    # the (ray, cell) tests these rays need: the cells of each ray's column
+    # and row intervals (_grid_tests), as the kernel walks them
+    tests = _grid_test_stats(_grid_tests(tables, o, d))
+    checks.expect(tests["mean"] < cells,
+                  f"K10 on the {name} pool tests {tests['mean']:.3f} cells a ray (the "
+                  f"warps' most {tests['warp_max_mean']:.3f} a ray on average, "
+                  f"{tests['most']} at most) of the table's {cells}")
+    # 6 planes in and 7 out a ray, the (kx, 2 kz) table once; the tests
+    # these rays need, and beside them every cell of the table a ray
+    nbytes, hits = R * 52 + cells * 8, int(hit.sum())
+    _set_bound(r, nbytes, tests["tests"] * OPS_GRID_CELL + hits * OPS_BOX_WINNER)
+    r["bound_ms_all_cells"] = max(nbytes / HBM_BYTES_PER_S, (R * cells * OPS_GRID_CELL + hits
+                                                            * OPS_BOX_WINNER)
+                                  / FP32_OPS_PER_S) * 1e3
+    r.update(cells=cells, R=R, shapes=f"{name} {nx}x{ny} @ {spp}", grid_tests=tests)
 
 
 def long_field_checks(checks: Checks, dev, results: dict):
@@ -2373,13 +2457,19 @@ def grid_split_checks(checks: Checks, dev, results: dict):
     r["ms_final_scene_table"] = _timed_ms(lambda: K.box_grid_hit_attrs(t10, o, d), 20)
     r["plain_ms_final_scene_table"] = _timed_ms(
         lambda: K.box_grid_hit_attrs_plain(t10, o, d), 3)
+    r["grid_tests_final_scene_table"] = _grid_test_stats(_grid_tests(t10, o, d))
     results["box_hit"]["ms_final_scene_boxes"] = _timed_ms(lambda: K.box_hit_attrs(t6, o, d),
                                                            20)
     box_field_checks(checks, dev, results)
     long_field_checks(checks, dev, results)
     _log_kernels(results, ("box_grid_cells", "box_grid"))
+    ft = r["grid_tests_final_scene_table"]
     log(f"  K10 on final_scene's table: {r['ms_final_scene_table']:.4f} ms (plain "
-        f"{r['plain_ms_final_scene_table']:.4f} ms)")
+        f"{r['plain_ms_final_scene_table']:.4f} ms), {ft['mean']:.3f} cells a ray of "
+        f"{t10.box_grid_kx * t10.box_grid_kz} (the warps' most {ft['warp_max_mean']:.3f}); "
+        f"on the box field {r['grid_tests']['mean']:.3f} of {r['cells']} (the warps' most "
+        f"{r['grid_tests']['warp_max_mean']:.3f}), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; every cell a ray: {r['bound_ms_all_cells']:.4f} ms)")
     s = results["_split"]
     log(f"  split sphere pass {s['split_ms']:.4f} ms ({s['split_launches']} launches) "
         f"against the full-table K2 {s['full_k2_ms']:.4f} ms ({s['full_k2_launches']}); "
@@ -3118,6 +3208,7 @@ def slice8_checks(checks: Checks, dev, results: dict):
     from art_tpu_torch.ops import compact_sphere as cs
     from art_tpu_torch.ops import intersect_kernels as K
     from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.ops.sp_kernel import flush_census
 
     s8 = results.setdefault("_slice8", {})
     # ---- K13's builds: every scene and form at once (phase 1b's) ----
@@ -3229,13 +3320,24 @@ def slice8_checks(checks: Checks, dev, results: dict):
                              reset=reset)
     rfd["max_abs_err"] = float((kfb - pfb).abs().max())
     # the library call: the scatter alone, one index_put_ over every slot,
-    # the live ones to a spare row past the framebuffer
-    spare = torch.zeros((P + 1, 3), device=dev)
-    lib_idx = torch.where(dead, base["pix"].long(), P)
+    # each live one to a spare row of its own past the framebuffer (sent to
+    # one spare row, the live slots made one index of ~10^5 duplicates, which
+    # index_put_ walks one by one: that timed the spare row, not the scatter;
+    # kept beside as library_one_spare_ms)
     lib_rad = torch.stack([base["r0"], base["r1"], base["r2"]], 1)
-    rfd["library_ms"] = _timed_ms(
-        lambda: spare.index_put_((lib_idx,), lib_rad, accumulate=True), 20,
-        reset=lambda: spare.zero_())
+    for key, rows, live_idx in (("library_ms", P + R, P + torch.arange(R, device=dev)),
+                                ("library_one_spare_ms", P + 1, P)):
+        spare = torch.zeros((rows, 3), device=dev)
+        lib_idx = torch.where(dead, base["pix"].long(), live_idx)
+        rfd[key] = _timed_ms(
+            lambda: spare.index_put_((lib_idx,), lib_rad, accumulate=True), 20,
+            reset=lambda: spare.zero_())
+    # how much flush_warp saves: the deaths that add, the pixel adds of the
+    # warps, the deaths whose pixel another death of their warp shares (the
+    # same lanes for K12 and its flush-only entry on this pool)
+    lit = dead & ((base["r0"] != 0) | (base["r1"] != 0) | (base["r2"] != 0))
+    census = dict(zip(("deaths", "pixel_adds", "shared"), flush_census(base["pix"], lit, P)))
+    r12["flush_census"] = rfd["flush_census"] = census
     # act of every slot in; a dead slot's pix and radiance in and radiance
     # out; the framebuffer's adds
     _set_bound(rfd, R + int(dead.sum()) * 28 + with_rad * 24, with_rad * 3)
@@ -3243,7 +3345,10 @@ def slice8_checks(checks: Checks, dev, results: dict):
     log(f"  K12: kernel {r12['ms']:.4f} ms (K1 alone {r12['k1_ms']:.4f} ms), plain "
         f"{r12['plain_ms']:.4f} ms, bound {r12['bound_ms']:.4f} ms ({r12['bound_by']}); "
         f"flush-only entry {rfd['ms']:.4f} ms, plain {rfd['plain_ms']:.4f} ms, index_put_ "
-        f"{rfd['library_ms']:.4f} ms, bound {rfd['bound_ms']:.4f} ms ({rfd['bound_by']})")
+        f"{rfd['library_ms']:.4f} ms (every live slot to one spare row: "
+        f"{rfd['library_one_spare_ms']:.4f} ms), bound {rfd['bound_ms']:.4f} ms "
+        f"({rfd['bound_by']}); flush_warp: {census['deaths']} deaths add, "
+        f"{census['pixel_adds']} pixel adds, {census['shared']} share a pixel in their warp")
 
     # ---- K13: the baked spheres, both forms ----
     pools = dict(_route_pools(dev))

@@ -15,12 +15,15 @@ K11 alone, ``--set intersect`` the sphere and box kernels alone,
 ``--set box_shade`` K6's block and K3 in both modes, ``--set fetch`` the
 image fetch, ``--set mxu_skip`` K14, K16 (both calls), K17 and K15s,
 ``--set static_cellbin`` K13 and K17 with K2, K16 and K15s as controls,
-``--set cluster`` K15's spheres and boxes and K17,
+``--set cluster`` K15's spheres and boxes and K17, ``--set seam_grid`` K12
+(both entries) and K10 with K1, K11 and K9 as controls,
 ``--set renders`` whole renders (``--scenes``, each ``--render-reps``
 times: wall seconds, rays and iterations from ``render_scene``'s stats; by
 default RENDERS; a scene may carry route switches of ``ops/routes.py``
 after a colon, ``+``-separated, e.g. ``final_scene:sph_skip+compact_sph+
-compact_skip``); the default, the first two.  Each kernel runs on the pools
+compact_skip``, and another sample count after an ``@``, e.g.
+``cornell_box:seam_flush@16``; ``box field`` is chip_smoke's 40x40 field);
+the default, the first two.  Each kernel runs on the pools
 ``chip_smoke.py`` uses:
 
 * noise: K7 at depth 7 on phase 2c's inputs (the hit points of perlin
@@ -71,6 +74,14 @@ compact_skip``); the default, the first two.  Each kernel runs on the pools
   field pools, and K17 on both lattices (bouncing_spheres and final_scene),
   each with the (ray, primitive) tests its rays need and its warps make
   (``chip_smoke._culled_tests``, ``_box_cluster_tests``);
+* seam_grid: K12 on phase 2h's seam pool (bouncing_spheres 1200x800 @ 64,
+  20 seam iterations in, every dead slot with radiance), its flush-only
+  entry and K1 on that pool, with the census of its flush lanes
+  (``sp_kernel.flush_census``); K1 and K11 as refill_quad times them; K10 on
+  final_scene's table (phase 2f's pool, the cell list dropped) and on the
+  40x40 box field's pool one staged iteration in, each with the tests its
+  walk makes (``chip_smoke._grid_tests``); K9 on final_scene's pool and the
+  72x8 field's;
 * fetch: ``ImageAtlas.sample(..., needy)`` (K8's fetch form) and
   ``eval_special_p``'s image leaf on phase 2d's earth 1200x600
   @ 64 and final_scene 800x800 @ 16 pools 20 staged iterations in, each
@@ -147,7 +158,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "box_shade",
                                       "fetch", "mxu_skip", "static_cellbin", "cluster",
-                                      "renders"),
+                                      "seam_grid", "renders"),
                     default="all")
     ap.add_argument("--render-reps", type=int, default=3)
     ap.add_argument("--scenes", default=",".join(name for name, *_ in RENDERS),
@@ -188,8 +199,10 @@ def main() -> int:
         static_cellbin_cases(cs, dev, case, out["kernels"])
     if args.set == "cluster":
         cluster_cases(cs, dev, case, out["kernels"])
+    if args.set == "seam_grid":
+        seam_grid_cases(cs, dev, case, out["kernels"], args.reps)
     if args.set == "renders":
-        out["renders"] = render_cases(dev, args.render_reps, args.scenes.split(","))
+        out["renders"] = render_cases(cs, dev, args.render_reps, args.scenes.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     out["card"] = smi
@@ -227,23 +240,26 @@ RENDERS = (("quads", 1200, 600, 64), ("perlin", 1200, 600, 64), ("cornell_box", 
 # (nx, ny, spp) of each scene --scenes may name: chip_smoke.py's renders
 SIZES = {**{name: size for name, *size in RENDERS}, "cornell_smoke": (600, 600, 64),
          "final_scene": (800, 800, 16), "original_scene": (800, 800, 16),
-         "earth": (1200, 600, 64), "simple_light": (1200, 600, 16)}
+         "earth": (1200, 600, 64), "simple_light": (1200, 600, 16),
+         "box field": (160, 90, 4)}
 
 
-def render_cases(dev, reps, scenes):
+def render_cases(cs, dev, reps, scenes):
     """{scene: [{seconds, rays, iterations}] * reps} of ``scenes`` (each
-    ``name`` or ``name:switch+switch``, rendered under those routes), after
-    one small warm-up render each (the kernels built and loaded)."""
-    from art_tpu_torch.models import build_scene
+    ``name``, ``name:switch+switch`` rendered under those routes, either
+    with ``@spp`` after it for another sample count than SIZES'), after one
+    small warm-up render each (the kernels built and loaded)."""
     from art_tpu_torch.ops import routes
     from art_tpu_torch.render.renderer import RenderConfig, render_scene
 
     out = {}
     for entry in scenes:
+        entry, _, spp_arg = entry.partition("@")
         name, _, switches = entry.partition(":")
         on = {k: True for k in switches.split("+") if k}
         nx, ny, spp = SIZES[name]
-        scene = build_scene(name, nx, ny)
+        spp = int(spp_arg) if spp_arg else spp
+        scene = cs._scene(name, nx, ny)
         with routes.using(**on):
             render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=1), device=dev)
             runs = []
@@ -285,16 +301,14 @@ def _quad_reference(tables, o, d):
     return t, normal, alpha, beta, mat
 
 
-def refill_quad_cases(cs, dev, case, kernels, reps):
-    """K1, K11, K12 and K5's block (module note)."""
+def k1_cases(cs, dev, kernels, reps):
+    """K1 on 0%, 30% and 100% dead bouncing_spheres pools (module note)."""
     import torch
 
     from art_tpu_torch.models import build_scene
     from art_tpu_torch.ops import refill_kernel as rk
-    from art_tpu_torch.render.integrator import staged_step
     from art_tpu_torch.render.renderer import RenderConfig, plan_batches
 
-    # ---- K1 on 0%, 30% and 100% dead ----
     scene = build_scene("bouncing_spheres", 1200, 800)
     tile_pixels, spp, R = plan_batches(1200 * 800, 64, scene.tables.n_spheres, RenderConfig(),
                                        dev)
@@ -329,7 +343,10 @@ def refill_quad_cases(cs, dev, case, kernels, reps):
             lambda: rk.fused_refill(work, scene.camera, q_t, 0, hist_t, 3, scal, ncols=10,
                                     key=(1984, 3, 1)), reps, reset=reset), differ=differ)
 
-    # ---- K11 on phase 2c's timed steps ----
+
+def k11_cases(cs, dev, kernels, reps):
+    """K11 on phase 2c's timed steps."""
+    from art_tpu_torch.ops import refill_kernel as rk
     from art_tpu_torch.ops.sp_kernel import sp_step, sp_step_plain
 
     s = cs._short_setup(dev)
@@ -344,7 +361,17 @@ def refill_quad_cases(cs, dev, case, kernels, reps):
             ms=cs._sp_step_ms(s, sp_step, name, iters, reps), differ=differ,
             fb_rel=float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max()))
 
-    # ---- K12 on phase 2h's seam pool ----
+
+def k12_cases(cs, dev, kernels, reps, flush_only=False):
+    """K12 on phase 2h's seam pool; with ``flush_only`` also its flush-only
+    entry and K1 on that pool, and the census of the pool's flush lanes
+    (``sp_kernel.flush_census``)."""
+    import torch
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import refill_kernel as rk
+    from art_tpu_torch.ops.sp_kernel import flush_census
+
     bouncing = build_scene("bouncing_spheres", 1200, 800).to(dev)
     sp = cs._seam_pool(bouncing, 1200, 800, 64, dev, 20)
     base, next_q = sp["pool"], int(sp["q"][0])
@@ -377,10 +404,41 @@ def refill_quad_cases(cs, dev, case, kernels, reps):
         fb_t.copy_(sp["fb"])
         q_t[0] = next_q
 
+    def fb_rel(a, b):
+        return float(((a - b).abs() / (b.abs() + 1e-6)).max())
+
     kernels["K12 seam pool"] = dict(ms=cs._timed_ms(lambda: rk.fused_refill_flush(
         work, bouncing.camera, q_t, 0, hist_t, 20, sp["scal"], fb_t, lost_t, ncols=sp["ncols"],
-        key=(1984, 3, 1)), reps, reset=reset12), differ=differ,
-        fb_rel=float(((kfb - pfb).abs() / (pfb.abs() + 1e-6)).max()))
+        key=(1984, 3, 1)), reps, reset=reset12), differ=differ, fb_rel=fb_rel(kfb, pfb))
+    if not flush_only:
+        return
+    lit = dead & ((base["r0"] != 0) | (base["r1"] != 0) | (base["r2"] != 0))
+    kernels["K12 seam pool"]["flush_census"] = dict(zip(
+        ("deaths", "pixel_adds", "shared"), flush_census(base["pix"], lit, sp["fb"].shape[0])))
+    kp, pp, kfb, pfb = cs._clone(base), cs._clone(base), sp["fb"].clone(), sp["fb"].clone()
+    kl, pl = (torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2))
+    rk.flush_dead(kp, kfb, kl)
+    rk.flush_dead_plain(pp, pfb, pl)
+    torch.cuda.synchronize()
+    differ = sum(cs._bits_equal(kp[n], pp[n]) for n in rk.POOL_F)
+    differ += sum(int((kp[n] != pp[n]).sum()) for n in ("bounce", "pix", "act"))
+    differ += int((kl != pl).sum())
+    kernels["flush_dead seam pool"] = dict(
+        ms=cs._timed_ms(lambda: rk.flush_dead(work, fb_t, lost_t), reps, reset=reset12),
+        differ=differ, fb_rel=fb_rel(kfb, pfb))
+    kernels["K1 seam pool"] = dict(ms=cs._timed_ms(lambda: rk.fused_refill(
+        work, bouncing.camera, q_t, 0, hist_t, 20, sp["scal"], ncols=sp["ncols"],
+        key=(1984, 3, 1)), reps, reset=reset12))
+
+
+def refill_quad_cases(cs, dev, case, kernels, reps):
+    """K1, K11, K12 and K5's block (module note)."""
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.render.integrator import staged_step
+
+    k1_cases(cs, dev, kernels, reps)
+    k11_cases(cs, dev, kernels, reps)
+    k12_cases(cs, dev, kernels, reps)
 
     # ---- K5's block on cornell_box's and final_scene's pools ----
     cornell = build_scene("cornell_box", 600, 600).to(dev)
@@ -609,6 +667,31 @@ def cluster_cases(cs, dev, case, kernels):
              lambda: K.box_cluster_hit_attrs_plain(t, o, d))
         need, made = cs._box_cluster_tests(t, o, d)
         kernels[f"K15b {name}"].update(tests_needed=need, tests_made=made)
+
+
+def seam_grid_cases(cs, dev, case, kernels, reps):
+    """K12, its flush-only entry, K1 and K11; K10 with K9 as a control
+    (module note)."""
+    import dataclasses
+
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    k12_cases(cs, dev, kernels, reps, flush_only=True)
+    k1_cases(cs, dev, kernels, reps)
+    k11_cases(cs, dev, kernels, reps)
+    ft, fo, fd, _ = cs._route_pools(dev)["final_scene"]
+    case("K9 final_scene", lambda: K.box_grid_cells_hit_attrs(ft, fo, fd),
+         lambda: K.box_grid_cells_hit_attrs_plain(ft, fo, fd))
+    t10 = dataclasses.replace(ft, box_grid_cells=None, box_grid_cell_rows=None)
+    fields = {"final_scene table": (t10, fo, fd),
+              "box field": _field_pool(cs, dev, 40, 40, 160, 90)}
+    for label, (t, o, d) in fields.items():
+        case(f"K10 {label}", lambda: K.box_grid_hit_attrs(t, o, d),
+             lambda: K.box_grid_hit_attrs_plain(t, o, d))
+        kernels[f"K10 {label}"]["tests"] = cs._grid_test_stats(cs._grid_tests(t, o, d))
+    t, o, d = _field_pool(cs, dev, 72, 8, 160, 90)
+    case("K9 72x8 field", lambda: K.box_grid_cells_hit_attrs(t, o, d),
+         lambda: K.box_grid_cells_hit_attrs_plain(t, o, d))
 
 
 def intersect_cases(cs, dev, case):

@@ -4,12 +4,13 @@
 Run on a machine with the CUDA toolkit, from the repository root:
 
     python3 scripts/sass_loops.py [LIBRARY.so] [NAME[:KEY] ...]
+    python3 scripts/sass_loops.py --same LIB_A.so LIB_B.so [NAME ...]
 
 Without a library it builds (or finds) the port's kernel library
 (``art_tpu_torch/ops/_build.py``).  NAME is a substring of a kernel's mangled
 name, KEY the opcode that keys its paths (LDS by default); the default is
 K2's kernels (its three forms), K9's (both forms), K10's, K7's (depth 7, 2
-and any), K11's, K1's, K12's, K5's, K6's rotated forms (merge and plain),
+and any), K11's, K1's, K12's (both entries), K5's, K6's rotated forms (merge and plain),
 K3's two modes (baked and plane-fed), K14's, K16's, K17's (also K15's
 spheres; its instance for more than 64 cells, ``ILb1E``, too) and K15's
 boxes (folded and rotated).
@@ -26,13 +27,15 @@ entry to an exit instead.  K2's loop is a group of eight rows for two rays
 (16 pairs): its path with the fewest LDS (eight rows and the flags) is a
 static group, the next key a moving group, and each key's shortest path
 takes no root.  K9's loop is two cells (nvcc unrolls it by two), three LDS
-a cell in the hoisted form and one in the per-cell form.  K7's kernels are
+a cell in the hoisted form and one in the per-cell form.  K10's loop is
+its cell walk in a column, one LDG (the cell's height and material) a cell.  K7's kernels are
 keyed by shuffles (SHFL): the depth-7 kernel unrolls its shared octaves, so
 its loop is the per-lane octave (no shuffle); the any-depth kernel's loop is
 the shared octave, 27 shuffles in one cell (3 for the cell's lattice point,
 24 for the eight gradients) and more for each further cell.  K11's loop is
 its primitive loop (LDS of the staged tables).  K1's and K12's loop is the
-look-back's window read (keyed by its global loads, LDG), K5's and K6's
+look-back's window read (keyed by its global loads, LDG); K12's flush-only
+entry's (``flush_dead``) flush_warp's summing rounds, as K3's; K5's and K6's
 their primitive loops.  K3's only loop is flush_warp's summing rounds
 (keyed by SHFL: four shuffles a round).  K14's loop is a group of eight
 feature rows for two rays (16 pairs, four LDS.128 a row): its shortest path
@@ -51,6 +54,9 @@ size (16 bytes an instruction).  K13 lives in per-scene libraries
 builds one): its loops are its group scans of two rays, a moving section's
 and a static one's; a K13 built as straight-line code has no loop, and its
 ``code_bytes`` and instruction count over its spheres are the measure.
+``--same`` says whether each NAME's SASS is the same in two libraries (by
+default K1's, K11's and K9's two forms: the kernels that share a source with
+K12 or K10).
 """
 
 from __future__ import annotations
@@ -65,16 +71,20 @@ from pathlib import Path
 # (kernel name substring, the opcode that keys its paths)
 DEFAULT = (("sphere_hit_kernelILi2ELi2E", "LDS"), ("sphere_hit_kernelILi1ELi2E", "LDS"),
            ("sphere_hit_kernelILi1ELi1E", "LDS"), ("box_grid_cells_kernelILb1E", "LDS"),
-           ("box_grid_cells_kernelILb0E", "LDS"), ("box_grid_kernel", "LDS"),
+           ("box_grid_cells_kernelILb0E", "LDS"), ("box_grid_kernel", "LDG"),
            ("turb_kernelILi7E", "SHFL"), ("turb_kernelILi2E", "SHFL"),
            ("turb_kernelILi0E", "SHFL"), ("sp_step_kernel", "LDS"), ("refill_kernel", "LDG"),
-           ("refill_flush_kernel", "LDG"), ("quad_hit_kernel", "LDS"),
+           ("refill_flush_kernel", "LDG"), ("flush_dead", "SHFL"), ("quad_hit_kernel", "LDS"),
            ("box_hit_kernelILb1ELb1E", "LDS"), ("box_hit_kernelILb1ELb0E", "LDS"),
            ("shade_flush_kernelILb1E", "SHFL"), ("shade_flush_kernelILb0E", "SHFL"),
            ("sphere_mxu_kernel", "LDS"), ("sphere_skip_kernel", "LDS"),
            ("sphere_cellbin_kernelILb0E", "LDS"), ("sphere_cellbin_kernelILb1E", "LDS"),
            ("box_cluster_kernelILb0E", "LDS"),
            ("box_cluster_kernelILb1E", "LDS"))
+# the kernels that share csrc/refill.cuh with K12 but not its flush (K1, K11)
+# and K9's, which shares csrc/box_grid.cu with K10: --same compares them
+SAME = ("refill_kernel", "sp_step_kernel", "box_grid_cells_kernelILb1E",
+        "box_grid_cells_kernelILb0E")
 # K13's kernel, in a per-scene library (ops/_build.py static_libraries)
 STATIC = (("sphere_static_kernel", "LDS"),)
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -295,6 +305,22 @@ def report(lib: str, names=DEFAULT) -> dict:
     return out
 
 
+def same_sass(lib_a: str, lib_b: str, names) -> dict:
+    """{name: {equal, instructions a, instructions b}}: whether each NAME's
+    SASS (the instructions at their function-relative addresses) is the same
+    in two libraries, e.g. a parent checkout's and this one's."""
+    fa, fb = sass_functions(lib_a), sass_functions(lib_b)
+    out = {}
+    for name in names:
+        a = [fa[f] for f in fa if name in f][:1]
+        b = [fb[f] for f in fb if name in f][:1]
+        if not a or not b:
+            out[name] = {"error": "no such kernel in a library"}
+            continue
+        out[name] = dict(equal=a[0] == b[0], instructions=[len(a[0]), len(b[0])])
+    return out
+
+
 def static_library(scene: str, expand: bool):
     """K13's library for ``scene`` (16x16) in one form, built if need be."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -307,6 +333,9 @@ def static_library(scene: str, expand: bool):
 
 
 def main(argv) -> int:
+    if argv and argv[0] == "--same":
+        print(json.dumps(same_sass(argv[1], argv[2], tuple(argv[3:]) or SAME), indent=1))
+        return 0
     if argv and argv[0] == "--static":
         lib = static_library(argv[1], len(argv) > 2 and argv[2] == "expanded")
         print(json.dumps(report(lib._name, STATIC), indent=1))
