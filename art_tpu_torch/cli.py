@@ -3,7 +3,10 @@
 Same flags and I/O contract — PPM P3 on stdout, diagnostics on stderr — so
 ``python -m art_tpu_torch.cli --scene bouncing_spheres > out.ppm`` behaves
 like the reference binary; ``--device`` picks the card (default) or the
-CPU.  ``--sharded`` and ``--checkpoint`` belong to later slices.
+CPU.  ``--checkpoint PATH`` saves the render after every (tile, chunk)
+dispatch and resumes a matching file (``render_scene``'s
+``checkpoint_path``).  ``--sharded`` (multi-device rendering) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ def main(argv=None) -> int:
                         help="clamp PPM values to [0,255] (reference default: no clamp)")
     parser.add_argument("--png", default=None, help="also write a PNG copy to this path")
     parser.add_argument("--checkpoint", default=None,
-                        help="not in this slice of the port")
+                        help="save after every dispatch to this .npz path and resume "
+                             "from it")
     parser.add_argument("--sharded", action="store_true",
-                        help="not in this slice of the port")
+                        help="multi-device rendering (not ported yet)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
@@ -42,9 +46,9 @@ def main(argv=None) -> int:
     if args.list_scenes:
         print("\n".join(sorted(SCENES)))
         return 0
-    if args.sharded or args.checkpoint:
+    if args.sharded:
         raise NotImplementedError(
-            "--sharded and --checkpoint come with later slices of art_tpu_torch")
+            "--sharded: multi-device rendering (M14) is not ported to art_tpu_torch yet")
     if args.scene not in SCENES:
         print(f"error: unknown scene {args.scene!r}; use --list-scenes",
               file=sys.stderr)
@@ -63,7 +67,8 @@ def main(argv=None) -> int:
                        gamma=args.gamma, seed=args.seed)
     print(f"Rendering {args.scene} at {nx}x{ny} spp={spp} depth={args.max_depth} "
           f"on {args.device}", file=sys.stderr)
-    fb, stats = render_scene(scene, cfg, verbose=args.verbose, device=args.device)
+    fb, stats = render_scene(scene, cfg, verbose=args.verbose,
+                             checkpoint_path=args.checkpoint, device=args.device)
     print(f"took {stats['seconds']:.3f} seconds. {stats['mrays_per_sec']:.2f} "
           f"Mrays/s on {stats['device']}", file=sys.stderr)
 

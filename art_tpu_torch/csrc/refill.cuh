@@ -13,10 +13,12 @@
 //    block refills slots ticket * 256 + threadIdx.x, so ranks follow slot
 //    order;
 //  * rank_count: the block's dead count, published at once, and each
-//    slot's rank inside the block;
-//  * rank_resolve: the block's exclusive prefix from its predecessors'
-//    published words (look_back), its own inclusive prefix published, and
-//    whether the slot takes a queue element;
+//    slot's rank inside the block (with kCountSet, of the slots whose flag
+//    is set: K4's compaction form, compact.cu, counts the needy lanes);
+//  * rank_prefix: the block's exclusive prefix from its predecessors'
+//    published words (look_back) and its own inclusive prefix published;
+//  * rank_resolve: rank_prefix, then whether the slot takes a queue
+//    element;
 //  * philox_uniforms: the Philox calls of the slot's uniform columns that
 //    the caller needs;
 //  * camera_ray: the fresh ray of a taken slot;
@@ -95,10 +97,10 @@ struct RankShared {
 struct Rank {
   int i;         // the slot: blk * kBlock + threadIdx.x
   bool live;     // i < R
-  bool was_act;  // live before the refill
+  bool was_act;  // its flag is set: live before the refill (needy, in compact.cu)
   bool take;     // dead and handed queue element qq
-  int in_block;  // dead slots before it in its block
-  int count;     // dead slots in its block
+  int in_block;  // counted slots (dead, or with kCountSet flagged) before it in its block
+  int count;     // counted slots in its block
   long long qq;
 };
 
@@ -120,6 +122,9 @@ __device__ __forceinline__ int scan_ticket(const Scan& s, RankShared& sh) {
   return sh.blk;
 }
 
+// counts the live slots whose flag is clear (the dead ones), or with
+// kCountSet those whose flag is set
+template <bool kCountSet = false>
 __device__ __forceinline__ Rank rank_count(int blk, const uint8_t* act, int R, const Scan& s,
                                            RankShared& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -127,7 +132,7 @@ __device__ __forceinline__ Rank rank_count(int blk, const uint8_t* act, int R, c
   r.i = blk * kBlock + threadIdx.x;
   r.live = r.i < R;
   r.was_act = r.live && act[r.i] != 0;
-  const unsigned m = __ballot_sync(kFullWarp, r.live && !r.was_act);
+  const unsigned m = __ballot_sync(kFullWarp, kCountSet ? r.was_act : r.live && !r.was_act);
   if (lane == 0) sh.warp_cnt[warp] = __popc(m);
   __syncthreads();
   r.in_block = __popc(m & ((1u << lane) - 1u));
@@ -169,8 +174,8 @@ __device__ __forceinline__ int look_back(const Scan& s, int blk) {
   }
 }
 
-__device__ __forceinline__ void rank_resolve(Rank& r, const Scan& s, const long long* q,
-                                             int parity, const Scal& sc, RankShared& sh) {
+// sh.before and sh.total of the block (every thread waits for them)
+__device__ __forceinline__ void rank_prefix(const Rank& r, const Scan& s, RankShared& sh) {
   const int blk = sh.blk;
   if ((threadIdx.x >> 5) == 0) {
     const int before = blk ? look_back(s, blk) : 0;
@@ -181,6 +186,11 @@ __device__ __forceinline__ void rank_resolve(Rank& r, const Scan& s, const long 
     }
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void rank_resolve(Rank& r, const Scan& s, const long long* q,
+                                             int parity, const Scal& sc, RankShared& sh) {
+  rank_prefix(r, s, sh);
   r.qq = q[parity] + sh.before + r.in_block;
   r.take = r.live && !r.was_act && r.qq < sc.P * sc.spp;
 }

@@ -80,6 +80,8 @@ _SIGNATURES = {
                     ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
                     ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P, _I, _P, _I, _P, _I, _P],
     "art_flush_accumulate": [_P, _P, ctypes.POINTER(_P), _I, _P, _I, _P, _I, _P],
+    "art_compact": [_P, _I, ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P, _P, _P,
+                    ctypes.c_uint, _P],
     "art_table_gather": [_P, _I, _P, _P, _I, _P],
     "art_atlas_fetch": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "art_box_grid": [_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I, ctypes.c_float,

@@ -11,15 +11,16 @@ cross.  ``sphere_hit_attrs_split`` is K2 over ``sph_rows`` computed as:
    occlusion gate, ``ART_TPU_OCC_GATE``) only those that enter it at
    ``t_entry <= occ_t``, the closest quad or box hit so far (a tail hit lies
    beyond the entry, so a farther lane cannot change the merge);
-3. ``compact_ray_ids(needy)`` (K4, ``ops/compact_fetch.py``): slot j holds
-   the j-th needy lane's ray id, the count stays on the device;
-4. one gather of the (6, R) ray planes at those ids;
-5. over the compacted slots with ``n_live`` = the needy count, so slots
+3. ``compact(needy, (*o, *d))`` (K4's compaction form,
+   ``ops/compact_fetch.py``, one launch): slot j holds the j-th needy lane's
+   ray id and its six ray planes, the count stays on the device; the
+   planes' slots past the count are unspecified;
+4. over the compacted slots with ``n_live`` = the needy count, so slots
    past it miss without a sphere test: K2 over ``sph_tail_rows``, or, with
    ``skip_tail`` (``ART_TPU_SPH_SKIP`` and ``ART_TPU_COMPACT_SKIP``), K16's
    tail-only call over the skip bins (compaction keeps the pool's order, so
    the slots stay coherent);
-6. a scatter of (t, normal) back to the needy lanes (the other slots go to
+5. a scatter of (t, normal) back to the needy lanes (the other slots go to
    a spare row) and a merge with the head by closest t, the head keeping
    exact ties; a tail winner takes ``sph_tail_mat``.
 
@@ -78,10 +79,10 @@ def sphere_hit_attrs_split(tables: SceneTables, o, d, tm, t_min=T_MIN, *,
     needy, t_entry = slab_interval(tables.sph_tail_box, o, d, t_min)
     if occ_t is not None:
         needy = needy & (t_entry <= occ_t)
-    cnt = needy.sum(dtype=torch.int32).reshape(1)  # stays on the device
-    ray_k = cf.compact_ray_ids(needy, plain=plain)
-    rays_k = torch.stack([*o, *d]).index_select(1, ray_k)  # (6, slots)
-    o_k, d_k, tm_k = tuple(rays_k[0:3]), tuple(rays_k[3:6]), torch.zeros_like(rays_k[0])
+    # the count stays on the device; the slots past it miss without reading
+    # their (unspecified) rays
+    ray_k, cnt, rays_k, _ = cf.compact(needy, (*o, *d), plain=plain)
+    o_k, d_k, tm_k = rays_k[0:3], rays_k[3:6], torch.zeros_like(rays_k[0])
     if skip_tail:
         t_c, n_c, _ = (K.sphere_skip_hit_attrs_plain if plain else K.sphere_skip_hit_attrs)(
             tables, o_k, d_k, tm_k, t_min, tail_only=True, n_live=cnt)

@@ -22,10 +22,12 @@
   Its twin's texel index and unpack (``texel_index``, ``unpack_rgb``) are
   the ones ``utils/images.py ImageAtlas`` samples with.
 
-K4 and K8 serve the compacted fetch (``ops/compact_fetch.py``), K4 also
-the split sphere pass.  Each wrapper launches its kernel for CUDA tensors
-and runs its plain twin for CPU tensors; any R works (the TPU's
-``R % 8192`` rule is its layout's).
+K8 serves the compacted fetch (``ops/compact_fetch.py``).  K4's flush form
+is the scatter of the plain twin of K4's compaction form
+(``compact_fetch.compact``, ``csrc/compact.cu``), which the split sphere
+pass and ``compact_gather`` launch, so no render launches the flush form.
+Each wrapper launches its kernel for CUDA tensors and runs its plain twin
+for CPU tensors; any R works (the TPU's ``R % 8192`` rule is its layout's).
 """
 
 from __future__ import annotations

@@ -50,9 +50,16 @@ Phases (each runs; any failure exits non-zero without the final result):
     (R = 2^17) and on a colliding flush into a window at a base row, K8
     (table_gather_u24) on that pool's texel slots with out-of-range indices,
     and the compacted fetch against the dense gather at 0, about 30% and
-    100% needy lanes, timed against the one-call dense gather (K8's
-    ``launches`` is 0: no render runs it; these calls are its
-    ``check_calls``); K8's fetch form (atlas_fetch, the
+    100% needy lanes, timed against the one-call dense gather (K8's and K4's
+    flush form's ``launches`` are 0: no render runs them; these calls are their
+    ``check_calls``); K4's compaction form (``compact``, one launch: ids,
+    count, rank and six ray planes) bit-equal to its twin and to the
+    pipeline it replaced (K4's flush form with the rank, count and gather
+    around it) on that earth pool and a final_scene pool 20 iterations in
+    (the split's needy lanes), at their own needy lanes, at 0, one lane,
+    30% and 100% and at R - 100 lanes (a pad), every slot and rank written
+    over a sentinel, timed beside that pipeline (device ms and launches by
+    kernel name), its twin and ``torch.nonzero``; K8's fetch form (atlas_fetch, the
     whole ``ImageAtlas.sample(..., needy)`` in one launch) bit-equal to its
     twin on that pool at 0, 30%, the rendered and 100% needy lanes, on lanes
     with NaN, infinite and out-of-range (u, v) and image ids, equal to the
@@ -72,9 +79,12 @@ Phases (each runs; any failure exits non-zero without the final result):
     per-cell form on a 72x8 field's pool, equal to its twin; K2 bit-equal
     to its twin on the final_scene pool and timed there; the split sphere pass equal to
     its twin and to the full-table K2 but on exact head/tail ties, K2 with
-    n_live equal to its twin on the compacted slots; times of each, of the
-    split against the full-table K2, and the launches of the split, of
-    apply_media_p and of a whole staged final_scene iteration;
+    n_live equal to its twin on the compacted slots, K2 with n_live and
+    K16's tail-only call unchanged when the compacted rays past the count
+    are NaN, the split (K2 or K16 tail) bit-equal to the split on the
+    pipeline K4's compaction form replaced; times of each, of the split
+    against the full-table K2 and that split, and the launches of the
+    split, of apply_media_p and of a whole staged final_scene iteration;
     2f. K16 (skip bins: standalone, and tail-only with n_live on the split's
     compacted slots) and K17 (cell bins: bouncing_spheres' whole-set 4x4
     lattice, final_scene's 3x3x3 tail lattice) bit-equal to their twins on
@@ -146,7 +156,7 @@ Phases (each runs; any failure exits non-zero without the final result):
     SPH_CELLBIN (K17), final_scene 800x800 @ 16 under SPH_CELLBIN (K17),
     SPH_SKIP (K16), the split with OCC_GATE and K16's tail-only call, the
     split's forced dense branch with COMPACT_CELLBIN (K17), and the split
-    alone (the splits compacting with K4), and K15's route (CLUSTER_RUNS)
+    alone (the splits compacting with K4's compaction form), and K15's route (CLUSTER_RUNS)
     default / route / route / default: final_scene 800x800 @ 16 (K15's
     spheres and boxes),
     bouncing_spheres 1200x800 @ 64 and the box field (K15's boxes in place
@@ -161,14 +171,20 @@ Phases (each runs; any failure exits non-zero without the final result):
     (perlin staged and the box field included), the kernel path against the
     plain path on the same injected uniforms (``n_uniform_cols`` rows) and,
     but for the box field's default path, with independent seeds,
-    statistically (a route against the default route).
+    statistically (a route against the default route);
+ 5. checkpoint and resume: cornell_box 600x600 @ 16 (six dispatches)
+    uninterrupted, interrupted after three dispatches by an exception from a
+    wrapped ``render_wavefront``, and resumed (its launches read as a
+    render's), the resumed image within 1e-5 relative and 1e-6 absolute of
+    the uninterrupted one on every pixel (the measured maximum reported), the
+    seconds of one save.
 
 Standard output ends with a JSON line of per-kernel results (each kernel's
 ``launches`` counted in the first default-route render that runs it, in
 the order bouncing_spheres, final_scene, cornell_box, the image and
-short-path scenes, the others; else in its opt-in route's render, K4's in
-the plain split's; K8's 0, on no render's path; named by
-``launches_path``), the
+short-path scenes, the others; else in its opt-in route's render, K4's
+compaction form's in the plain split's; K8's and K4's flush form's 0, on no
+render's path; named by ``launches_path``), the
 card's name and power limit, and then
 ``{"ok": true, "device": {...}}``.  Needs
 ``torch.cuda.is_available()``.
@@ -244,6 +260,10 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "sp_step": ("art_tpu_torch/csrc/sp_step.cu", "art_tpu/ops/sp_kernel.py:571"),
     "flush_accumulate": ("art_tpu_torch/csrc/flush_accumulate.cu",
                          "art_tpu/ops/flush_kernel.py:196"),
+    # K4's compaction form: K4 (:196) as art_tpu/ops/compact_fetch.py:192
+    # compact_ray_ids calls it, with the rank, count and ray gather around it
+    # (art_tpu/ops/compact_sphere.py)
+    "compact": ("art_tpu_torch/csrc/compact.cu", "art_tpu/ops/flush_kernel.py:196"),
     "table_gather_u24": ("art_tpu_torch/csrc/table_gather.cu",
                          "art_tpu/ops/flush_kernel.py:147"),
     # K8's fetch form: compact_gather's K8 (:147) and K4 (:196) as
@@ -301,16 +321,15 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
                                  "atlas_fetch", "turb", "shade_flush_baked"),
          "final_scene skip": ("refill", "quad_hit", "box_grid_cells", "sphere_skip",
                               "atlas_fetch", "turb", "shade_flush_baked"),
-         # K2 over the head, K4 compacting, K16's tail-only call
+         # K2 over the head, K4's compaction form, K16's tail-only call
          "final_scene split skip": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
-                                    "sphere_skip", "flush_accumulate", "atlas_fetch",
-                                    "turb", "shade_flush_baked"),
+                                    "sphere_skip", "compact", "atlas_fetch", "turb",
+                                    "shade_flush_baked"),
          # the dense branch is K17 alone: no compaction
          "final_scene split dense": ("refill", "quad_hit", "box_grid_cells", "sphere_cellbin",
                                      "atlas_fetch", "turb", "shade_flush_baked"),
          "final_scene split": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
-                               "flush_accumulate", "atlas_fetch", "turb",
-                               "shade_flush_baked"),
+                               "compact", "atlas_fetch", "turb", "shade_flush_baked"),
          # ART_TPU_CLUSTER (CLUSTER_RUNS): K15's spheres in place of K2, its
          # boxes in place of K9 and K10
          "final_scene cluster": ("refill", "quad_hit", "box_cluster", "sphere_cluster",
@@ -334,6 +353,10 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          "final_scene split mxu tail": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
                                         "sphere_mxu", "atlas_fetch", "turb",
                                         "shade_flush_baked")}
+# the checkpoint phase's render: six (tile, chunk) dispatches (tiles of
+# 60,032 pixels, one chunk of 16 samples), interrupted after CHECKPOINT_STOP
+CHECKPOINT = ("cornell_box", 600, 600, 16)
+CHECKPOINT_STOP = 3
 # the opt-in sphere routes of the culling slice (art_tpu_torch/ops/routes.py),
 # each rendered at full width route / default against the default route:
 # (label, scene, nx, ny, spp, the switches); COMPACT_SKIP acts with SPH_SKIP,
@@ -414,6 +437,7 @@ OPS_GRADIENT = 59
 OPS_SP_BOUNCE = 100  # the short path's background, material row and scatter
 OPS_FLUSH = 8  # K4 a lane: load, test, shift, window, index; an add a channel
 OPS_GATHER = 4  # K8 a lane: two range tests, a select
+OPS_COMPACT = 6  # K4's compaction form a lane: the flag, ballot, popc, rank, slot, select
 # a grid cell with the x and z slabs hoisted per column and row, as the TPU
 # kernels and K9 compute them: the top plane 2, y slab 2, t0 and t1 4, the
 # entry / exit choice 4, the merge 6, the amortized x and z slabs 2 (K10
@@ -1935,7 +1959,8 @@ def compact_checks(checks: Checks, dev, results: dict):
     launches = _captured_launches(lambda: noise_p(*pts))
     results["_noise_p"] = {"launches": launches, "ms": _timed_ms(lambda: noise_p(*pts), 5),
                            "R": R}
-    _log_kernels(results, ("flush_accumulate", "table_gather_u24", "atlas_fetch"))
+    compaction_checks(checks, dev, results)
+    _log_kernels(results, ("flush_accumulate", "compact", "table_gather_u24", "atlas_fetch"))
     log(f"  felt's noise_p (plain PyTorch): {launches} device launches, "
         f"{results['_noise_p']['ms']:.4f} ms at R = {R}")
     log(f"  library: index_put_ {r4['library_ms']:.4f} ms (every other lane to one spare "
@@ -1951,6 +1976,145 @@ def compact_checks(checks: Checks, dev, results: dict):
             f"iteration {c['staged_launches']} launches "
             f"({sum(n for k, n in c['staged_names'].items() if 'atlas_fetch' in k)} of K8's "
             f"fetch form)")
+
+
+def _parent_compaction(needy, planes):
+    """The split's compaction as the port ran it before K4's compaction
+    form: the cumsum rank, K4's flush form scattering the ray ids,
+    ``needy.sum`` and one ``index_select`` of the stacked planes; (ids, cnt,
+    planes_k, rank)."""
+    import torch
+
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import flush_kernel as fk
+
+    R = needy.shape[0]
+    rank = cf._rank(needy)
+    slots = torch.zeros((-(-R // fk.LANES), fk.LANES), dtype=torch.float32, device=needy.device)
+    ids = fk.flush_accumulate(rank, needy, (torch.arange(R, dtype=torch.float32,
+                                                         device=needy.device),),
+                              slots).view(-1).to(torch.int32)
+    cnt = needy.sum(dtype=torch.int32).reshape(1)
+    return ids, cnt, tuple(torch.stack(planes).index_select(1, ids)), rank
+
+
+def _compaction_pools(dev) -> dict:
+    """K4's compaction form's pools: (needy, the six ray planes) of phase
+    2d's earth pool (the image fetch's needy lanes) and of its final_scene
+    pool (the split's: the lanes that can reach the sphere tail's box;
+    phase 2e's pool)."""
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops import compact_sphere as cs
+
+    pools = _fetch_pools(dev)
+    out = {}
+    for name, f in pools.items():
+        p = f["s"]["pool"]
+        planes = tuple(p[k] for k in ("ox", "oy", "oz", "dx", "dy", "dz"))
+        if name == "final_scene":
+            needy = cs.tail_box_needy(f["scene"].tables.sph_tail_box, planes[:3], planes[3:],
+                                      T_MIN)
+        else:
+            needy = f["needy"]
+        out[name] = (needy, planes)
+    return out
+
+
+def _compaction_differ(got, want) -> int:
+    """Values of (ids, cnt, planes_k on the first cnt slots, rank) that
+    differ in bits."""
+    n = int(want[1])
+    bad = _bits_equal(got[0], want[0]) + _bits_equal(got[1], want[1])
+    bad += sum(_bits_equal(a[:n].contiguous(), b[:n].contiguous())
+               for a, b in zip(got[2], want[2]))
+    if want[3] is not None:
+        bad += _bits_equal(got[3], want[3])
+    return bad
+
+
+def compaction_checks(checks: Checks, dev, results: dict):
+    """K4's compaction form (``compact_fetch.compact``) bit-equal to its twin
+    and to the pipeline it replaced on phase 2d's earth and final_scene split
+    pools, at their own needy lanes and at 0, one lane, 30% and 100%, at R -
+    100 lanes (a pad), every slot written over a sentinel; its time against
+    that pipeline's (device ms and launches by kernel name), the twin's and
+    ``torch.nonzero``'s, beside its bound."""
+    import torch
+
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.ops import compact_fetch as cf
+
+    rng = np.random.default_rng(SEED + 18)
+    r = results["compact"]
+    r["pools"], err = {}, 0.0
+    for name, (needy, planes) in _compaction_pools(dev).items():
+        R = needy.shape[0]
+        one = torch.zeros_like(needy)
+        one[int(rng.integers(R))] = True
+        masks = {"rendered": needy, "0": torch.zeros_like(needy), "one lane": one,
+                 "30%": torch.from_numpy(rng.random(R) < 0.3).to(dev),
+                 "100%": torch.ones_like(needy)}
+        cases = [(label, m, planes) for label, m in masks.items()]
+        cases.append((f"rendered, R - 100 = {R - 100}", needy[:R - 100].contiguous(),
+                      tuple(p[:R - 100].contiguous() for p in planes)))
+        for label, m, pl in cases:
+            n, S = int(m.sum()), -(-m.shape[0] // 128) * 128
+            # every output over a sentinel: each slot written, each rank
+            ids = torch.full((S,), -7, dtype=torch.int32, device=dev)
+            cnt = torch.full((1,), -7, dtype=torch.int32, device=dev)
+            out = torch.full((len(pl), S), float("nan"), device=dev)
+            rank = torch.full((m.shape[0],), -7, dtype=torch.int32, device=dev)
+            cf._launch(m, pl, ids, cnt, tuple(out), rank)
+            got = (ids, cnt, tuple(out), rank)
+            twin = cf.compact(m, pl, want_rank=True, plain=True)
+            parent = _parent_compaction(m, pl)
+            public = cf.compact(m, pl)
+            torch.cuda.synchronize()
+            bad_t, bad_p = _compaction_differ(got, twin), _compaction_differ(got, parent)
+            bad_c = _compaction_differ(public, (*twin[:3], None))
+            checks.expect(bad_t == 0 and bad_p == 0 and bad_c == 0 and int(cnt) == n,
+                          f"K4's compaction form on {name}'s pool at {label} needy ({n} of "
+                          f"{m.shape[0]}): every slot and rank written, {bad_t} values differ "
+                          f"from the twin, {bad_p} from the pipeline it replaced, {bad_c} "
+                          f"without the rank")
+            err = max(err, float((ids - twin[0]).abs().max()), float((rank - twin[3]).abs().max()))
+    r["max_abs_err"] = err
+
+    # times on the two pools at their own needy lanes, six planes: the
+    # split's call, the pipeline it replaced, the twin, torch.nonzero (which
+    # reads the count on the host: no path can take it)
+    for name, (needy, planes) in _compaction_pools(dev).items():
+        R, n = needy.shape[0], int(needy.sum())
+        S = -(-R // 128) * 128
+        c = {"R": R, "needy": n}
+        c["ms"] = _timed_ms(lambda: cf.compact(needy, planes), 20)
+        c["ms_with_rank"] = _timed_ms(lambda: cf.compact(needy, planes, want_rank=True), 20)
+        c["parent_ms"] = _timed_ms(lambda: _parent_compaction(needy, planes), 20)
+        c["plain_ms"] = _timed_ms(lambda: cf.compact(needy, planes, plain=True), 5)
+        c["nonzero_ms"] = _timed_ms(lambda: torch.nonzero(needy), 20)
+        c["names"] = _captured_names(lambda: cf.compact(needy, planes))
+        c["parent_names"] = _captured_names(lambda: _parent_compaction(needy, planes))
+        c["launches"], c["parent_launches"] = sum(c["names"].values()), sum(
+            c["parent_names"].values())
+        # needy in, ids out, the count out, a needy lane's six planes in
+        # and out; with the rank, 4 B a lane more
+        _set_bound(c, R + 4 * S + 4 + 48 * n, R * OPS_COMPACT)
+        c["bound_ms_with_rank"] = (R + 4 * S + 4 + 48 * n + 4 * R) / HBM_BYTES_PER_S * 1e3
+        r["pools"][name] = c
+        log(f"  K4's compaction form on {name}'s pool ({n} of {R} needy): {c['ms']:.4f} ms in "
+            f"{c['launches']} launch ({c['ms_with_rank']:.4f} with the rank), the pipeline it "
+            f"replaced {c['parent_ms']:.4f} ms in {c['parent_launches']} ({c['parent_names']}), "
+            f"twin {c['plain_ms']:.4f}, torch.nonzero {c['nonzero_ms']:.4f}; bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+    # the kernel table's row: the split's pool (the render's path)
+    f = r["pools"]["final_scene"]
+    r.update({k: f[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+                                 "bound_ops")}, library_ms=f["nonzero_ms"])
+    checks.expect(all(c["launches"] == 1 for c in r["pools"].values()),
+                  f"K4's compaction form is one device launch a call: "
+                  f"{[c['names'] for c in r['pools'].values()]}")
+    # K4's flush form is on no render's path: its launches are phase 2d's
+    results["flush_accumulate"]["check_calls"] = _build.launches[cf.fk.FLUSH]
 
 
 def atlas_fetch_checks(checks: Checks, dev, results: dict, pools: dict, masks: dict):
@@ -2413,6 +2577,7 @@ def grid_split_checks(checks: Checks, dev, results: dict):
     r2["plain_ms_tail_n_live"] = _timed_ms(lambda: K.sphere_hit_attrs_plain(
         tables, ok_, dk_, z, rows=tables.sph_tail_rows, n_live=cnt), 3)
     r2["n_live"] = n_needy
+    split_parent_checks(checks, tables, o, d, tm, needy, results)
     # the needy lanes against the 1000 static tail rows; 7 planes in, 5 out a
     # live slot
     by_bytes, by_ops = n_needy * 48, n_needy * _sphere_row_ops(tables.sph_tail_rows)
@@ -2423,9 +2588,10 @@ def grid_split_checks(checks: Checks, dev, results: dict):
         "R": R, "needy": n_needy, "ties": ties, "split_ms": split_ms, "full_k2_ms": full_ms,
         "split_plain_ms": _timed_ms(
             lambda: cs.sphere_hit_attrs_split(tables, o, d, tm, plain=True), 3),
-        "split_launches": _captured_launches(lambda: cs.sphere_hit_attrs_split(
-            tables, o, d, tm)),
+        "split_names": _captured_names(lambda: cs.sphere_hit_attrs_split(tables, o, d, tm)),
         "full_k2_launches": _captured_launches(lambda: K.sphere_hit_attrs(tables, o, d, tm))}
+
+    results["_split"]["split_launches"] = sum(results["_split"]["split_names"].values())
 
     # ---- the media: launches of apply_media_p and of a whole staged iteration
     # (on a copy of the pool made outside the captured call) ----
@@ -2478,6 +2644,65 @@ def grid_split_checks(checks: Checks, dev, results: dict):
     m = results["_media"]
     log(f"  apply_media_p ({m['n_media']} media): {m['launches']} launches, {m['ms']:.4f} ms; "
         f"one staged final_scene iteration: {m['staged_step_launches']} launches")
+
+
+def split_parent_checks(checks: Checks, tables, o, d, tm, needy, results: dict):
+    """On phase 2e's final_scene pool: K2 with ``n_live`` and K16's
+    tail-only call give the same values on the compacted slots whatever
+    the ray planes hold past the needy count (the compaction form leaves
+    them unspecified: here NaN); the split, with K2's tail and with K16's
+    tail-only call, bit-equal to the split on the pipeline the compaction
+    form replaced (``_parent_compaction``); the split's time against
+    that split's."""
+    import torch
+
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import compact_sphere as cs
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    ids, cnt, rays_k, _ = cf.compact(needy, (*o, *d))
+    n = int(cnt)
+    nan = tuple(torch.cat([p[:n], torch.full_like(p[n:], float("nan"))]) for p in rays_k)
+    z = torch.zeros_like(rays_k[0])
+    for label, fn in (
+            ("K2 with n_live", lambda r: K.sphere_hit_attrs(
+                tables, r[0:3], r[3:6], z, rows=tables.sph_tail_rows, n_live=cnt)),
+            ("K16 tail-only", lambda r: K.sphere_skip_hit_attrs(
+                tables, r[0:3], r[3:6], z, tail_only=True, n_live=cnt))):
+        a, b = fn(rays_k), fn(nan)
+        torch.cuda.synchronize()
+        bad = _equal(a, b)
+        checks.expect(bad == 0, f"{label} on the {ids.shape[0]} compacted slots: {bad} values "
+                                f"differ when the rays past the count ({n}) are NaN")
+    split = {}
+    for skip in (False, True):
+        new = cs.sphere_hit_attrs_split(tables, o, d, tm, skip_tail=skip)
+        compact = cf.compact
+        cf.compact = lambda m, planes=(), **kw: _parent_compaction(m, planes)
+        try:
+            old = cs.sphere_hit_attrs_split(tables, o, d, tm, skip_tail=skip)
+            ms_old = _timed_ms(lambda: cs.sphere_hit_attrs_split(tables, o, d, tm,
+                                                                 skip_tail=skip), 20)
+            old_names = _captured_names(lambda: cs.sphere_hit_attrs_split(
+                tables, o, d, tm, skip_tail=skip))
+        finally:
+            cf.compact = compact
+        torch.cuda.synchronize()
+        bad = _equal(new, old)
+        label = "K16 tail-only" if skip else "K2 tail"
+        checks.expect(bad == 0, f"the split ({label}) on the final_scene pool: {bad} values "
+                                f"differ from the split on the pipeline the compaction form "
+                                f"replaced")
+        split[label] = dict(
+            ms=_timed_ms(lambda: cs.sphere_hit_attrs_split(tables, o, d, tm, skip_tail=skip),
+                         20),
+            launches=sum(_captured_names(lambda: cs.sphere_hit_attrs_split(
+                tables, o, d, tm, skip_tail=skip)).values()),
+            parent_ms=ms_old, parent_launches=sum(old_names.values()))
+        log(f"  split ({label}): {split[label]['ms']:.4f} ms in {split[label]['launches']} "
+            f"launches; on the pipeline the compaction form replaced "
+            f"{ms_old:.4f} ms in {split[label]['parent_launches']}")
+    results["_split_parent"] = split
 
 
 def _ties(k, full):
@@ -3955,12 +4180,13 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     # runs it: bouncing_spheres (bench.py's headline), final_scene,
     # cornell_box, the image scenes, the short-path scenes, then the other
     # default renders; a kernel that only an opt-in route runs takes that
-    # route's count: the plain split (K4), the slice-8 routes (SLICE8_RUNS),
+    # route's count: the plain split (K4's compaction form), the slice-8
+    # routes (SLICE8_RUNS),
     # K15's, then the culling slice's
     order = (["bouncing_spheres", "final_scene", "cornell_box"]
              + [lab for lab, *_ in IMAGE + SHORT]
              + ["three_spheres"] + [lab for lab, *_ in BIG_SCENES[1:]] + [BOXES_ALONE[0]]
-             + ["final_scene split"]  # K4's count: the plain split compacts with it
+             + ["final_scene split"]  # K4's compaction form: the plain split's
              + [lab for lab, *_ in SLICE8_RUNS] + [lab for lab, *_ in CLUSTER_RUNS]
              + ["bouncing_spheres cellbin", "final_scene skip"]
              + [lab for lab, *_ in ROUTE_RUNS] + [BVH_RUN[0]])
@@ -3968,7 +4194,8 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
         results[k]["launches_by_render"] = {
             lab: c.get(k, 0) for lab, c in counts_by_render.items()}
         path = next((lab for lab in order if k in PATHS[lab]), None)
-        # K8 alone is on no render's path (its calls are phase 2d's checks)
+        # K8 and K4's flush form are on no render's path (their calls are
+        # phase 2d's checks)
         results[k]["launches"] = counts_by_render[path].get(k, 0) if path else 0
         results[k]["launches_path"] = path or "no render's path"
 
@@ -4006,6 +4233,84 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
                       f"luminance corr {corr:.4f} (>= 0.98), channel mean diff "
                       f"{mean_diff:.4f} (<= 0.02)")
     torch.cuda.synchronize()
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def checkpoint_checks(checks: Checks, dev, results: dict):
+    """Checkpoint and resume through ``render_scene(..., checkpoint_path)``:
+    CHECKPOINT rendered uninterrupted, then interrupted after
+    CHECKPOINT_STOP dispatches by an exception from a wrapped
+    ``render_wavefront``, then resumed (with the launch counts set to 0
+    just before it and read just after); the resumed image held to the
+    uninterrupted one per pixel within 1e-5 relative and 1e-6 absolute (the
+    flush's float32 atomics add in a run-dependent order), its rays equal,
+    only the remaining dispatches run; the seconds of one save."""
+    import os
+    import tempfile
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.render import renderer
+
+    name, nx, ny, spp = CHECKPOINT
+    scene = build_scene(name, nx, ny)
+    cfg = renderer.RenderConfig(nx=nx, ny=ny, spp=spp)
+    full, fst = renderer.render_scene(scene, cfg, device=dev)
+    wavefront, save = renderer.render_wavefront, renderer.save_checkpoint
+    calls, saves, stop = [0], [], [CHECKPOINT_STOP]
+
+    def stopping(*a, **kw):
+        if stop[0] is not None and calls[0] >= stop[0]:
+            raise _Interrupt()
+        calls[0] += 1
+        return wavefront(*a, **kw)
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        save(*a, **kw)
+        saves.append(time.perf_counter() - t0)
+
+    renderer.render_wavefront, renderer.save_checkpoint = stopping, timed_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "render")
+            interrupted = False
+            try:
+                renderer.render_scene(scene, cfg, checkpoint_path=path, device=dev)
+            except _Interrupt:
+                interrupted = True
+            first, calls[0], stop[0] = calls[0], 0, None
+            _build.launches.clear()
+            fb, st = renderer.render_scene(scene, cfg, checkpoint_path=path, device=dev)
+            counts = dict(_build.launches)
+            size = os.path.getsize(path + ".npz")
+    finally:
+        renderer.render_wavefront, renderer.save_checkpoint = wavefront, save
+    n = -(-nx * ny // fst["tile_pixels"]) * -(-spp // fst["spp_chunk"])  # the dispatches
+    diff = np.abs(fb - full)
+    rel = diff / np.maximum(np.abs(full), 1e-30)
+    within = bool((diff <= 1e-6 + 1e-5 * np.abs(full)).all())
+    unused = [k for k in KERNELS if k not in PATHS[name] and counts.get(k, 0)]
+    checks.expect(interrupted and first == CHECKPOINT_STOP and calls[0] == n - CHECKPOINT_STOP
+                  and all(counts.get(k, 0) > 0 for k in PATHS[name]) and not unused,
+                  f"checkpoint: {name} {nx}x{ny} @ {spp} in {n} dispatches, interrupted after "
+                  f"{first}, resumed with {calls[0]}, launching {PATHS[name]} and no other "
+                  f"kernel: {counts}")
+    checks.expect(within and st["rays"] == fst["rays"] and bool(np.isfinite(fb).all()),
+                  f"checkpoint: the resumed image within 1e-5 relative and 1e-6 absolute of "
+                  f"the uninterrupted one on every pixel: {within} (max abs {diff.max():.3g}, "
+                  f"max rel {rel.max():.3g}); rays {st['rays']:.0f} and {fst['rays']:.0f}")
+    results["_checkpoint"] = dict(
+        scene=f"{name} {nx}x{ny} @ {spp}", dispatches=n, interrupted_after=first,
+        resumed_dispatches=calls[0], max_abs=float(diff.max()), max_rel=float(rel.max()),
+        save_s=saves, save_mean_s=float(np.mean(saves)), file_bytes=size,
+        seconds_uninterrupted=fst["seconds"], seconds_resumed=st["seconds"])
+    log(f"  {n} dispatches; resumed after {first}: max abs {diff.max():.3g}, max rel "
+        f"{rel.max():.3g}; a save {np.mean(saves):.4f} s (each {[round(x, 4) for x in saves]}), "
+        f"{size} bytes; uninterrupted {fst['seconds']:.3f} s, resumed {st['seconds']:.3f} s")
 
 
 def main() -> int:
@@ -4053,8 +4358,10 @@ def main() -> int:
                  refill_scan_checks, checks, dev, results)
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
+    checks.phase("5. checkpoint and resume", checkpoint_checks, checks, dev, results)
     extra = {key: results.pop(f"_{key}", {}) for key in (
-        "render", "renders", "compact_fetch", "noise_p", "grid", "split", "media", "cull",
+        "render", "renders", "compact_fetch", "noise_p", "grid", "split", "split_parent",
+        "media", "cull", "checkpoint",
         "cluster", "slice8", "scan", "routes", "sass")}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}

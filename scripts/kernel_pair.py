@@ -16,7 +16,10 @@ K11 alone, ``--set intersect`` the sphere and box kernels alone,
 image fetch, ``--set mxu_skip`` K14, K16 (both calls), K17 and K15s,
 ``--set static_cellbin`` K13 and K17 with K2, K16 and K15s as controls,
 ``--set cluster`` K15's spheres and boxes and K17, ``--set seam_grid`` K12
-(both entries) and K10 with K1, K11 and K9 as controls,
+(both entries) and K10 with K1, K11 and K9 as controls, ``--set compact``
+the split's compaction (K4's compaction form, or in a checkout from before
+it the pipeline it replaced) and the split sphere pass, with K2, K16 and K1
+as controls, then the split's renders,
 ``--set renders`` whole renders (``--scenes``, each ``--render-reps``
 times: wall seconds, rays and iterations from ``render_scene``'s stats; by
 default RENDERS; a scene may carry route switches of ``ops/routes.py``
@@ -82,6 +85,19 @@ the default, the first two.  Each kernel runs on the pools
   40x40 box field's pool one staged iteration in, each with the tests its
   walk makes (``chip_smoke._grid_tests``); K9 on final_scene's pool and the
   72x8 field's;
+* compact: the split's compaction of the six ray planes (``compact_fetch.
+  compact``, or in a checkout from before it ``needy.sum``,
+  ``compact_ray_ids`` and ``stack(planes).index_select``, as that split ran
+  them) and ``chip_smoke._parent_compaction`` (K4's flush form with the
+  rank, count and gather around it, in both checkouts) on phase 2d's earth
+  pool (the image fetch's needy lanes) and final_scene pool (the split's),
+  each with its device launches by kernel name (``differ``: values of the
+  ids, count and payload below the count apart from
+  ``_parent_compaction``'s); the split sphere pass with K2's tail and with
+  K16's tail-only call on that final_scene pool, with its launches; K2
+  with ``n_live`` and K16's tail-only call on the compacted slots and K1 as
+  refill_quad times it, as controls; then the final_scene split and
+  split-skip renders (``--render-reps`` each);
 * fetch: ``ImageAtlas.sample(..., needy)`` (K8's fetch form) and
   ``eval_special_p``'s image leaf on phase 2d's earth 1200x600
   @ 64 and final_scene 800x800 @ 16 pools 20 staged iterations in, each
@@ -158,7 +174,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--set", choices=("all", "noise", "intersect", "refill_quad", "box_shade",
                                       "fetch", "mxu_skip", "static_cellbin", "cluster",
-                                      "seam_grid", "renders"),
+                                      "seam_grid", "compact", "renders"),
                     default="all")
     ap.add_argument("--render-reps", type=int, default=3)
     ap.add_argument("--scenes", default=",".join(name for name, *_ in RENDERS),
@@ -201,6 +217,9 @@ def main() -> int:
         cluster_cases(cs, dev, case, out["kernels"])
     if args.set == "seam_grid":
         seam_grid_cases(cs, dev, case, out["kernels"], args.reps)
+    if args.set == "compact":
+        compact_cases(cs, dev, case, out["kernels"], args.reps)
+        out["renders"] = render_cases(cs, dev, args.render_reps, SPLIT_RENDERS)
     if args.set == "renders":
         out["renders"] = render_cases(cs, dev, args.render_reps, args.scenes.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -692,6 +711,68 @@ def seam_grid_cases(cs, dev, case, kernels, reps):
     t, o, d = _field_pool(cs, dev, 72, 8, 160, 90)
     case("K9 72x8 field", lambda: K.box_grid_cells_hit_attrs(t, o, d),
          lambda: K.box_grid_cells_hit_attrs_plain(t, o, d))
+
+
+# the split's renders of --set compact: alone, and with the occlusion gate
+# and K16's tail-only call (chip_smoke's "final_scene split" and "split skip")
+SPLIT_RENDERS = ("final_scene:compact_sph",
+                 "final_scene:compact_sph+occ_gate+sph_skip+compact_skip")
+
+
+def _split_compaction(cf, needy, planes):
+    """The split's compaction in this checkout's port: K4's compaction form,
+    or the pipeline it replaced; (ids, cnt, planes_k)."""
+    import torch
+
+    if hasattr(cf, "compact"):
+        return cf.compact(needy, planes)[:3]
+    cnt = needy.sum(dtype=torch.int32).reshape(1)
+    ids = cf.compact_ray_ids(needy)
+    return ids, cnt, tuple(torch.stack(planes).index_select(1, ids))
+
+
+def compact_cases(cs, dev, case, kernels, reps):
+    """The split's compaction, the split, and K2, K16 and K1 as controls
+    (module note)."""
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.ops import compact_fetch as cf
+    from art_tpu_torch.ops import compact_sphere as csph
+    from art_tpu_torch.ops import intersect_kernels as K
+
+    def differ(a, b):
+        return cs._compaction_differ((*a, None), (*b[:3], None))
+
+    for name, (needy, planes) in cs._compaction_pools(dev).items():
+        blocks = {f"compaction {name}": lambda: _split_compaction(cf, needy, planes),
+                  f"K4 flush pipeline {name}": lambda: cs._parent_compaction(needy, planes)}
+        for label, fn in blocks.items():
+            case(label, fn, lambda: cs._parent_compaction(needy, planes), differ)
+            names = cs._captured_names(fn)
+            kernels[label].update(launches=sum(names.values()), names=names,
+                                  needy=int(needy.sum()))
+    f = cs._fetch_pools(dev)["final_scene"]
+    t, p = f["scene"].tables, f["s"]["pool"]
+    o, d, tm = (p["ox"], p["oy"], p["oz"]), (p["dx"], p["dy"], p["dz"]), p["tm"]
+    for skip in (False, True):
+        label = "split K16 tail-only" if skip else "split K2 tail"
+        fn = lambda skip=skip: csph.sphere_hit_attrs_split(t, o, d, tm, skip_tail=skip)
+        case(label, fn, lambda: csph.sphere_hit_attrs_split(t, o, d, tm, skip_tail=skip,
+                                                            plain=True))
+        names = cs._captured_names(fn)
+        kernels[label].update(launches=sum(names.values()), names=names)
+    needy = csph.tail_box_needy(t.sph_tail_box, o, d, T_MIN)
+    cnt = needy.sum(dtype=torch.int32).reshape(1)
+    rays = torch.stack([*o, *d]).index_select(1, cf.compact_ray_ids(needy))
+    ko, kd, kz = tuple(rays[0:3]), tuple(rays[3:6]), torch.zeros_like(rays[0])
+    case("K2 final_scene tail n_live",
+         lambda: K.sphere_hit_attrs(t, ko, kd, kz, rows=t.sph_tail_rows, n_live=cnt),
+         lambda: K.sphere_hit_attrs_plain(t, ko, kd, kz, rows=t.sph_tail_rows, n_live=cnt))
+    case("K16 final_scene tail-only n_live",
+         lambda: K.sphere_skip_hit_attrs(t, ko, kd, kz, tail_only=True, n_live=cnt),
+         lambda: K.sphere_skip_hit_attrs_plain(t, ko, kd, kz, tail_only=True, n_live=cnt))
+    k1_cases(cs, dev, kernels, reps)
 
 
 def intersect_cases(cs, dev, case):
