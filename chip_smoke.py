@@ -177,7 +177,22 @@ Phases (each runs; any failure exits non-zero without the final result):
     wrapped ``render_wavefront``, and resumed (its launches read as a
     render's), the resumed image within 1e-5 relative and 1e-6 absolute of
     the uninterrupted one on every pixel (the measured maximum reported), the
-    seconds of one save.
+    seconds of one save;
+ 6. multi-device rendering (``art_tpu_torch.parallel``), every world of
+    child processes started by ``spawn_ranks`` after the kernels are built,
+    with a timeout (a failed or late rank fails the phase): a world of one
+    on NCCL, cornell_box 600x600 @ 16 sharded against ``render_scene``
+    (three interleaved pairs: rays equal, every pixel within 1e-5 relative
+    and 1e-6 absolute); the error NCCL gives two ranks of one communicator
+    on one card (recorded); two ranks on gloo, each on cuda:0, 2x1 and 1x2
+    meshes over cornell_smoke 600x600 @ 16 and earth 1200x600 @ 16, each
+    held to ``render_scene`` by the gate for independent renders, ``spp`` at
+    least the config's, the 1x2 shards' partial sums apart, each rank's
+    launches its scene's path; a 1x2 cornell_box 600x600 @ 16 interrupted
+    after three of six dispatches and resumed within phase 5's bars; the
+    seconds, Mrays/s and the collectives' ms a dispatch of each run (the
+    wait for the slowest rank included) and of one all-reduce of the tile
+    after a barrier, with the backend and the world size.
 
 Standard output ends with a JSON line of per-kernel results (each kernel's
 ``launches`` counted in the first default-route render that runs it, in
@@ -357,6 +372,19 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
 # 60,032 pixels, one chunk of 16 samples), interrupted after CHECKPOINT_STOP
 CHECKPOINT = ("cornell_box", 600, 600, 16)
 CHECKPOINT_STOP = 3
+# phase 6, multi-device rendering (art_tpu_torch.parallel): the world of one
+# (NCCL) against render_scene in MESH_PAIRS interleaved pairs; two ranks on
+# the one card (gloo) over MESH_SCENES (the scenes of __graft_entry__'s
+# multi-chip dry run) on each mesh of MESH_SHAPES; MESH_CHECKPOINT on a 1x2
+# mesh (six dispatches of 60,032-pixel tiles, 8 samples a rank), interrupted
+# after CHECKPOINT_STOP; the seconds a world may take
+MESH_ONE = ("cornell_box", 600, 600, 16)
+MESH_PAIRS = 3
+MESH_SCENES = (("cornell_smoke", 600, 600, 16), ("earth", 1200, 600, 16))
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_CHECKPOINT = ("cornell_box", 600, 600, 16)
+MESH_TIMEOUT = 300
+NCCL_SHARED_TIMEOUT = 90
 # the opt-in sphere routes of the culling slice (art_tpu_torch/ops/routes.py),
 # each rendered at full width route / default against the default route:
 # (label, scene, nx, ny, spp, the switches); COMPACT_SKIP acts with SPH_SKIP,
@@ -4313,6 +4341,286 @@ def checkpoint_checks(checks: Checks, dev, results: dict):
         f"{size} bytes; uninterrupted {fst['seconds']:.3f} s, resumed {st['seconds']:.3f} s")
 
 
+def _allreduce_ms(mesh, tile_pixels: int, reps: int = 5) -> float:
+    """Median ms of one all-reduce of a (tile_pixels, 3) float32 tile on the
+    mesh's collective device, each after a barrier (so without the wait for
+    the slowest rank that a render's collectives include)."""
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.zeros((tile_pixels, 3), dtype=torch.float32, device=mesh.comm_device)
+    times = []
+    for _ in range(reps + 1):  # the first warms up
+        dist.barrier(group=mesh.group)
+        if buf.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=mesh.group)
+        if buf.is_cuda:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[1:]) * 1e3)
+
+
+def _mesh_one_rank(rank: int, world: int, device: str, name: str, nx: int, ny: int,
+                   spp: int, pairs: int) -> dict:
+    """Phase 6's world of one (NCCL on the card): ``pairs`` interleaved
+    ``render_scene`` / ``render_scene_sharded`` renders after a warm-up,
+    each sharded render's launch counts set to 0 just before it and read
+    just after; the last pair's images."""
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.parallel import make_mesh, render_scene_sharded
+    from art_tpu_torch.render.renderer import RenderConfig, render_scene
+
+    mesh = make_mesh(device=device)
+    scene, cfg = build_scene(name, nx, ny), RenderConfig(nx=nx, ny=ny, spp=spp)
+    # warm-up: the first collective sets up the communicator
+    render_scene_sharded(build_scene(name, 64, 64), RenderConfig(nx=64, ny=64, spp=2), mesh)
+    render_scene(scene, cfg, device=mesh.device)
+    out = {"single": [], "sharded": [], "counts": []}
+    for _ in range(pairs):
+        fb, st = render_scene(scene, cfg, device=mesh.device)
+        _build.launches.clear()
+        sfb, sst = render_scene_sharded(scene, cfg, mesh)
+        out["counts"].append(dict(_build.launches))
+        out["single"].append(st)
+        out["sharded"].append(sst)
+    out["fb"], out["fb_sharded"] = fb, sfb
+    out["allreduce_ms"] = _allreduce_ms(mesh, sst["tile_pixels"])
+    return out
+
+
+def _mesh_nccl_shared(rank: int, world: int, device: str) -> None:
+    """Two NCCL ranks on one card: the first collective."""
+    import torch
+    import torch.distributed as dist
+
+    from art_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device=device)
+    x = torch.ones(4, device=mesh.device)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+
+
+def _mesh_gloo_rank(rank: int, world: int, device: str, scenes, shapes, ckpt, stop: int,
+                    ckpt_dir: str) -> dict:
+    """Phase 6's two ranks on the one card (gloo, each on cuda:0): a warm-up
+    render, then each of ``scenes`` on each mesh of ``shapes`` (the launch
+    counts set to 0 just before each and read just after, and this rank's
+    partial radiance sum of each dispatch), then ``ckpt`` on a 1x2 mesh
+    uninterrupted, interrupted after ``stop`` dispatches, and resumed."""
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.parallel import make_mesh, render_scene_sharded, sharding
+    from art_tpu_torch.render.renderer import RenderConfig
+
+    wavefront = sharding.render_wavefront
+    calls, partial, halt = [0], [], [None]
+
+    def recording(*a, **kw):
+        if halt[0] is not None and calls[0] >= halt[0]:
+            raise _Interrupt()
+        calls[0] += 1
+        rad, rays, iters = wavefront(*a, **kw)
+        partial.append(float(rad.double().sum()))
+        return rad, rays, iters
+
+    sharding.render_wavefront = recording
+    out = {}
+    try:
+        meshes = {shape: make_mesh(shape, device=device) for shape in shapes}
+        warm = build_scene(scenes[0][0], 64, 64)
+        render_scene_sharded(warm, RenderConfig(nx=64, ny=64, spp=2), meshes[shapes[0]])
+        for shape in shapes:
+            for name, nx, ny, spp in scenes:
+                scene = build_scene(name, nx, ny)
+                partial.clear()
+                _build.launches.clear()
+                fb, st = render_scene_sharded(scene, RenderConfig(nx=nx, ny=ny, spp=spp),
+                                              meshes[shape])
+                out[(shape, name)] = dict(stats=st, counts=dict(_build.launches),
+                                          partial=list(partial),
+                                          fb=fb if rank == 0 else None,
+                                          allreduce_ms=_allreduce_ms(meshes[shape],
+                                                                     st["tile_pixels"]))
+        name, nx, ny, spp = ckpt
+        scene, cfg = build_scene(name, nx, ny), RenderConfig(nx=nx, ny=ny, spp=spp)
+        mesh = meshes[(1, 2)]
+        full, fst = render_scene_sharded(scene, cfg, mesh)
+        path = f"{ckpt_dir}/sharded"
+        calls[0], halt[0] = 0, stop
+        try:
+            render_scene_sharded(scene, cfg, mesh, checkpoint_path=path)
+            interrupted = False
+        except _Interrupt:
+            interrupted = True
+        first, calls[0], halt[0] = calls[0], 0, None
+        _build.launches.clear()
+        fb, st = render_scene_sharded(scene, cfg, mesh, checkpoint_path=path)
+        out["checkpoint"] = dict(full=full, fst=fst, fb=fb, st=st, first=first,
+                                 second=calls[0], interrupted=interrupted,
+                                 counts=dict(_build.launches))
+    finally:
+        sharding.render_wavefront = wavefront
+    return out
+
+
+def _mesh_text(st: dict) -> str:
+    return (f"{st['seconds']:.3f} s, {st['mrays_per_sec']:.2f} Mrays/s, {st['rays']:.0f} "
+            f"rays, collective {st['collective_ms']:.3f} ms a dispatch x {st['dispatches']} "
+            f"({st['backend']}, world {st['world']}, mesh {st['mesh']})")
+
+
+def mesh_checks(checks: Checks, dev, results: dict):
+    """Multi-device rendering (``art_tpu_torch.parallel``) on the one card,
+    every run at full scene size, every world of child processes started by
+    ``spawn_ranks`` with a timeout (a failed or late rank fails the phase):
+    a world of one on NCCL (MESH_ONE sharded against ``render_scene``:
+    rays equal, every pixel within 1e-5 relative and 1e-6 absolute); the
+    error NCCL gives two ranks on one device; two ranks on gloo, each on
+    cuda:0, with 2x1 and 1x2 meshes over MESH_SCENES, each held to
+    ``render_scene`` by the gate for independent renders, ``spp`` at least
+    the config's, the two spp shards' partial sums apart, each render
+    launching its scene's kernels (PATHS) and no other; a 1x2 MESH_CHECKPOINT
+    interrupted and resumed within phase 5's bars.  Every rank renders on
+    ``dev``."""
+    import os
+    import tempfile
+
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops import _build
+    from art_tpu_torch.parallel import spawn_ranks
+    from art_tpu_torch.render.renderer import RenderConfig, render_scene
+
+    _build.library()  # built before the ranks start: they load it
+    record = results["_mesh"] = {}
+
+    # ---- a world of one on NCCL ----
+    device = str(dev)
+    name, nx, ny, spp = MESH_ONE
+    t0 = time.perf_counter()
+    [one] = spawn_ranks(_mesh_one_rank, 1, (device, name, nx, ny, spp, MESH_PAIRS),
+                        backend="nccl", timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    full, sfb = one["fb"], one["fb_sharded"]
+    diff = np.abs(sfb - full)
+    within = bool((diff <= 1e-6 + 1e-5 * np.abs(full)).all())
+    single, sharded = one["single"][-1], one["sharded"][-1]
+    checks.expect(within and sharded["rays"] == single["rays"]
+                  and sharded["mesh"] == {"px": 1, "spp": 1},
+                  f"mesh 1x1 (nccl) {name} {nx}x{ny} @ {spp}: rays {sharded['rays']:.0f} "
+                  f"(render_scene {single['rays']:.0f}), every pixel within 1e-5 relative and "
+                  f"1e-6 absolute: {within} (max abs {diff.max():.3g})")
+    for counts in one["counts"]:
+        unused = [k for k in KERNELS if k not in PATHS[name] and counts.get(k, 0)]
+        checks.expect(all(counts.get(k, 0) > 0 for k in PATHS[name]) and not unused,
+                      f"mesh 1x1 (nccl) {name}: launched {PATHS[name]} and no other kernel: "
+                      f"{counts}")
+    secs = [st["seconds"] for st in one["single"]], [st["seconds"] for st in one["sharded"]]
+    record["one"] = dict(scene=f"{name} {nx}x{ny} @ {spp}", backend="nccl", world=1,
+                         render_scene_s=secs[0], sharded_s=secs[1],
+                         ratio=float(np.median(secs[1]) / np.median(secs[0])),
+                         collective_ms=[st["collective_ms"] for st in one["sharded"]],
+                         allreduce_ms=one["allreduce_ms"],
+                         mrays_per_sec=[st["mrays_per_sec"] for st in one["sharded"]],
+                         max_abs=float(diff.max()), world_wall_s=wall)
+    log(f"  mesh 1x1 {name} {nx}x{ny} @ {spp}: render_scene "
+        f"{' / '.join(f'{x:.3f}' for x in secs[0])} s, sharded "
+        f"{' / '.join(f'{x:.3f}' for x in secs[1])} s (median ratio "
+        f"{record['one']['ratio']:.4f}); last sharded: {_mesh_text(sharded)}; an all-reduce "
+        f"of the tile alone {one['allreduce_ms']:.3f} ms; the world {wall:.1f} s")
+
+    # ---- two NCCL ranks on one device: the error ----
+    try:
+        spawn_ranks(_mesh_nccl_shared, 2, (device,), backend="nccl",
+                    timeout=NCCL_SHARED_TIMEOUT)
+        record["nccl_two_ranks_one_device"] = "no error"
+    except (RuntimeError, TimeoutError) as exc:
+        text = str(exc)
+        at = text.find("Duplicate GPU")
+        record["nccl_two_ranks_one_device"] = text[at:at + 300] if at >= 0 else text[-600:]
+    log(f"  two NCCL ranks on cuda:0: {record['nccl_two_ranks_one_device']!r}")
+
+    # ---- two ranks on the one card, gloo ----
+    refs = {}
+    for sname, snx, sny, sspp in MESH_SCENES:
+        scene, cfg = build_scene(sname, snx, sny), RenderConfig(nx=snx, ny=sny, spp=sspp)
+        render_scene(scene, cfg, device=dev)  # warm
+        refs[sname] = render_scene(scene, cfg, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_mesh_gloo_rank, 2, (device, MESH_SCENES, MESH_SHAPES,
+                                                 MESH_CHECKPOINT, CHECKPOINT_STOP, tmp),
+                            backend="gloo", timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(tmp, "sharded.npz"))
+    record["two"] = {}
+    for shape in MESH_SHAPES:
+        for sname, snx, sny, sspp in MESH_SCENES:
+            r0, r1 = ranks[0][(shape, sname)], ranks[1][(shape, sname)]
+            st, (rfb, rst) = r0["stats"], refs[sname]
+            # the 16x8 grid of _statistics over the largest part of the frame
+            # it tiles (600 is no multiple of 16)
+            h, w = sny // 8 * 8, snx // 16 * 16
+            corr, mean_diff = _statistics(r0["fb"][:h, :w], rfb[:h, :w])
+            label = f"mesh {shape[0]}x{shape[1]} (gloo, 2 ranks on {device}) {sname}"
+            checks.expect(corr >= 0.98 and mean_diff <= 0.02 and st["spp"] >= sspp
+                          and st["rays"] == r1["stats"]["rays"],
+                          f"{label} {snx}x{sny} @ {sspp} against render_scene: luminance corr "
+                          f"{corr:.4f} (>= 0.98), channel mean diff {mean_diff:.4f} (<= 0.02), "
+                          f"spp {st['spp']} (>= {sspp}), rays {st['rays']:.0f} on both ranks")
+            if shape[1] > 1:
+                apart = all(a != b for a, b in zip(r0["partial"], r1["partial"]))
+                checks.expect(apart and len(r0["partial"]) == len(r1["partial"]) > 0,
+                              f"{label}: the two spp shards' partial sums differ in every "
+                              f"dispatch: {r0['partial'][:3]} vs {r1['partial'][:3]}")
+            for r, rr in enumerate((r0, r1)):
+                counts = rr["counts"]
+                unused = [k for k in KERNELS if k not in PATHS[sname] and counts.get(k, 0)]
+                checks.expect(all(counts.get(k, 0) > 0 for k in PATHS[sname]) and not unused,
+                              f"{label}, rank {r}: launched {PATHS[sname]} and no other "
+                              f"kernel: {counts}")
+            record["two"][f"{shape[0]}x{shape[1]} {sname}"] = dict(
+                seconds=st["seconds"], render_scene_s=rst["seconds"],
+                ratio=st["seconds"] / rst["seconds"], mrays_per_sec=st["mrays_per_sec"],
+                render_scene_mrays_per_sec=rst["mrays_per_sec"],
+                collective_ms=st["collective_ms"], dispatches=st["dispatches"],
+                allreduce_ms=r0["allreduce_ms"],
+                backend=st["backend"], world=st["world"], corr=corr, mean_diff=mean_diff)
+            log(f"  {label} {snx}x{sny} @ {sspp}: {_mesh_text(st)}; an all-reduce of the "
+                f"tile alone {r0['allreduce_ms']:.3f} ms; render_scene "
+                f"{rst['seconds']:.3f} s ({rst['mrays_per_sec']:.2f} Mrays/s), ratio "
+                f"{st['seconds'] / rst['seconds']:.3f}")
+    ck = ranks[0]["checkpoint"]
+    cname, cnx, cny, cspp = MESH_CHECKPOINT
+    full, fst, fb, st = ck["full"], ck["fst"], ck["fb"], ck["st"]
+    n = fst["dispatches"]
+    diff = np.abs(fb - full)
+    within = bool((diff <= 1e-6 + 1e-5 * np.abs(full)).all())
+    unused = [k for k in KERNELS if k not in PATHS[cname] and ck["counts"].get(k, 0)]
+    checks.expect(ck["interrupted"] and ck["first"] == CHECKPOINT_STOP
+                  and ck["second"] == n - CHECKPOINT_STOP and within
+                  and st["rays"] == fst["rays"] and not unused
+                  and all(ck["counts"].get(k, 0) > 0 for k in PATHS[cname])
+                  and ranks[1]["checkpoint"]["second"] == n - CHECKPOINT_STOP,
+                  f"mesh 1x2 checkpoint {cname} {cnx}x{cny} @ {cspp}: {n} dispatches, "
+                  f"interrupted after {ck['first']}, resumed with {ck['second']} (rank 1 "
+                  f"{ranks[1]['checkpoint']['second']}), launching {PATHS[cname]} and no "
+                  f"other kernel ({ck['counts']}); within 1e-5 relative and 1e-6 absolute "
+                  f"of the uninterrupted render: {within} (max abs {diff.max():.3g}); rays "
+                  f"{st['rays']:.0f} and {fst['rays']:.0f}")
+    record["checkpoint"] = dict(scene=f"{cname} {cnx}x{cny} @ {cspp}", dispatches=n,
+                                interrupted_after=ck["first"], resumed=ck["second"],
+                                max_abs=float(diff.max()), file_bytes=size,
+                                seconds_uninterrupted=fst["seconds"],
+                                seconds_resumed=st["seconds"])
+    record["two_ranks_world_wall_s"] = wall
+    log(f"  mesh 1x2 checkpoint: max abs {diff.max():.3g}, {size} bytes; the two-rank "
+        f"world {wall:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4359,10 +4667,12 @@ def main() -> int:
     checks.phase("3. Philox uniforms", philox_checks, checks, dev)
     checks.phase("4. renders", render_checks, checks, dev, smi, results)
     checks.phase("5. checkpoint and resume", checkpoint_checks, checks, dev, results)
+    checks.phase("6. multi-device: a world of one on NCCL, two ranks on the one card on "
+                 "gloo (2x1, 1x2), a sharded checkpoint", mesh_checks, checks, dev, results)
     extra = {key: results.pop(f"_{key}", {}) for key in (
         "render", "renders", "compact_fetch", "noise_p", "grid", "split", "split_parent",
         "media", "cull", "checkpoint",
-        "cluster", "slice8", "scan", "routes", "sass")}
+        "cluster", "slice8", "scan", "routes", "sass", "mesh")}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **results[name]}
         for name, (src, rep) in KERNELS.items()], **extra, "card": smi}))

@@ -23,12 +23,13 @@ print(" ".join(names))
 # the modules the latest slices added (slice 3: noise, turbulence, the short
 # path; slice 4: images, the flush and table-gather kernels, the compacted
 # fetch; slice 5: the split sphere pass; slice 6: the sphere routes and the
-# culling tables; slice 7: the BVH)
+# culling tables; slice 7: the BVH; multi-device rendering)
 NEW_MODULES = ("art_tpu_torch.ops.perlin", "art_tpu_torch.ops.perlin_kernel",
                "art_tpu_torch.ops.sp_kernel", "art_tpu_torch.utils.images",
                "art_tpu_torch.ops.flush_kernel", "art_tpu_torch.ops.compact_fetch",
                "art_tpu_torch.ops.compact_sphere", "art_tpu_torch.ops.routes",
-               "art_tpu_torch.scene.cull", "art_tpu_torch.ops.bvh")
+               "art_tpu_torch.scene.cull", "art_tpu_torch.ops.bvh",
+               "art_tpu_torch.parallel", "art_tpu_torch.parallel.sharding")
 
 
 def test_port_imports_without_jax():

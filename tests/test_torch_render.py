@@ -321,9 +321,13 @@ def test_cli_cuda_without_a_card_raises():
         cli.main(["--scene", "three_spheres", "--nx", "8", "--ny", "4", "--spp", "1"])
 
 
-def test_cli_later_slice_options_raise():
-    with pytest.raises(NotImplementedError):
-        cli.main(["--sharded", "--device", "cpu"])
+def test_cli_later_slice_options_raise(monkeypatch):
+    """``--sharded`` is ported (multi-device rendering): on its default
+    device, where no card is visible, it raises instead of rendering on the
+    host (the card is hidden, so this holds on a machine with one too)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no visible CUDA device"):
+        cli.main(["--sharded", "--nx", "8", "--ny", "4", "--spp", "1"])
 
 
 def test_cli_lists_scenes(capsys):
