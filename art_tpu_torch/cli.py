@@ -15,6 +15,14 @@ on ``cuda:LOCAL_RANK`` or the CPU; otherwise the CLI starts one rank per
 visible card itself (``parallel.spawn_ranks``), or one rank with
 ``--device cpu``.  The backend is NCCL on the card and gloo on the CPU;
 rank 0 alone writes the outputs.
+
+``--trace PATH`` keeps every span of the program's recorder
+(``utils/tracing.py``) and profiles the device alone (no host operators)
+over iterations 20-219 of the first dispatch; it writes the spans and that
+stretch's device activity as one Chrome trace on one clock to ``PATH``
+and prints the device's idle seconds by the host layer open in each gap
+(``tracing.idle_by_span``).  ``ART_TPU_TRACE=PATH`` keeps and writes the
+spans alone, at exit, in any process.
 """
 
 from __future__ import annotations
@@ -46,6 +54,10 @@ def main(argv=None) -> int:
     parser.add_argument("--sharded", action="store_true",
                         help="render across all visible devices (one process a rank; "
                              "joins a torchrun world when launched by one)")
+    parser.add_argument("--trace", default=None, metavar="PATH",
+                        help="write the program's spans and a profiled stretch of the "
+                             "device as a Chrome trace to PATH, and print idle seconds "
+                             "by layer")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
@@ -64,9 +76,15 @@ def main(argv=None) -> int:
             print(f"error: {flag} must be a positive integer", file=sys.stderr)
             return 2
 
+    if args.trace and args.sharded:
+        print("error: --trace traces one process; use ART_TPU_TRACE=PATH for the ranks "
+              "of --sharded", file=sys.stderr)
+        return 2
+
     if not args.sharded:
         from art_tpu_torch.render.renderer import render_scene
 
+        stretch = _start_trace(args) if args.trace else None
         scene, cfg = _scene_cfg(args)
         print(f"Rendering {args.scene} at {cfg.nx}x{cfg.ny} spp={cfg.spp} "
               f"depth={cfg.max_depth} on {args.device}", file=sys.stderr)
@@ -74,6 +92,8 @@ def main(argv=None) -> int:
                                  checkpoint_path=args.checkpoint, device=args.device)
         print(f"took {stats['seconds']:.3f} seconds. {stats['mrays_per_sec']:.2f} "
               f"Mrays/s on {stats['device']}", file=sys.stderr)
+        if args.trace:
+            _write_trace(args.trace, stretch)
         _write(args, fb)
         return 0
     from art_tpu_torch.parallel.sharding import TIMEOUT_S, spawn_ranks
@@ -101,6 +121,43 @@ def main(argv=None) -> int:
     if fb is not None:
         _write(args, fb)
     return 0
+
+
+def _start_trace(args):
+    """Turn the recorder on; on the card, arm a profiled stretch of the first
+    dispatch (``tracing.ProfiledStretch``) and return it."""
+    from art_tpu_torch.utils import tracing
+
+    tracing.enable()
+    if args.device != "cuda":
+        return None
+    import torch
+
+    if not torch.cuda.is_available():
+        return None  # render_scene raises
+    stretch = tracing.ProfiledStretch()
+    stretch.arm()
+    return stretch
+
+
+def _write_trace(path: str, stretch) -> None:
+    """Export the spans and the stretch's device activity to ``path`` and
+    print the idle seconds by layer."""
+    from art_tpu_torch.utils import tracing
+
+    device = []
+    if stretch is not None:
+        stretch.stop()
+        device = stretch.intervals()
+    tracing.export(path, device)
+    print(f"trace: {len(tracing.spans())} spans and {len(device)} device events to {path}",
+          file=sys.stderr)
+    if device:
+        busy = sum(e - s for s, e, _ in device) * 1e-9
+        idle = tracing.idle_by_span(device)
+        print(f"profiled stretch: {(device[-1][1] - device[0][0]) * 1e-9:.4f} s, device "
+              f"busy {busy:.4f} s; idle s by layer: "
+              + " ".join(f"{k} {v:.4f}" for k, v in idle.items()), file=sys.stderr)
 
 
 def _scene_cfg(args):

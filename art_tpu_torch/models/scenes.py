@@ -34,6 +34,7 @@ from art_tpu_torch.scene.textures import (
     SolidColor,
     UVOffset,
 )
+from art_tpu_torch.utils import tracing
 
 UT_ORANGE = (1.0, 0.51, 0.0)  # src/main.cu:168
 
@@ -474,4 +475,5 @@ def build_scene(name: str, nx: int | None = None, ny: int | None = None) -> Comp
     if name not in SCENES:
         raise KeyError(f"unknown scene {name!r}; available: {sorted(SCENES)}")
     d = _DEFAULTS[name]
-    return SCENES[name](nx or d["nx"], ny or d["ny"])
+    with tracing.span("scene"):
+        return SCENES[name](nx or d["nx"], ny or d["ny"])

@@ -22,12 +22,14 @@ library named by a hash of the header, the sources and the flags, and
 records the ``nvcc`` seconds.  A build error raises.
 
 ``launches`` counts kernel launches per wrapper name; each wrapper adds
-one where it launches its kernel (``chip_smoke.py`` reads and resets it).
+one where it launches its kernel (``launch``; ``chip_smoke.py`` reads and
+resets it).  It is the recorder's kernel counter
+(``utils/tracing.py KERNELS``), which also files each launch under the open
+layer.  Building or loading a library is the recorder's ``library`` span.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import hashlib
@@ -41,6 +43,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from art_tpu_torch.utils import tracing
+from art_tpu_torch.utils.tracing import KERNELS as launches, launch  # noqa: F401 (re-exported)
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -49,7 +54,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-f
 
 STATIC_SOURCE = "sphere_static.cu"  # built per scene by static_libraries, not library()
 BLOCK = 256  # threads per block (csrc/common.cuh kBlock) of all kernels but K2's and K9's
-launches: collections.Counter = collections.Counter()
+LIBRARY = tracing.span("library")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -120,6 +125,11 @@ def _digest(parts) -> str:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernels' shared library, compiled on first call."""
+    with LIBRARY:
+        return _library()
+
+
+def _library() -> ctypes.CDLL:
     so = BUILD_DIR / "libart_kernels_{}.so".format(
         _digest((src.name, src.read_bytes()) for src in _sources()))
     seconds = 0.0
@@ -227,6 +237,11 @@ def static_libraries(jobs) -> list:
     started together.  Within the process a library is found again by its
     cells object.  ``build_seconds`` on a library is the nvcc time this
     process spent on it (0 if it was built before)."""
+    with LIBRARY:
+        return _static_libraries(jobs)
+
+
+def _static_libraries(jobs) -> list:
     libs, todo = [None] * len(jobs), []
     for k, (cells, tail_r, tail_mat, expand) in enumerate(jobs):
         hit = _STATIC_LIBS.get((id(cells), expand))

@@ -118,7 +118,7 @@ def _launch(needy, planes, ids, cnt, out, rank) -> None:
         ids.data_ptr(), cnt.data_ptr(), None if rank is None else rank.data_ptr(),
         scratch.data_ptr(), epoch, _build.stream_handle(dev))
     _build.check(rc, COMPACT)
-    _build.launches[COMPACT] += 1
+    _build.launch(COMPACT)
 
 
 def compact(needy: torch.Tensor, planes=(), *, want_rank: bool = False,

@@ -96,7 +96,7 @@ def flush_accumulate(pix, died, values, fb, base=None) -> torch.Tensor:
         pix.data_ptr(), died.data_ptr(), vals, len(values), fb.data_ptr(), fb.shape[0],
         None if base is None else base.data_ptr(), R, _build.stream_handle(dev))
     _build.check(rc, FLUSH)
-    _build.launches[FLUSH] += 1
+    _build.launch(FLUSH)
     return fb
 
 
@@ -122,7 +122,7 @@ def table_gather_u24(table, idx) -> torch.Tensor:
     rc = _build.library().art_table_gather(table.data_ptr(), T, idx.data_ptr(),
                                            out.data_ptr(), R, _build.stream_handle(dev))
     _build.check(rc, GATHER)
-    _build.launches[GATHER] += 1
+    _build.launch(GATHER)
     return out
 
 
@@ -180,5 +180,5 @@ def atlas_fetch(data, widths, heights, hmax: int, wmax: int, img_id, u, v,
         img_id.data_ptr(), u.data_ptr(), v.data_ptr(), needy.data_ptr(), out.data_ptr(), R,
         _build.stream_handle(dev))
     _build.check(rc, FETCH)
-    _build.launches[FETCH] += 1
+    _build.launch(FETCH)
     return out

@@ -156,7 +156,7 @@ def sphere_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN, *, rows=None,
         rows.data_ptr(), rows.shape[0], R, float(t_min),
         None if n_live is None else n_live.data_ptr(), ptrs, _build.stream_handle(dev))
     _build.check(rc, NAME)
-    _build.launches[NAME] += 1
+    _build.launch(NAME)
     return t, (nx, ny, nz), mat
 
 
@@ -335,7 +335,7 @@ def _culled_launch(name, rows, seg, n_head, o, d, tm, t_min, n_live=None):
         rc = lib.art_sphere_cellbin(rows.data_ptr(), seg.data_ptr(), seg.shape[0] - 1, n_head,
                                     R, float(t_min), ptrs, _build.stream_handle(dev))
     _build.check(rc, name)
-    _build.launches[name] += 1
+    _build.launch(name)
     return t, (nx, ny, nz), mat
 
 
@@ -509,7 +509,7 @@ def sphere_static_hit_attrs(tables: SceneTables, o, d, tm, t_min=T_MIN, *,
     outs = _sphere_outputs(R, dev)
     rc = lib.art_sphere_static(R, _build.pointers(ins + outs), _build.stream_handle(dev))
     _build.check(rc, STATIC)
-    _build.launches[STATIC] += 1
+    _build.launch(STATIC)
     t, nx, ny, nz, mat = outs
     return t, (nx, ny, nz), mat
 
@@ -602,7 +602,7 @@ def sphere_mxu_hit_attrs(F, attr, o, d, tm, t_min=T_MIN):
                                          _build.pointers(ins + outs),
                                          _build.stream_handle(dev))
     _build.check(rc, MXU)
-    _build.launches[MXU] += 1
+    _build.launch(MXU)
     t, nx, ny, nz, mat = outs
     return t, (nx, ny, nz), mat
 
@@ -636,7 +636,7 @@ def quad_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
                                        float(t_min), _build.pointers((*ins, *outs, mat)),
                                        _build.stream_handle(dev))
     _build.check(rc, QUAD)
-    _build.launches[QUAD] += 1
+    _build.launch(QUAD)
     t, nx, ny, nz, alpha, beta = outs
     return t, (nx, ny, nz), alpha, beta, mat
 
@@ -698,7 +698,7 @@ def _box_launch(tables: SceneTables, o, d, t_min, outs, name):
                                       _build.pointers(ins + tuple(outs)),
                                       _build.stream_handle(dev))
     _build.check(rc, name)
-    _build.launches[name] += 1
+    _build.launch(name)
 
 
 def _box_outputs(R: int, dev):
@@ -746,7 +746,7 @@ def box_cluster_hit_attrs(tables: SceneTables, o, d, t_min=T_MIN):
                                           _build.pointers(ins + outs),
                                           _build.stream_handle(dev))
     _build.check(rc, BOX_CLUSTER)
-    _build.launches[BOX_CLUSTER] += 1
+    _build.launch(BOX_CLUSTER)
     return t, (nx, ny, nz), u, v, mat
 
 
@@ -813,7 +813,7 @@ def _grid_launch(tables: SceneTables, o, d, t_min, grouped: bool):
         rc = lib.art_box_grid(cells.data_ptr(), n, tables.box_grid_kz, lattice, R,
                               float(t_min), ptrs, _build.stream_handle(dev))
     _build.check(rc, name)
-    _build.launches[name] += 1
+    _build.launch(name)
     return t, (nx, ny, nz), u, v, mat
 
 

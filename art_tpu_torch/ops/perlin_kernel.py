@@ -34,5 +34,5 @@ def turb(px, py, pz, depth: int, depth_mask: torch.Tensor | None = None) -> torc
         None if depth_mask is None else depth_mask.data_ptr(), out.data_ptr(), R, depth,
         _build.stream_handle(dev))
     _build.check(rc, NAME)
-    _build.launches[NAME] += 1
+    _build.launch(NAME)
     return out

@@ -262,7 +262,7 @@ def _launch(pool, cam: Camera, q, parity: int, hist, it: int, scal: RefillScal, 
         rc = lib.art_refill_flush(*args, fb.data_ptr(), fb.shape[0], lost.data_ptr(),
                                   _build.stream_handle(dev))
     _build.check(rc, name)
-    _build.launches[name] += 1
+    _build.launch(name)
     if block is not None:
         return _split(u, 0, U_CHOICE, U_MEDIA)
     return _split(u, 0, U_CHOICE, 4)
@@ -303,7 +303,7 @@ def flush_dead(pool, fb, lost) -> None:
     rc = _build.library().art_flush_dead(ptrs, R, fb.data_ptr(), fb.shape[0],
                                          lost.data_ptr(), _build.stream_handle(dev))
     _build.check(rc, FLUSH_DEAD_NAME)
-    _build.launches[FLUSH_DEAD_NAME] += 1
+    _build.launch(FLUSH_DEAD_NAME)
 
 
 def fused_refill_flush_plain(pool, cam: Camera, q, parity: int, hist, it: int,

@@ -148,4 +148,4 @@ def shade_flush(pool, hit, rec, bg, fb, lost, *, max_depth: int, gradient: bool,
                                        _build.stream_handle(dev))
         name = BAKED
     _build.check(rc, name)
-    _build.launches[name] += 1
+    _build.launch(name)

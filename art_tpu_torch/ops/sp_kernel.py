@@ -267,5 +267,5 @@ def sp_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillSca
         fb.shape[0], sph.data_ptr(), sph.shape[0], quads.data_ptr(), quads.shape[0],
         mats.data_ptr(), mats.shape[0], _build.stream_handle(dev))
     _build.check(rc, NAME)
-    _build.launches[NAME] += 1
+    _build.launch(NAME)
     return died

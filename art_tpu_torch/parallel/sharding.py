@@ -71,9 +71,11 @@ from art_tpu_torch.render.renderer import (
     save_checkpoint,
     scene_digest,
 )
+from art_tpu_torch.utils import tracing
 
 # seconds a rendezvous, a collective or a spawned world may take
 TIMEOUT_S = 600.0
+COLLECTIVE = tracing.span("collective")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +193,7 @@ def sharded_render_step(mesh: Mesh, tables, cam, pix_offset: int, background, *,
     n_spp`` samples a pixel, the same on every rank; ``rays`` the int
     count over the whole mesh; ``info`` this rank's ``iterations`` and the
     seconds of its collectives (``collective_s``, the wait for the slowest
-    rank included).  ``n_slots=None`` takes the planner's pool, as
+    rank included: the recorder's ``collective`` span).  ``n_slots=None`` takes the planner's pool, as
     ``art_tpu`` does (``sharding.py:70-79``)."""
     ip, isp = mesh.coords
     if tile_pixels % mesh.n_px:
@@ -212,11 +214,11 @@ def sharded_render_step(mesh: Mesh, tables, cam, pix_offset: int, background, *,
     buf = torch.zeros((tile_pixels, 3), dtype=torch.float32, device=comm)
     buf[ip * per_px:(ip + 1) * per_px] = rad.to(comm)
     count = torch.tensor([rays], dtype=torch.int64, device=comm)
-    t0 = _time.perf_counter()
-    _all_reduce(mesh, buf)
-    _all_reduce(mesh, count)
-    buf, rays = buf.cpu(), int(count.cpu()[0])
-    return buf, rays, {"iterations": iters, "collective_s": _time.perf_counter() - t0}
+    with COLLECTIVE:
+        _all_reduce(mesh, buf)
+        _all_reduce(mesh, count)
+        buf, rays = buf.cpu(), int(count.cpu()[0])
+    return buf, rays, {"iterations": iters, "collective_s": COLLECTIVE.ns * 1e-9}
 
 
 def _share_resume(mesh: Mesh, resumed, fb: np.ndarray):

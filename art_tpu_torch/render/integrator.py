@@ -39,6 +39,15 @@ iterations run past the end are exact no-ops.  Rays and iterations come
 from ``hist`` at the end: rays = sum, iterations = count of nonzero
 entries, which is ``art_tpu``'s count (its condition holds exactly when
 the iteration has a live slot).
+
+Spans (``utils/tracing.py``).  A ``render_wavefront`` call is a ``dispatch``
+span and each iteration a ``loop`` span; inside them the stage spans
+``refill``, ``intersect``, ``media``, ``textures`` and ``shade`` (on the
+short path one ``short_path`` span), and each blocking host read a ``sync``
+span.  The stages are the module attributes they call (``rk.fused_refill``,
+``closest_surface_p``, ...), looked up at call time, so a wrapper set on
+one of them runs inside its span.  Under a CUDA graph capture each stage
+span counts the graph nodes its calls add (``tracing.capturing``).
 """
 
 from __future__ import annotations
@@ -64,10 +73,13 @@ from art_tpu_torch.ops.shade_kernel import (
 from art_tpu_torch.ops.sp_kernel import sp_step, sp_step_plain
 from art_tpu_torch.ops.texture_eval import eval_special_p
 from art_tpu_torch.scene.tables import MatType, SceneTables
+from art_tpu_torch.utils import tracing as tr
 
 # Host reads of the loop condition: one 8-byte read every CHECK_EVERY
 # iterations (PERF.md §3, the host loop).
 CHECK_EVERY = 4
+REFILL, INTERSECT, MEDIA, TEXTURES, SHADE, SHORT_PATH = map(tr.layer, (
+    "refill", "intersect", "media", "textures", "shade", "short_path"))
 
 
 def n_uniform_cols(tables: SceneTables) -> int:
@@ -102,11 +114,16 @@ def _bounce_step(tables, o, d, tm, throughput, radiance, active,
     every kernel's plain twin.
 
     Returns (new_o, new_d, new_throughput, new_radiance, survived)."""
+    tr.begin(INTERSECT)
     surf = closest_surface_p(tables, o, d, tm, T_MIN, plain=plain)
+    tr.switch(MEDIA)
     rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm)
+    tr.switch(SHADE)
     params = shade_params_p(tables, rec, valid=active & rec.hit, plain=plain)
-    return bounce_p(o, d, throughput, radiance, active, rec.hit, rec.p, rec.normal,
-                    params, u_ball, u_choice, background, gradient_bg)
+    out = bounce_p(o, d, throughput, radiance, active, rec.hit, rec.p, rec.normal,
+                   params, u_ball, u_choice, background, gradient_bg)
+    tr.end()
+    return out
 
 
 def _as_block(u, device) -> torch.Tensor:
@@ -165,33 +182,52 @@ def render_wavefront(tables: SceneTables, cam: Camera, pix_offset: int, spp: int
     scal = rk.RefillScal(spp, P, pix_offset, total_pixels, nx, ny)
     seam = routes.ROUTES.seam_flush
     if use_short_path(tables, short_path):
-        step = sp_step_plain if plain else sp_step
+        sp = sp_step_plain if plain else sp_step
+
+        def step(*args, **kwargs):
+            tr.begin(SHORT_PATH)
+            sp(*args, **kwargs)
+            tr.end()
     else:
         step = functools.partial(seam_step if seam else staged_step, plain=plain)
 
-    pool = rk.new_pool(R, dev)
-    fb = torch.zeros((P, 3), dtype=torch.float32, device=dev)
-    lost = torch.zeros(1, dtype=torch.int32, device=dev)
-    q = torch.zeros(2, dtype=torch.int64, device=dev)
-    hist = torch.zeros(max_iters, dtype=torch.int64, device=dev)
-    for it in range(max_iters):
-        if uniforms is None:
-            src = dict(key=(seed, tile, chunk))
-        else:
-            src = dict(block=_as_block(uniforms(tile, chunk, it), dev))
-        step(pool, cam, q, it % 2, hist, it, scal, tables, background, fb, lost,
-             ncols=ncols, max_depth=max_depth, gradient=gradient_bg, **src)
-        if it + 1 >= min_iters and (it + 1 - min_iters) % CHECK_EVERY == 0 \
-                and int(hist[it]) == 0:
-            break
-    if seam:
-        # the slots that died in the last iteration run; every other dead
-        # slot holds zero radiance, so one flush of all dead slots is exact
-        (rk.flush_dead_plain if plain else rk.flush_dead)(pool, fb, lost)
-    counts = hist.cpu()
-    if int(lost):
-        raise RuntimeError(f"{int(lost)} dead slots had a pixel outside the tile")
-    return fb, int(counts.sum()), int(torch.count_nonzero(counts))
+    with tr.dispatch(tile, chunk) as record:
+        pool = rk.new_pool(R, dev)
+        fb = torch.zeros((P, 3), dtype=torch.float32, device=dev)
+        lost = torch.zeros(1, dtype=torch.int32, device=dev)
+        q = torch.zeros(2, dtype=torch.int64, device=dev)
+        hist = torch.zeros(max_iters, dtype=torch.int64, device=dev)
+        for it in range(max_iters):
+            tr.begin_iteration(it)
+            if uniforms is None:
+                src = dict(key=(seed, tile, chunk))
+            else:
+                src = dict(block=_as_block(uniforms(tile, chunk, it), dev))
+            step(pool, cam, q, it % 2, hist, it, scal, tables, background, fb, lost,
+                 ncols=ncols, max_depth=max_depth, gradient=gradient_bg, **src)
+            drained = False
+            if it + 1 >= min_iters and (it + 1 - min_iters) % CHECK_EVERY == 0:
+                tr.begin_sync()
+                drained = int(hist[it]) == 0
+                tr.end()
+            tr.end_iteration()
+            if drained:
+                break
+        if seam:
+            # the slots that died in the last iteration run; every other dead
+            # slot holds zero radiance, so one flush of all dead slots is exact
+            (rk.flush_dead_plain if plain else rk.flush_dead)(pool, fb, lost)
+        tr.begin_sync()
+        counts = hist.cpu()
+        tr.end()
+        tr.begin_sync()
+        n_lost = int(lost)
+        tr.end()
+        if n_lost:
+            raise RuntimeError(f"{n_lost} dead slots had a pixel outside the tile")
+        record.segments = int(counts.sum())
+        record.iterations = int(torch.count_nonzero(counts))
+    return fb, record.segments, record.iterations
 
 
 def seam_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillScal,
@@ -204,20 +240,27 @@ def seam_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillS
     kernels of ``closest_surface_p`` and ``shade_params_p`` (``_bounce_step``,
     no K3); then the depth rule, with no flush.  ``plain`` takes every
     kernel's plain twin."""
+    act = pool["act"]
+    capture = tr.capturing(act)
     refill = rk.fused_refill_flush_plain if plain else rk.fused_refill_flush
+    tr.begin(REFILL)
     u_ball, u_choice, u_media = refill(pool, cam, q, parity, hist, it, scal, fb, lost,
                                        block=block, key=key, ncols=ncols)
-    act = pool["act"]
+    tr.end()
     planes = [tuple(pool[n] for n in names) for names in (
         ("ox", "oy", "oz"), ("dx", "dy", "dz"), ("t0", "t1", "t2"), ("r0", "r1", "r2"))]
     o, d, thr, rad, survived = _bounce_step(
         tables, planes[0], planes[1], pool["tm"], planes[2], planes[3], act, u_ball,
         u_choice, u_media, bg, gradient, plain=plain)
+    tr.begin(SHADE)
     for names, new in zip(planes, (o, d, thr, rad)):
         for plane, value in zip(names, new):
             plane.copy_(value)
     pool["bounce"] += act.to(torch.int32)
     act.copy_(survived & (pool["bounce"] < max_depth))
+    tr.end()
+    if capture is not None:
+        capture.close()
 
 
 def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.RefillScal,
@@ -228,13 +271,18 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
     an opt-in sphere route), the media, the special leaves of baked materials
     (turbulence through K7, image texels through K8's fetch form), shade +
     flush (K3).  ``plain`` takes every kernel's plain twin."""
+    capture = tr.capturing(pool["act"])
     refill = rk.fused_refill_plain if plain else rk.fused_refill
+    tr.begin(REFILL)
     u_ball, u_choice, u_media = refill(pool, cam, q, parity, hist, it, scal, block=block,
                                        key=key, ncols=ncols)
+    tr.switch(INTERSECT)
     o = (pool["ox"], pool["oy"], pool["oz"])
     d = (pool["dx"], pool["dy"], pool["dz"])
     surf = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
+    tr.switch(MEDIA)
     rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=pool["tm"])
+    tr.switch(SHADE)
     consts = tables.shade_rows  # None: plane-fed K3
     specials = consts is not None and tables.shade_consts[1]
     # the lanes whose texture value K3 reads (the image fetch and the
@@ -248,8 +296,13 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
     else:
         planes = dict(zip(REC_BAKED, (*rec.p, *rec.normal, rec.mat, *u_ball, u_choice)))
         if specials:
+            tr.begin(TEXTURES)
             planes.update(zip(REC_SP, eval_special_p(
                 tables, specials, rec.mat, rec.u, rec.v, rec.p, valid=valid, plain=plain)))
+            tr.end()
     (shade_flush_plain if plain else shade_flush)(
         pool, rec.hit, planes, bg, fb, lost, max_depth=max_depth, gradient=gradient,
         consts=consts)
+    tr.end()
+    if capture is not None:
+        capture.close()

@@ -35,6 +35,7 @@ import torch
 
 from art_tpu_torch.ops._build import BLOCK
 from art_tpu_torch.render.integrator import render_wavefront, use_short_path
+from art_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,7 +167,10 @@ def render_scene(scene, cfg: RenderConfig, verbose: bool = False,
     ``None`` uses Philox seeded by ``cfg.seed``.  ``plain`` runs the plain
     PyTorch twins of the kernels (on any device).  ``short_path``: None takes
     the short path (K11) where ``art_tpu``'s gate does, False never, True
-    also for dielectric scenes (``integrator.use_short_path``)."""
+    also for dielectric scenes (``integrator.use_short_path``).  ``stats``
+    holds ``layers``, the recorder's sums over this render's dispatches
+    (``utils/tracing.summary``: self ms an iteration by layer, host reads
+    and their wait, launches by layer and kernel)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
@@ -188,6 +192,7 @@ def render_scene(scene, cfg: RenderConfig, verbose: bool = False,
     counts_chunk = sample_counts(tile_pixels, spp_chunk, n_slots)
     total_rays = 0.0
     total_iters = 0
+    records = []
     start = _time.perf_counter()
 
     done = -1  # the last dispatch (tile * n_chunks + chunk) completed
@@ -217,6 +222,7 @@ def render_scene(scene, cfg: RenderConfig, verbose: bool = False,
                 n_slots=n_slots, tile=tile, chunk=chunk, seed=cfg.seed,
                 uniforms=uniforms, plain=plain, short_path=short,
             )
+            records.append(tracing.last_record())
             # raw radiance sums until the final normalization
             fb[lo:hi] += batch.cpu().numpy()[: hi - lo]
             total_rays += rays
@@ -240,8 +246,10 @@ def render_scene(scene, cfg: RenderConfig, verbose: bool = False,
         "short_path": short,
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu"),
+        "layers": tracing.summary(records),
     }
     if verbose:
         print(f"took {elapsed:.3f} seconds. rays={total_rays:.3g} "
               f"({stats['mrays_per_sec']:.2f} Mrays/s)", file=sys.stderr)
+        print(tracing.summary_line(stats["layers"]), file=sys.stderr)
     return fb, stats

@@ -81,6 +81,7 @@ from enum import IntEnum
 import numpy as np
 import torch
 
+from art_tpu_torch.utils import tracing
 from art_tpu_torch.utils.images import ImageAtlas
 
 
@@ -268,12 +269,14 @@ class SceneTables:
         return 0 if self.sph_bvh is None else self.sph_bvh.shape[0]
 
     def to(self, device) -> "SceneTables":
-        """The same tables with every tensor, the atlas's too, on ``device``."""
-        return dataclasses.replace(self, atlas=self.atlas.to(device), **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        })
+        """The same tables with every tensor, the atlas's too, on ``device``
+        (the recorder's ``tables`` span)."""
+        with tracing.span("tables"):
+            return dataclasses.replace(self, atlas=self.atlas.to(device), **{
+                f.name: getattr(self, f.name).to(device)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)
+            })
 
 
 def sphere_rows(center, vel, radius, mat) -> torch.Tensor:
