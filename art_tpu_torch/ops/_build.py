@@ -95,6 +95,7 @@ _SIGNATURES = {
     "art_box_grid_cells": [_P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), _I,
                            ctypes.c_float, ctypes.POINTER(_P), _P],
     "art_box_grid_cells_form": [_I, _I],
+    "art_media": [_P, _I, _I, ctypes.c_float, _L, ctypes.POINTER(_P), _P],
 }
 
 

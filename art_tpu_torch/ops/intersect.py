@@ -11,9 +11,11 @@ their kernels (``ops/intersect_kernels.py``, ``ops/compact_sphere.py``)
 unless asked for the plain path, the slab tests of the culling passes
 (``slab_interval``, ``cluster_slab``), and the constant media
 (``apply_media_p:844``, ``_gb_first_hit:758``), plain PyTorch as in
-``art_tpu``.  A sphere's (u, v) comes from its normal in PyTorch glue
-(``sphere_uv``) when the scene has image or uv_offset textures, as
-``art_tpu`` computes it outside its kernel.
+``art_tpu`` (``apply_media_p_plain``, the twin of K18,
+``ops/media_kernel.py``, which ``apply_media_p`` launches on CUDA).  A
+sphere's (u, v) comes from its normal in PyTorch glue (``sphere_uv``) when
+the scene has image or uv_offset textures, as ``art_tpu`` computes it
+outside its kernel.
 
 The sphere, quad and box passes read the kernels' row tables
 (``sph_rows`` and its head and tail, ``quad_rows``, ``box_rows``, the grid's
@@ -582,11 +584,26 @@ def _box_interval(o, d, mn, mx, cos_t, sin_t, off):
 
 
 def apply_media_p(tables: SceneTables, o, d, t_min, surf: HitRecordP, u_media,
-                  time=None) -> HitRecordP:
+                  time=None, *, plain: bool = False) -> HitRecordP:
+    """Medium scatter events over the surface hit record: ``surf`` itself
+    without media; K18 (``ops/media_kernel.py``, one launch) for CUDA
+    tensors; the plain twin ``apply_media_p_plain`` for CPU tensors or with
+    ``plain``."""
+    if not tables.n_media:
+        return surf
+    if plain or o[0].device.type == "cpu":
+        return apply_media_p_plain(tables, o, d, t_min, surf, u_media, time)
+    from art_tpu_torch.ops import media_kernel
+
+    return media_kernel.apply_media(tables, o, d, t_min, surf, u_media, time)
+
+
+def apply_media_p_plain(tables: SceneTables, o, d, t_min, surf: HitRecordP, u_media,
+                        time=None) -> HitRecordP:
     """Medium scatter events over the surface hit record
     (``art_tpu/ops/intersect.py:844-958``), plain PyTorch as in ``art_tpu``
-    (no kernel there).  For each medium, in a Python loop with its kind
-    fixed per scene: the boundary interval over (-inf, inf) (a sphere's two
+    (no kernel there), K18's twin.  For each medium, in a Python loop with
+    its kind fixed per scene: the boundary interval over (-inf, inf) (a sphere's two
     roots, a box's slabs, or kind 2's two traversals, the second from
     entry + 1e-4), kept for kinds 0 and 1 when exit - entry > 1e-4; clipped
     to [t_min, best t]; a free flight -log(max(1e-6, u)) / density drawn

@@ -9,7 +9,7 @@
   glue), box (K6, or K9/K10 on a box grid) and sphere (the full-table K2;
   on opt-in routes K16, K17 or the split pass, ``ops/routes.py``), merged
   -> constant media
-  (``apply_media_p``, plain PyTorch as in ``art_tpu``) -> shade + integrate
+  (``apply_media_p``: K18, one launch) -> shade + integrate
   + flush (K3).
   K3 runs baked when the scene has ``shade_consts`` (``art_tpu``'s default
   gate, ``integrator.py:139,655-676``): the parameters come from the
@@ -117,7 +117,7 @@ def _bounce_step(tables, o, d, tm, throughput, radiance, active,
     tr.begin(INTERSECT)
     surf = closest_surface_p(tables, o, d, tm, T_MIN, plain=plain)
     tr.switch(MEDIA)
-    rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm)
+    rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm, plain=plain)
     tr.switch(SHADE)
     params = shade_params_p(tables, rec, valid=active & rec.hit, plain=plain)
     out = bounce_p(o, d, throughput, radiance, active, rec.hit, rec.p, rec.normal,
@@ -281,7 +281,7 @@ def staged_step(pool, cam: Camera, q, parity: int, hist, it: int, scal: rk.Refil
     d = (pool["dx"], pool["dy"], pool["dz"])
     surf = closest_surface_p(tables, o, d, pool["tm"], T_MIN, plain=plain)
     tr.switch(MEDIA)
-    rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=pool["tm"])
+    rec = apply_media_p(tables, o, d, T_MIN, surf, u_media, time=pool["tm"], plain=plain)
     tr.switch(SHADE)
     consts = tables.shade_rows  # None: plane-fed K3
     specials = consts is not None and tables.shade_consts[1]

@@ -46,6 +46,7 @@ from art_tpu_torch.scene.tables import (
     TexType,
     box_rows,
     grid_cell_rows,
+    media_rows,
     quad_rows,
     shade_rows,
     sp_rows,
@@ -894,6 +895,10 @@ def _tables(arrays: dict) -> SceneTables:
         shade_consts=consts,
         shade_rows=shade_rows(consts),
         sp_consts=sp, sp_sph_rows=sp_sph, sp_quad_rows=sp_quad, sp_mat_rows=sp_mat,
+        med_rows=media_rows(media["med_kinds"], *(t[k] for k in (
+            "med_center", "med_radius", "med_min", "med_max", "med_cos", "med_sin",
+            "med_off", "med_neg_inv_density", "med_mat", "gb_sph", "gb_quad", "gb_box")),
+            tuple(media[k] for k in _MEDIA_META[1:])),
         atlas=a.get("atlas") or ImageAtlas.empty(),
     )
 

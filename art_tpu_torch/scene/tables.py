@@ -71,6 +71,13 @@ Beside them, the kernels' own tables (built once per scene, on the host):
   header; ``sph_mxu_feat`` / ``sph_mxu_attr`` and the recentered
   ``sph_mxu_tail_feat`` / ``sph_mxu_tail_attr`` (K14,
   ``csrc/sphere_mxu.cu``): ``art_tpu``'s feature tables bit for bit.
+* ``med_rows`` (C + G, 16), the media kernel's (K18, ``csrc/media.cu``):
+  one row a medium in table order, ``[kind -1/density mat ...]`` followed
+  by kind 0's ``c(3) r``, kind 1's ``min(3) max(3) cos sin off(3)`` or kind
+  2's (first row, count) of its boundary spheres, quads and boxes; then the
+  G kind-2 boundary rows, medium by medium and in ``gb_*`` order within a
+  kind: spheres ``[c(3) vel(3) r]``, quads ``[q u v w n d]``, boxes
+  ``[min(3) max(3) cos sin off(3)]``, zero-padded to 16 (``media_rows``).
 """
 
 from __future__ import annotations
@@ -156,6 +163,7 @@ class SceneTables:
     gb_sph: torch.Tensor  # (Gs,7) [c(3) vel(3) radius]
     gb_quad: torch.Tensor  # (Gq,16) [q(3) u(3) v(3) w(3) n(3) d]
     gb_box: torch.Tensor  # (Gb,11) [min(3) max(3) cos sin off(3)]
+    med_rows: torch.Tensor  # (C+G,16) K18's table, see the module docstring
     # ---- regular box grid (builder._detect_box_grid) ----
     box_grid: torch.Tensor  # (kx,kz,2) [y1, mat]; (1,1,2) zeros without a grid
     box_grid_rows: torch.Tensor  # (kx,2kz) K10's table, see the module docstring
@@ -305,6 +313,37 @@ def box_rows(bmin, bmax, cos_t, sin_t, off, mat, rotated: bool) -> torch.Tensor:
         bmin, bmax, off = bmin + off, bmax + off, torch.zeros_like(off)
     return torch.cat([bmin, bmax, cos_t[:, None], sin_t[:, None], off,
                       mat.to(torch.float32)[:, None]], dim=1).contiguous()
+
+
+MED_ROW = 16  # floats a row of med_rows (csrc/media.cu kRow)
+
+
+def media_rows(kinds, center, radius, bmin, bmax, cos_t, sin_t, off, neg_inv_density,
+               mat, gb_sph, gb_quad, gb_box, gb_meds) -> torch.Tensor:
+    """(C + G, MED_ROW) float32 rows of the media kernel (the module
+    docstring): the C media of ``kinds`` from their ``med_*`` fields, then
+    each kind-2 medium's boundary rows, ``gb_meds`` (the owners of the
+    ``gb_sph``, ``gb_quad`` and ``gb_box`` rows) telling whose they are.  The
+    values are the tables' float32 values; ints (kind, material, row
+    numbers) are exact in float32."""
+    heads, tail = [], []
+    for m, kind in enumerate(kinds):
+        head = [float(kind), float(neg_inv_density[m]), float(mat[m])]
+        if kind == 0:
+            head += [*center[m].tolist(), float(radius[m])]
+        elif kind == 1:
+            head += [*bmin[m].tolist(), *bmax[m].tolist(), float(cos_t[m]), float(sin_t[m]),
+                     *off[m].tolist()]
+        else:
+            for rows, meds in zip((gb_sph, gb_quad, gb_box), gb_meds):
+                own = [rows[i].tolist() for i, mi in enumerate(meds) if mi == m]
+                head += [float(len(kinds) + len(tail)), float(len(own))]
+                tail += own
+        heads.append(head)
+    out = np.zeros((len(heads) + len(tail), MED_ROW), np.float32)
+    for k, row in enumerate(heads + tail):
+        out[k, :len(row)] = row
+    return torch.from_numpy(out)
 
 
 def grid_cell_rows(cells) -> torch.Tensor | None:

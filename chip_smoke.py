@@ -84,7 +84,10 @@ Phases (each runs; any failure exits non-zero without the final result):
     are NaN, the split (K2 or K16 tail) bit-equal to the split on the
     pipeline K4's compaction form replaced; times of each, of the split
     against the full-table K2 and that split, and the launches of the
-    split, of apply_media_p and of a whole staged final_scene iteration;
+    split and of a whole staged final_scene iteration; K18 (the media)
+    bit-equal to its twin on that pool, a cornell_smoke pool and a table of
+    every medium kind, one launch a call, its time, bound and host time
+    (``media_checks``);
     2f. K16 (skip bins: standalone, and tail-only with n_live on the split's
     compacted slots) and K17 (cell bins: bouncing_spheres' whole-set 4x4
     lattice, final_scene's 3x3x3 tail lattice) bit-equal to their twins on
@@ -148,8 +151,9 @@ Phases (each runs; any failure exits non-zero without the final result):
     fetch form, baked K3); then the big scenes: final_scene 800x800 @ 16
     (K1, K5, K9, the full-table K2 once an iteration, K8's fetch form for
     the image, K7, baked K3
-    and the media in PyTorch), original_scene 800x800 @ 16, cornell_smoke
-    600x600 @ 64 (K1, K5, baked K3, two box media) and a 40x40 box field
+    and K18 for the media once an iteration), original_scene 800x800 @ 16,
+    cornell_smoke 600x600 @ 64 (K1, K5, K18 over two box media, baked K3)
+    and a 40x40 box field
     (1600 boxes: K10), each finite, >= 0 and not black; then each opt-in
     sphere route (``art_tpu_torch/ops/routes.py``) at full width, route /
     default: bouncing_spheres 1200x800 @ 64 under
@@ -305,6 +309,8 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "sphere_static": ("art_tpu_torch/csrc/sphere_static.cu",
                       "art_tpu/ops/pallas_kernels.py:520"),
     "sphere_mxu": ("art_tpu_torch/csrc/sphere_mxu.cu", "art_tpu/ops/pallas_kernels.py:730"),
+    # K18: the media in one launch, where art_tpu has jnp and no Pallas kernel
+    "media": ("art_tpu_torch/csrc/media.cu", "none (jnp art_tpu/ops/intersect.py:844)"),
 }
 # which renders of phase 4 must launch which kernels (the launch-count gate);
 # a render may launch no kernel of KERNELS outside its own list
@@ -368,6 +374,10 @@ PATHS = {"three_spheres": ("refill", "sphere_hit", "shade_flush_baked"),
          "final_scene split mxu tail": ("refill", "quad_hit", "box_grid_cells", "sphere_hit",
                                         "sphere_mxu", "atlas_fetch", "turb",
                                         "shade_flush_baked")}
+# the scenes with media launch K18 once an iteration, on every route
+MEDIA_SCENES = ("final_scene", "original_scene", "cornell_smoke")
+PATHS.update({label: path + ("media",) for label, path in PATHS.items()
+              if label.split()[0] in MEDIA_SCENES})
 # the checkpoint phase's render: six (tile, chunk) dispatches (tiles of
 # 60,032 pixels, one chunk of 16 samples), interrupted after CHECKPOINT_STOP
 CHECKPOINT = ("cornell_box", 600, 600, 16)
@@ -611,6 +621,10 @@ def sass_report(checks: Checks, results: dict):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     rep = mod.report(_build.library()._name)
+    # K18 has no hot loop to count (a medium a trip, two on final_scene):
+    # its registers and spills alone
+    rep["media_kernel"] = next((v for k, v in mod.resource_usage(_build.library()._name).items()
+                                if "media_kernel" in k), {"error": "not found"})
     for name, r in rep.items():
         loop = r.get("loop", {})
         log(f"  {name}: {r.get('REG')} registers, {r.get('LOCAL')} B local (spills), "
@@ -630,8 +644,8 @@ def sass_report(checks: Checks, results: dict):
         log(f"  K14: {fewest} instructions a group of {K14_GROUP_PAIRS} (ray, sphere) pairs "
             f"with no root, {fewest / K14_GROUP_PAIRS:.2f} a pair")
     checks.expect(all("error" not in r and r.get("LOCAL", 0) == 0 for r in rep.values()),
-                  "K2, K9, K10, K7, K11, K1, K12, K5, K6, K3, K14, K16, K17 and K15's boxes "
-                  "found in the library, no local-memory spill")
+                  "K2, K9, K10, K7, K11, K1, K12, K5, K6, K3, K14, K16, K17, K15's boxes and "
+                  "K18 found in the library, no local-memory spill")
     for key, name, what in (("sphere_cellbin_row", "sphere_cellbin_kernelILb0E", "K17 (also "
                              "K15's spheres)"),
                             ("sphere_cellbin_many_row", "sphere_cellbin_kernelILb1E",
@@ -2486,7 +2500,6 @@ def grid_split_checks(checks: Checks, dev, results: dict):
     from art_tpu_torch.ops import compact_fetch as cf
     from art_tpu_torch.ops import compact_sphere as cs
     from art_tpu_torch.ops import intersect_kernels as K
-    from art_tpu_torch.ops.intersect import apply_media_p, closest_surface_p
     from art_tpu_torch.render.integrator import staged_step
 
     _, name, nx, ny, spp, _ = BIG_SCENES[0]
@@ -2621,19 +2634,13 @@ def grid_split_checks(checks: Checks, dev, results: dict):
 
     results["_split"]["split_launches"] = sum(results["_split"]["split_names"].values())
 
-    # ---- the media: launches of apply_media_p and of a whole staged iteration
-    # (on a copy of the pool made outside the captured call) ----
-    surf = closest_surface_p(tables, o, d, tm, T_MIN)
+    # ---- the media (K18, media_checks), then the launches of a whole staged
+    # iteration (on a copy of the pool made outside the captured call) ----
+    media_checks(checks, dev, results, tables, o, d, tm, u_media)
     staged = (_clone(pool), scene.camera, q.clone(), 0, hist.clone(), 20, scal, tables,
               scene.background, fb.clone(), lost.clone())
-    results["_media"] = {
-        "n_media": tables.n_media,
-        "launches": _captured_launches(lambda: apply_media_p(tables, o, d, T_MIN, surf,
-                                                             u_media, time=tm)),
-        "ms": _timed_ms(lambda: apply_media_p(tables, o, d, T_MIN, surf, u_media, time=tm),
-                        10),
-        "staged_step_launches": _captured_launches(lambda: staged_step(
-            *staged, key=(7, 0, 0), ncols=ncols, max_depth=50, gradient=scene.gradient_bg))}
+    results["_media"]["staged_step_launches"] = _captured_launches(lambda: staged_step(
+        *staged, key=(7, 0, 0), ncols=ncols, max_depth=50, gradient=scene.gradient_bg))
 
     # ---- times and bounds: 6 planes in and 7 out a ray, the cell list once;
     # K10 on final_scene's table beside K9 (same work), and at its own
@@ -2669,9 +2676,142 @@ def grid_split_checks(checks: Checks, dev, results: dict):
         f"against the full-table K2 {s['full_k2_ms']:.4f} ms ({s['full_k2_launches']}); "
         f"K2 tail at n_live {n_needy}: {r2['ms_tail_n_live']:.4f} ms; K6 over the same "
         f"boxes {results['box_hit']['ms_final_scene_boxes']:.4f} ms")
-    m = results["_media"]
-    log(f"  apply_media_p ({m['n_media']} media): {m['launches']} launches, {m['ms']:.4f} ms; "
-        f"one staged final_scene iteration: {m['staged_step_launches']} launches")
+    log(f"  one staged final_scene iteration: {results['_media']['staged_step_launches']} "
+        f"launches")
+
+
+OPS_MEDIUM = 45  # K18 a ray and analytic medium: the interval ~27, its rules 4,
+#                 the clip 3, the free flight and t_m 5 (logf as one), tests 4;
+#                 a ray: |d| 6 and p 6
+
+
+def _every_kind_media():
+    """A scene of one medium of each boundary kind and form: an analytic
+    sphere (kind 0), a rotated box (kind 1), and kind-2 boundaries as
+    tests/test_media_general.py builds them: a group of a box and a sphere,
+    a bare quad, a union of two boxes, a moving sphere."""
+    from art_tpu_torch.scene import builder, materials as M, objects as O
+
+    mat = M.Lambertian((0.5, 0.5, 0.5))
+    box = O.Box((-3, -2, -4), (2, 3, 1), mat)
+    b = builder.SceneBuilder().add(
+        O.ConstantMedium(O.Sphere((0.5, -1.0, 2.0), 3.0, mat), 0.5, (1, 1, 1)),
+        O.ConstantMedium(O.Group(box, O.Sphere((4, 0, 0), 1.5, mat)), 0.35, (0.2, 0.4, 0.9)),
+        O.ConstantMedium(O.Translate(O.RotateY(O.Box((-1, -1, -1), (1, 1, 1), mat), 30.0),
+                                     (2, 0, -1)), 0.4, (1, 1, 1)),
+        O.ConstantMedium(O.Quad((-1, -1, 0), (2, 0, 0), (0, 2, 0), mat), 5.0, (1, 1, 1)),
+        O.ConstantMedium(O.Group(O.Box((-1, -1, 0), (1, 1, 2), mat),
+                                 O.Box((-1, -1, 5), (1, 1, 7), mat)), 0.8, (1, 1, 1)),
+        O.ConstantMedium(O.Sphere((0, 0, 0), 3.0, mat, center2=(4, 0, 0)), 0.6, (1, 1, 1)))
+    b.set_camera(lookfrom=(0, 0, 10), lookat=(0, 0, 0), vup=(0, 1, 0),
+                 vfov_degrees=40.0, aspect=1.0, aperture=0.0, focus_dist=10.0)
+    return b.compile().tables
+
+
+def media_checks(checks: Checks, dev, results: dict, tables, o, d, tm, u_media):
+    """K18 (``apply_media_p`` on CUDA tensors) bit-equal to its twin
+    (``plain=True``) in every output on phase 2e's final_scene pool (the
+    record of the default ``closest_surface_p``), on a cornell_smoke 600x600
+    @ 64 pool 20 staged iterations in (two rotated boxes) and on R = 2^17
+    random rays through ``_every_kind_media``'s six media over a random
+    surface record, u at 0, 1e-6 and 1 - 2^-24 on some lanes; one launch a
+    call; on final_scene's pool its device time, the twin's, the bound
+    (bytes) and the host time a call (back-to-back calls, which the device
+    keeps up with)."""
+    import numpy as np
+    import torch
+
+    from art_tpu_torch.core.vecmath import T_MIN
+    from art_tpu_torch.models import build_scene
+    from art_tpu_torch.ops.intersect import HitRecordP, apply_media_p, closest_surface_p
+
+    def flat(rec):
+        return [rec.hit, rec.t, *rec.p, *rec.normal, rec.u, rec.v, rec.mat]
+
+    def differ(a, b):  # values whose bits differ
+        return sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                   if x.dtype == torch.float32 else int((x != y).sum())
+                   for x, y in zip(flat(a), flat(b)))
+
+    smoke = build_scene("cornell_smoke", 600, 600).to(dev)
+    s = _staged_pool(smoke, 600, 600, 64, dev, 20)
+    sp = s["pool"]
+    every = _every_kind_media().to(dev)
+    R = o[0].shape[0]
+    rng = np.random.default_rng(2323)
+
+    def T(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    u6 = rng.random((every.n_media, R), dtype=np.float32)
+    for k, value in enumerate((0.0, 1e-6, 1.0 - 2.0 ** -24)):
+        u6[:, k::7] = value
+    rt = np.where(rng.random(R) < 0.5, rng.uniform(0.5, 30.0, R), 1e30)
+    rand_surf = HitRecordP(
+        hit=torch.from_numpy(rt < 1e30).to(dev), t=T(rt),
+        p=tuple(T(rng.uniform(-5, 5, R)) for _ in range(3)),
+        normal=tuple(T(rng.uniform(-1, 1, R)) for _ in range(3)),
+        u=T(rng.random(R)), v=T(rng.random(R)),
+        mat=torch.from_numpy(rng.integers(0, 6, R).astype(np.int32)).to(dev))
+    pools = {
+        "final_scene": (tables, o, d, tm, closest_surface_p(tables, o, d, tm, T_MIN), u_media),
+        "cornell_smoke": (smoke.tables, (sp["ox"], sp["oy"], sp["oz"]),
+                          (sp["dx"], sp["dy"], sp["dz"]), sp["tm"],
+                          closest_surface_p(smoke.tables, (sp["ox"], sp["oy"], sp["oz"]),
+                                            (sp["dx"], sp["dy"], sp["dz"]), sp["tm"], T_MIN),
+                          s["u_media"]),
+        "every kind": (every, tuple(T(rng.uniform(-10, 10, R)) for _ in range(3)),
+                       tuple(T(rng.uniform(-1, 1, R)) for _ in range(3)), T(rng.random(R)),
+                       rand_surf, T(u6))}
+    out = {"n_media": tables.n_media}
+    r = results["media"]
+    r["max_abs_err"] = 0.0
+    for label, (t, po, pd, ptm, surf, u) in pools.items():
+        def call(plain=False):
+            return apply_media_p(t, po, pd, T_MIN, surf, u, time=ptm, plain=plain)
+
+        k, p = call(), call(True)
+        torch.cuda.synchronize()
+        bad = differ(k, p)
+        launches = _captured_launches(call)
+        scattered = int((k.t != surf.t).sum())
+        checks.expect(bad == 0 and launches == 1,
+                      f"K18 on the {label} pool ({t.n_media} media, kinds {t.med_kinds}): "
+                      f"{bad} values differ from the twin in bits, {scattered} of "
+                      f"{po[0].shape[0]} lanes scatter; {launches} launch a call")
+        r["max_abs_err"] = max(r["max_abs_err"], *(
+            _max_diff(x, y) for x, y in zip(flat(k)[1:10], flat(p)[1:10])))
+        out[label] = dict(differ=bad, scattered=scattered, launches=launches,
+                          kinds=list(t.med_kinds))
+    t, po, pd, ptm, surf, u = pools["final_scene"]
+
+    def k18():
+        return apply_media_p(t, po, pd, T_MIN, surf, u, time=ptm)
+
+    r["ms"] = _timed_ms(k18, 20)
+    r["plain_ms"] = _timed_ms(lambda: apply_media_p(t, po, pd, T_MIN, surf, u, time=ptm,
+                                                    plain=True), 3)
+    # 15 f32 planes, hit and mat of the record and one uniform a medium in;
+    # 9 f32 planes, hit and mat out; the table once
+    C = t.n_media
+    _set_bound(r, R * (15 * 4 + 1 + 4 + 4 * C + 9 * 4 + 1 + 4) + t.med_rows.numel() * 4,
+               R * (12 + OPS_MEDIUM * C))
+    hosts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            k18()
+        hosts.append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    out.update(launches=out["final_scene"]["launches"], ms=r["ms"], plain_ms=r["plain_ms"],
+               bound_ms=r["bound_ms"], host_us=float(np.median(hosts)), host_us_all=hosts)
+    results["_media"] = out
+    log(f"  K18 on final_scene's pool: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms, {r['bound_by']}), host {out['host_us']:.1f} us a "
+        f"call (back to back, the device keeping up); cornell_smoke and every-kind pools "
+        f"bit-equal: "
+        f"{out['cornell_smoke']['differ'] == 0}, {out['every kind']['differ'] == 0}")
 
 
 def split_parent_checks(checks: Checks, tables, o, d, tm, needy, results: dict):
@@ -4204,6 +4344,12 @@ def render_checks(checks: Checks, dev, smi: str, results: dict):
     checks.expect(c.get("sphere_hit") == c.get("refill"),
                   f"{label}: the full-table K2 once an iteration ({c.get('sphere_hit')} "
                   f"launches, K1 {c.get('refill')})")
+    # and the media in one launch an iteration, on every scene with media
+    for name in MEDIA_SCENES:
+        c = counts_by_render[name]
+        checks.expect(c.get("media") == c.get("refill"),
+                      f"{name}: K18 once an iteration ({c.get('media')} launches, K1 "
+                      f"{c.get('refill')})")
     # each kernel's count is that of the first default-route render that
     # runs it: bouncing_spheres (bench.py's headline), final_scene,
     # cornell_box, the image scenes, the short-path scenes, then the other
@@ -4642,7 +4788,8 @@ def main() -> int:
                for name in KERNELS}
     smi = checks.phase("1. card, toolchain, kernel build", card_info, checks, dev) or ""
     checks.phase("1b. registers, spills and hot loops of K2, K9, K10, K7, K11, K1, K12, K5, "
-                 "K6, K3, K14, K16, K17; K13's per-scene builds, code size and loops",
+                 "K6, K3, K14, K16, K17; K18's registers; K13's per-scene builds, code size "
+                 "and loops",
                  sass_report, checks, results)
     checks.phase("2a. K1, K2, K3 against their plain twins", kernel_checks, checks, dev,
                  results)
@@ -4653,7 +4800,7 @@ def main() -> int:
                  results)
     checks.phase("2d. K4, K8 (both forms) and the compacted fetch against their plain twins",
                  compact_checks, checks, dev, results)
-    checks.phase("2e. K9, K10, the split sphere pass and the media", grid_split_checks,
+    checks.phase("2e. K9, K10, the split sphere pass and K18, the media", grid_split_checks,
                  checks, dev, results)
     checks.phase("2f. K16 and K17, the culling sphere kernels, and the opt-in routes",
                  cull_checks, checks, dev, results)
